@@ -1,0 +1,578 @@
+#!/usr/bin/env python3
+"""GPU smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card and the CUDA toolkit (``nvcc``); exits non-zero without
+them. Phases, each printed on its own line with its wall time:
+
+  1. build the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  2. hold every kernel against its plain PyTorch version on the card at the
+     main path's shapes: the fused inject+scrub (single-rail arena at 0.56 V
+     and 0.54 V, both re-encode settings) and its per-domain form
+     (multi-rail arena) and the SECDED decode (faulty embedding) bit for bit,
+     the fused decode+matmul at every qwen3-0.6b (K, N) within
+     1e-4 * max|plain| (float32 sums run in another order), and the
+     per-domain form with out-of-range domain ids;
+  3. the tiny config through the port on the card and on the CPU: equal
+     tokens and equal counters;
+  4. the full-width qwen3-0.6b engine, single-rail: nominal generate,
+     0.56 V generate, prefill and decode step wall times, DED-canary
+     autotune from 0.62 V, power report;
+  5. the same on a multi-rail engine (per-domain locks);
+  4-5 each zero the kernel launch counts at their start and read them at
+     their end, and fail unless every voltage step launched its scrub kernel
+     once (B1 single-rail, B2 and the embedding's B5 multi-rail, none of
+     the other path's) and every forward pass launched the fused matmul once
+     per protected matrix of each layer (7 x 28 = 196);
+  6. one prefill and one decode step of each path under torch.profiler
+     (device busy time, idle share, fused-matmul time inside the step),
+     tokens/s, voltage-step times and one ``{"kernels": [...]}`` line with
+     times, bounds and per-path launch counts. The fused matmul has two
+     entries, decode (M = batch) and prefill (M = batch x prompt); its count
+     is split between them by the forward passes of each kind.
+
+The last line is ``{"ok": true, "device": {...}}``; any failed check raises.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BATCH, PROMPT_LEN, NEW_TOKENS = 4, 32, 16
+MATMUL_RTOL = 1e-4  # |kernel - plain| <= MATMUL_RTOL * max|plain|
+
+T0 = time.perf_counter()
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+class Phase:
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t = time.perf_counter()
+        print(f"[phase] {self.name}: start at {self.t - T0:.1f} s", flush=True)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None:
+            print(
+                f"[phase] {self.name}: done in {time.perf_counter() - self.t:.2f} s "
+                f"| {gpu_line()}",
+                flush=True,
+            )
+        return False
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the repro_torch package is missing ({e})", file=sys.stderr)
+        return 2
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, get_smoke_config, shapes
+    from repro_torch.core.planestore import PlaneStore
+    from repro_torch.core.voltage import PLATFORMS
+    from repro_torch.kernels import backend, ops, ref
+    from repro_torch.models import base, lm
+    from repro_torch.serving.engine import (
+        RailsConfig, ReliabilityConfig, ServingEngine, protect_params_inline,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(f"device: {torch.cuda.get_device_name(0)} | {gpu_line()}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+
+    # A queue of large matmuls ahead of a timed window keeps the card busy
+    # (and at its working clock) while the host enqueues every launch of the
+    # window, so the window measures device time only.
+    busy = torch.randn(4096, 4096, device=dev, dtype=torch.bfloat16)
+    busy_out = torch.empty_like(busy)
+
+    def preroll(n: int) -> None:
+        for _ in range(n):
+            torch.mm(busy, busy, out=busy_out)
+
+    preroll(10)
+    torch.cuda.synchronize()
+    _s, _e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    _s.record()
+    preroll(50)
+    _e.record()
+    _e.synchronize()
+    busy_mm_ms = _s.elapsed_time(_e) / 50
+
+    def sync_ms(fn, iters: int, warmup: int = 1) -> float:
+        """Device time per call (CUDA events), the window queued behind
+        ~50 ms of matmuls (its launches must fit the launch queue)."""
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        preroll(int(50.0 / busy_mm_ms) + 1)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def wall_ms(fn) -> float:
+        torch.cuda.synchronize()
+        t_ = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t_)
+
+    def device_events(fn) -> list:
+        """(name, start_us, end_us) of every device event (kernels, copies)
+        that ``fn`` causes, from torch.profiler's CUDA activity trace."""
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        return [(e.name, e.time_range.start, e.time_range.end)
+                for e in prof.events() if e.device_type == cuda]
+
+    def busy_us(evs) -> float:
+        """Length of the union of the events' intervals."""
+        total, end = 0.0, float("-inf")
+        for _, s, e in sorted(evs, key=lambda t: t[1]):
+            if e > end:
+                total += e - max(s, end)
+                end = e
+        return total
+
+    def step_breakdown(params_, fwd, walls=None) -> dict:
+        """Without ``walls``: the wall time of one prefill and one decode
+        step (best of 3). With them (these wall times): the device time
+        inside one more such step, traced by torch.profiler: the fused ECC
+        matmul kernels' time and launches, all device work, and the idle
+        share of the wall time. A trace can slow the host work that
+        follows it in the process, so every traced step runs after the
+        timed paths. Counts the forward passes it runs into ``fwd``."""
+        toks_ = torch.as_tensor(prompts, device=dev)
+        cache = lm.init_cache(cfg, BATCH, 64)
+
+        def pre():
+            fwd["prefill"] += 1
+            return lm.prefill(params_, toks_, cfg, cache)
+
+        logits_, _ = pre()
+        tok = torch.argmax(logits_, dim=-1)[:, None]
+
+        def dec():
+            fwd["decode"] += 1
+            return lm.decode_step(params_, tok, cfg, cache, PROMPT_LEN)
+
+        out = {}
+        for name, f in (("prefill", pre), ("decode", dec)):
+            if walls is None:
+                out[name] = {"wall_ms": min(wall_ms(f) for _ in range(3))}
+                continue
+            wall = walls[name]["wall_ms"]
+            evs = device_events(f)
+            mm = [e for e in evs if "ecc_matmul_kernel" in e[0]]
+            row = {"wall_ms": wall, "traced_device_events": len(evs)}
+            if evs:
+                row.update({
+                    "device_busy_ms": busy_us(evs) / 1e3,
+                    "device_idle_share": 1.0 - busy_us(evs) / 1e3 / wall,
+                    "ecc_matmul_ms": sum(e - s for _, s, e in mm) / 1e3,
+                    "ecc_matmul_launches": len(mm),
+                })
+                row["ecc_matmul_share"] = row["ecc_matmul_ms"] / wall
+            out[name] = row
+        return out
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # ---------------------------------------------------------------- 1
+    with Phase("1 build kernels"):
+        built = backend.build()
+        for name in backend.SOURCES:
+            print(f"  built {name}.cu in {built.get(name, 0.0):.1f} s -> "
+                  f"{backend.library_path(name).name}")
+            for line in backend.BUILD_LOG.get(name, "").splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"    ptxas {line.strip()}")
+
+    cfg = get_config("qwen3-0.6b")
+    platform = PLATFORMS["vc707"]
+    report: dict = {}
+
+    # ---------------------------------------------------------------- 2
+    with Phase("2 kernels vs plain versions at main-path shapes"):
+        params = lm.init_params(cfg, seed=0, device=dev)
+        clean, _ = protect_params_inline(params, cfg)
+        flat = base.flatten(clean)
+        eccs = [(k, w) for k, w in flat if isinstance(w, ops.EccWeight)]
+        store = PlaneStore([w for _, w in eccs], [k for k, _ in eccs], platform, device=dev)
+        n = store.n_words
+        print(f"  single-rail arena: {n} words in {len(eccs)} leaves")
+
+        b1 = {"n_words": n}
+        for v in (0.56, 0.54):
+            t = time.perf_counter()
+            masks = store.host_masks(v)
+            mask_s = time.perf_counter() - t
+            for reencode in (False, True):
+                args = (store.lo, store.hi, store.parity, *masks)
+                k_out = ops.inject_scrub(*args, reencode=reencode)
+                p_out = ref.inject_scrub_ref(*args, reencode=reencode)
+                torch.cuda.synchronize()
+                require(same(k_out, p_out), f"inject_scrub differs at {v} V reencode={reencode}")
+                print(f"  inject_scrub {v} V reencode={reencode}: bit-identical, "
+                      f"counters {k_out[3].tolist()}, host masks {mask_s:.2f} s")
+                if v == 0.56 and not reencode:
+                    faulty = store._slice_leaves(*k_out[:3])
+            if v == 0.56:
+                b1["ms"] = sync_ms(lambda: ops.inject_scrub(*args), 20)
+                b1["plain_ms"] = sync_ms(lambda: ref.inject_scrub_ref(*args), 3)
+                b1["host_mask_s"] = mask_s
+        b1["bound_ms"] = 1e3 * 27 * n / HBM_BYTES_PER_S
+        report["inject_scrub"] = b1
+
+        # Fused decode+matmul on the faulty 0.56 V planes of layer 0.
+        by_key = dict(zip((k for k, _ in eccs), faulty))
+        names = ("wq", "wk", "wv", "wo")
+        mm_keys = [f"['blocks']['p0']['attn'][{w!r}]" for w in names] + [
+            f"['blocks']['p0']['mlp'][{w!r}]" for w in ("w1", "w3", "w2")
+        ]
+        # One entry per M, its times summed over the seven matmuls of a layer.
+        b3 = {m: {"M": m, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                  "library_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": []}
+              for m in (BATCH, BATCH * PROMPT_LEN)}
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for key in (k for k in mm_keys if k in by_key):
+            ew = by_key[key]
+            layers_ = [ew.layer(g) for g in range(cfg.n_groups)]
+            w_deq = [ref.ecc_matmul_ref(torch.eye(ew.k, device=dev), lw.lo, lw.hi,
+                                        lw.parity, lw.scale) for lw in layers_[:2]]
+            for m in (BATCH, BATCH * PROMPT_LEN):
+                x = torch.randn(m, ew.k, generator=gen, device=dev)
+                worst = 0.0
+                for lw in layers_[:2]:
+                    k_o = ops.ecc_matmul(x, lw)
+                    p_o = ref.ecc_matmul_ref(x, lw.lo, lw.hi, lw.parity, lw.scale)
+                    torch.cuda.synchronize()
+                    err = float((k_o - p_o).abs().max())
+                    scale = float(p_o.abs().max())
+                    require(bool(torch.isfinite(k_o).all()), f"ecc_matmul non-finite {key}")
+                    require(err <= MATMUL_RTOL * scale,
+                            f"ecc_matmul {key} M={m}: err {err} > {MATMUL_RTOL} * {scale}")
+                    worst = max(worst, err)
+                    b3[m]["max_rel_err"] = max(b3[m]["max_rel_err"], err / scale)
+                # Cycle through all layers so the planes come from HBM, as in
+                # the decode loop (28 layers of planes exceed the 50 MB L2).
+                ms = sync_ms(lambda: [ops.ecc_matmul(x, lw) for lw in layers_], 5) / len(layers_)
+                pms = sync_ms(lambda: [ref.ecc_matmul_ref(x, lw.lo, lw.hi, lw.parity, lw.scale)
+                                       for lw in layers_[:4]], 2) / 4
+                lib = sync_ms(lambda: [torch.matmul(x, w) for w in w_deq], 20) / len(w_deq)
+                k, nn = ew.k, ew.n
+                nbytes = 4 * m * k + 9 * k * nn // 8 + 4 * nn + 4 * m * nn
+                bt, ot = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * 2 * m * k * nn / FP32_FLOPS
+                row = {"key": key, "M": m, "K": k, "N": nn, "ms": ms, "plain_ms": pms,
+                       "library_ms": lib, "bound_ms": max(bt, ot),
+                       "bound_by": "bytes" if bt >= ot else "operations",
+                       "max_abs_err": worst}
+                b3[m]["shapes"].append(row)
+                for f in ("ms", "plain_ms", "library_ms"):
+                    b3[m][f] += row[f]
+                b3[m]["bytes_ms"] += bt
+                b3[m]["ops_ms"] += ot
+                b3[m]["max_abs_err"] = max(b3[m]["max_abs_err"], worst)
+                print(f"  ecc_matmul M={m} K={k} N={nn}: max err {worst:.3e} "
+                      f"(<= {MATMUL_RTOL}*max|plain|), {ms:.4f} ms, bound {max(bt, ot):.4f} ms "
+                      f"({row['bound_by']}), plain {pms:.4f} ms, torch.matmul {lib:.4f} ms")
+        for r in b3.values():
+            r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+            r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
+        report["ecc_matmul_decode"] = b3[BATCH]
+        report["ecc_matmul_prefill"] = b3[BATCH * PROMPT_LEN]
+        del store, faulty, by_key, masks, args, k_out, p_out, w_deq, layers_
+        torch.cuda.empty_cache()
+
+        # Multi-rail arena (embedding protected as its own domain).
+        clean, _ = protect_params_inline(params, cfg, include_embed=True)
+        eccs = [(k, w) for k, w in base.flatten(clean) if isinstance(w, ops.EccWeight)]
+        mstore = PlaneStore([w for _, w in eccs], [k for k, _ in eccs], platform,
+                            domain_key=shapes.domain_of, device=dev)
+        n = mstore.n_words
+        volts = {"attention": 0.56, "mlp": 0.55, "embedding": 0.54}
+        t = time.perf_counter()
+        masks = mstore.host_masks(volts)
+        mask_s = time.perf_counter() - t
+        args = (mstore.lo, mstore.hi, mstore.parity, *masks, mstore.dom_ids, len(mstore.domains))
+        k_out = ops.inject_scrub_domains(*args)
+        p_out = ref.inject_scrub_domains_ref(*args)
+        torch.cuda.synchronize()
+        require(same(k_out, p_out), "inject_scrub_domains differs")
+        print(f"  inject_scrub_domains {volts}: bit-identical over {n} words, rows "
+              f"{dict(zip(mstore.domains, k_out[3].tolist()))}, host masks {mask_s:.2f} s")
+        # Domain ids outside [0, n_domains) between in-range runs count in
+        # no row; the kernel must match the plain version there too.
+        n_small = 1 << 20
+        small = [a[:n_small] for a in args[:6]]
+        odd = torch.tensor([0, -1, 1, 5, 2, 3, 1], device=dev, dtype=torch.int32)
+        odd_ids = odd.repeat_interleave(n_small // len(odd) + 1)[:n_small].contiguous()
+        k_odd = ops.inject_scrub_domains(*small, odd_ids, len(mstore.domains))
+        p_odd = ref.inject_scrub_domains_ref(*small, odd_ids, len(mstore.domains))
+        torch.cuda.synchronize()
+        require(same(k_odd, p_odd), "inject_scrub_domains differs with out-of-range ids")
+        print(f"  inject_scrub_domains with ids {odd.tolist()} over {n_small} words: "
+              f"bit-identical, rows {k_odd[3].tolist()}")
+        report["inject_scrub_domains"] = {
+            "n_words": n, "host_mask_s": mask_s,
+            "ms": sync_ms(lambda: ops.inject_scrub_domains(*args), 20),
+            "plain_ms": sync_ms(lambda: ref.inject_scrub_domains_ref(*args), 3),
+            "bound_ms": 1e3 * 31 * n / HBM_BYTES_PER_S,
+        }
+        emb = mstore._slice_leaves(*k_out[:3])[-1]
+        require(mstore.slots[-1].key == "['embed']", mstore.slots[-1].key)
+        e_args = (emb.lo, emb.hi, emb.parity)
+        k_dec, p_dec = ops.decode(*e_args), ref.decode_ref(*(a.reshape(-1) for a in e_args))
+        torch.cuda.synchronize()
+        require(same([t_.reshape(-1) for t_ in k_dec], p_dec), "decode differs")
+        st = torch.bincount(k_dec[2].reshape(-1), minlength=3).tolist()
+        print(f"  decode embedding at 0.54 V: bit-identical over {emb.lo.numel()} words, "
+              f"status counts {st}")
+        ne = emb.lo.numel()
+        report["decode"] = {
+            "n_words": ne,
+            "ms": sync_ms(lambda: ops.decode(*e_args), 50),
+            "plain_ms": sync_ms(lambda: ref.decode_ref(*e_args), 3),
+            "bound_ms": 1e3 * 21 * ne / HBM_BYTES_PER_S,
+        }
+        del mstore, masks, args, k_out, p_out, emb, e_args, k_dec, p_dec, clean, eccs
+        del small, odd_ids, k_odd, p_odd
+        torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 3
+    with Phase("3 tiny config: card vs CPU"):
+        tcfg = get_smoke_config("qwen3-0.6b")
+        tparams = lm.init_params(tcfg, seed=0, device="cpu")
+        prompts = np.random.default_rng(0).integers(0, tcfg.vocab, (2, 8)).astype(np.int32)
+        for multi in (False, True):
+            rel = ReliabilityConfig(mode="inline", voltage=1.0,
+                                    rails=RailsConfig(multi_rail=multi))
+            engs = {d: ServingEngine(tcfg, tparams, rel=rel, max_len=32, device=d)
+                    for d in ("cpu", "cuda")}
+            for v in (1.0, 0.56, 0.54):
+                outs = {}
+                for d, e in engs.items():
+                    e.set_voltage(v)
+                    outs[d] = (e.generate(prompts, 8), e._last_scrub)
+                require(outs["cpu"][1] == outs["cuda"][1],
+                        f"counters differ multi={multi} {v} V")
+                require(np.array_equal(outs["cpu"][0], outs["cuda"][0]),
+                        f"tokens differ multi={multi} {v} V")
+            print(f"  multi_rail={multi}: equal tokens and counters at 1.0/0.56/0.54 V")
+
+    # ---------------------------------------------------------------- 4-5
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (BATCH, PROMPT_LEN)).astype(np.int32)
+    runs, traced_params = {}, {}
+    for multi in (False, True):
+        name = "multi-rail" if multi else "single-rail"
+        with Phase(f"{4 + multi} full-width qwen3-0.6b {name} engine"):
+            ops.reset_launch_count()
+            run = runs[name] = {}
+            fwd = {"prefill": 0, "decode": 0}  # forward passes of this path
+            t = time.perf_counter()
+            rel = ReliabilityConfig(mode="inline", voltage=1.0,
+                                    rails=RailsConfig(multi_rail=multi, start_v=0.62))
+            eng = ServingEngine(cfg, params, rel=rel, max_len=64)  # one voltage step
+            torch.cuda.synchronize()
+            run["build_s"] = time.perf_counter() - t
+            mask_s = []  # one entry per later voltage step
+            host_masks = eng._store.host_masks
+
+            def timed_masks(v, _f=host_masks, _acc=mask_s):
+                t_ = time.perf_counter()
+                out = _f(v)
+                _acc.append(time.perf_counter() - t_)
+                return out
+
+            eng._store.host_masks = timed_masks
+            toks = {}
+            for v in (1.0, 0.56):
+                t = time.perf_counter()
+                eng.set_voltage(v)
+                torch.cuda.synchronize()
+                step_s = time.perf_counter() - t
+                t = time.perf_counter()
+                toks[v] = eng.generate(prompts, NEW_TOKENS)
+                gen_s = time.perf_counter() - t
+                fwd["prefill"] += 1
+                fwd["decode"] += NEW_TOKENS - 1
+                require(toks[v].shape == (BATCH, NEW_TOKENS), str(toks[v].shape))
+                require(bool(((toks[v] >= 0) & (toks[v] < cfg.vocab)).all()), "token range")
+                agree = float((toks[v] == toks[1.0]).mean())
+                run[f"{v}V"] = {"step_s": step_s, "host_mask_s": mask_s[-1],
+                                "generate_s": gen_s,
+                                "tokens_per_s": BATCH * NEW_TOKENS / gen_s,
+                                "agreement_with_nominal": agree,
+                                "scrub": eng._last_scrub.total().to_dict() if multi
+                                else eng._last_scrub.to_dict()}
+                print(f"  {v} V: step {step_s:.3f} s (host masks {mask_s[-1]:.3f} s), "
+                      f"generate {gen_s:.2f} s = {BATCH * NEW_TOKENS / gen_s:.1f} tokens/s, "
+                      f"agreement {agree:.3f}, scrub {run[f'{v}V']['scrub']}")
+            run["steps"] = step_breakdown(eng.params, fwd)
+            for k_, r_ in run["steps"].items():
+                print(f"  {k_} step (batch {BATCH}): wall {r_['wall_ms']:.2f} ms")
+            logits, _ = lm.prefill(eng.params, torch.as_tensor(prompts, device=dev), cfg,
+                                   lm.init_cache(cfg, BATCH, 64))
+            fwd["prefill"] += 1
+            require(tuple(logits.shape) == (BATCH, cfg.vocab)
+                    and bool(torch.isfinite(logits).all()), "prefill logits")
+            # Start the canary walk from a clean interval at its start voltage.
+            if not multi:
+                eng.set_voltage(eng.controller.voltage)
+            n_masks = len(mask_s)
+            t = time.perf_counter()
+            lock, hist = eng.autotune_voltage()
+            torch.cuda.synchronize()
+            run["autotune_s"] = time.perf_counter() - t
+            run["autotune_steps"] = len(mask_s) - n_masks
+            run["autotune_host_mask_s"] = sum(mask_s[n_masks:])
+            run["lock"] = lock
+            run["power_report"] = eng.power_report()
+            if multi:
+                run["history"] = {d: [(r.voltage, r.detected, r.action) for r in h]
+                                  for d, h in hist.items()}
+                require(eng.controller.locked, "multi-rail walk did not lock")
+            else:
+                run["history"] = [(r.voltage, r.detected, r.action) for r in hist]
+                require(eng.controller.locked, "single-rail walk did not lock")
+            print(f"  autotune: lock {lock} in {run['autotune_steps']} voltage steps, "
+                  f"{run['autotune_s']:.1f} s (host masks {run['autotune_host_mask_s']:.1f} s)")
+            print(f"  history {json.dumps(run['history'])}")
+            print(f"  power_report {json.dumps(run['power_report'])}")
+
+            # This path's launches: every voltage step and every matmul went
+            # through the kernels, and none of the other path's ran.
+            counts = ops.launch_counts()
+            steps = 1 + len(mask_s)
+            per_fwd = sum(w.lo.shape[0] if w.lo.ndim == 3 else 1
+                          for _, w in base.flatten(eng.params) if isinstance(w, ops.EccWeight))
+            require(per_fwd == 7 * cfg.n_layers, f"{per_fwd} protected matmuls per forward")
+            want = {"inject_scrub": 0 if multi else steps,
+                    "inject_scrub_domains": steps if multi else 0,
+                    "decode": steps if multi else 0,
+                    "ecc_matmul": per_fwd * (fwd["prefill"] + fwd["decode"])}
+            require(counts == want, f"{name} launches {counts}, expected {want}")
+            run.update(launches=counts, voltage_steps=steps, forwards=dict(fwd),
+                       matmuls_per_forward=per_fwd)
+            print(f"  launches: {json.dumps(counts)} = {steps} voltage steps, "
+                  f"{per_fwd} fused matmuls x {fwd['prefill']} prefill + "
+                  f"{fwd['decode']} decode forward passes")
+            traced_params[name] = eng.params
+            del eng, logits
+            torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 6
+    with Phase("6 traced steps, timings and the kernels line"):
+        for name, run in runs.items():
+            run["steps"] = step_breakdown(traced_params.pop(name), {"prefill": 0, "decode": 0},
+                                          walls=run["steps"])
+            for k_, r_ in run["steps"].items():
+                if r_["traced_device_events"]:
+                    print(f"  {name} {k_} step (batch {BATCH}): wall {r_['wall_ms']:.2f} ms; "
+                          f"traced: device busy {r_['device_busy_ms']:.2f} ms (idle share "
+                          f"{r_['device_idle_share']:.3f}), fused ECC matmuls "
+                          f"{r_['ecc_matmul_ms']:.2f} ms in {r_['ecc_matmul_launches']} "
+                          f"launches (share {r_['ecc_matmul_share']:.3f})")
+                else:
+                    print(f"  {name} {k_} step (batch {BATCH}): wall {r_['wall_ms']:.2f} ms; "
+                          "device time not measured (the profiler traced no device event)")
+        for name, run in runs.items():
+            step = run["0.56V"]
+            kernel = report["inject_scrub_domains" if name == "multi-rail" else "inject_scrub"]
+            print(f"  {name}: {run['1.0V']['tokens_per_s']:.1f} tokens/s at nominal "
+                  f"(batch {BATCH}, {NEW_TOKENS} new tokens); nominal step "
+                  f"{run['1.0V']['step_s']:.3f} s; 0.56 V step {step['step_s']:.2f} s "
+                  f"= host masks {step['host_mask_s']:.2f} s + rest "
+                  f"{step['step_s'] - step['host_mask_s']:.3f} s (scrub kernel "
+                  f"{kernel['ms']:.3f} ms of it)")
+        print(f"  runs {json.dumps(runs)}")
+
+        def by_path(kernel, kind=None):
+            """A kernel's launches per path; the fused matmul's split by the
+            forward passes of one kind."""
+            return {p: (r["launches"][kernel] if kind is None
+                        else r["matmuls_per_forward"] * r["forwards"][kind])
+                    for p, r in runs.items()}
+
+        src = "src/repro_torch/kernels/csrc/"
+        meta = {
+            "inject_scrub": ("inject_scrub.cu", "src/repro/kernels/inject_scrub.py:203",
+                             by_path("inject_scrub")),
+            "inject_scrub_domains": ("inject_scrub.cu", "src/repro/kernels/inject_scrub.py:239",
+                                     by_path("inject_scrub_domains")),
+            "decode": ("secded.cu", "src/repro/kernels/secded.py:92", by_path("decode")),
+            "ecc_matmul_decode": ("ecc_matmul.cu", "src/repro/kernels/ecc_matmul.py:98",
+                                  by_path("ecc_matmul", "decode")),
+            "ecc_matmul_prefill": ("ecc_matmul.cu", "src/repro/kernels/ecc_matmul.py:98",
+                                   by_path("ecc_matmul", "prefill")),
+        }
+        kernels = []
+        for name, (source, replaces, launches) in meta.items():
+            r = report[name]
+            mm = name.startswith("ecc_matmul")
+            kernels.append({
+                "name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces, "launches": sum(launches.values()),
+                "launches_by_path": launches,
+                "max_abs_err": r.get("max_abs_err", 0.0), "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"] if mm else "bytes",
+                "library_ms": r.get("library_ms"),
+                **({"M": r["M"], "per": "one layer's 7 matmuls", "shapes": r["shapes"],
+                    "max_rel_err": r["max_rel_err"]} if mm else {"n_words": r["n_words"]}),
+            })
+    print(json.dumps({"kernels": kernels}))
+    print(gpu_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

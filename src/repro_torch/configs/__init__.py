@@ -1,0 +1,26 @@
+"""Architecture registry: ``get_config(arch)`` / ``get_smoke_config(arch)``."""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs import shapes
+
+ARCHS = {"qwen3-0.6b": "qwen3_0_6b"}
+
+
+def _module(arch: str):
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; ported: {sorted(ARCHS)}")
+    return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
+
+
+def get_config(arch: str):
+    return _module(arch).config()
+
+
+def get_smoke_config(arch: str):
+    return _module(arch).smoke_config()
+
+
+__all__ = ["ARCHS", "get_config", "get_smoke_config", "shapes"]

@@ -1,0 +1,34 @@
+"""Launch wrapper of the fused decode + dequant + matmul kernel
+(csrc/ecc_matmul.cu)."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.codes import Codec
+from repro_torch.kernels import backend as B
+
+ECC_MATMUL = B.Kernel("ecc_matmul", "ecc_matmul", [B.VP] * 7 + [B.I32] * 3 + [B.VP])
+
+
+def ecc_matmul(x, lo, hi, check, scale, *, codec: Codec):
+    """x (M, K) float32 in natural layout, planes (K/8, N) -> (M, N) float32
+    ``scale * (x @ W)``."""
+    if x.ndim != 2 or lo.ndim != 2:
+        raise ValueError(f"expected 2D x and planes, got {x.shape} and {lo.shape}")
+    m, k = x.shape
+    k8, n = lo.shape
+    if k != 8 * k8:
+        raise ValueError(f"x has K={k}, planes hold K={8 * k8}")
+    B.check(x, torch.float32, "x")
+    B.check(lo, torch.int32, "lo", (k8, n))
+    B.check(hi, torch.int32, "hi", (k8, n))
+    B.check(check, torch.uint8, "check", (k8, n))
+    B.check(scale, torch.float32, "scale", (n,))
+    out = torch.empty(m, n, dtype=torch.float32, device=x.device)
+    if m and n:
+        ECC_MATMUL(
+            B.ptr(x), B.ptr(lo), B.ptr(hi), B.ptr(check), B.ptr(scale), B.ptr(out),
+            B.ptr(codec.kernel_tables(x.device)), m, k8, n, B.stream(x),
+        )
+    return out

@@ -1,0 +1,132 @@
+"""Public kernel entry points: dispatch on the tensors' device.
+
+CPU tensors take the plain version (kernels/ref.py); CUDA tensors launch the
+hand-written kernel (kernels/inject_scrub.py, secded.py, ecc_matmul.py) or
+raise. Planes of any shape are flattened; the kernels need no padded layout,
+so no pad correction of the clean counter arises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch import codes
+from repro_torch.kernels import backend
+from repro_torch.kernels import ecc_matmul as _mm
+from repro_torch.kernels import inject_scrub as _isc
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import secded as _secded
+
+KERNELS = {
+    "inject_scrub": _isc.INJECT_SCRUB,
+    "inject_scrub_domains": _isc.INJECT_SCRUB_DOMAINS,
+    "decode": _secded.DECODE,
+    "ecc_matmul": _mm.ECC_MATMUL,
+}
+
+
+def reset_launch_count() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    """Kernel launches per kernel since the last reset (CPU calls, which
+    run the plain versions, launch nothing)."""
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def _flat(*planes):
+    return [p.reshape(-1) for p in planes]
+
+
+def decode(lo, hi, parity, *, codec: str = codes.DEFAULT_CODEC):
+    """ECC decode of planes of any shape -> (lo', hi', status int32)."""
+    flo, fhi, fpar = _flat(lo, hi, parity)
+    if backend.dispatch(flo, fhi, fpar) == "cpu":
+        out = _ref.decode_ref(flo, fhi, fpar, codec)
+    else:
+        out = _secded.decode(flo, fhi, fpar, codec=codes.get(codec))
+    return tuple(t.reshape(lo.shape) for t in out)
+
+
+def inject_scrub(lo, hi, parity, mlo, mhi, mparity, *,
+                 codec: str = codes.DEFAULT_CODEC, reencode: bool = False):
+    """Fused inject + scrub -> (faulty lo, hi, parity, counters (8,) int32),
+    counters in telemetry.COUNTER_FIELDS order."""
+    planes = _flat(lo, hi, parity, mlo, mhi, mparity)
+    if backend.dispatch(*planes) == "cpu":
+        out = _ref.inject_scrub_ref(*planes, reencode=reencode, codec=codec)
+    else:
+        out = _isc.inject_scrub(*planes, codec=codes.get(codec), reencode=reencode)
+    return tuple(t.reshape(lo.shape) for t in out[:3]) + (out[3],)
+
+
+def inject_scrub_domains(lo, hi, parity, mlo, mhi, mparity, domain_ids, n_domains: int,
+                         *, codec: str = codes.DEFAULT_CODEC, reencode: bool = False):
+    """Fused inject + scrub with one counter row per memory domain:
+    (faulty lo, hi, parity, counters (n_domains, 8) int32). Words whose
+    domain id lies outside [0, n_domains) are counted in no row."""
+    planes = _flat(lo, hi, parity, mlo, mhi, mparity, domain_ids)
+    if backend.dispatch(*planes) == "cpu":
+        out = _ref.inject_scrub_domains_ref(
+            *planes, n_domains, reencode=reencode, codec=codec
+        )
+    else:
+        out = _isc.inject_scrub_domains(
+            *planes, n_domains, codec=codes.get(codec), reencode=reencode
+        )
+    return tuple(t.reshape(lo.shape) for t in out[:3]) + (out[3],)
+
+
+@dataclasses.dataclass
+class EccWeight:
+    """SECDED-encoded int8 weight matrix (K, N) as word planes (K/8, N), or a
+    layer-stacked (G, K/8, N) stack of them."""
+
+    lo: torch.Tensor  # int32 bit patterns
+    hi: torch.Tensor
+    parity: torch.Tensor  # uint8
+    scale: torch.Tensor  # per-column (N,) or stacked (G, N) float32
+    k: int
+    n: int
+
+    def layer(self, g: int) -> "EccWeight":
+        """The 2D weight of layer ``g`` of a stacked leaf."""
+        return dataclasses.replace(
+            self, lo=self.lo[g], hi=self.hi[g], parity=self.parity[g], scale=self.scale[g]
+        )
+
+
+def pack_ecc_weights(w: torch.Tensor, axis_scale: int | None = 1) -> EccWeight:
+    """Quantize a float (K, N) weight to int8 and SECDED-encode it, on the
+    weight's device."""
+    from repro_torch.core import quantize as q
+
+    k, n = w.shape
+    assert k % 8 == 0, f"K={k} must be a multiple of 8 (64-bit codewords)"
+    qw, scale = q.quantize(w, axis=axis_scale)
+    lo, hi, parity = _ref.pack_ecc_weights_ref(qw)
+    return EccWeight(lo, hi, parity, scale.reshape(-1) if axis_scale is not None else scale, k, n)
+
+
+def permute_k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The reference kernel's activation permutation (x_perm[..., 8i+j] =
+    x[..., j*K/8 + i]); the CUDA kernel folds it into its indexing."""
+    k8 = k // 8
+    lead = x.shape[:-1]
+    return x.reshape(*lead, 8, k8).transpose(-1, -2).reshape(*lead, k)
+
+
+def ecc_matmul(x: torch.Tensor, w: EccWeight) -> torch.Tensor:
+    """``scale * (x @ decode(w))`` with ECC correction on the read path;
+    float32 result of shape (..., N)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, w.k).to(torch.float32).contiguous()
+    if backend.dispatch(x2, w.lo, w.hi, w.parity, w.scale) == "cpu":
+        out = _ref.ecc_matmul_ref(x2, w.lo, w.hi, w.parity, w.scale)
+    else:
+        out = _mm.ecc_matmul(x2, w.lo, w.hi, w.parity, w.scale, codec=codes.get("secded72"))
+    return out.reshape(*lead, w.n)

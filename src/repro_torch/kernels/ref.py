@@ -1,0 +1,99 @@
+"""Plain PyTorch versions of every kernel (the CPU path and the card's
+yardstick). Word planes are int32 bit patterns, check planes uint8."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import codes
+from repro_torch.codes.base import narrow, popcount32, widen
+
+N_COUNTERS = 8
+
+
+def decode_ref(lo, hi, check, codec: str = codes.DEFAULT_CODEC):
+    """-> (lo', hi', status int32)."""
+    return codes.get(codec).decode(lo, hi, check)
+
+
+def _tallies(status, flips):
+    """(n, 8) int64 counter lanes per word (telemetry.COUNTER_FIELDS)."""
+    detected = status == codes.STATUS_DETECTED
+    lanes = (
+        (status == codes.STATUS_CLEAN) & (flips == 0),
+        (status == codes.STATUS_CORRECTED) & (flips == 1),
+        detected,
+        (flips >= 2) & ~detected,
+        flips == 1,
+        flips == 2,
+        flips >= 3,
+    )
+    return [t.to(torch.int64) for t in lanes] + [flips]
+
+
+def _inject_classify(lo, hi, check, mlo, mhi, mcheck, reencode, codec):
+    c = codes.get(codec)
+    flo, fhi = narrow(widen(lo) ^ widen(mlo)), narrow(widen(hi) ^ widen(mhi))
+    fchk = c.encode(flo, fhi) if reencode else check ^ mcheck
+    status = c.decode(flo, fhi, fchk)[2]
+    flips = (
+        popcount32(widen(mlo)) + popcount32(widen(mhi)) + popcount32(mcheck.to(torch.int64))
+    )
+    return flo, fhi, fchk, status, flips
+
+
+def inject_scrub_ref(lo, hi, check, mlo, mhi, mcheck, reencode=False,
+                     codec: str = codes.DEFAULT_CODEC):
+    """Inject -> (re-encode) -> decode -> counters: (faulty lo, hi, check,
+    counters (8,) int32)."""
+    flo, fhi, fchk, status, flips = _inject_classify(
+        lo, hi, check, mlo, mhi, mcheck, reencode, codec
+    )
+    counters = torch.stack([t.sum() for t in _tallies(status, flips)])
+    return flo, fhi, fchk, counters.to(torch.int32)
+
+
+def inject_scrub_domains_ref(lo, hi, check, mlo, mhi, mcheck, dom, n_domains: int,
+                             reencode=False, codec: str = codes.DEFAULT_CODEC):
+    """As inject_scrub_ref with one counter row per domain index of ``dom``:
+    counters (n_domains, 8) int32."""
+    flo, fhi, fchk, status, flips = _inject_classify(
+        lo, hi, check, mlo, mhi, mcheck, reencode, codec
+    )
+    tallies = _tallies(status, flips)
+    rows = []
+    for d in range(n_domains):
+        sel = dom == d
+        rows.append(torch.stack([t[sel].sum() for t in tallies]))
+    return flo, fhi, fchk, torch.stack(rows).to(torch.int32)
+
+
+def pack_ecc_weights_ref(w_int8: torch.Tensor, codec: str = codes.DEFAULT_CODEC):
+    """int8 (K, N), K % 8 == 0 -> (lo, hi) int32 (K/8, N) + check uint8.
+
+    Codeword i of column n packs W[j*K/8 + i, n] for j = 0..7 (bytes 0-3 in
+    lo, 4-7 in hi)."""
+    k, n = w_int8.shape
+    assert k % 8 == 0, k
+    wr = w_int8.reshape(8, k // 8, n).to(torch.int64) & 0xFF
+    lo = narrow(wr[0] | (wr[1] << 8) | (wr[2] << 16) | (wr[3] << 24))
+    hi = narrow(wr[4] | (wr[5] << 8) | (wr[6] << 16) | (wr[7] << 24))
+    return lo, hi, codes.get(codec).encode(lo, hi)
+
+
+def unpack_ecc_weights(lo, hi) -> torch.Tensor:
+    """Inverse packing: (K/8, N) planes -> (K, N) int8."""
+    planes = [(widen(word) >> (8 * j)) & 0xFF for word in (lo, hi) for j in range(4)]
+    w = torch.cat(planes, dim=0)  # rows j-major: row j*K8 + i
+    return ((w ^ 128) - 128).to(torch.int8)
+
+
+def ecc_matmul_ref(x, lo, hi, check, scale=None, codec: str = codes.DEFAULT_CODEC):
+    """decode -> unpack -> dequant -> matmul for an (M, K) x in natural
+    layout and (K/8, N) planes; float32 result."""
+    lo2, hi2, _ = decode_ref(lo, hi, check, codec)
+    w = unpack_ecc_weights(lo2, hi2).to(torch.float32)
+    out = x.to(torch.float32) @ w
+    if scale is not None:
+        out = out * scale
+    return out

@@ -1,0 +1,116 @@
+"""Model config, parameter specs and the parameter-tree helpers.
+
+Parameters are nested dicts of tensors. Layers are stacked: every block leaf
+carries a leading ``n_groups`` dimension and the forward pass loops over it.
+Flattening visits dict keys in sorted order and names every leaf by its key
+path in the reference's notation (``"['blocks']['p0']['attn']['wq']"``), so
+leaf order, per-leaf fault seeds and memory domains match the reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # only "dense" (RMSNorm, SwiGLU, full causal GQA) is ported
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    rope_theta: float = 1e4
+    tie_embeddings: bool = False
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.float32
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def period(self) -> int:
+        return 1
+
+    @property
+    def n_groups(self) -> int:
+        return self.n_layers // self.period
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    shape: tuple
+    init: str = "normal"  # normal | zeros | ones
+    scale: float = 1.0
+
+
+def materialize(spec_tree, generator: torch.Generator, dtype, device):
+    """Spec tree -> tensors: ``normal`` leaves are N(0, 1) * scale /
+    sqrt(fan_in) drawn from ``generator`` in flattening order."""
+    flat = flatten(spec_tree, is_leaf=lambda x: isinstance(x, Spec))
+    out = []
+    for _, s in flat:
+        if s.init == "zeros":
+            a = torch.zeros(s.shape, dtype=dtype, device=device)
+        elif s.init == "ones":
+            a = torch.ones(s.shape, dtype=dtype, device=device)
+        else:
+            fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+            a = torch.randn(s.shape, generator=generator, device=device)
+            a = (a * (s.scale / math.sqrt(fan_in))).to(dtype)
+        out.append(a)
+    return unflatten(spec_tree, [a for a in out], is_leaf=lambda x: isinstance(x, Spec))
+
+
+# ---------------------------------------------------------------------------
+# Tree helpers (nested dicts)
+# ---------------------------------------------------------------------------
+def flatten(tree, is_leaf=None, _prefix: str = "") -> list:
+    """[(key path, leaf)] in sorted-key order."""
+    if isinstance(tree, dict) and not (is_leaf and is_leaf(tree)):
+        out = []
+        for k in sorted(tree):
+            out += flatten(tree[k], is_leaf, f"{_prefix}[{k!r}]")
+        return out
+    return [(_prefix, tree)]
+
+
+def unflatten(tree, leaves, is_leaf=None):
+    """A tree shaped like ``tree`` whose leaves (in flatten order) are
+    ``leaves``."""
+    it = iter(leaves)
+
+    def rebuild(t):
+        if isinstance(t, dict) and not (is_leaf and is_leaf(t)):
+            return {k: rebuild(t[k]) for k in sorted(t)}
+        return next(it)
+
+    out = rebuild(tree)
+    assert next(it, None) is None, "more leaves than the tree holds"
+    return out
+
+
+def tree_map(fn, tree, is_leaf=None):
+    return unflatten(tree, [fn(x) for _, x in flatten(tree, is_leaf)], is_leaf)
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device=None):
+    """Carry a parameter tree of numpy arrays (e.g. the reference's params
+    converted with ``np.asarray``) onto ``device`` in ``cfg.param_dtype``."""
+    from repro_torch.kernels.backend import resolve_device
+
+    dev = resolve_device(device)
+    return tree_map(
+        lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev, cfg.param_dtype),
+        tree,
+    )

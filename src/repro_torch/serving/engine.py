@@ -1,0 +1,385 @@
+"""Serving engine with ECC-protected weights under an undervolted rail.
+
+Inline mode: every attention/MLP matrix (and, for multi-rail engines, the
+embedding) is int8-quantized and packed into SECDED(72,64) word planes held
+in one ``PlaneStore`` arena on the card. A voltage step is one fused
+inject+scrub launch whose counters feed the DED-canary controller; every
+forward pass reads the faulty planes through the fused decode + dequant +
+matmul kernel. The embedding, read by gather rather than matmul, is decoded
+into a float table whenever its rail moves. Power comes from the calibrated
+Table-I model.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs import shapes
+from repro_torch.core import voltage as vmod
+from repro_torch.core.controller import MultiRailController, UndervoltController
+from repro_torch.core.planestore import PlaneStore
+from repro_torch.core.telemetry import DomainFaultStats, FaultStats
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import base, lm
+from repro_torch.models.base import ModelConfig
+
+
+class ReliabilityConfigError(ValueError, AssertionError):
+    """An invalid or not yet ported reliability-config combination."""
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultModelConfig:
+    """How faults are generated and applied. Only the defaults are ported:
+    ``validate()`` rejects the others."""
+
+    mask_source: str = "host"  # NumPy FaultField masks
+    batched: bool = True  # one fused launch over the whole arena
+    environment: Any = None
+    drift: float | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class RailsConfig:
+    """Voltage-rail topology and controller tuning."""
+
+    multi_rail: bool = False
+    spread: float = 0.0  # > 0: per-domain fault-curve variation
+    step_v: float = 0.01
+    start_v: float | None = None  # warm start of the canary search
+    adaptive: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ProtectionConfig:
+    """Which memories are protected and under which ECC scheme."""
+
+    codecs: Any = None  # None, "secded72" or {domain: "secded72"}
+    escalation: Any = None  # not ported: must be None
+    embed: bool | None = None  # None -> multi_rail
+
+
+@dataclasses.dataclass(frozen=True)
+class CanaryConfig:
+    """DED canary behaviour."""
+
+    prompts: int = 0  # accuracy canary, not ported: must be 0
+    paranoid: bool = False  # silent (ground-truth) events trip too
+
+
+@dataclasses.dataclass(frozen=True)
+class ReliabilityConfig:
+    """Reliability knobs of a ServingEngine, grouped in four sub-configs.
+    ``validate()`` rejects contradictory combinations and the parts not yet
+    ported."""
+
+    platform: str = "vc707"
+    ecc: bool = True
+    voltage: float | None = None  # None -> nominal
+    mode: str = "domain"  # only "inline" is ported
+    seed: int = 0
+    fault_model: FaultModelConfig = dataclasses.field(default_factory=FaultModelConfig)
+    rails: RailsConfig = dataclasses.field(default_factory=RailsConfig)
+    protection: ProtectionConfig = dataclasses.field(default_factory=ProtectionConfig)
+    canary: CanaryConfig = dataclasses.field(default_factory=CanaryConfig)
+
+    def validate(self, *, mesh=None) -> "ReliabilityConfig":
+        """Raise ReliabilityConfigError on an invalid or unported
+        combination; returns ``self``."""
+
+        def _require(cond: bool, msg: str):
+            if not cond:
+                raise ReliabilityConfigError(msg)
+
+        fm, prot = self.fault_model, self.protection
+        _require(self.platform in vmod.PLATFORMS, f"unknown platform {self.platform!r}")
+        _require(self.mode == "inline", f"mode={self.mode!r} is not ported (use 'inline')")
+        _require(mesh is None, "mesh engines are not ported")
+        _require(fm.mask_source == "host", "mask_source='device' is not ported")
+        _require(fm.batched, "the per-leaf path (batched=False) is not ported")
+        _require(
+            fm.environment is None and fm.drift is None,
+            "environment scenarios and drift are not ported",
+        )
+        codecs = (
+            [prot.codecs] if isinstance(prot.codecs, str)
+            else list(dict(prot.codecs).values()) if prot.codecs is not None else []
+        )
+        _require(
+            all(c == "secded72" for c in codecs), "only the secded72 codec is ported"
+        )
+        _require(
+            self.rails.multi_rail or prot.codecs is None or isinstance(prot.codecs, str),
+            "per-domain codec dicts need multi_rail=True",
+        )
+        _require(prot.escalation is None, "codec escalation is not ported")
+        _require(self.canary.prompts == 0, "the accuracy canary is not ported")
+        return self
+
+    @property
+    def embed_protected(self) -> bool:
+        embed = self.protection.embed
+        return self.rails.multi_rail if embed is None else embed
+
+
+def _decode_gather_table(ew: kops.EccWeight, codec: str = "secded72") -> torch.Tensor:
+    """ECC-read an EccWeight into its dequantized float (K, N) table (the
+    embedding, read by gather, is refreshed this way when its rail moves)."""
+    lo, hi, _ = kops.decode(ew.lo, ew.hi, ew.parity, codec=codec)
+    if lo.ndim == 3:  # layer-stacked (G, K/8, N)
+        w_i8 = torch.stack([kref.unpack_ecc_weights(lo[g], hi[g]) for g in range(lo.shape[0])])
+        return w_i8.to(torch.float32) * ew.scale[:, None, :]
+    return kref.unpack_ecc_weights(lo, hi).to(torch.float32) * ew.scale
+
+
+def _pack_stacked(leaf) -> kops.EccWeight:
+    """Pack a layer-stacked (G, K, N) weight into stacked ECC planes."""
+    packed = [kops.pack_ecc_weights(leaf[i].to(torch.float32)) for i in range(leaf.shape[0])]
+    return kops.EccWeight(
+        lo=torch.stack([p.lo for p in packed]),
+        hi=torch.stack([p.hi for p in packed]),
+        parity=torch.stack([p.parity for p in packed]),
+        scale=torch.stack([p.scale for p in packed]),
+        k=packed[0].k,
+        n=packed[0].n,
+    )
+
+
+def protect_params_inline(params, cfg: ModelConfig, include_embed: bool = False):
+    """Replace weight matrices (K % 8 == 0) with SECDED int8 EccWeight planes.
+
+    Handles plain (K, N) and layer-stacked (G, K, N) leaves. Returns
+    (new_params, {key: word count}). ``include_embed`` adds the embedding
+    table (multi-rail engines protect it as its own domain)."""
+    out, fields = [], {}
+    for key, leaf in base.flatten(params):
+        wanted = "attn" in key or "mlp" in key or (include_embed and "embed" in key)
+        if not isinstance(leaf, torch.Tensor) or not wanted:
+            out.append(leaf)
+            continue
+        if leaf.ndim == 2 and leaf.shape[0] % 8 == 0 and min(leaf.shape) >= 64:
+            ew = kops.pack_ecc_weights(leaf.to(torch.float32))
+        elif leaf.ndim == 3 and leaf.shape[1] % 8 == 0 and min(leaf.shape[1:]) >= 64:
+            ew = _pack_stacked(leaf)
+        else:
+            out.append(leaf)
+            continue
+        out.append(ew)
+        fields[key] = ew.lo.numel()
+    return base.unflatten(params, out), fields
+
+
+class ServingEngine:
+    """Greedy-decoding engine over ECC-protected weights on one device.
+
+    ``device=None`` runs on the card and raises without one; the tests pass
+    ``device="cpu"``, which runs every kernel's plain version."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params,
+        rel: ReliabilityConfig | None = None,
+        max_len: int = 512,
+        device=None,
+    ):
+        self.cfg = cfg
+        self.rel = rel
+        self.max_len = max_len
+        self.device = resolve_device(device)
+        if rel is not None:
+            rel.validate()
+        params = base.tree_map(lambda t: t.to(self.device), params)
+        self.platform = vmod.PLATFORMS[rel.platform] if rel else None
+        rails = rel.rails if rel else None
+        self.controller = (
+            UndervoltController(
+                self.platform,
+                step_v=rails.step_v,
+                paranoid=rel.canary.paranoid,
+                start_v=rails.start_v,
+            )
+            if rel and not rails.multi_rail
+            else None
+        )
+        self.rails = None  # {domain: voltage} on multi-rail engines
+        self.rail_stats = DomainFaultStats()
+        self.stats = FaultStats()
+        self._last_scrub = None
+        if rel is None:
+            self.params = params
+            return
+        clean, _ = protect_params_inline(params, cfg, include_embed=rel.embed_protected)
+        self._inline_tree = clean
+        flat = base.flatten(clean)
+        self._inline_template = [leaf for _, leaf in flat]
+        self._ecc_slots = [
+            (i, key) for i, (key, leaf) in enumerate(flat) if isinstance(leaf, kops.EccWeight)
+        ]
+        rail_profiles = (
+            vmod.derive_domain_profiles(
+                self.platform, shapes.MEMORY_DOMAINS, spread=rails.spread, seed=rel.seed
+            )
+            if rails.multi_rail and rails.spread > 0
+            else None
+        )
+        codecs = rel.protection.codecs
+        self._store = PlaneStore(
+            [self._inline_template[i] for i, _ in self._ecc_slots],
+            [key for _, key in self._ecc_slots],
+            self.platform,
+            seed=rel.seed,
+            domain_key=shapes.domain_of if rails.multi_rail else None,
+            profiles=rail_profiles,
+            codecs=shapes.domain_codecs(codecs) if rails.multi_rail else codecs,
+            device=self.device,
+        )
+        self.voltage = rel.voltage or self.platform.v_nom
+        if rails.multi_rail:
+            self.controller = MultiRailController(
+                self.platform,
+                self._store.domains,
+                step_v=rails.step_v,
+                paranoid=rel.canary.paranoid,
+                start_v=rails.start_v,
+                profiles={d: self._store.domain_profile(d) for d in self._store.domains},
+                codecs={d: self._store.codec_of(d) for d in self._store.domains},
+                adaptive=rails.adaptive,
+            )
+            self.set_rails({d: self.voltage for d in self._store.domains})
+        else:
+            self.set_voltage(self.voltage)
+
+    # -- voltage control ------------------------------------------------------
+    def set_voltage(self, v: float):
+        """Move the whole rail to ``v``: one fused inject+scrub launch."""
+        self.voltage = float(v)
+        if self.rel is None:
+            return
+        if self.rel.rails.multi_rail:
+            self.set_rails({d: float(v) for d in self._store.domains})
+            return
+        leaves, stats = self._store.set_voltage(v, ecc=self.rel.ecc)
+        self.params = self._reassemble_params(leaves)
+        self.stats.accumulate(stats)
+        self._last_scrub = stats
+
+    def set_rails(self, volts: dict):
+        """Per-domain voltage step (multi-rail engines): one fused launch,
+        one counter row per domain."""
+        assert self.rel is not None and self.rel.rails.multi_rail
+        new = {d: float(v) for d, v in volts.items()}
+        self.rails = {**self.rails, **new} if self.rails else new
+        self.voltage = max(self.rails.values())
+        leaves, dstats = self._store.set_rails(self.rails, ecc=self.rel.ecc)
+        self.params = self._reassemble_params(leaves)
+        self.rail_stats.accumulate(dstats)
+        self.stats.accumulate(dstats.total())
+        self._last_scrub = dstats
+
+    def _reassemble_params(self, leaves):
+        """Faulty arena slices back into the parameter tree; the embedding
+        is decoded into its float table."""
+        flat = list(self._inline_template)
+        for (i, key), leaf in zip(self._ecc_slots, leaves):
+            flat[i] = _decode_gather_table(leaf) if "embed" in key else leaf
+        return base.unflatten(self._inline_tree, flat)
+
+    # -- serving --------------------------------------------------------------
+    @torch.no_grad()
+    def generate(self, prompts: np.ndarray, n_tokens: int, *, params=None) -> np.ndarray:
+        """Greedy-decode a batch: prompts (B, S0) int -> tokens (B, n)."""
+        p = self.params if params is None else params
+        toks = torch.as_tensor(np.asarray(prompts), dtype=torch.int64, device=self.device)
+        b, s0 = toks.shape
+        cache = lm.init_cache(self.cfg, b, self.max_len, device=self.device)
+        logits, cache = lm.prefill(p, toks, self.cfg, cache)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        rest, _ = lm.greedy_decode_loop(p, tok, self.cfg, cache, s0, n_tokens - 1)
+        return torch.cat([tok, rest], dim=1).cpu().numpy().astype(np.int32)
+
+    # -- runtime undervolting loop ---------------------------------------------
+    def autotune_voltage(self, max_rounds: int = 60):
+        """Lower the rail(s) until the ECC's DED flag trips (paper §III/IV).
+
+        Single-rail: returns (locked voltage, history). Multi-rail: each
+        domain walks its own rail; returns ({domain: voltage},
+        {domain: history})."""
+        assert self.rel is not None and self.controller is not None
+        if self.rel.rails.multi_rail:
+            return self._autotune_rails(max_rounds)
+        for _ in range(max_rounds):
+            v = self.controller.update(self._last_scrub)
+            if self.controller.locked:
+                self.set_voltage(self.controller.voltage)
+                break
+            self.set_voltage(v)
+        return self.controller.voltage, self.controller.history
+
+    def _autotune_rails(self, max_rounds: int):
+        # Align the arena with the controller's starting schedule so the
+        # first interval reflects the voltages being judged.
+        self.set_rails(self.controller.voltages)
+        for _ in range(max_rounds):
+            volts = self.controller.update(self._last_scrub)
+            self.set_rails(volts)
+            if self.controller.locked:
+                break
+        return self.controller.voltages, self.controller.history
+
+    def _check_bits(self) -> dict:
+        store = getattr(self, "_store", None)
+        return store.check_bits_by_domain() if store is not None else {}
+
+    def power_w(self) -> float:
+        """Modeled accelerator power at the current rail voltage(s)."""
+        ecc = bool(self.rel and self.rel.ecc)
+        if self.rails is not None:
+            return vmod.P_REST_W + vmod.multi_rail_bram_power(
+                self.rails, self._store.words_by_domain(), ecc=ecc,
+                check_bits=self._check_bits(),
+            )
+        factor = vmod.redundancy_factor(next(iter(self._check_bits().values()), 8))
+        return vmod.P_REST_W + vmod.bram_power(self.voltage, ecc=ecc) * factor
+
+    def power_report(self) -> dict:
+        """Per-rail power breakdown + fractional BRAM saving vs nominal."""
+        ecc = bool(self.rel and self.rel.ecc)
+        bits = self._check_bits()
+        if self.rails is not None:
+            words = self._store.words_by_domain()
+            total = max(sum(words.values()), 1)
+            return {
+                "rails": dict(self.rails),
+                "codecs": self._store.codecs_by_domain(),
+                "check_bits": bits,
+                "bram_w": vmod.multi_rail_bram_power(
+                    self.rails, words, ecc=ecc, check_bits=bits
+                ),
+                "bram_w_by_domain": {
+                    d: (words[d] / total)
+                    * vmod.bram_power(v, ecc=ecc)
+                    * vmod.redundancy_factor(bits.get(d, 8))
+                    for d, v in self.rails.items()
+                },
+                "total_w": self.power_w(),
+                "saving_vs_nominal": vmod.multi_rail_power_saving(
+                    self.rails, words, ecc=ecc, check_bits=bits
+                ),
+            }
+        factor = vmod.redundancy_factor(next(iter(bits.values()), 8))
+        store = getattr(self, "_store", None)
+        return {
+            "rails": {"all": self.voltage},
+            "codecs": dict(store.codecs_by_domain()) if store is not None else {},
+            "bram_w": vmod.bram_power(self.voltage, ecc=ecc) * factor,
+            "total_w": self.power_w(),
+            "saving_vs_nominal": 1.0
+            - vmod.bram_power(self.voltage, ecc=ecc) * factor / vmod.bram_power(1.0, ecc=False),
+        }

@@ -22,3 +22,9 @@ def tiny_cfg(**kw):
     )
     base.update(kw)
     return ModelConfig(**base)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; the test skips itself where none is present"
+    )

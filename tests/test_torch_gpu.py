@@ -1,0 +1,83 @@
+"""The CUDA kernels against their plain versions on the card.
+
+Imports neither JAX nor the reference package, so it also runs on a
+machine with the card and without JAX:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import codes
+from repro_torch.kernels import ops, ref
+
+# float32 sums run in another order than the plain version's matmul
+MATMUL_RTOL = 1e-4
+
+
+@pytest.fixture
+def cuda():
+    """The card, decided inside the test."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _planes(n, p, device, seed=1):
+    g = np.random.default_rng(seed)
+    word = lambda a: torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(device)
+    lo = word(g.integers(0, 2**32, n, dtype=np.uint32))
+    hi = word(g.integers(0, 2**32, n, dtype=np.uint32))
+    chk = codes.get("secded72").encode(lo, hi)
+    bits = lambda k: (g.random((n, k)) < p).astype(np.uint64) @ (1 << np.arange(k, dtype=np.uint64))
+    return lo, hi, chk, word(bits(32)), word(bits(32)), torch.from_numpy(
+        bits(8).astype(np.uint8)).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reencode", [False, True])
+def test_inject_scrub_kernel_bit_identical(cuda, reencode):
+    planes = _planes(100_003, 0.01, cuda)
+    k = ops.inject_scrub(*planes, reencode=reencode)
+    p = ref.inject_scrub_ref(*planes, reencode=reencode)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+
+
+@pytest.mark.gpu
+def test_inject_scrub_domains_and_decode_kernels_bit_identical(cuda):
+    planes = _planes(100_003, 0.01, cuda)
+    sizes = torch.tensor([30_000, 50_000, 20_003], device=cuda)
+    dom = torch.arange(3, device=cuda, dtype=torch.int32).repeat_interleave(sizes)
+    k = ops.inject_scrub_domains(*planes, dom, 3)
+    p = ref.inject_scrub_domains_ref(*planes, dom, 3)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    k2, p2 = ops.decode(*k[:3]), ref.decode_ref(*p[:3])
+    assert all(torch.equal(a, b) for a, b in zip(k2, p2))
+
+
+@pytest.mark.gpu
+def test_inject_scrub_domains_kernel_drops_out_of_range_ids(cuda):
+    """Ids outside [0, n_domains), between in-range runs: counted in no row,
+    and no count of theirs leaks into the next in-range row."""
+    planes = _planes(100_003, 0.01, cuda)
+    ids = torch.tensor([0, -1, 1, 3, 2, 7, 1, -5], device=cuda, dtype=torch.int32)
+    sizes = torch.tensor([9_000, 20_000, 11_000, 15_000, 5_000, 25_000, 10_000, 5_003],
+                         device=cuda)
+    dom = ids.repeat_interleave(sizes)
+    k = ops.inject_scrub_domains(*planes, dom, 3)
+    p = ref.inject_scrub_domains_ref(*planes, dom, 3)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(4, 1024, 2048), (128, 3072, 1024), (5, 136, 70)])
+def test_ecc_matmul_kernel_within_tolerance(cuda, m, k, n):
+    w = ops.pack_ecc_weights(torch.randn(k, n, device=cuda))
+    x = torch.randn(m, k, device=cuda)
+    out = ops.ecc_matmul(x, w)
+    plain = ref.ecc_matmul_ref(x, w.lo, w.hi, w.parity, w.scale)
+    torch.cuda.synchronize()
+    assert float((out - plain).abs().max()) <= MATMUL_RTOL * float(plain.abs().max())
