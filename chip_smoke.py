@@ -6,26 +6,40 @@
 Needs one CUDA card and the CUDA toolkit (``nvcc``); exits non-zero without
 them. Phases, each printed on its own line with its wall time:
 
-  1. build the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
   2. hold every kernel against its plain PyTorch version on the card at the
      main path's shapes: the fused inject+scrub (single-rail arena at 0.56 V
      and 0.54 V, both re-encode settings) and its per-domain form
      (multi-rail arena) and the SECDED decode (faulty embedding) bit for bit,
      the fused decode+matmul at every qwen3-0.6b (K, N) within
      1e-4 * max|plain| (float32 sums run in another order), and the
-     per-domain form with out-of-range domain ids;
+     per-domain form with out-of-range domain ids; the SECDED encode over
+     the weight arena and a 64-page KV arena and in its token-commit form,
+     and the paged scrub-on-read over that arena at 0.54 V with duplicated
+     and scratch page ids, bit for bit;
   3. the tiny config through the port on the card and on the CPU: equal
      tokens and equal counters;
   4. the full-width qwen3-0.6b engine, single-rail: nominal generate,
      0.56 V generate, prefill and decode step wall times, DED-canary
      autotune from 0.62 V, power report;
   5. the same on a multi-rail engine (per-domain locks);
-  4-5 each zero the kernel launch counts at their start and read them at
-     their end, and fail unless every voltage step launched its scrub kernel
-     once (B1 single-rail, B2 and the embedding's B5 multi-rail, none of
-     the other path's) and every forward pass launched the fused matmul once
-     per protected matrix of each layer (7 x 28 = 196);
-  6. one prefill and one decode step of each path under torch.profiler
+  6. paged SECDED KV serving (``ServingEngine.serve``) at full width on an
+     inline single-rail engine: nominal paged serve against dense
+     ``generate`` (equal tokens), a stream of 8 mixed requests at a 0.56 V
+     kv rail in an arena small enough to preempt (corrections required),
+     shared prefixes against private pages and speculative decoding
+     against greedy (equal tokens); then a multi-rail engine walking its
+     kv rail; and a breakdown of a stream's decode step, token commit,
+     fault interval and scrub;
+  4-6 each zero the kernel launch counts at the start of a path and read
+     them at its end, and fail unless every voltage step launched its scrub
+     kernel once (B1 single-rail, B2 and the embedding's B5 multi-rail,
+     none of the other path's), every forward pass of the protected model
+     launched the fused matmul once per protected matrix of each layer
+     (7 x 28 = 196), every weight pack and token commit launched the
+     encode once, every fault interval and prefix-hit admission launched
+     the paged scrub once, and the plain codec never ran on the card;
+  7. one prefill and one decode step of paths 4-5 under torch.profiler
      (device busy time, idle share, fused-matmul time inside the step),
      tokens/s, voltage-step times and one ``{"kernels": [...]}`` line with
      times, bounds and per-path launch counts. The fused matmul has two
@@ -50,6 +64,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BATCH, PROMPT_LEN, NEW_TOKENS = 4, 32, 16
 MATMUL_RTOL = 1e-4  # |kernel - plain| <= MATMUL_RTOL * max|plain|
+PAGED_MAX_LEN, STREAM_PAGES, KV_PAGES = 80, 14, 64
 
 T0 = time.perf_counter()
 
@@ -98,13 +113,19 @@ def main() -> int:
         print(f"chip_smoke: the repro_torch package is missing ({e})", file=sys.stderr)
         return 2
 
+    import dataclasses
+
     import numpy as np
 
+    from repro_torch.codes.base import Codec
     from repro_torch.configs import get_config, get_smoke_config, shapes
+    from repro_torch.core import kvpages
+    from repro_torch.core.kvpages import KVGeometry, KVPageArena
     from repro_torch.core.planestore import PlaneStore
     from repro_torch.core.voltage import PLATFORMS
     from repro_torch.kernels import backend, ops, ref
     from repro_torch.models import base, lm
+    from repro_torch.serving import steps as serve_steps
     from repro_torch.serving.engine import (
         RailsConfig, ReliabilityConfig, ServingEngine, protect_params_inline,
     )
@@ -223,6 +244,51 @@ def main() -> int:
     def same(a, b) -> bool:
         return all(torch.equal(x, y) for x, y in zip(a, b))
 
+    class Tally:
+        """While active, counts what a path does that must launch a kernel:
+        weight packs and token commits (B4), fault intervals and prefix-hit
+        admission scrubs (B6), forward passes of the protected model by kind
+        (B3, 196 each); and every call of the plain codec on a CUDA tensor,
+        which must stay 0."""
+
+        def __init__(self):
+            self.n = dict(packs=0, commits=0, intervals=0, prefix_scrubs=0,
+                          prefill=0, decode=0, plain_on_card=0)
+            self._undo = []
+
+        def _wrap(self, obj, name, key):
+            real = getattr(obj, name)
+
+            def wrapped(*a, **kw):
+                k = key(*a, **kw) if callable(key) else key
+                if k:
+                    self.n[k] += 1
+                return real(*a, **kw)
+
+            setattr(obj, name, wrapped)
+            self._undo.append((obj, name, real))
+
+        def __enter__(self):
+            on_card = lambda *a, **kw: "plain_on_card" if any(
+                isinstance(t, torch.Tensor) and t.is_cuda for t in a) else None
+            kind = lambda params, tokens, *a, **kw: (
+                ("decode" if tokens.shape[1] == 1 else "prefill")
+                if isinstance(params["blocks"]["p0"]["attn"]["wq"], ops.EccWeight) else None)
+            self._wrap(ops, "pack_ecc_weights", "packs")
+            self._wrap(kvpages, "_commit_tokens", "commits")
+            self._wrap(serve_steps, "_commit_tokens", "commits")
+            self._wrap(KVPageArena, "tick", "intervals")
+            self._wrap(KVPageArena, "scrub_pages", "prefix_scrubs")
+            self._wrap(lm, "forward", kind)
+            self._wrap(Codec, "encode", on_card)
+            self._wrap(Codec, "decode", on_card)
+            return self
+
+        def __exit__(self, *exc):
+            for obj, name, real in reversed(self._undo):
+                setattr(obj, name, real)
+            return False
+
     # ---------------------------------------------------------------- 1
     with Phase("1 build kernels"):
         built = backend.build()
@@ -268,6 +334,19 @@ def main() -> int:
                 b1["host_mask_s"] = mask_s
         b1["bound_ms"] = 1e3 * 27 * n / HBM_BYTES_PER_S
         report["inject_scrub"] = b1
+
+        # SECDED encode (B4) over the whole weight arena: the check plane of
+        # every weight pack, in one launch.
+        require(same([ops.encode(store.lo, store.hi)], [ref.encode_ref(store.lo, store.hi)]),
+                "encode differs on the weight arena")
+        report["encode"] = {
+            "n_words": n, "ms": sync_ms(lambda: ops.encode(store.lo, store.hi), 20),
+            "plain_ms": sync_ms(lambda: ref.encode_ref(store.lo, store.hi), 2),
+            "bound_ms": 1e3 * 9 * n / HBM_BYTES_PER_S,
+        }
+        print(f"  encode over the weight arena ({n} words): bit-identical, "
+              f"{report['encode']['ms']:.3f} ms, bound {report['encode']['bound_ms']:.3f} ms, "
+              f"plain {report['encode']['plain_ms']:.2f} ms")
 
         # Fused decode+matmul on the faulty 0.56 V planes of layer 0.
         by_key = dict(zip((k for k, _ in eccs), faulty))
@@ -384,6 +463,74 @@ def main() -> int:
         del small, odd_ids, k_odd, p_odd
         torch.cuda.empty_cache()
 
+        # A 64-page KV arena at full width: random words, encoded by B4, one
+        # 0.54 V fault interval of the device field, then B6 over a table
+        # with duplicated ids (a faulty page among them) and scratch ids.
+        geom = KVGeometry.from_config(cfg)
+        arena = KVPageArena(geom, platform, KV_PAGES, seed=0, device=dev)
+        g = torch.Generator(device=dev).manual_seed(2)
+        word = lambda: torch.randint(-2**31, 2**31, arena.lo.shape, generator=g, device=dev,
+                                     dtype=torch.int64).to(torch.int32)
+        arena.lo, arena.hi = word(), word()
+        nk = arena.n_words
+        real_lo, real_hi = arena.lo[:nk], arena.hi[:nk]
+        k_enc = ops.encode(real_lo, real_hi)
+        require(torch.equal(k_enc, ref.encode_ref(real_lo, real_hi)), "encode differs on the KV arena")
+        arena.parity[:nk] = k_enc
+        arena.set_voltage(0.54)
+        arena.tick()
+        ids = np.concatenate([np.arange(0, KV_PAGES, 2), [5, 5, 6, 6, 6, KV_PAGES, KV_PAGES, 0]])
+        ids_d = torch.as_tensor(ids.astype(np.int32), device=dev)
+        wpp = geom.words_per_page
+        k_pl = [t.clone() for t in (arena.lo, arena.hi, arena.parity)]
+        p_pl = [t.clone() for t in (arena.lo, arena.hi, arena.parity)]
+        k_gs = ops.gather_scrub_pages(*k_pl, ids_d, wpp)
+        p_gs = ref.gather_scrub_ref(*p_pl, ids_d, wpp)
+        torch.cuda.synchronize()
+        require(torch.equal(k_gs[0].view(torch.int32), p_gs[0].view(torch.int32))
+                and torch.equal(k_gs[1], p_gs[1]), "gather_scrub payload or counters differ")
+        require(same(k_pl, p_pl), "gather_scrub write-back differs")
+        cnt = k_gs[1].sum(dim=0).tolist()
+        require(cnt[1] > 0 and cnt[2] > 0, f"no corrected or detected words at 0.54 V: {cnt}")
+        print(f"  gather_scrub over {len(ids)} page ids ({len(ids) * wpp} words, ids {ids.tolist()}) "
+              f"of a {KV_PAGES}-page arena ({nk} words) at 0.54 V: bit-identical, "
+              f"(clean, corrected, detected) = {cnt[:3]}")
+        payload = torch.randn(BATCH, geom.token_f32, generator=g, device=dev)
+        commit_base = torch.as_tensor(
+            kvpages.row_bases(np.arange(BATCH) * 3, np.arange(BATCH) % 8, geom), device=dev)
+        ops.encode_commit(payload, commit_base, geom.token_words, *k_pl)
+        ref.encode_commit_ref(payload, commit_base, geom.token_words, *p_pl)
+        torch.cuda.synchronize()
+        require(same(k_pl, p_pl), "encode_commit differs")
+        print(f"  encode over the KV arena ({nk} words) and a {BATCH}-token commit: bit-identical")
+        rows = len(ids) * wpp
+        report["gather_scrub"] = {
+            "n_words": rows, "arena_words": nk, "page_ids": ids.tolist(),
+            "ms": sync_ms(lambda: ops.gather_scrub_pages(*k_pl, ids_d, wpp), 20),
+            "plain_ms": sync_ms(lambda: ref.gather_scrub_ref(*p_pl, ids_d, wpp), 2),
+            "bound_ms": 1e3 * 26 * rows / HBM_BYTES_PER_S,
+        }
+        report["encode_kv_arena"] = {
+            "n_words": nk, "ms": sync_ms(lambda: ops.encode(real_lo, real_hi), 20),
+            "plain_ms": sync_ms(lambda: ref.encode_ref(real_lo, real_hi), 2),
+            "bound_ms": 1e3 * 9 * nk / HBM_BYTES_PER_S,
+        }
+        cw = BATCH * geom.token_words
+        report["encode_commit"] = {
+            "n_words": cw, "rows": BATCH,
+            "ms": sync_ms(lambda: ops.encode_commit(payload, commit_base, geom.token_words,
+                                                    *k_pl), 50),
+            "plain_ms": sync_ms(lambda: ref.encode_commit_ref(payload, commit_base,
+                                                              geom.token_words, *p_pl), 5),
+            "bound_ms": 1e3 * 17 * cw / HBM_BYTES_PER_S,
+        }
+        for key in ("gather_scrub", "encode_kv_arena", "encode_commit"):
+            r = report[key]
+            print(f"  {key} ({r['n_words']} words): {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"(bytes), plain {r['plain_ms']:.3f} ms")
+        del arena, k_pl, p_pl, k_gs, p_gs, real_lo, real_hi, k_enc
+        torch.cuda.empty_cache()
+
     # ---------------------------------------------------------------- 3
     with Phase("3 tiny config: card vs CPU"):
         tcfg = get_smoke_config("qwen3-0.6b")
@@ -410,7 +557,7 @@ def main() -> int:
     runs, traced_params = {}, {}
     for multi in (False, True):
         name = "multi-rail" if multi else "single-rail"
-        with Phase(f"{4 + multi} full-width qwen3-0.6b {name} engine"):
+        with Phase(f"{4 + multi} full-width qwen3-0.6b {name} engine"), Tally() as tally:
             ops.reset_launch_count()
             run = runs[name] = {}
             fwd = {"prefill": 0, "decode": 0}  # forward passes of this path
@@ -495,19 +642,202 @@ def main() -> int:
             want = {"inject_scrub": 0 if multi else steps,
                     "inject_scrub_domains": steps if multi else 0,
                     "decode": steps if multi else 0,
-                    "ecc_matmul": per_fwd * (fwd["prefill"] + fwd["decode"])}
+                    "ecc_matmul": per_fwd * (fwd["prefill"] + fwd["decode"]),
+                    "encode": tally.n["packs"], "gather_scrub": 0}
             require(counts == want, f"{name} launches {counts}, expected {want}")
+            require(tally.n["packs"] == per_fwd + multi, f"{tally.n['packs']} weight packs")
+            require(tally.n["plain_on_card"] == 0, "the plain codec ran on the card")
             run.update(launches=counts, voltage_steps=steps, forwards=dict(fwd),
-                       matmuls_per_forward=per_fwd)
+                       matmuls_per_forward=per_fwd, packs=tally.n["packs"], commits=0,
+                       scrubs=0)
             print(f"  launches: {json.dumps(counts)} = {steps} voltage steps, "
                   f"{per_fwd} fused matmuls x {fwd['prefill']} prefill + "
-                  f"{fwd['decode']} decode forward passes")
+                  f"{fwd['decode']} decode forward passes, {tally.n['packs']} weight packs")
             traced_params[name] = eng.params
             del eng, logits
             torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 6
-    with Phase("6 traced steps, timings and the kernels line"):
+    rng = np.random.default_rng(1)
+    stream = [(rng.integers(0, cfg.vocab, int(rng.integers(16, 49))).astype(np.int32),
+               int(rng.integers(8, 25))) for _ in range(8)]
+    prefix = rng.integers(0, cfg.vocab, 16).astype(np.int32)
+    shared_reqs = [(np.concatenate([prefix, rng.integers(0, cfg.vocab, int(rng.integers(4, 17)))])
+                    .astype(np.int32), int(rng.integers(8, 17))) for _ in range(8)]
+    paged = {}
+
+    def check_paged_launches(name, tally, counts, multi):
+        """The paged path's launch formulas, from the path's own tally."""
+        n = tally.n
+        per_fwd = 7 * cfg.n_layers
+        want = {"inject_scrub": 0 if multi else 1, "inject_scrub_domains": int(multi),
+                "decode": int(multi), "ecc_matmul": per_fwd * (n["prefill"] + n["decode"]),
+                "encode": n["packs"] + n["commits"],
+                "gather_scrub": n["intervals"] + n["prefix_scrubs"]}
+        require(counts == want, f"{name} launches {counts}, expected {want}")
+        require(n["packs"] == per_fwd + multi, f"{n['packs']} weight packs")
+        require(n["plain_on_card"] == 0, "the plain codec ran on the card")
+        print(f"  {name} launches: {json.dumps(counts)} = 1 voltage step, {per_fwd} fused "
+              f"matmuls x ({n['prefill']} prefill/chunk + {n['decode']} decode forwards), "
+              f"{n['packs']} packs + {n['commits']} commits, {n['intervals']} fault intervals + "
+              f"{n['prefix_scrubs']} prefix-hit admission scrubs")
+        paged[name] = {"launches": counts, "matmuls_per_forward": per_fwd,
+                       "forwards": {"prefill": n["prefill"], "decode": n["decode"]},
+                       "packs": n["packs"], "commits": n["commits"],
+                       "scrubs": n["intervals"] + n["prefix_scrubs"], "voltage_steps": 1}
+
+    def outputs_equal(a, b) -> bool:
+        return sorted(a) == sorted(b) and all(np.array_equal(a[r], b[r]) for r in a)
+
+    with Phase("6 paged SECDED KV serving, full width"):
+        ops.reset_launch_count()
+        with Tally() as tally:
+            t = time.perf_counter()
+            eng = ServingEngine(cfg, params, rel=ReliabilityConfig(mode="inline", voltage=1.0),
+                                max_len=PAGED_MAX_LEN)
+            torch.cuda.synchronize()
+            print(f"  inline single-rail engine built in {time.perf_counter() - t:.2f} s")
+            # a. nominal paged serve against dense generate, same batch
+            dense = eng.generate(prompts, NEW_TOKENS)
+            t = time.perf_counter()
+            rep = eng.serve([(p, NEW_TOKENS) for p in prompts], n_lanes=BATCH)
+            nominal_s = time.perf_counter() - t
+            got = np.stack([rep.outputs[i] for i in range(BATCH)])
+            require(np.array_equal(got, dense), "paged serve differs from dense generate")
+            require(rep.kv_stats.clean == rep.kv_stats.words > 0, f"nominal scrub {rep.kv_stats}")
+            print(f"  nominal: {BATCH} x {PROMPT_LEN}-token prompts, {NEW_TOKENS} new tokens: "
+                  f"equal to dense generate; {rep.steps} steps, {len(rep.kv_voltages)} scrub "
+                  f"intervals in {nominal_s:.2f} s")
+            # b. a mixed stream at a 0.56 V kv rail, arena small enough to preempt
+            t = time.perf_counter()
+            srep = eng.serve(stream, n_lanes=4, kv_voltage=0.56, n_pages=STREAM_PAGES)
+            torch.cuda.synchronize()
+            stream_s = time.perf_counter() - t
+            n_tok = sum(len(v) for v in srep.outputs.values())
+            require(len(srep.outputs) == len(stream), "stream did not finish")
+            require(srep.preemptions >= 1, f"no preemption with {STREAM_PAGES} pages")
+            require(srep.kv_stats.corrected > 0, f"no corrected word at 0.56 V: {srep.kv_stats}")
+            require(all(bool(((v >= 0) & (v < cfg.vocab)).all()) for v in srep.outputs.values()),
+                    "token range")
+            paged["stream"] = {
+                "requests": len(stream), "prompt_lens": [len(p) for p, _ in stream],
+                "new_tokens": [n for _, n in stream], "n_pages": STREAM_PAGES,
+                "wall_s": stream_s, "tokens": n_tok, "tokens_per_s": n_tok / stream_s,
+                "steps": srep.steps, "preemptions": srep.preemptions,
+                "scrub_intervals": len(srep.kv_voltages), "kv_stats": srep.kv_stats.to_dict(),
+            }
+            print(f"  stream of {len(stream)} requests at 0.56 V kv rail, {STREAM_PAGES} pages: "
+                  f"{n_tok} tokens in {stream_s:.2f} s = {n_tok / stream_s:.1f} tokens/s, "
+                  f"{srep.steps} steps, {srep.preemptions} preemptions, "
+                  f"{len(srep.kv_voltages)} scrub intervals, kv {srep.kv_stats.to_dict()}")
+            # c. shared prefixes against private pages
+            priv = eng.serve(shared_reqs, n_lanes=4)
+            shr = eng.serve(shared_reqs, n_lanes=4, share_prefix=True)
+            require(outputs_equal(priv.outputs, shr.outputs), "shared differs from private")
+            require(shr.prefix_hit_tokens > 0, "no prefix hit")
+            require(shr.pages_free_at_end == shr.arena.n_pages, "pages leaked")
+            print(f"  share_prefix: equal to private, {shr.prefix_hit_tokens} prefix-hit tokens, "
+                  f"scrubbed words {shr.kv_stats.words} vs {priv.kv_stats.words} private")
+            # d. speculative decoding with a 2-layer qwen3-width draft
+            dcfg = dataclasses.replace(cfg, n_layers=2)
+            dparams = lm.init_params(dcfg, seed=1, device=dev)
+            reqs = [(p, NEW_TOKENS) for p in prompts]
+            greedy = eng.serve(reqs, n_lanes=BATCH, scrub_interval=4)
+            spec = eng.serve(reqs, n_lanes=BATCH, scrub_interval=4, speculative=4,
+                             draft_params=dparams, draft_cfg=dcfg)
+            require(outputs_equal(greedy.outputs, spec.outputs), "speculative differs from greedy")
+            require(spec.spec_dispatches > 0, "no speculative block ran")
+            print(f"  speculative=4: equal to greedy; {spec.spec_dispatches} verify blocks emitted "
+                  f"{spec.spec_emitted} tokens ({greedy.steps} greedy steps)")
+        check_paged_launches("paged", tally, ops.launch_counts(), multi=False)
+
+        # Where a stream's time goes: one decode step, commit, fault
+        # interval and interval scrub at the stream's shapes.
+        arena = srep.arena
+        geom = arena.geom
+        live = np.arange(min(STREAM_PAGES, 4 * 4), dtype=np.int32)
+        table = np.full((4, 4), arena.scratch_page, np.int32)
+        table.reshape(-1)[: len(live)] = live
+        table_d = torch.as_tensor(table.reshape(-1), device=dev)
+        cache = lm.init_cache(cfg, 4, PAGED_MAX_LEN)
+        tok4 = torch.zeros(4, 1, dtype=torch.int64, device=dev)
+        pos4 = torch.tensor([40, 33, 20, 57], device=dev)
+        payload4 = torch.randn(4, geom.token_f32, device=dev)
+        pages4, slots4 = np.array([0, 3, 6, 9]), np.array([1, 2, 3, 4])
+        arena.set_voltage(0.56)
+        tick_s = []
+
+        def timed_tick():
+            torch.cuda.synchronize()
+            t_ = time.perf_counter()
+            arena.tick()
+            torch.cuda.synchronize()
+            tick_s.append(time.perf_counter() - t_)
+
+        parts = {
+            "decode_step_ms": min(wall_ms(lambda: lm.decode_step(eng.params, tok4, cfg, cache,
+                                                                 pos4)) for _ in range(3)),
+            "commit_ms": min(wall_ms(lambda: arena.commit_tokens(payload4, pages4, slots4))
+                             for _ in range(3)),
+            "tick_ms": min(wall_ms(timed_tick) for _ in range(3)),
+            "interval_scrub_ms": min(wall_ms(lambda: arena.scrub_pages(table)) for _ in range(3)),
+            "interval_scrub_kernel_ms": sync_ms(
+                lambda: ops.gather_scrub_pages(arena.lo, arena.hi, arena.parity, table_d,
+                                               geom.words_per_page), 20),
+            "interval_pages": int(table.size), "arena_words": arena.n_words,
+        }
+        # Traced after every timed part of this engine's path: device time
+        # inside one decode step and one fault interval + scrub.
+        for key, fn in (("decode_step", lambda: lm.decode_step(eng.params, tok4, cfg, cache, pos4)),
+                        ("interval", lambda: (arena.tick(), arena.scrub_pages(table)))):
+            evs = device_events(fn)
+            if evs:
+                busy = busy_us(evs) / 1e3
+                parts[f"{key}_device_busy_ms"] = busy
+                parts[f"{key}_device_events"] = len(evs)
+                wall = parts["decode_step_ms" if key == "decode_step" else "tick_ms"]
+                if key == "interval":
+                    wall += parts["interval_scrub_ms"]
+                parts[f"{key}_device_idle_share"] = 1.0 - busy / wall
+        paged["breakdown"] = parts
+        print(f"  stream breakdown (4 lanes): decode step {parts['decode_step_ms']:.2f} ms, "
+              f"commit {parts['commit_ms']:.3f} ms, fault interval (device masks) "
+              f"{parts['tick_ms']:.2f} ms, interval scrub of {table.size} pages "
+              f"{parts['interval_scrub_ms']:.2f} ms wall (kernel "
+              f"{parts['interval_scrub_kernel_ms']:.3f} ms)")
+        if "decode_step_device_busy_ms" in parts:
+            print(f"  traced: decode step device busy {parts['decode_step_device_busy_ms']:.2f} ms "
+                  f"(idle share {parts['decode_step_device_idle_share']:.3f}); interval device "
+                  f"busy {parts.get('interval_device_busy_ms', 0.0):.2f} ms")
+        else:
+            print("  traced: device time not measured (the profiler traced no device event)")
+        del eng, srep, priv, shr, greedy, spec, dparams, arena, cache
+        torch.cuda.empty_cache()
+
+        # e. the multi-rail engine walks its kv rail on the scrubs' DED counters
+        ops.reset_launch_count()
+        with Tally() as tally:
+            rel = ReliabilityConfig(mode="inline", voltage=1.0,
+                                    rails=RailsConfig(multi_rail=True, start_v=0.62))
+            meng = ServingEngine(cfg, params, rel=rel, max_len=PAGED_MAX_LEN)
+            wrep = meng.serve(stream, n_lanes=4, walk_kv=True)
+        check_paged_launches("paged-multi-rail", tally, ops.launch_counts(), multi=True)
+        kv = meng.controller.rails["kv"]
+        walk = [(r.voltage, r.corrected, r.detected, r.action) for r in kv.history]
+        # the rail's record ends at its lock; the stream's intervals go on
+        require(0 < len(walk) <= len(wrep.kv_voltages), "the kv rail did not walk")
+        paged["walk_kv"] = {"locked": kv.locked, "voltage": kv.voltage, "history": walk,
+                            "power_report": meng.power_report(),
+                            "kv_stats": wrep.kv_stats.to_dict()}
+        print(f"  walk_kv: kv rail {'locked' if kv.locked else 'not locked'} at {kv.voltage:.2f} V "
+              f"after {len(walk)} intervals; walk (V, corrected, detected, action) "
+              f"{json.dumps(walk)}")
+        print(f"  power_report {json.dumps(paged['walk_kv']['power_report'])}")
+        del meng, wrep
+        torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 7
+    with Phase("7 traced steps, timings and the kernels line"):
         for name, run in runs.items():
             run["steps"] = step_breakdown(traced_params.pop(name), {"prefill": 0, "decode": 0},
                                           walls=run["steps"])
@@ -531,13 +861,18 @@ def main() -> int:
                   f"{step['step_s'] - step['host_mask_s']:.3f} s (scrub kernel "
                   f"{kernel['ms']:.3f} ms of it)")
         print(f"  runs {json.dumps(runs)}")
+        print(f"  paged {json.dumps(paged)}")
+        paths = {**runs, **{k: v for k, v in paged.items() if "launches" in v}}
 
         def by_path(kernel, kind=None):
             """A kernel's launches per path; the fused matmul's split by the
-            forward passes of one kind."""
+            forward passes of one kind, the encode's into weight packs and
+            token commits."""
+            if kind in ("packs", "commits"):
+                return {p: r[kind] for p, r in paths.items()}
             return {p: (r["launches"][kernel] if kind is None
                         else r["matmuls_per_forward"] * r["forwards"][kind])
-                    for p, r in runs.items()}
+                    for p, r in paths.items()}
 
         src = "src/repro_torch/kernels/csrc/"
         meta = {
@@ -550,6 +885,11 @@ def main() -> int:
                                   by_path("ecc_matmul", "decode")),
             "ecc_matmul_prefill": ("ecc_matmul.cu", "src/repro/kernels/ecc_matmul.py:98",
                                    by_path("ecc_matmul", "prefill")),
+            "encode": ("secded.cu", "src/repro/kernels/secded.py:76", by_path("encode", "packs")),
+            "encode_commit": ("secded.cu", "src/repro/kernels/secded.py:76",
+                              by_path("encode", "commits")),
+            "gather_scrub": ("paged_gather.cu", "src/repro/kernels/paged_gather.py:108",
+                             by_path("gather_scrub")),
         }
         kernels = []
         for name, (source, replaces, launches) in meta.items():
@@ -566,6 +906,7 @@ def main() -> int:
                 **({"M": r["M"], "per": "one layer's 7 matmuls", "shapes": r["shapes"],
                     "max_rel_err": r["max_rel_err"]} if mm else {"n_words": r["n_words"]}),
             })
+        kernels[[k["name"] for k in kernels].index("encode")]["kv_arena"] = report["encode_kv_arena"]
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -43,3 +43,10 @@ def domain_codecs(overrides=None) -> dict:
     for name in out.values():
         codes.get(name)
     return out
+
+
+def supports_paged_kv(cfg) -> bool:
+    """Whether the paged SECDED KV cache (core/kvpages.py) covers this arch:
+    every mixer full-context attention with a position-indexed cache. The
+    ported family (dense, full causal attention, float cache) always does."""
+    return cfg.family == "dense"

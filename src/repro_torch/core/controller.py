@@ -17,6 +17,16 @@ from repro_torch.core.telemetry import FaultStats
 from repro_torch.core.voltage import PlatformProfile
 
 
+def reader_weighted_stats(weighted: FaultStats, physical: FaultStats) -> FaultStats:
+    """Reader-weighted counters over the physical word population.
+
+    ``weighted`` counts a shared page's events once per reader; ``physical``
+    is the deduplicated scrub truth (each page once). The kv rail is judged
+    on weighted events over physical words, so a DED on a page with N
+    readers counts N times. Without sharing this is the identity."""
+    return FaultStats.from_counters(weighted.counters(), words=physical.words, shard=physical.shard)
+
+
 @dataclasses.dataclass
 class ControllerRecord:
     voltage: float
@@ -115,14 +125,27 @@ class MultiRailController:
         codecs = codecs or {}
         self.domains = tuple(domains)
         assert self.domains, "MultiRailController needs at least one domain"
+        self._platform = platform
+        self._defaults = dict(
+            step_v=step_v, backoff_steps=backoff_steps, paranoid=paranoid,
+            start_v=start_v, escalation=escalation, adaptive=adaptive,
+        )
         self.rails = {
-            d: UndervoltController(
-                profiles.get(d, platform), step_v=step_v, backoff_steps=backoff_steps,
-                paranoid=paranoid, start_v=start_v, escalation=escalation,
-                codec=codecs.get(d), adaptive=adaptive,
-            )
+            d: UndervoltController(profiles.get(d, platform), codec=codecs.get(d), **self._defaults)
             for d in self.domains
         }
+
+    def add_rail(self, domain: str, profile: PlatformProfile | None = None,
+                 codec: str | None = None) -> UndervoltController:
+        """Attach a late-bound rail (the `kv` cache once it exists). Idempotent;
+        the new rail takes the controller's step, backoff and paranoia and
+        starts its own DED-canary walk. Returns the rail's controller."""
+        if domain not in self.rails:
+            self.domains = self.domains + (domain,)
+            self.rails[domain] = UndervoltController(
+                profile or self._platform, codec=codec, **self._defaults
+            )
+        return self.rails[domain]
 
     @property
     def locked(self) -> bool:

@@ -13,6 +13,12 @@ never true; and ``gather_masks`` draws the chunks of many fields on a
 thread pool (numpy's generators and elementwise ops release the GIL), each
 chunk from its own counter-keyed generator, so the order of work does not
 matter.
+
+``interval_masks`` is the paged KV cache's per-interval draw on the arena's
+device: the same model (lognormal row weakness, per-bit Bernoulli) from a
+``torch.Generator``. The reference draws it with JAX's threefry, which no
+torch generator reproduces, so that stream is equal to the reference's in
+distribution only; parity tests hand both packages the same numpy masks.
 """
 
 from __future__ import annotations
@@ -22,12 +28,15 @@ import dataclasses
 import os
 
 import numpy as np
+import torch
 
+from repro_torch.codes.base import narrow
 from repro_torch.core.voltage import PlatformProfile
 
 P_MAX = 0.5  # per-bit fault probability ceiling
 N_DATA_BITS = 64
 N_CHECK_DEFAULT = 8  # SECDED(72,64)
+KV_CHUNK_WORDS = 1 << 18  # words per draw of interval_masks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,3 +164,38 @@ def gather_masks(requests, workers: int | None = None) -> list:
     for field, v, mk in drawn:
         field._last = (v, mk)
     return out
+
+
+def interval_masks(seed: int, interval: int, n_words: int, rate: float, row_sigma: float,
+                   n_check: int = N_CHECK_DEFAULT, device=None):
+    """One fault interval's (lo int32, hi int32, check uint8) flip masks for
+    ``n_words`` words, drawn on ``device`` by a ``torch.Generator`` seeded
+    from (seed ^ 0xCACE, interval), in chunks of ``KV_CHUNK_WORDS``.
+
+    Per chunk: a lognormal row factor f = exp(sigma z - sigma^2 / 2) (mean
+    1), the word's per-bit probability p = clip(rate f, 0, P_MAX) in
+    float32, and bit b of the word flips iff its uniform 32-bit draw is below
+    floor(p 2^32), for 64 + n_check bitplanes."""
+    dev = torch.device(device) if device is not None else torch.device("cpu")
+    key = (((int(seed) ^ 0xCACE) << 32) | (int(interval) & 0xFFFFFFFF)) & ((1 << 63) - 1)
+    gen = torch.Generator(device=dev).manual_seed(key)
+    nb = N_DATA_BITS + n_check
+    weights = torch.bitwise_left_shift(
+        torch.ones(32, dtype=torch.int64, device=dev), torch.arange(32, device=dev)
+    )[:, None]
+    los, his, pars = [], [], []
+    for start in range(0, n_words, KV_CHUNK_WORDS):
+        m = min(KV_CHUNK_WORDS, n_words - start)
+        z = torch.randn(m, generator=gen, device=dev, dtype=torch.float32)
+        f_row = torch.exp(row_sigma * z - 0.5 * row_sigma * row_sigma)
+        p_word = torch.clamp(float(rate) * f_row, 0.0, P_MAX)
+        thresh = (p_word * 4294967296.0).to(torch.int64)
+        bits = torch.randint(0, 1 << 32, (nb, m), generator=gen, device=dev, dtype=torch.int64)
+        faulty = (bits < thresh[None, :]).to(torch.int64)
+        los.append(narrow((faulty[:32] * weights).sum(dim=0)))
+        his.append(narrow((faulty[32:64] * weights).sum(dim=0)))
+        pars.append((faulty[64:] * weights[:n_check]).sum(dim=0).to(torch.uint8))
+    if not los:
+        z32 = torch.zeros(0, dtype=torch.int32, device=dev)
+        return z32, z32.clone(), torch.zeros(0, dtype=torch.uint8, device=dev)
+    return torch.cat(los), torch.cat(his), torch.cat(pars)

@@ -26,6 +26,7 @@ from repro_torch.core.faultsim import FaultField, gather_masks
 from repro_torch.core.telemetry import DomainFaultStats, FaultStats
 from repro_torch.core.voltage import PlatformProfile
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.backend import resolve_device
 
 
 def leaf_seed(base_seed: int, key: str) -> int:
@@ -93,9 +94,9 @@ class PlaneStore:
         ]
         self.slots = tuple(slots)
         self.n_words = off
-        if device is None:
-            device = los[0].device if los else torch.device("cpu")
-        self.device = torch.device(device)
+        # device=None follows the leaves; with none it is the card, as for
+        # every entry point.
+        self.device = resolve_device(los[0].device if device is None and los else device)
         if los:
             self.lo = torch.cat(los).to(self.device)
             self.hi = torch.cat(his).to(self.device)
@@ -122,6 +123,8 @@ class PlaneStore:
                 f"codecs {unported}: only {DEFAULT_CODEC} is ported"
             )
         self.codec = codes.get(DEFAULT_CODEC)
+        self._external_words: dict = {}
+        self._external_codecs: dict = {}
         self._host_fields = {
             s.key: FaultField(
                 self.domain_profile(s.domain), s.size, seed=leaf_seed(self.seed, s.key)
@@ -134,7 +137,9 @@ class PlaneStore:
         return self._codecs.get(domain, DEFAULT_CODEC)
 
     def codecs_by_domain(self) -> dict:
-        return {d: self.codec_of(d) for d in self.domains}
+        out = {d: self.codec_of(d) for d in self.domains}
+        out.update(self._external_codecs)
+        return out
 
     def check_bits_by_domain(self) -> dict:
         """Check bits per 64-bit word for every domain (power weighting)."""
@@ -143,10 +148,21 @@ class PlaneStore:
     def domain_profile(self, domain: str) -> PlatformProfile:
         return self._profiles.get(domain, self.platform)
 
+    def register_domain_words(self, domain: str, words: int, codec: str = DEFAULT_CODEC) -> None:
+        """Account storage that lives outside the arena (the paged KV cache)
+        under a named domain: it joins ``words_by_domain`` (power weighting)
+        but not the arena's counter rows."""
+        self._external_words[str(domain)] = int(words)
+        self._external_codecs[str(domain)] = str(codec)
+
     def words_by_domain(self) -> dict:
+        """Word count per domain: arena slots plus registered external
+        domains."""
         counts = dict.fromkeys(self.domains, 0)
         for s in self.slots:
             counts[s.domain] += s.size
+        for d, w in self._external_words.items():
+            counts[d] = counts.get(d, 0) + w
         return counts
 
     # -- masks ---------------------------------------------------------------

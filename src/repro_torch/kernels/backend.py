@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("inject_scrub", "secded", "ecc_matmul")
+SOURCES = ("inject_scrub", "secded", "ecc_matmul", "paged_gather")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,6 +57,16 @@ def dispatch(*tensors: torch.Tensor) -> str:
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"no kernel or plain version for device type {kind!r}")
     return kind
+
+
+def to_device(a, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``. A copy to the card goes through pinned
+    memory without blocking, so it does not wait for the queued device
+    work (a plain copy from pageable memory synchronises the stream)."""
+    t = torch.as_tensor(a)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def nvcc_path() -> str:

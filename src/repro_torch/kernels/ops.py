@@ -1,9 +1,9 @@
 """Public kernel entry points: dispatch on the tensors' device.
 
 CPU tensors take the plain version (kernels/ref.py); CUDA tensors launch the
-hand-written kernel (kernels/inject_scrub.py, secded.py, ecc_matmul.py) or
-raise. Planes of any shape are flattened; the kernels need no padded layout,
-so no pad correction of the clean counter arises.
+hand-written kernel (kernels/inject_scrub.py, secded.py, ecc_matmul.py,
+paged_gather.py) or raise. Planes of any shape are flattened; the kernels
+need no padded layout, so no pad correction of the clean counter arises.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from repro_torch import codes
 from repro_torch.kernels import backend
 from repro_torch.kernels import ecc_matmul as _mm
 from repro_torch.kernels import inject_scrub as _isc
+from repro_torch.kernels import paged_gather as _pg
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import secded as _secded
 
@@ -24,6 +25,8 @@ KERNELS = {
     "inject_scrub_domains": _isc.INJECT_SCRUB_DOMAINS,
     "decode": _secded.DECODE,
     "ecc_matmul": _mm.ECC_MATMUL,
+    "encode": _secded.ENCODE,
+    "gather_scrub": _pg.GATHER_SCRUB,
 }
 
 
@@ -40,6 +43,38 @@ def launch_counts() -> dict:
 
 def _flat(*planes):
     return [p.reshape(-1) for p in planes]
+
+
+def encode(lo, hi, *, codec: str = codes.DEFAULT_CODEC):
+    """ECC check plane (uint8) for word planes of any shape."""
+    flo, fhi = _flat(lo, hi)
+    if backend.dispatch(flo, fhi) == "cpu":
+        out = _ref.encode_ref(flo, fhi, codec)
+    else:
+        out = _secded.encode(flo, fhi, codec=codes.get(codec))
+    return out.reshape(lo.shape)
+
+
+def encode_commit(payload, row_base, row_words: int, lo, hi, check, *,
+                  codec: str = codes.DEFAULT_CODEC) -> None:
+    """Encode float32 payload rows (R, 2 * row_words) and scatter word j of
+    row r to index ``row_base[r] + j`` of the flat planes lo/hi/check, in
+    place (one launch on the card: split, encode and scatter)."""
+    if backend.dispatch(payload, row_base, lo, hi, check) == "cpu":
+        _ref.encode_commit_ref(payload, row_base, row_words, lo, hi, check, codec)
+    else:
+        _secded.encode_commit(payload, row_base, row_words, lo, hi, check,
+                              codec=codes.get(codec))
+
+
+def gather_scrub_pages(lo, hi, parity, page_ids, words_per_page: int, *,
+                       codec: str = codes.DEFAULT_CODEC):
+    """Scrub-on-read of the pages ``page_ids`` of flat arena planes, written
+    back in place: (payload (P, 2 * words_per_page) float32, counters (P, 8)
+    int32 with lanes 0..2 = clean, corrected, detected)."""
+    if backend.dispatch(lo, hi, parity, page_ids) == "cpu":
+        return _ref.gather_scrub_ref(lo, hi, parity, page_ids, words_per_page, codec)
+    return _pg.gather_scrub(lo, hi, parity, page_ids, words_per_page, codec=codes.get(codec))
 
 
 def decode(lo, hi, parity, *, codec: str = codes.DEFAULT_CODEC):
@@ -102,13 +137,15 @@ class EccWeight:
 
 def pack_ecc_weights(w: torch.Tensor, axis_scale: int | None = 1) -> EccWeight:
     """Quantize a float (K, N) weight to int8 and SECDED-encode it, on the
-    weight's device."""
+    weight's device: the bytes are packed into words by plain tensor code,
+    the check plane comes from ``encode`` (the kernel on the card)."""
     from repro_torch.core import quantize as q
 
     k, n = w.shape
     assert k % 8 == 0, f"K={k} must be a multiple of 8 (64-bit codewords)"
     qw, scale = q.quantize(w, axis=axis_scale)
-    lo, hi, parity = _ref.pack_ecc_weights_ref(qw)
+    lo, hi = _ref.pack_words(qw)
+    parity = encode(lo, hi)
     return EccWeight(lo, hi, parity, scale.reshape(-1) if axis_scale is not None else scale, k, n)
 
 

@@ -3,6 +3,16 @@
 Attention stays plain PyTorch, as the reference computes it outside its
 kernels. Protected weights (``EccWeight``) go through the fused ECC read
 path ``ops.ecc_matmul``.
+
+Every sum over a feature or cache axis (the norms, the attention products,
+the softmax denominator) is a pairwise tree of elementwise adds
+(``tree_sum``), so a row's result depends on that row alone and never on
+how many rows the call holds: PyTorch's reductions and cuBLAS choose their
+split of a sum by the tensor's shape. With one attention path for prefill,
+chunks and decode (``chunk_attention`` over the cache), a token's logits are
+then the same floats whether it is decoded alone, in a batch, in a chunk, or
+in a prefill, which paged serving with shared prefixes and speculative
+verification rely on for exact greedy tokens.
 """
 
 from __future__ import annotations
@@ -24,10 +34,26 @@ def _linear(x, w):
     return torch.einsum("...d,df->...f", x, w)
 
 
+def tree_sum(x, dim: int = -1):
+    """Sum over ``dim`` by pairwise halving with elementwise adds (an odd
+    tail element is carried to the next level). The order of the adds
+    depends only on the length of ``dim``."""
+    dim = dim % x.ndim
+    n = x.shape[dim]
+    while n > 1:
+        h = n // 2
+        y = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
+        if n % 2:
+            y = torch.cat([y, x.narrow(dim, 2 * h, 1)], dim=dim)
+        x, n = y, y.shape[dim]
+    return x.squeeze(dim)
+
+
 def rms_norm(x, gamma, eps=1e-6):
     dt = x.dtype
     x32 = x.to(torch.float32)
-    inv = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    ms = tree_sum(x32 * x32, -1)[..., None] / x32.shape[-1]
+    inv = torch.rsqrt(ms + eps)
     return (x32 * inv).to(dt) * gamma
 
 
@@ -50,41 +76,43 @@ def apply_rope(x, positions, theta):
     return out.to(x.dtype)
 
 
-def _repeat_kv(k, n_rep):
-    if n_rep == 1:
-        return k
-    b, s, h, d = k.shape
-    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(b, s, h * n_rep, d)
+def softmax(s):
+    """Softmax over the last axis with a tree-summed denominator."""
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return e / tree_sum(e, -1)[..., None]
 
 
-def full_attention(q, k, v):
-    """Causal attention; q: (B, Sq, H, Dh), k/v: (B, Skv, Hkv, Dh)."""
+def chunk_attention(q, k_cache, v_cache, pos0):
+    """Multi-token attention against a KV cache: the one attention path of
+    prefill (``pos0`` = 0), chunked prefill, speculative verification and
+    decode (one token).
+
+    q: (B, Sq, H, Dh), Sq new tokens whose K/V are already in the cache;
+    caches (B, S_max, Hkv, Dh); pos0: (B,) cache position of each lane's
+    first new token. Token i attends cache positions <= pos0 + i. Products
+    are formed in float32 (exact for bf16 inputs) and tree-summed; scores
+    and outputs are rounded to q's dtype where the reference's einsums
+    round."""
     b, sq, h, dh = q.shape
-    skv = k.shape[1]
-    k = _repeat_kv(k, h // k.shape[2])
-    v = _repeat_kv(v, h // v.shape[2])
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) / math.sqrt(dh)
-    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
-    kpos = torch.arange(skv, device=q.device)[None, :]
-    scores = torch.where((kpos <= qpos)[None, None], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    smax, hkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, dh).permute(0, 2, 3, 1, 4)  # (B, Hkv, R, Sq, Dh)
+    kt = k_cache.permute(0, 2, 1, 3)[:, :, None, None]  # (B, Hkv, 1, 1, S, Dh)
+    s = tree_sum(qg[..., None, :].to(torch.float32) * kt.to(torch.float32), -1)
+    s = s.to(q.dtype).to(torch.float32) / math.sqrt(dh)  # (B, Hkv, R, Sq, S)
+    qpos = pos0.reshape(b, 1)[:, :, None] + torch.arange(sq, device=q.device)[None, :, None]
+    kpos = torch.arange(smax, device=q.device)[None, None, :]
+    valid = (kpos <= qpos)[:, None, None]  # (B, 1, 1, Sq, S)
+    p = softmax(torch.where(valid, s, NEG_INF)).to(q.dtype)
+    vt = v_cache.permute(0, 2, 1, 3)[:, :, None, None]  # (B, Hkv, 1, 1, S, Dh)
+    out = tree_sum(p[..., None].to(torch.float32) * vt.to(torch.float32), -2).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
 
 
 def decode_attention(q, k_cache, v_cache, cur_len):
-    """One-token attention against a KV cache.
-
-    q: (B, 1, H, Dh); caches (B, S_max, Hkv, Dh); ``cur_len`` valid entries
-    (including the token being decoded)."""
-    b, _, h, dh = q.shape
-    smax, hkv = k_cache.shape[1], k_cache.shape[2]
-    qg = q.reshape(b, 1, hkv, h // hkv, dh)
-    s = torch.einsum("bqhrd,bkhd->bhrqk", qg, k_cache).to(torch.float32) / math.sqrt(dh)
-    kpos = torch.arange(smax, device=q.device)
-    s = torch.where(kpos < cur_len, s, NEG_INF)
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    out = torch.einsum("bhrqk,bkhd->bqhrd", p, v_cache)
-    return out.reshape(b, 1, h, dh)
+    """One-token attention against a KV cache: q (B, 1, H, Dh), caches
+    (B, S_max, Hkv, Dh), ``cur_len`` (B,) valid entries per lane (including
+    the token being decoded); ``chunk_attention`` with one token."""
+    return chunk_attention(q, k_cache, v_cache, cur_len - 1)
 
 
 def qkv_proj(x, p, cfg):

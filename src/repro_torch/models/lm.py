@@ -1,8 +1,16 @@
-"""Dense decoder LM: parameter construction, prefill and greedy decode.
+"""Dense decoder LM: parameter construction, prefill, chunked prefill and
+greedy decode.
 
 The layer stack is a Python loop over the stacked ``n_groups`` axis (the
 reference's ``lax.scan``); protected matrices are ``EccWeight`` leaves whose
-layer ``g`` is sliced per step. The decode cache is updated in place.
+layer ``g`` is sliced per step. The cache is updated in place.
+
+Every forward is one path: the new tokens of lane b sit at cache positions
+pos0[b], pos0[b] + 1, ...; their K/V are written into the cache and they
+attend the cache (``layers.chunk_attention``). A prefill is a chunk at
+position 0, a decode step a chunk of one token, and a scalar position a
+vector of equal positions. Logits are computed one row at a time, so a row's
+logits do not depend on how many rows the call holds (see models/layers.py).
 """
 
 from __future__ import annotations
@@ -92,30 +100,21 @@ def _layer(tree, g: int):
     return tree[g]
 
 
-def _attn_block(x, p, cfg, *, mode, cache, g, pos):
+def _attn_block(x, p, cfg, *, cache, g, pos0):
     b, s, _ = x.shape
     h = layers.rms_norm(x, p["ln1"]["gamma"])
     q, k, v = layers.qkv_proj(h, p["attn"], cfg)
-    if mode == "decode":
-        positions = torch.full((b, 1), pos, device=x.device)
-    else:
-        positions = torch.arange(s, device=x.device)[None, :]
+    positions = pos0[:, None] + torch.arange(s, device=x.device)[None, :]
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
-    if mode == "decode":
-        ck, cv = cache["k"][g], cache["v"][g]
-        smax = ck.shape[1]
-        slot = min(pos, smax - 1)
-        ck[:, slot] = k[:, 0].to(ck.dtype)
-        cv[:, slot] = v[:, 0].to(cv.dtype)
-        out = layers.decode_attention(q, ck, cv, pos + 1)
-    else:
-        ck, cv = cache["k"][g], cache["v"][g]
-        smax = ck.shape[1]
-        ks, vs = k[:, -smax:], v[:, -smax:]
-        ck[:, : ks.shape[1]] = ks.to(ck.dtype)
-        cv[:, : vs.shape[1]] = vs.to(cv.dtype)
-        out = layers.full_attention(q, k, v)
+    ck, cv = cache["k"][g], cache["v"][g]
+    # As the reference's cache writes, a chunk running past the cache's end
+    # lands on its last rows.
+    rows = torch.clamp(pos0, max=ck.shape[1] - s)[:, None] + torch.arange(s, device=x.device)
+    lanes = torch.arange(b, device=x.device)[:, None]
+    ck[lanes, rows] = k.to(ck.dtype)
+    cv[lanes, rows] = v.to(cv.dtype)
+    out = layers.chunk_attention(q, ck, cv, pos0)
     x = x + layers.out_proj(out, p["attn"])
     h2 = layers.rms_norm(x, p["ln2"]["gamma"])
     return x + layers.mlp(h2, p["mlp"])
@@ -129,35 +128,69 @@ def _unembed_matrix(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def forward(params, tokens, cfg: ModelConfig, cache, *, pos: int = 0, mode="prefill"):
-    """Backbone: (B, S) tokens -> final-norm hidden (B, S, D); ``prefill``
-    (S prompt tokens) and ``decode`` (one token at ``pos``) write the cache
-    in place."""
+def _positions(pos, b: int, device) -> torch.Tensor:
+    """A scalar or (B,) position as a (B,) int64 vector on ``device``."""
+    if isinstance(pos, torch.Tensor):
+        if pos.ndim:
+            return pos.to(device=device, dtype=torch.int64)
+        pos = int(pos)
+    if isinstance(pos, int):
+        return torch.full((b,), pos, dtype=torch.int64, device=device)
+    return torch.as_tensor(pos, dtype=torch.int64).reshape(b).to(device)
+
+
+def forward(params, tokens, cfg: ModelConfig, cache, pos0):
+    """Backbone: (B, S) tokens at cache positions pos0 .. pos0 + S - 1 (pos0
+    a scalar or (B,)) -> final-norm hidden (B, S, D); writes their K/V into
+    the cache in place."""
     _check_dense(cfg)
+    pos0 = _positions(pos0, tokens.shape[0], tokens.device)
     x = _embed(params, tokens, cfg)
     blocks = params["blocks"]["p0"]
     for g in range(cfg.n_groups):
-        x = _attn_block(x, _layer(blocks, g), cfg, mode=mode, cache=cache["p0"], g=g, pos=pos)
+        x = _attn_block(x, _layer(blocks, g), cfg, cache=cache["p0"], g=g, pos0=pos0)
     return layers.rms_norm(x, params["final_norm"]["gamma"])
 
 
 def _logits(params, hidden, cfg):
-    un = _unembed_matrix(params, cfg)
-    return hidden.to(torch.float32) @ un.to(torch.float32)
+    """(..., D) hidden -> (..., V) float32 logits, one row per product."""
+    un = _unembed_matrix(params, cfg).to(torch.float32)
+    h2 = hidden.reshape(-1, hidden.shape[-1]).to(torch.float32)
+    rows = [h2[i : i + 1] @ un for i in range(h2.shape[0])]
+    return torch.cat(rows).reshape(*hidden.shape[:-1], un.shape[1])
 
 
 @torch.no_grad()
 def prefill(params, tokens, cfg: ModelConfig, cache):
     """Process a prompt, fill the cache. Returns (last-token logits, cache)."""
-    hidden = forward(params, tokens, cfg, cache, mode="prefill")
+    hidden = forward(params, tokens, cfg, cache, 0)
     return _logits(params, hidden[:, -1], cfg), cache
 
 
 @torch.no_grad()
-def decode_step(params, tokens, cfg: ModelConfig, cache, pos: int):
-    """One decode step of (B, 1) tokens at 0-based position ``pos``."""
-    hidden = forward(params, tokens, cfg, cache, pos=int(pos), mode="decode")
+def decode_step(params, tokens, cfg: ModelConfig, cache, pos):
+    """One decode step of (B, 1) tokens at 0-based position ``pos``: a
+    scalar, or a (B,) vector giving every lane its own position (continuous
+    batching)."""
+    hidden = forward(params, tokens, cfg, cache, pos)
     return _logits(params, hidden[:, -1], cfg), cache
+
+
+@torch.no_grad()
+def chunk_step(params, tokens, cfg: ModelConfig, cache, pos0):
+    """Chunked prefill: process ``tokens`` (B, S) whose cache positions start
+    at per-lane ``pos0`` ((B,) or scalar), writing their K/V into the cache.
+    Returns (last-token logits (B, V), cache)."""
+    hidden = forward(params, tokens, cfg, cache, pos0)
+    return _logits(params, hidden[:, -1], cfg), cache
+
+
+@torch.no_grad()
+def chunk_logits(params, tokens, cfg: ModelConfig, cache, pos0):
+    """Like ``chunk_step`` but returning the full (B, S, V) logits (the
+    speculative verify block)."""
+    hidden = forward(params, tokens, cfg, cache, pos0)
+    return _logits(params, hidden, cfg), cache
 
 
 @torch.no_grad()
@@ -165,8 +198,9 @@ def greedy_decode_loop(params, tok0, cfg: ModelConfig, cache, start_pos: int, n_
     """Greedy-decode ``n_steps`` tokens after ``tok0`` (B, 1).
     Returns (tokens (B, n_steps) int64, cache)."""
     tok, out = tok0, []
+    pos = _positions(start_pos, tok0.shape[0], tok0.device)
     for i in range(n_steps):
-        logits, cache = decode_step(params, tok, cfg, cache, start_pos + i)
+        logits, cache = decode_step(params, tok, cfg, cache, pos + i)
         tok = torch.argmax(logits, dim=-1)[:, None]
         out.append(tok)
     if not out:

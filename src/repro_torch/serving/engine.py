@@ -8,6 +8,10 @@ forward pass reads the faulty planes through the fused decode + dequant +
 matmul kernel. The embedding, read by gather rather than matmul, is decoded
 into a float table whenever its rail moves. Power comes from the calibrated
 Table-I model.
+
+``serve`` drives a stream of variable-length requests through continuous
+batching over a paged KV cache held in SECDED pages on the `kv` voltage
+domain (core/kvpages.py, serving/scheduler.py).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 from repro_torch.configs import shapes
 from repro_torch.core import voltage as vmod
 from repro_torch.core.controller import MultiRailController, UndervoltController
+from repro_torch.core.kvpages import PAGE_TOKENS, KVGeometry, KVPageArena
 from repro_torch.core.planestore import PlaneStore
 from repro_torch.core.telemetry import DomainFaultStats, FaultStats
 from repro_torch.kernels import ops as kops
@@ -28,6 +33,8 @@ from repro_torch.kernels import ref as kref
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import base, lm
 from repro_torch.models.base import ModelConfig
+from repro_torch.serving import scheduler as sched
+from repro_torch.serving import steps as serve_steps
 
 
 class ReliabilityConfigError(ValueError, AssertionError):
@@ -212,6 +219,8 @@ class ServingEngine:
         self.rail_stats = DomainFaultStats()
         self.stats = FaultStats()
         self._last_scrub = None
+        self.kv_arena = None
+        self._paged_helper_cache: dict = {}
         if rel is None:
             self.params = params
             return
@@ -303,6 +312,111 @@ class ServingEngine:
         tok = torch.argmax(logits, dim=-1)[:, None]
         rest, _ = lm.greedy_decode_loop(p, tok, self.cfg, cache, s0, n_tokens - 1)
         return torch.cat([tok, rest], dim=1).cpu().numpy().astype(np.int32)
+
+    # -- continuous batching over the paged SECDED KV cache ---------------------
+    @torch.no_grad()
+    def serve(
+        self,
+        requests,
+        *,
+        n_lanes: int = 4,
+        page_tokens: int = PAGE_TOKENS,
+        n_pages: int | None = None,
+        scrub_interval: int = 1,
+        max_block: int = 16,
+        kv_voltage: float | None = None,
+        walk_kv: bool = False,
+        share_prefix: bool = False,
+        speculative: int = 0,
+        draft_params=None,
+        draft_cfg: ModelConfig | None = None,
+        scrub_overlap: bool | None = None,
+    ) -> sched.ServeReport:
+        """Serve a stream of variable-length requests.
+
+        ``requests``: (prompt (s0,) int, max_new_tokens) pairs or
+        ``scheduler.Request`` objects. The KV cache lives in SECDED pages on
+        the `kv` voltage domain and every read scrubs; at nominal voltage the
+        tokens equal ``generate``'s on the same batch composition.
+        ``share_prefix`` shares full-page prompt prefixes between requests;
+        ``speculative=K`` (K >= 2, with ``draft_params``/``draft_cfg``)
+        verifies K-1 drafted tokens per block; ``walk_kv`` (multi-rail
+        engines) attaches a `kv` rail to the controller and walks it on the
+        interval scrubs' DED counters; ``scrub_overlap`` (None: on) defers
+        each interval's counter harvest to the next interval. The cache
+        arena stays on ``self.kv_arena``; its counters join ``stats`` and
+        ``rail_stats`` and its words the power accounting."""
+        assert shapes.supports_paged_kv(self.cfg), (
+            f"{self.cfg.name}: paged KV unsupported (see shapes.supports_paged_kv)"
+        )
+        if int(speculative) >= 2:
+            assert draft_params is not None and draft_cfg is not None, (
+                "speculative decode needs draft_params + draft_cfg"
+            )
+        else:
+            draft_params = draft_cfg = None
+        profile = self.platform or vmod.PLATFORMS["vc707"]
+        if self.rel is not None and self.rel.rails.multi_rail:
+            profile = self._store.domain_profile("kv")
+        geom = KVGeometry.from_config(self.cfg, page_tokens)
+        if n_pages is None:
+            n_pages = n_lanes * geom.pages_for(self.max_len)
+        kv_codec = (
+            shapes.domain_codecs(self.rel.protection.codecs)["kv"]
+            if self.rel is not None
+            else shapes.DEFAULT_CODEC
+        )
+        arena = KVPageArena(
+            geom, profile, n_pages,
+            seed=self.rel.seed if self.rel else 0,
+            ecc=self.rel.ecc if self.rel else True,
+            codec=kv_codec,
+            device=self.device,
+        )
+        if kv_voltage is None:
+            if self.rails is not None and "kv" in self.rails:
+                kv_voltage = self.rails["kv"]
+            elif self.rel is not None:
+                kv_voltage = self.voltage
+            else:
+                kv_voltage = profile.v_nom
+        arena.set_voltage(float(kv_voltage))
+        kv_controller = None
+        if walk_kv:
+            assert self.rel is not None and self.rel.rails.multi_rail, (
+                "walk_kv needs a multi-rail engine"
+            )
+            kv_controller = self.controller.add_rail("kv", profile, codec=kv_codec)
+            # The controller is the source of truth for the walked rail: the
+            # first interval injects at the voltage its canary judges.
+            arena.set_voltage(kv_controller.voltage)
+        helpers = self._paged_helpers(geom, kv_codec, draft_cfg=draft_cfg)
+        report = sched.serve_stream(
+            self.params, self.cfg, helpers, arena, requests,
+            n_lanes=n_lanes, max_len=self.max_len, scrub_interval=scrub_interval,
+            max_block=max_block, kv_controller=kv_controller,
+            init_cache_fn=lambda b: lm.init_cache(self.cfg, b, self.max_len, device=self.device),
+            share_prefix=share_prefix, speculative=speculative,
+            draft_params=draft_params, draft_cfg=draft_cfg, scrub_overlap=scrub_overlap,
+        )
+        # The kv domain now has real words (power weighting) and counters.
+        self.stats.accumulate(report.kv_stats)
+        self.rail_stats.accumulate(DomainFaultStats({"kv": report.kv_stats}))
+        if self.rel is not None:
+            self._store.register_domain_words("kv", arena.n_words, codec=arena.codec_name)
+        if self.rails is not None:
+            self.rails["kv"] = arena.voltage
+        self.kv_arena = arena
+        return report
+
+    def _paged_helpers(self, geom: KVGeometry, codec: str = shapes.DEFAULT_CODEC,
+                       draft_cfg: ModelConfig | None = None) -> serve_steps.PagedHelpers:
+        key = (geom, codec, draft_cfg)
+        if key not in self._paged_helper_cache:
+            self._paged_helper_cache[key] = serve_steps.make_paged_helpers(
+                self.cfg, geom, codec, draft_cfg=draft_cfg
+            )
+        return self._paged_helper_cache[key]
 
     # -- runtime undervolting loop ---------------------------------------------
     def autotune_voltage(self, max_rounds: int = 60):

@@ -81,3 +81,42 @@ def test_ecc_matmul_kernel_within_tolerance(cuda, m, k, n):
     plain = ref.ecc_matmul_ref(x, w.lo, w.hi, w.parity, w.scale)
     torch.cuda.synchronize()
     assert float((out - plain).abs().max()) <= MATMUL_RTOL * float(plain.abs().max())
+
+
+@pytest.mark.gpu
+def test_encode_kernel_bit_identical(cuda):
+    lo, hi = _planes(100_003, 0.0, cuda)[:2]
+    assert torch.equal(ops.encode(lo, hi), ref.encode_ref(lo, hi))
+    w = ops.pack_ecc_weights(torch.randn(1024, 192, device=cuda))
+    assert torch.equal(w.parity, ref.encode_ref(w.lo, w.hi))
+
+
+@pytest.mark.gpu
+def test_encode_commit_kernel_bit_identical(cuda):
+    wpp, tw = 4096, 512
+    lo, hi, chk = _planes(9 * wpp, 0.0, cuda)[:3]
+    payload = torch.randn(16, 2 * tw, device=cuda)
+    base = torch.tensor([(i * 5 % 9) * wpp + (i % 8) * tw for i in range(16)], device=cuda)
+    k, p = [lo.clone(), hi.clone(), chk.clone()], [lo.clone(), hi.clone(), chk.clone()]
+    ops.encode_commit(payload, base, tw, *k)
+    ref.encode_commit_ref(payload, base, tw, *p)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+
+
+@pytest.mark.gpu
+def test_gather_scrub_kernel_bit_identical_with_duplicate_ids(cuda):
+    """Duplicate ids, among them a row with faults, read the words as they
+    were before the launch: a corrected word counts as corrected in every
+    copy."""
+    wpp = 8192
+    lo, hi, chk, mlo, mhi, mchk = _planes(17 * wpp, 0.002, cuda)
+    planes = [lo ^ mlo, hi ^ mhi, chk ^ mchk]
+    ids = torch.tensor([3, 16, 3, 16, 16, 0, 7, 3, 9, 9], dtype=torch.int32, device=cuda)
+    k_planes = [t.clone() for t in planes]
+    k = ops.gather_scrub_pages(*k_planes, ids, wpp)
+    p = ref.gather_scrub_ref(*planes, ids, wpp)
+    torch.cuda.synchronize()
+    assert torch.equal(k[0].view(torch.int32), p[0].view(torch.int32))
+    assert torch.equal(k[1], p[1])
+    assert int(k[1][:, 1].min()) > 0  # every row, duplicates too, saw corrections
+    assert all(torch.equal(a, b) for a, b in zip(k_planes, planes))

@@ -26,7 +26,9 @@ def _port_modules() -> list:
 def test_port_modules_are_listed():
     mods = _port_modules()
     for m in ("repro_torch.kernels.ops", "repro_torch.serving.engine",
-              "repro_torch.core.planestore", "repro_torch.models.lm"):
+              "repro_torch.core.planestore", "repro_torch.models.lm",
+              "repro_torch.kernels.paged_gather", "repro_torch.core.kvpages",
+              "repro_torch.serving.steps", "repro_torch.serving.scheduler"):
         assert m in mods
 
 
