@@ -762,6 +762,7 @@ def main() -> int:
         cache = lm.init_cache(cfg, 4, PAGED_MAX_LEN)
         tok4 = torch.zeros(4, 1, dtype=torch.int64, device=dev)
         pos4 = torch.tensor([40, 33, 20, 57], device=dev)
+        kv4 = 57 + 1  # the scheduler's host bound on the keys a step reads
         payload4 = torch.randn(4, geom.token_f32, device=dev)
         pages4, slots4 = np.array([0, 3, 6, 9]), np.array([1, 2, 3, 4])
         arena.set_voltage(0.56)
@@ -776,7 +777,7 @@ def main() -> int:
 
         parts = {
             "decode_step_ms": min(wall_ms(lambda: lm.decode_step(eng.params, tok4, cfg, cache,
-                                                                 pos4)) for _ in range(3)),
+                                                                 pos4, kv4)) for _ in range(3)),
             "commit_ms": min(wall_ms(lambda: arena.commit_tokens(payload4, pages4, slots4))
                              for _ in range(3)),
             "tick_ms": min(wall_ms(timed_tick) for _ in range(3)),
@@ -788,7 +789,7 @@ def main() -> int:
         }
         # Traced after every timed part of this engine's path: device time
         # inside one decode step and one fault interval + scrub.
-        for key, fn in (("decode_step", lambda: lm.decode_step(eng.params, tok4, cfg, cache, pos4)),
+        for key, fn in (("decode_step", lambda: lm.decode_step(eng.params, tok4, cfg, cache, pos4, kv4)),
                         ("interval", lambda: (arena.tick(), arena.scrub_pages(table)))):
             evs = device_events(fn)
             if evs:

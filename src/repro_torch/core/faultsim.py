@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.codes.base import narrow
 from repro_torch.core.voltage import PlatformProfile
+from repro_torch.kernels.backend import resolve_device
 
 P_MAX = 0.5  # per-bit fault probability ceiling
 N_DATA_BITS = 64
@@ -175,8 +176,8 @@ def interval_masks(seed: int, interval: int, n_words: int, rate: float, row_sigm
     Per chunk: a lognormal row factor f = exp(sigma z - sigma^2 / 2) (mean
     1), the word's per-bit probability p = clip(rate f, 0, P_MAX) in
     float32, and bit b of the word flips iff its uniform 32-bit draw is below
-    floor(p 2^32), for 64 + n_check bitplanes."""
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    floor(p 2^32), for 64 + n_check bitplanes. ``device`` None is the card."""
+    dev = resolve_device(device)
     key = (((int(seed) ^ 0xCACE) << 32) | (int(interval) & 0xFFFFFFFF)) & ((1 << 63) - 1)
     gen = torch.Generator(device=dev).manual_seed(key)
     nb = N_DATA_BITS + n_check

@@ -13,8 +13,8 @@
 // words from an interleaved (lo, hi) payload and scatters word i of row r to
 // row_base[r] + i % row_words of the destination planes, so a KV-cache token
 // commit (split the f32 payload into planes, encode, scatter into the page
-// arena) is one launch; it then moves 16 B/word (8 read, 9 written, plus the
-// row base).
+// arena) is one launch; it then moves 17 B/word (8 read, 9 written), plus
+// one row base per token.
 //
 // Design of both: an elementwise grid-stride pass, neighbouring threads on
 // neighbouring words, the codec tables in shared memory so the syndrome

@@ -12,7 +12,10 @@ split of a sum by the tensor's shape. With one attention path for prefill,
 chunks and decode (``chunk_attention`` over the cache), a token's logits are
 then the same floats whether it is decoded alone, in a batch, in a chunk, or
 in a prefill, which paged serving with shared prefixes and speculative
-verification rely on for exact greedy tokens.
+verification rely on for exact greedy tokens. The attention's products are
+walked in bounded blocks over only the keys a block attends, and its sums
+over keys are power-of-two trees, which zero keys past a row's end do not
+change.
 """
 
 from __future__ import annotations
@@ -35,16 +38,21 @@ def _linear(x, w):
 
 
 def tree_sum(x, dim: int = -1):
-    """Sum over ``dim`` by pairwise halving with elementwise adds (an odd
-    tail element is carried to the next level). The order of the adds
-    depends only on the length of ``dim``."""
+    """Sum over ``dim`` by pairwise halving, element i with element i + n/2
+    (an odd tail element is carried to the next level). The order of the
+    adds depends only on the length of ``dim``. An even level is a sum over
+    an axis of two, one add per element that no reduction order can change
+    (up to the sign of a zero sum), in one operation instead of two slices
+    and an add."""
     dim = dim % x.ndim
     n = x.shape[dim]
     while n > 1:
         h = n // 2
-        y = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
         if n % 2:
-            y = torch.cat([y, x.narrow(dim, 2 * h, 1)], dim=dim)
+            y = torch.cat([x.narrow(dim, 0, h) + x.narrow(dim, h, h), x.narrow(dim, 2 * h, 1)],
+                          dim=dim)
+        else:
+            y = x.unflatten(dim, (2, h)).sum(dim)
         x, n = y, y.shape[dim]
     return x.squeeze(dim)
 
@@ -64,16 +72,48 @@ def rope_freqs(hd, theta, device):
     return torch.pow(float(theta), exps)
 
 
-def apply_rope(x, positions, theta):
-    """x: (B, S, H, Dh); positions: (B, S) or (S,)."""
-    hd = x.shape[-1]
-    inv = rope_freqs(hd, theta, x.device)
+def rope_tables(positions, hd, theta):
+    """(cos, sin) float32 of positions (B, S) or (S,), shaped to broadcast
+    against (B, S, H, Dh / 2)."""
+    inv = rope_freqs(hd, theta, positions.device)
     ang = positions[..., None].to(torch.float32) * inv
-    cos = torch.cos(ang)[..., None, :]
-    sin = torch.sin(ang)[..., None, :]
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def rotate(x, cos, sin):
+    """RoPE of x (B, S, H, Dh) with ``rope_tables``."""
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+
+# float32 elements of the largest product tensor one attention block forms:
+# the query rows are walked in blocks of this size, so memory stays bounded
+# at any prompt length.
+ATTN_BLOCK_ELEMS = 1 << 27
+
+
+def pow2_ceil(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def tree_sum_products(a, b, dim: int = -1, exact: bool = False):
+    """``tree_sum(a * b, dim)`` for broadcastable a and b that both span
+    ``dim``. With ``exact`` (every product a float32 holds exactly, as
+    products of bf16 or fp16 values do), the first halving level is fused
+    into one ``addcmul`` so the full product is never formed; the sums are
+    the same floats. Without it an ``addcmul`` may round its product or not
+    by the element's place in memory (a fused multiply-add on one path, not
+    on another), so the product is formed first."""
+    dim = dim % max(a.ndim, b.ndim)
+    n = a.shape[dim]
+    if n % 2 or not exact:
+        return tree_sum(a * b, dim)
+    h = n // 2
+    t = a.narrow(dim, 0, h) * b.narrow(dim, 0, h)
+    t.addcmul_(a.narrow(dim, h, h), b.narrow(dim, h, h))
+    return tree_sum(t, dim)
 
 
 def softmax(s):
@@ -82,29 +122,65 @@ def softmax(s):
     return e / tree_sum(e, -1)[..., None]
 
 
-def chunk_attention(q, k_cache, v_cache, pos0):
+def _attend(qg, k_cache, v_cache, qpos, n_keys: int, dtype):
+    """One block of query rows against the cache's first keys.
+
+    qg: (B, Hkv, R, Q, Dh) float32; caches (B, S, Hkv, Dh) with S <= n_keys,
+    a power of two; qpos: (B, Q) cache positions of the rows. The key axis
+    is zero-padded to n_keys for the softmax denominator and the PV sum."""
+    s_len, dh = k_cache.shape[1], qg.shape[-1]
+    exact = dtype.itemsize <= 2
+    kt = k_cache.permute(0, 2, 1, 3).to(torch.float32)[:, :, None, None]  # (B, Hkv, 1, 1, S, Dh)
+    s = tree_sum_products(qg[..., None, :], kt, -1, exact)  # (B, Hkv, R, Q, S)
+    s = s.to(dtype).to(torch.float32) / math.sqrt(dh)
+    kpos = torch.arange(s_len, device=qg.device)
+    valid = (kpos <= qpos[..., None])[:, None, None]  # (B, 1, 1, Q, S)
+    s = torch.where(valid, s, NEG_INF)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    vt = v_cache.permute(0, 2, 1, 3).to(torch.float32)  # (B, Hkv, S, Dh)
+    if n_keys > s_len:
+        e = F.pad(e, (0, n_keys - s_len))
+        vt = F.pad(vt, (0, 0, 0, n_keys - s_len))
+    p = (e / tree_sum(e, -1)[..., None]).to(dtype).to(torch.float32)
+    out = tree_sum_products(p[..., None], vt[:, :, None, None], -2, exact)  # (B, Hkv, R, Q, Dh)
+    return out.to(dtype)
+
+
+def chunk_attention(q, k_cache, v_cache, pos0, kv_len: int | None = None):
     """Multi-token attention against a KV cache: the one attention path of
     prefill (``pos0`` = 0), chunked prefill, speculative verification and
     decode (one token).
 
     q: (B, Sq, H, Dh), Sq new tokens whose K/V are already in the cache;
     caches (B, S_max, Hkv, Dh); pos0: (B,) cache position of each lane's
-    first new token. Token i attends cache positions <= pos0 + i. Products
-    are formed in float32 (exact for bf16 inputs) and tree-summed; scores
-    and outputs are rounded to q's dtype where the reference's einsums
-    round."""
+    first new token. Token i attends cache positions <= pos0 + i.
+    ``kv_len``, a host-side bound on max(pos0) + Sq (None: S_max + Sq),
+    limits the keys read.
+
+    Products are formed in float32 (exact for bf16 inputs) and tree-summed;
+    scores and outputs are rounded to q's dtype where the reference's
+    einsums round. Every sum over keys is a tree over a power-of-two number
+    of keys, zero beyond the row's last position. Such a tree gives the same
+    float for any power-of-two length at or above the row's valid keys, so a
+    row's output does not depend on ``kv_len``, on Sq, or on the other lanes.
+    Query rows are walked in blocks of at most ``ATTN_BLOCK_ELEMS`` product
+    elements, each block reading only the keys its last row attends."""
     b, sq, h, dh = q.shape
     smax, hkv = k_cache.shape[1], k_cache.shape[2]
-    qg = q.reshape(b, sq, hkv, h // hkv, dh).permute(0, 2, 3, 1, 4)  # (B, Hkv, R, Sq, Dh)
-    kt = k_cache.permute(0, 2, 1, 3)[:, :, None, None]  # (B, Hkv, 1, 1, S, Dh)
-    s = tree_sum(qg[..., None, :].to(torch.float32) * kt.to(torch.float32), -1)
-    s = s.to(q.dtype).to(torch.float32) / math.sqrt(dh)  # (B, Hkv, R, Sq, S)
-    qpos = pos0.reshape(b, 1)[:, :, None] + torch.arange(sq, device=q.device)[None, :, None]
-    kpos = torch.arange(smax, device=q.device)[None, None, :]
-    valid = (kpos <= qpos)[:, None, None]  # (B, 1, 1, Sq, S)
-    p = softmax(torch.where(valid, s, NEG_INF)).to(q.dtype)
-    vt = v_cache.permute(0, 2, 1, 3)[:, :, None, None]  # (B, Hkv, 1, 1, S, Dh)
-    out = tree_sum(p[..., None].to(torch.float32) * vt.to(torch.float32), -2).to(q.dtype)
+    bound = smax + sq if kv_len is None else int(kv_len)
+    qg = q.reshape(b, sq, hkv, h // hkv, dh).permute(0, 2, 3, 1, 4).to(torch.float32)
+    qpos = pos0.reshape(b, 1) + torch.arange(sq, device=q.device)[None, :]  # (B, Sq)
+    n_top = pow2_ceil(max(min(bound, smax), 1))
+    # the largest tensor a block forms: the products, halved where fused
+    rows = max(1, ATTN_BLOCK_ELEMS // (b * h * n_top * dh // (2 if q.dtype.itemsize <= 2 else 1)))
+    outs = []
+    for i0 in range(0, sq, rows):
+        i1 = min(sq, i0 + rows)
+        n_keys = pow2_ceil(max(min(bound - sq + i1, smax), 1))
+        s_len = min(n_keys, smax)
+        outs.append(_attend(qg[:, :, :, i0:i1], k_cache[:, :s_len], v_cache[:, :s_len],
+                            qpos[:, i0:i1], n_keys, q.dtype))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=3)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
 
 
@@ -115,19 +191,22 @@ def decode_attention(q, k_cache, v_cache, cur_len):
     return chunk_attention(q, k_cache, v_cache, cur_len - 1)
 
 
-def qkv_proj(x, p, cfg):
-    """x: (B, S, D) -> q (B,S,H,Dh), k/v (B,S,Hkv,Dh)."""
+def qkv_proj(x, p, cfg, rope=None):
+    """x: (B, S, D) -> q (B,S,H,Dh), k/v (B,S,Hkv,Dh); q and k rotated by
+    ``rope`` = (cos, sin) where given. q and k are normed and rotated as one
+    tensor of H + Hkv heads (the same floats, half the operations)."""
     b, s, _ = x.shape
-    q = _linear(x, p["wq"])
-    k = _linear(x, p["wk"])
-    v = _linear(x, p["wv"])
-    q = q.reshape(b, s, cfg.n_heads, cfg.hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    h = cfg.n_heads
+    q = _linear(x, p["wq"]).reshape(b, s, h, cfg.hd)
+    k = _linear(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    v = _linear(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    qk = torch.cat([q, k], dim=2)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
-    return q, k, v
+        gamma = torch.cat([p["q_norm"].expand(h, -1), p["k_norm"].expand(cfg.n_kv_heads, -1)])
+        qk = rms_norm(qk, gamma)
+    if rope is not None:
+        qk = rotate(qk, *rope)
+    return qk[:, :, :h], qk[:, :, h:], v
 
 
 def out_proj(attn_out, p):

@@ -9,13 +9,17 @@ Every forward is one path: the new tokens of lane b sit at cache positions
 pos0[b], pos0[b] + 1, ...; their K/V are written into the cache and they
 attend the cache (``layers.chunk_attention``). A prefill is a chunk at
 position 0, a decode step a chunk of one token, and a scalar position a
-vector of equal positions. Logits are computed one row at a time, so a row's
-logits do not depend on how many rows the call holds (see models/layers.py).
+vector of equal positions. Logits go through one product shape (rows
+zero-padded to ``LOGIT_ROWS``), so a row's logits do not depend on how many
+rows the call holds (see models/layers.py). Callers that know the positions
+on the host pass ``kv_len``, a bound on the cache length attended, so the
+attention reads no keys past it.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.backend import resolve_device
@@ -100,13 +104,16 @@ def _layer(tree, g: int):
     return tree[g]
 
 
-def _attn_block(x, p, cfg, *, cache, g, pos0):
+LOGIT_ROWS = 16  # rows of every logits product
+
+# The float32 unembedding of each parameter tensor, cast once.
+_UNEMBED_F32 = WeakIdKeyDictionary()
+
+
+def _attn_block(x, p, cfg, *, cache, g, pos0, kv_len, rope):
     b, s, _ = x.shape
     h = layers.rms_norm(x, p["ln1"]["gamma"])
-    q, k, v = layers.qkv_proj(h, p["attn"], cfg)
-    positions = pos0[:, None] + torch.arange(s, device=x.device)[None, :]
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = layers.qkv_proj(h, p["attn"], cfg, rope)
     ck, cv = cache["k"][g], cache["v"][g]
     # As the reference's cache writes, a chunk running past the cache's end
     # lands on its last rows.
@@ -114,7 +121,7 @@ def _attn_block(x, p, cfg, *, cache, g, pos0):
     lanes = torch.arange(b, device=x.device)[:, None]
     ck[lanes, rows] = k.to(ck.dtype)
     cv[lanes, rows] = v.to(cv.dtype)
-    out = layers.chunk_attention(q, ck, cv, pos0)
+    out = layers.chunk_attention(q, ck, cv, pos0, kv_len)
     x = x + layers.out_proj(out, p["attn"])
     h2 = layers.rms_norm(x, p["ln2"]["gamma"])
     return x + layers.mlp(h2, p["mlp"])
@@ -124,8 +131,17 @@ def _embed(params, tokens, cfg):
     return params["embed"][tokens].to(cfg.compute_dtype)
 
 
-def _unembed_matrix(params, cfg):
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def _unembed_f32(params, cfg):
+    """The (D, V) float32 unembedding. A bf16 table is cast once and kept
+    while its tensor lives (and is cast again if it is written in place)."""
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    if w.dtype != torch.float32:
+        hit = _UNEMBED_F32.get(w)
+        if hit is None or hit[0] != w._version:
+            hit = (w._version, w.to(torch.float32))
+            _UNEMBED_F32[w] = hit
+        w = hit[1]
+    return w.T if cfg.tie_embeddings else w
 
 
 def _positions(pos, b: int, device) -> torch.Tensor:
@@ -139,25 +155,42 @@ def _positions(pos, b: int, device) -> torch.Tensor:
     return torch.as_tensor(pos, dtype=torch.int64).reshape(b).to(device)
 
 
-def forward(params, tokens, cfg: ModelConfig, cache, pos0):
+def _kv_bound(pos0, s: int) -> int | None:
+    """max(pos0) + s where the positions are on the host, else None."""
+    if isinstance(pos0, torch.Tensor) and pos0.device.type != "cpu":
+        return None
+    return int(torch.as_tensor(pos0).max()) + s
+
+
+def forward(params, tokens, cfg: ModelConfig, cache, pos0, kv_len: int | None = None):
     """Backbone: (B, S) tokens at cache positions pos0 .. pos0 + S - 1 (pos0
     a scalar or (B,)) -> final-norm hidden (B, S, D); writes their K/V into
-    the cache in place."""
+    the cache in place. ``kv_len`` bounds max(pos0) + S from the host
+    (derived when the positions are on the host; else the cache length)."""
     _check_dense(cfg)
+    if kv_len is None:
+        kv_len = _kv_bound(pos0, tokens.shape[1])
     pos0 = _positions(pos0, tokens.shape[0], tokens.device)
     x = _embed(params, tokens, cfg)
+    positions = pos0[:, None] + torch.arange(tokens.shape[1], device=x.device)[None, :]
+    rope = layers.rope_tables(positions, cfg.hd, cfg.rope_theta)  # once for every layer
     blocks = params["blocks"]["p0"]
     for g in range(cfg.n_groups):
-        x = _attn_block(x, _layer(blocks, g), cfg, cache=cache["p0"], g=g, pos0=pos0)
+        x = _attn_block(x, _layer(blocks, g), cfg, cache=cache["p0"], g=g, pos0=pos0,
+                        kv_len=kv_len, rope=rope)
     return layers.rms_norm(x, params["final_norm"]["gamma"])
 
 
 def _logits(params, hidden, cfg):
-    """(..., D) hidden -> (..., V) float32 logits, one row per product."""
-    un = _unembed_matrix(params, cfg).to(torch.float32)
-    h2 = hidden.reshape(-1, hidden.shape[-1]).to(torch.float32)
-    rows = [h2[i : i + 1] @ un for i in range(h2.shape[0])]
-    return torch.cat(rows).reshape(*hidden.shape[:-1], un.shape[1])
+    """(..., D) hidden -> (..., V) float32 logits. The rows are zero-padded
+    to a multiple of ``LOGIT_ROWS`` and every product is LOGIT_ROWS x D by
+    D x V, one shape for every call."""
+    un = _unembed_f32(params, cfg)
+    n, d = hidden.shape[:-1].numel(), hidden.shape[-1]
+    h2 = hidden.new_zeros((-(-n // LOGIT_ROWS) * LOGIT_ROWS, d), dtype=torch.float32)
+    h2[:n] = hidden.reshape(n, d)
+    out = torch.cat([h2[i : i + LOGIT_ROWS] @ un for i in range(0, h2.shape[0], LOGIT_ROWS)])
+    return out[:n].reshape(*hidden.shape[:-1], un.shape[1])
 
 
 @torch.no_grad()
@@ -168,28 +201,28 @@ def prefill(params, tokens, cfg: ModelConfig, cache):
 
 
 @torch.no_grad()
-def decode_step(params, tokens, cfg: ModelConfig, cache, pos):
+def decode_step(params, tokens, cfg: ModelConfig, cache, pos, kv_len: int | None = None):
     """One decode step of (B, 1) tokens at 0-based position ``pos``: a
     scalar, or a (B,) vector giving every lane its own position (continuous
     batching)."""
-    hidden = forward(params, tokens, cfg, cache, pos)
+    hidden = forward(params, tokens, cfg, cache, pos, kv_len)
     return _logits(params, hidden[:, -1], cfg), cache
 
 
 @torch.no_grad()
-def chunk_step(params, tokens, cfg: ModelConfig, cache, pos0):
+def chunk_step(params, tokens, cfg: ModelConfig, cache, pos0, kv_len: int | None = None):
     """Chunked prefill: process ``tokens`` (B, S) whose cache positions start
     at per-lane ``pos0`` ((B,) or scalar), writing their K/V into the cache.
     Returns (last-token logits (B, V), cache)."""
-    hidden = forward(params, tokens, cfg, cache, pos0)
+    hidden = forward(params, tokens, cfg, cache, pos0, kv_len)
     return _logits(params, hidden[:, -1], cfg), cache
 
 
 @torch.no_grad()
-def chunk_logits(params, tokens, cfg: ModelConfig, cache, pos0):
+def chunk_logits(params, tokens, cfg: ModelConfig, cache, pos0, kv_len: int | None = None):
     """Like ``chunk_step`` but returning the full (B, S, V) logits (the
     speculative verify block)."""
-    hidden = forward(params, tokens, cfg, cache, pos0)
+    hidden = forward(params, tokens, cfg, cache, pos0, kv_len)
     return _logits(params, hidden, cfg), cache
 
 
@@ -200,7 +233,8 @@ def greedy_decode_loop(params, tok0, cfg: ModelConfig, cache, start_pos: int, n_
     tok, out = tok0, []
     pos = _positions(start_pos, tok0.shape[0], tok0.device)
     for i in range(n_steps):
-        logits, cache = decode_step(params, tok, cfg, cache, pos + i)
+        logits, cache = decode_step(params, tok, cfg, cache, pos + i,
+                                    _kv_bound(start_pos, i + 1))
         tok = torch.argmax(logits, dim=-1)[:, None]
         out.append(tok)
     if not out:

@@ -330,7 +330,6 @@ class ServingEngine:
         speculative: int = 0,
         draft_params=None,
         draft_cfg: ModelConfig | None = None,
-        scrub_overlap: bool | None = None,
     ) -> sched.ServeReport:
         """Serve a stream of variable-length requests.
 
@@ -342,8 +341,9 @@ class ServingEngine:
         ``speculative=K`` (K >= 2, with ``draft_params``/``draft_cfg``)
         verifies K-1 drafted tokens per block; ``walk_kv`` (multi-rail
         engines) attaches a `kv` rail to the controller and walks it on the
-        interval scrubs' DED counters; ``scrub_overlap`` (None: on) defers
-        each interval's counter harvest to the next interval. The cache
+        interval scrubs' DED counters. Each interval's counter harvest is
+        deferred to the next interval (the reference's ``scrub_overlap``;
+        its serialized mode returns with codec escalation). The cache
         arena stays on ``self.kv_arena``; its counters join ``stats`` and
         ``rail_stats`` and its words the power accounting."""
         assert shapes.supports_paged_kv(self.cfg), (
@@ -397,7 +397,7 @@ class ServingEngine:
             max_block=max_block, kv_controller=kv_controller,
             init_cache_fn=lambda b: lm.init_cache(self.cfg, b, self.max_len, device=self.device),
             share_prefix=share_prefix, speculative=speculative,
-            draft_params=draft_params, draft_cfg=draft_cfg, scrub_overlap=scrub_overlap,
+            draft_params=draft_params, draft_cfg=draft_cfg,
         )
         # The kv domain now has real words (power weighting) and counters.
         self.stats.accumulate(report.kv_stats)

@@ -237,8 +237,7 @@ class ContinuousBatchingScheduler:
 def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes: int,
                  max_len: int, scrub_interval: int = 1, max_block: int = 16,
                  kv_controller=None, init_cache_fn=None, share_prefix: bool = False,
-                 speculative: int = 0, draft_params=None, draft_cfg=None,
-                 scrub_overlap: bool | None = None) -> ServeReport:
+                 speculative: int = 0, draft_params=None, draft_cfg=None) -> ServeReport:
     """Drive a request stream to completion over the paged cache.
 
     ``helpers`` comes from serving/steps.make_paged_helpers;
@@ -260,15 +259,15 @@ def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes:
     tokens per block and verifies all K in one chunked target forward; only
     accepted tokens' pages are committed, so the output is greedy decode's.
 
-    ``scrub_overlap`` (None: on) defers an interval's counter harvest (the
-    host's wait for the counters, and all stats and controller work) to just
-    before the next interval's tick, so the decode blocks in between are
-    queued behind the scrub without waiting for it. The controller's rail
-    move still lands before the next injection, attribution is captured at
-    dispatch, and the device work is the same launches in the same order,
-    so outputs, counters and rail walks equal the serialized path's. Each
-    interval's counters are a tensor of their own, which no later launch
-    writes.
+    An interval's counter harvest (the host's wait for the counters, and
+    all stats and controller work) is deferred to just before the next
+    interval's tick, so the decode blocks in between are queued behind the
+    scrub without waiting for it: the reference's ``scrub_overlap`` mode.
+    The controller's rail move still lands before the next injection,
+    attribution is captured at dispatch, and the device work is the same
+    launches in the same order, so outputs, counters and rail walks equal
+    the reference's serialized mode too. Each interval's counters are a
+    tensor of their own, which no later launch writes.
     """
     geom = arena.geom
     dev = arena.device
@@ -309,8 +308,7 @@ def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes:
     prefix_hit_tokens = 0
     spec_dispatches = 0
     spec_emitted = 0
-    overlap = True if scrub_overlap is None else bool(scrub_overlap)
-    pending_scrub = None  # deferred interval harvest (overlap mode)
+    pending_scrub = None  # the deferred harvest of the last interval
 
     def _dispatch_scrub():
         """Interval scrub device work (tick, scrub-on-read, cache refresh),
@@ -408,7 +406,8 @@ def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes:
                 payload = payload_u[rows_d].reshape(m, sh, geom.token_f32)
                 sh_d = torch.full((m,), sh, dtype=torch.int64, device=dev)
                 cachem = helpers["refresh"](cachem, payload, sh_d)
-                tokm, cachem = helpers["chunk"](params, seqs_d[:, sh:], cachem, sh_d)
+                tokm, cachem = helpers["chunk"](params, seqs_d[:, sh:], cachem, sh_d,
+                                                max_pos=sh)
                 payload_sfx = helpers["extract_span"](cachem, start=sh, stop=s0)
                 tok_idx = np.arange(sh, s0)
                 arena.stats.accumulate(
@@ -498,7 +497,7 @@ def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes:
                     arena.lo, arena.hi, arena.parity, pos_d,
                     to_device(row_bases(page_ids[:kk], slots[:kk], geom), dev),
                     to_device(row_bases(scratch, slots[:kk], geom), dev),
-                    k=kk,
+                    k=kk, max_pos=int(pos_v.max()),
                 )
             )
             greedy_host = greedy.cpu().numpy()
@@ -520,6 +519,7 @@ def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes:
             toks, cache, arena.lo, arena.hi, arena.parity = helpers["multistep"](
                 params, tok_d, cache, arena.lo, arena.hi, arena.parity, pos_d,
                 to_device(row_bases(page_ids, slots, geom), dev),
+                max_pos=int(pos_v.max()),
             )
             toks_host = toks.cpu().numpy()
             steps += k
@@ -544,11 +544,7 @@ def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes:
             _harvest_scrub(pending_scrub)
             pending_scrub = None
         if sched.running:
-            cap = _dispatch_scrub()
-            if overlap:
-                pending_scrub = cap
-            else:
-                _harvest_scrub(cap)
+            pending_scrub = _dispatch_scrub()
 
     if pending_scrub is not None:
         _harvest_scrub(pending_scrub)

@@ -91,14 +91,21 @@ def _load_lane(cache, cachem, src_row: int, lane: int):
     return cache
 
 
-def _multistep(params, tok, cache, lo, hi, par, pos0, row_base, *, cfg, geom, codec):
+def _bound(max_pos: int | None, n: int) -> int | None:
+    """The attention's key bound for n tokens from positions <= max_pos."""
+    return None if max_pos is None else max_pos + n
+
+
+def _multistep(params, tok, cache, lo, hi, par, pos0, row_base, *, cfg, geom, codec,
+               max_pos: int | None = None):
     """Decode ``k`` tokens per lane: a loop of k x (decode, extract the
     written token's K/V, commit it to the page arena). ``row_base`` (k, L)
     int64 holds each step's arena word offsets (inactive lanes point at the
-    scratch page). Returns (tokens (k, L), cache, lo, hi, par)."""
+    scratch page); ``max_pos``, where given, is max(pos0) on the host.
+    Returns (tokens (k, L), cache, lo, hi, par)."""
     toks, pos = [], pos0
     for step in range(row_base.shape[0]):
-        logits, cache = lm.decode_step(params, tok, cfg, cache, pos)
+        logits, cache = lm.decode_step(params, tok, cfg, cache, pos, _bound(max_pos, step + 1))
         tok = torch.argmax(logits, dim=-1)[:, None]
         payload = _extract_tokens(cache, pos, geom=geom)
         lo, hi, par = _commit_tokens(
@@ -109,23 +116,24 @@ def _multistep(params, tok, cache, lo, hi, par, pos0, row_base, *, cfg, geom, co
     return torch.stack(toks), cache, lo, hi, par
 
 
-def _chunk_prefill(params, tokens, cache, pos0, *, cfg):
+def _chunk_prefill(params, tokens, cache, pos0, *, cfg, max_pos: int | None = None):
     """Chunked prefill of ``tokens`` (m, s) at per-lane cache position
-    ``pos0`` (m,): the prefix-sharing admission path. Returns (next_tok (m,),
-    cache)."""
-    logits, cache = lm.chunk_step(params, tokens, cfg, cache, pos0)
+    ``pos0`` (m,) (max(pos0) = ``max_pos`` on the host, where given): the
+    prefix-sharing admission path. Returns (next_tok (m,), cache)."""
+    logits, cache = lm.chunk_step(params, tokens, cfg, cache, pos0,
+                                  _bound(max_pos, tokens.shape[1]))
     return torch.argmax(logits, dim=-1), cache
 
 
 def _spec_multistep(params, dparams, tok, cache, dcache, lo, hi, par, pos0, row_base,
-                    scratch_base, *, cfg, dcfg, geom, codec, k):
+                    scratch_base, *, cfg, dcfg, geom, codec, k, max_pos: int | None = None):
     """Draft k-1 tokens with the draft model, verify all k positions with the
     target model in one chunk forward, commit pages only for accepted tokens.
 
     tok (L, 1) current tokens at positions pos0 (L,); row_base (k, L) the
     arena word offsets of positions pos0 .. pos0 + k - 1; ``scratch_base``
     (k, L) the same slots' offsets on the scratch page, where rejected rows
-    are steered. Greedy
+    are steered; ``max_pos``, where given, is max(pos0) on the host. Greedy
     acceptance: draft d_{i+1} is accepted iff it equals the target's greedy
     token after t0, d1..d_i, and n_emit = 1 + the accepted prefix, so the
     emitted tokens are exactly greedy decode's. Returns (greedy (L, k),
@@ -135,15 +143,15 @@ def _spec_multistep(params, dparams, tok, cache, dcache, lo, hi, par, pos0, row_
         # k draft steps, not k-1: the k-th writes d_{k-1}'s K/V into the
         # draft cache, so a fully accepted block leaves no hole there.
         t, p, drafts = tok, pos0, []
-        for _ in range(k):
-            logits, dcache = lm.decode_step(dparams, t, dcfg, dcache, p)
+        for i in range(k):
+            logits, dcache = lm.decode_step(dparams, t, dcfg, dcache, p, _bound(max_pos, i + 1))
             t = torch.argmax(logits, dim=-1)[:, None]
             drafts.append(t[:, 0])
             p = p + 1
         tokens_v = torch.cat([tok, torch.stack(drafts[:-1], dim=1)], dim=1)  # (L, k)
     else:
         tokens_v = tok
-    full, cache = lm.chunk_logits(params, tokens_v, cfg, cache, pos0)
+    full, cache = lm.chunk_logits(params, tokens_v, cfg, cache, pos0, _bound(max_pos, k))
     greedy = torch.argmax(full, dim=-1)  # (L, k)
     if k > 1:
         match = (tokens_v[:, 1:] == greedy[:, :-1]).to(torch.int64)
@@ -167,18 +175,21 @@ class PagedHelpers:
 
       prefill(params, tokens (m,s), cachem)       -> (next_tok (m,), cachem)
       multistep(params, tok, cache, lo, hi, par,
-                pos (L,), row_base (k,L))         -> (toks (k,L), cache, planes)
+                pos (L,), row_base (k,L), max_pos=) -> (toks (k,L), cache, planes)
       extract_range(cachem, s0=s)                 -> (m, s, token_f32) payload
       extract_span(cachem, start=a, stop=b)       -> (m, b-a, token_f32)
       load_lane(cache, cachem, src_row, lane)     -> cache
       refresh(cache, payload (L,T,F), n_tok (L,)) -> cache
-      chunk(params, tokens (m,s), cachem, pos0)   -> (next_tok (m,), cachem)
+      chunk(params, tokens (m,s), cachem, pos0, max_pos=)
+                                                  -> (next_tok (m,), cachem)
       spec_multistep(params, dparams, tok, cache, dcache, lo, hi, par,
-                pos (L,), row_base (k,L), scratch_base (k,L), k=)
+                pos (L,), row_base (k,L), scratch_base (k,L), k=, max_pos=)
                 -> (greedy (L,k), n_emit (L,), cache, dcache, planes)
 
     Where the reference passes (page_ids, slots) tables, the port passes the
-    arena word offsets they name (``kvpages.row_bases``), on the device."""
+    arena word offsets they name (``kvpages.row_bases``), on the device.
+    ``max_pos`` (optional) is the largest position on the host; it bounds
+    the keys the attention reads without changing any result."""
 
     codec: str
     prefill: Callable

@@ -42,6 +42,7 @@ def test_port_imports_neither_jax_nor_reference():
         f"for m in {_port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "import port_ab\n"
         "bad = sorted(m for m in sys.modules if (m in ('jax', 'repro') or m.startswith(('jax.', 'repro.')))"
         " and sys.modules[m] is not None)\n"
         "assert not bad, bad\n"

@@ -237,7 +237,7 @@ def test_interval_masks_statistics_vs_host_model(voltage):
     n = 1 << 18
     hm = tfs.FaultField(plat, n, seed=11).masks(voltage)
     rate = plat.fault_rate(voltage)
-    d = _flips(*tfs.interval_masks(11, 1, n, rate, plat.row_sigma))
+    d = _flips(*tfs.interval_masks(11, 1, n, rate, plat.row_sigma, device="cpu"))
     h = hm.flip_counts()
     assert h.sum() > 100
     assert 0.6 < d.sum() / h.sum() < 1.6, (voltage, int(h.sum()), int(d.sum()))
@@ -247,12 +247,15 @@ def test_interval_masks_statistics_vs_host_model(voltage):
 
 
 def test_interval_masks_deterministic_and_per_interval():
-    a = tfs.interval_masks(3, 1, 5000, 1e-3, 0.5)
-    b = tfs.interval_masks(3, 1, 5000, 1e-3, 0.5)
-    c = tfs.interval_masks(3, 2, 5000, 1e-3, 0.5)
+    a = tfs.interval_masks(3, 1, 5000, 1e-3, 0.5, device="cpu")
+    b = tfs.interval_masks(3, 1, 5000, 1e-3, 0.5, device="cpu")
+    c = tfs.interval_masks(3, 2, 5000, 1e-3, 0.5, device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert not torch.equal(a[0], c[0])
     assert a[0].dtype == torch.int32 and a[2].dtype == torch.uint8
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tfs.interval_masks(3, 1, 5000, 1e-3, 0.5)
 
 
 def test_supports_paged_kv():

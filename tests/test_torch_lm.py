@@ -128,3 +128,51 @@ def test_decode_attention_per_lane_lengths():
     j = jlayers.decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(cur))
     t = tlayers.decode_attention(*map(torch.from_numpy, (q, k, v)), torch.from_numpy(cur).long())
     np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("how", ["query_blocks", "key_bound", "batch_of_one"])
+def test_chunk_attention_rows_do_not_depend_on_the_call(monkeypatch, dtype, how):
+    """A row's attention output is the same floats whether the query rows
+    are walked in one block or many, whatever host bound on the keys is
+    given, and whether its lane is alone in the call."""
+    rng = np.random.default_rng(4)
+    b, sq, smax = 3, 6, 37
+    q = torch.from_numpy(rng.standard_normal((b, sq, 4, 16)).astype(np.float32)).to(dtype)
+    k = torch.from_numpy(rng.standard_normal((b, smax, 2, 16)).astype(np.float32)).to(dtype)
+    v = torch.from_numpy(rng.standard_normal((b, smax, 2, 16)).astype(np.float32)).to(dtype)
+    pos0 = torch.tensor([0, 9, 25])
+    ref = tlayers.chunk_attention(q, k, v, pos0)
+    if how == "query_blocks":
+        monkeypatch.setattr(tlayers, "ATTN_BLOCK_ELEMS", 1)
+        for bound in (None, 31):
+            assert torch.equal(tlayers.chunk_attention(q, k, v, pos0, bound), ref)
+    elif how == "key_bound":
+        for bound in (31, 32, 33, 64, 100):
+            assert torch.equal(tlayers.chunk_attention(q, k, v, pos0, bound), ref)
+    else:
+        for i in range(b):
+            one = tlayers.chunk_attention(q[i : i + 1], k[i : i + 1], v[i : i + 1], pos0[i : i + 1],
+                                          int(pos0[i]) + sq)
+            assert torch.equal(one[0], ref[i]), i
+
+
+@pytest.mark.parametrize("n", [1, 3, tlm.LOGIT_ROWS, tlm.LOGIT_ROWS + 5])
+def test_logits_rows_do_not_depend_on_the_row_count(models, n):
+    _, _, tcfg, tparams, _ = models
+    h = torch.from_numpy(np.random.default_rng(5).standard_normal((40, tcfg.d_model))
+                         .astype(np.float32))
+    all_rows = tlm._logits(tparams, h, tcfg)
+    assert torch.equal(tlm._logits(tparams, h[:n], tcfg), all_rows[:n])
+    assert torch.equal(tlm._logits(tparams, h[-n:], tcfg), all_rows[-n:])
+
+
+def test_unembed_cast_once_and_again_after_a_write(models):
+    _, _, tcfg, tparams, _ = models
+    key = "embed" if tcfg.tie_embeddings else "lm_head"
+    p = {**tparams, key: tparams[key].to(torch.bfloat16)}
+    a = tlm._unembed_f32(p, tcfg)
+    assert a.dtype == torch.float32 and tlm._unembed_f32(p, tcfg).data_ptr() == a.data_ptr()
+    p[key].mul_(2)
+    b = tlm._unembed_f32(p, tcfg)
+    assert torch.equal(b, 2 * a)
