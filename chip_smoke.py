@@ -31,15 +31,28 @@ them. Phases, each printed on its own line with its wall time:
      against greedy (equal tokens); then a multi-rail engine walking its
      kv rail; and a breakdown of a stream's decode step, token commit,
      fault interval and scrub;
-  4-6 each zero the kernel launch counts at the start of a path and read
+  7. the paper's Fig. 3 NN accelerator at full width (784-256-128-10, 600
+     training steps on 20,000 synthetic-MNIST images, 4,000 test images):
+     a rail sweep from V_nom and from V_min down to V_crash with ECC on and
+     off (error, divergence from the clean predictions, coverage, power,
+     BRAM saving), fused against naive reads, per-leaf against batched
+     steps;
+  8. the per-leaf inline engine (``batched=False``) at 0.56 V against
+     phase 4's batched engine (planes, counters, tokens), and a domain-mode
+     engine at nominal (read-back bit for bit the params it wrote, tokens
+     of the unprotected model) and at 0.56 V (every array and the counters
+     held against B7 + B5's plain versions on the same masks);
+  4-8 each zero the kernel launch counts at the start of a path and read
      them at its end, and fail unless every voltage step launched its scrub
      kernel once (B1 single-rail, B2 and the embedding's B5 multi-rail,
      none of the other path's), every forward pass of the protected model
      launched the fused matmul once per protected matrix of each layer
      (7 x 28 = 196), every weight pack and token commit launched the
      encode once, every fault interval and prefix-hit admission launched
-     the paged scrub once, and the plain codec never ran on the card;
-  7. one prefill and one decode step of paths 4-5 under torch.profiler
+     the paged scrub once, every per-leaf step and every domain read
+     launched the fault injection and the decode once per leaf, and the
+     plain codec never ran on the card;
+  9. one prefill and one decode step of paths 4-5 under torch.profiler
      (device busy time, idle share, fused-matmul time inside the step),
      tokens/s, voltage-step times and one ``{"kernels": [...]}`` line with
      times, bounds and per-path launch counts. The fused matmul has two
@@ -65,6 +78,7 @@ FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BATCH, PROMPT_LEN, NEW_TOKENS = 4, 32, 16
 MATMUL_RTOL = 1e-4  # |kernel - plain| <= MATMUL_RTOL * max|plain|
 PAGED_MAX_LEN, STREAM_PAGES, KV_PAGES = 80, 14, 64
+MLP_TRAIN, MLP_TEST = 20000, 4000  # the Fig. 3 benchmark's split
 
 T0 = time.perf_counter()
 
@@ -118,16 +132,19 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.codes.base import Codec
-    from repro_torch.configs import get_config, get_smoke_config, shapes
-    from repro_torch.core import kvpages
+    from repro_torch.configs import get_config, get_smoke_config, paper_nn, shapes
+    from repro_torch.core import faultsim, kvpages, memory, quantize
     from repro_torch.core.kvpages import KVGeometry, KVPageArena
+    from repro_torch.core.nn_accel import EccMLP
     from repro_torch.core.planestore import PlaneStore
-    from repro_torch.core.voltage import PLATFORMS
+    from repro_torch.core.telemetry import FaultStats
+    from repro_torch.core.voltage import PLATFORMS, power_saving
+    from repro_torch.data import mnist
     from repro_torch.kernels import backend, ops, ref
     from repro_torch.models import base, lm
     from repro_torch.serving import steps as serve_steps
     from repro_torch.serving.engine import (
-        RailsConfig, ReliabilityConfig, ServingEngine, protect_params_inline,
+        FaultModelConfig, RailsConfig, ReliabilityConfig, ServingEngine, protect_params_inline,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -244,6 +261,11 @@ def main() -> int:
     def same(a, b) -> bool:
         return all(torch.equal(x, y) for x, y in zip(a, b))
 
+    def same_bits(a, b) -> bool:
+        """Equal dtype, shape and bits (NaNs included)."""
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
     class Tally:
         """While active, counts what a path does that must launch a kernel:
         weight packs and token commits (B4), fault intervals and prefix-hit
@@ -262,7 +284,7 @@ def main() -> int:
             def wrapped(*a, **kw):
                 k = key(*a, **kw) if callable(key) else key
                 if k:
-                    self.n[k] += 1
+                    self.n[k] = self.n.get(k, 0) + 1
                 return real(*a, **kw)
 
             setattr(obj, name, wrapped)
@@ -334,6 +356,28 @@ def main() -> int:
                 b1["host_mask_s"] = mask_s
         b1["bound_ms"] = 1e3 * 27 * n / HBM_BYTES_PER_S
         report["inject_scrub"] = b1
+
+        # Read-time fault injection (B7) at the 0.54 V draw over the whole
+        # arena, then over the paper MLP's planes (784-256-128-10).
+        def inject_row(args_, words, iters):
+            require(same(ops.inject(*args_), ref.inject_ref(*args_)),
+                    f"inject differs over {words} words")
+            return {"n_words": words, "ms": sync_ms(lambda: ops.inject(*args_), iters),
+                    "plain_ms": sync_ms(lambda: ref.inject_ref(*args_), 3),
+                    "bound_ms": 1e3 * 27 * words / HBM_BYTES_PER_S}
+
+        report["inject"] = inject_row((store.lo, store.hi, store.parity, *masks), n, 20)
+        pcfg = paper_nn.config()
+        mlp_store = EccMLP(pcfg.layer_sizes, platform=pcfg.platform, seed=0, device=dev)
+        mlp_store.store()
+        ms_ = mlp_store._store
+        report["inject"]["mlp"] = inject_row(
+            (ms_.lo, ms_.hi, ms_.parity, *ms_.host_masks(0.54)), ms_.n_words, 200)
+        for r_ in (report["inject"], report["inject"]["mlp"]):
+            print(f"  inject at 0.54 V over {r_['n_words']} words: bit-identical, "
+                  f"{r_['ms']:.4f} ms, bound {r_['bound_ms']:.4f} ms (bytes), "
+                  f"plain {r_['plain_ms']:.3f} ms")
+        del mlp_store, ms_
 
         # SECDED encode (B4) over the whole weight arena: the check plane of
         # every weight pack, in one launch.
@@ -551,10 +595,46 @@ def main() -> int:
                 require(np.array_equal(outs["cpu"][0], outs["cuda"][0]),
                         f"tokens differ multi={multi} {v} V")
             print(f"  multi_rail={multi}: equal tokens and counters at 1.0/0.56/0.54 V")
+        # The smoke-size paper MLP with the same weights on both devices.
+        scfg = paper_nn.smoke_config()
+        carried = [(l_.w.numpy(), l_.b.numpy()) for l_ in EccMLP(
+            scfg.layer_sizes, platform=scfg.platform, seed=1, device="cpu").layers]
+        xs_s = np.random.default_rng(3).standard_normal((512, scfg.layer_sizes[0])).astype(np.float32)
+        mlps = {}
+        for d in ("cpu", "cuda"):
+            mlps[d] = EccMLP(scfg.layer_sizes, platform=scfg.platform, seed=1, device=d)
+            mlps[d].load_params(carried)
+            mlps[d].store()
+        unclear = 0
+        for v in (0.56, 0.54):
+            for ecc in (True, False):
+                for batched in (True, False):
+                    outs = {}
+                    for d, m in mlps.items():
+                        m.set_voltage(v, ecc=ecc, batched=batched)
+                        planes = [t_.cpu() for l_ in m.layers
+                                  for t_ in (l_.faulty.lo, l_.faulty.hi, l_.faulty.parity)]
+                        outs[d] = (planes, m.stats.counters(), m.logits(xs_s).cpu())
+                    tag = f"{v} V ecc={ecc} batched={batched}"
+                    require(same(outs["cpu"][0], outs["cuda"][0]), f"MLP planes differ at {tag}")
+                    require(np.array_equal(outs["cpu"][1], outs["cuda"][1]),
+                            f"MLP counters differ at {tag}")
+                    lc, lg = outs["cpu"][2], outs["cuda"][2]
+                    tol = MATMUL_RTOL * float(lc.abs().max())
+                    require(float((lc - lg).abs().max()) <= tol, f"MLP logits differ at {tag}")
+                    top2 = torch.topk(lc, 2, dim=-1).values
+                    clear = (top2[:, 0] - top2[:, 1]) > tol
+                    unclear += int((~clear).sum())
+                    require(torch.equal(lc.argmax(-1)[clear], lg.argmax(-1)[clear]),
+                            f"MLP predictions differ at {tag}")
+        print(f"  paper MLP {scfg.layer_sizes}: equal planes, counters and predictions "
+              f"(logits within {MATMUL_RTOL} x max|cpu|; {unclear} rows within that of a tie) "
+              f"at 0.56/0.54 V, ECC on and off, batched and per-leaf")
+        del mlps
 
     # ---------------------------------------------------------------- 4-5
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (BATCH, PROMPT_LEN)).astype(np.int32)
-    runs, traced_params = {}, {}
+    runs, traced_params, paths_extra = {}, {}, {}
     for multi in (False, True):
         name = "multi-rail" if multi else "single-rail"
         with Phase(f"{4 + multi} full-width qwen3-0.6b {name} engine"), Tally() as tally:
@@ -590,6 +670,11 @@ def main() -> int:
                 fwd["decode"] += NEW_TOKENS - 1
                 require(toks[v].shape == (BATCH, NEW_TOKENS), str(toks[v].shape))
                 require(bool(((toks[v] >= 0) & (toks[v] < cfg.vocab)).all()), "token range")
+                if v == 0.56 and not multi:  # held against the per-leaf engine (phase 8)
+                    batched_056 = {
+                        "planes": [(w.lo, w.hi, w.parity) for _, w in base.flatten(eng.params)
+                                   if isinstance(w, ops.EccWeight)],
+                        "scrub": dataclasses.asdict(eng._last_scrub), "tokens": toks[v]}
                 agree = float((toks[v] == toks[1.0]).mean())
                 run[f"{v}V"] = {"step_s": step_s, "host_mask_s": mask_s[-1],
                                 "generate_s": gen_s,
@@ -643,7 +728,7 @@ def main() -> int:
                     "inject_scrub_domains": steps if multi else 0,
                     "decode": steps if multi else 0,
                     "ecc_matmul": per_fwd * (fwd["prefill"] + fwd["decode"]),
-                    "encode": tally.n["packs"], "gather_scrub": 0}
+                    "encode": tally.n["packs"], "gather_scrub": 0, "inject": 0}
             require(counts == want, f"{name} launches {counts}, expected {want}")
             require(tally.n["packs"] == per_fwd + multi, f"{tally.n['packs']} weight packs")
             require(tally.n["plain_on_card"] == 0, "the plain codec ran on the card")
@@ -673,7 +758,7 @@ def main() -> int:
         want = {"inject_scrub": 0 if multi else 1, "inject_scrub_domains": int(multi),
                 "decode": int(multi), "ecc_matmul": per_fwd * (n["prefill"] + n["decode"]),
                 "encode": n["packs"] + n["commits"],
-                "gather_scrub": n["intervals"] + n["prefix_scrubs"]}
+                "gather_scrub": n["intervals"] + n["prefix_scrubs"], "inject": 0}
         require(counts == want, f"{name} launches {counts}, expected {want}")
         require(n["packs"] == per_fwd + multi, f"{n['packs']} weight packs")
         require(n["plain_on_card"] == 0, "the plain codec ran on the card")
@@ -793,13 +878,13 @@ def main() -> int:
                         ("interval", lambda: (arena.tick(), arena.scrub_pages(table)))):
             evs = device_events(fn)
             if evs:
-                busy = busy_us(evs) / 1e3
-                parts[f"{key}_device_busy_ms"] = busy
+                busy_ms_ = busy_us(evs) / 1e3
+                parts[f"{key}_device_busy_ms"] = busy_ms_
                 parts[f"{key}_device_events"] = len(evs)
                 wall = parts["decode_step_ms" if key == "decode_step" else "tick_ms"]
                 if key == "interval":
                     wall += parts["interval_scrub_ms"]
-                parts[f"{key}_device_idle_share"] = 1.0 - busy / wall
+                parts[f"{key}_device_idle_share"] = 1.0 - busy_ms_ / wall
         paged["breakdown"] = parts
         print(f"  stream breakdown (4 lanes): decode step {parts['decode_step_ms']:.2f} ms, "
               f"commit {parts['commit_ms']:.3f} ms, fault interval (device masks) "
@@ -838,7 +923,266 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 7
-    with Phase("7 traced steps, timings and the kernels line"):
+    fig3 = {}
+    with Phase("7 paper Fig. 3 NN accelerator, full width"):
+        ops.reset_launch_count()
+        with Tally() as tally:
+            tally._wrap(EccMLP, "set_voltage", lambda self_, v, ecc=True, batched=True: (
+                "mlp_batched" if batched else "mlp_per_leaf" if ecc else "mlp_per_leaf_no_ecc"))
+            tally._wrap(EccMLP, "logits",
+                        lambda self_, xs, fuse=True: "mlp_fused" if fuse else "mlp_naive")
+            xtr, ytr = mnist.make_dataset(MLP_TRAIN, split="train")
+            xte, yte = mnist.make_dataset(MLP_TEST, split="test")
+            mlp = EccMLP(pcfg.layer_sizes, platform=pcfg.platform, seed=0, device=dev)
+            t = time.perf_counter()
+            loss = mlp.train(xtr, ytr, steps=pcfg.train_steps, batch=pcfg.batch_size, lr=pcfg.lr)
+            torch.cuda.synchronize()
+            fig3.update(layer_sizes=list(pcfg.layer_sizes), train=MLP_TRAIN, test=MLP_TEST,
+                        steps=pcfg.train_steps, train_s=time.perf_counter() - t, final_loss=loss,
+                        words=mlp._store.n_words)
+            prof = PLATFORMS[pcfg.platform]
+            mlp.set_voltage(prof.v_nom, ecc=True)
+            pred0 = mlp.predict(xte)
+            err_free = float((pred0 != yte).mean())
+            print(f"  trained {pcfg.layer_sizes} for {pcfg.train_steps} steps in "
+                  f"{fig3['train_s']:.2f} s (loss {loss:.4f}); {fig3['words']} protected words; "
+                  f"fault-free test error {err_free:.4f}")
+            require(err_free < 0.10, f"fault-free error {err_free} >= 0.10")
+            volts = [prof.v_nom] + [round(prof.v_min - 0.01 * i, 2) for i in
+                                    range(int(round((prof.v_min - prof.v_crash) / 0.01)) + 1)]
+            rows = []
+            for v in volts:
+                for ecc in (True, False):
+                    t = time.perf_counter()
+                    mlp.set_voltage(v, ecc=ecc)
+                    pred = mlp.predict(xte)
+                    row = {"voltage": v, "ecc": ecc, "err": float((pred != yte).mean()),
+                           "divergence_vs_clean": float((pred != pred0).mean()),
+                           **mlp.stats.coverage_row(), "power_w": mlp.power_w(),
+                           "bram_power_w": mlp.bram_power_w(),
+                           "bram_saving_vs_vmin": power_saving(prof.v_min, v, ecc=ecc),
+                           "step_and_predict_ms": 1e3 * (time.perf_counter() - t)}
+                    rows.append(row)
+                    print(f"  fig3 {v:.2f} V ecc={int(ecc)}: err {row['err']:.4f}, divergence "
+                          f"{row['divergence_vs_clean']:.4f}, faulty words {row['faulty_words']}, "
+                          f"corrected {row['corrected']}, detected {row['detected']}, silent "
+                          f"{row['silent']}, coverage correctable "
+                          f"{row['coverage_correctable']:.4f} detectable "
+                          f"{row['coverage_detectable']:.4f} silent {row['coverage_silent']:.4f}, "
+                          f"power {row['power_w']:.4f} W, BRAM saving vs V_min "
+                          f"{row['bram_saving_vs_vmin']:.4f}, step+predict "
+                          f"{row['step_and_predict_ms']:.1f} ms")
+            fig3["rows"] = rows
+            at_crash = {r["ecc"]: r["err"] for r in rows if r["voltage"] == prof.v_crash}
+            require(at_crash[True] <= at_crash[False],
+                    f"err with ECC {at_crash[True]} > without {at_crash[False]} at V_crash")
+            # Fused and naive reads at V_crash, with ECC on and off.
+            for ecc in (True, False):
+                mlp.set_voltage(prof.v_crash, ecc=ecc)
+                require(np.array_equal(mlp.predict(xte, fuse=True), mlp.predict(xte, fuse=False)),
+                        f"fused and naive predictions differ at V_crash ecc={ecc}")
+            # Per-leaf steps against batched ones, bit for bit.
+            for v, ecc in ((0.56, True), (0.55, False), (0.54, True)):
+                mlp.set_voltage(v, ecc=ecc, batched=False)
+                per = [t_ for l_ in mlp.layers for t_ in (l_.faulty.lo, l_.faulty.hi, l_.faulty.parity)]
+                per_cnt = mlp.stats.counters()
+                mlp.set_voltage(v, ecc=ecc, batched=True)
+                bat = [t_ for l_ in mlp.layers for t_ in (l_.faulty.lo, l_.faulty.hi, l_.faulty.parity)]
+                require(same(per, bat) and np.array_equal(per_cnt, mlp.stats.counters()),
+                        f"per-leaf differs from batched at {v} V ecc={ecc}")
+            print(f"  V_crash: error {at_crash[True]:.4f} with ECC <= {at_crash[False]:.4f} without; "
+                  "fused = naive predictions; per-leaf = batched planes and counters at "
+                  "(0.56 V, ECC), (0.55 V, no ECC), (0.54 V, ECC)")
+        n_ = tally.n
+        n_layers = len(mlp.layers)
+        per_leaf = n_.get("mlp_per_leaf", 0) + n_.get("mlp_per_leaf_no_ecc", 0)
+        counts = ops.launch_counts()
+        want = dict.fromkeys(counts, 0)
+        want.update(inject_scrub=n_.get("mlp_batched", 0), inject=n_layers * per_leaf,
+                    decode=n_layers * (per_leaf + n_.get("mlp_naive", 0)),
+                    encode=n_["packs"] + n_layers * n_.get("mlp_per_leaf_no_ecc", 0),
+                    ecc_matmul=n_layers * n_.get("mlp_fused", 0))
+        require(counts == want, f"fig3 launches {counts}, expected {want}")
+        require(n_["packs"] == n_layers, f"{n_['packs']} weight packs")
+        require(n_["plain_on_card"] == 0, "the plain codec ran on the card")
+        print(f"  fig3 launches: {json.dumps(counts)} = {n_.get('mlp_batched', 0)} batched steps, "
+              f"{per_leaf} per-leaf steps ({n_.get('mlp_per_leaf_no_ecc', 0)} without ECC), "
+              f"{n_.get('mlp_fused', 0)} fused + {n_.get('mlp_naive', 0)} naive predicts, "
+              f"{n_['packs']} packs, x {n_layers} layers")
+        paths_extra["fig3"] = {"launches": counts, "matmuls_per_forward": n_layers,
+                               "forwards": {"prefill": n_.get("mlp_fused", 0), "decode": 0},
+                               "packs": want["encode"], "commits": 0}
+        # The fused matmul at the MLP's shapes (M = test images), held
+        # against its plain version and timed after the path's count.
+        mlp.set_voltage(prof.v_crash, ecc=True)
+        h, acts = torch.as_tensor(xte, device=dev), []
+        for i, l_ in enumerate(mlp.layers):
+            acts.append(h)
+            h = ops.ecc_matmul(h, l_.faulty) + l_.b
+            h = torch.relu(h) if i < len(mlp.layers) - 1 else h
+        deq = [ref.ecc_matmul_ref(torch.eye(l_.faulty.k, device=dev), l_.faulty.lo,
+                                  l_.faulty.hi, l_.faulty.parity, l_.faulty.scale)
+               for l_ in mlp.layers]
+        worst = 0.0
+        for x_, l_ in zip(acts, mlp.layers):
+            k_o, p_o = ops.ecc_matmul(x_, l_.faulty), ref.ecc_matmul_ref(
+                x_, l_.faulty.lo, l_.faulty.hi, l_.faulty.parity, l_.faulty.scale)
+            err = float((k_o - p_o).abs().max())
+            require(err <= MATMUL_RTOL * float(p_o.abs().max()), f"MLP ecc_matmul err {err}")
+            worst = max(worst, err)
+        ffma = sum(2 * MLP_TEST * l_.faulty.k * l_.faulty.n for l_ in mlp.layers)
+        nbytes = sum(4 * MLP_TEST * (l_.faulty.k + l_.faulty.n)
+                     + 9 * l_.faulty.k * l_.faulty.n // 8 + 4 * l_.faulty.n for l_ in mlp.layers)
+        bt, ot = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ffma / FP32_FLOPS
+        report["ecc_matmul_prefill"]["mlp"] = {
+            "M": MLP_TEST, "shapes": [[l_.faulty.k, l_.faulty.n] for l_ in mlp.layers],
+            "per": "the 3 layers of one predict", "max_abs_err": worst,
+            "ms": sync_ms(lambda: [ops.ecc_matmul(x_, l_.faulty)
+                                   for x_, l_ in zip(acts, mlp.layers)], 20),
+            "plain_ms": sync_ms(lambda: [ref.ecc_matmul_ref(
+                x_, l_.faulty.lo, l_.faulty.hi, l_.faulty.parity, l_.faulty.scale)
+                for x_, l_ in zip(acts, mlp.layers)], 5),
+            "library_ms": sync_ms(lambda: [torch.matmul(x_, w_) for x_, w_ in zip(acts, deq)], 20),
+            "bound_ms": max(bt, ot), "bound_by": "bytes" if bt >= ot else "operations",
+        }
+        r_ = report["ecc_matmul_prefill"]["mlp"]
+        print(f"  ecc_matmul at M={MLP_TEST} over the MLP's 3 layers: max err {worst:.3e}, "
+              f"{r_['ms']:.4f} ms, bound {r_['bound_ms']:.4f} ms ({r_['bound_by']}), plain "
+              f"{r_['plain_ms']:.3f} ms, torch.matmul {r_['library_ms']:.4f} ms")
+        del mlp, acts, deq, h, xtr, xte
+
+    # ---------------------------------------------------------------- 8
+    with Phase("8 per-leaf and domain-mode engines, full width"):
+        ops.reset_launch_count()
+        with Tally() as tally:
+            t = time.perf_counter()
+            rel = ReliabilityConfig(mode="inline", voltage=1.0,
+                                    fault_model=FaultModelConfig(batched=False))
+            leng = ServingEngine(cfg, params, rel=rel, max_len=64)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t
+            t = time.perf_counter()
+            leng.set_voltage(0.56)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t
+            ltoks = leng.generate(prompts, NEW_TOKENS)
+        leaves = [w for _, w in base.flatten(leng.params) if isinstance(w, ops.EccWeight)]
+        require(len(leaves) == len(batched_056["planes"]) and all(
+            same((w.lo, w.hi, w.parity), p_) for w, p_ in zip(leaves, batched_056["planes"])),
+            "per-leaf planes differ from the batched engine's at 0.56 V")
+        require(dataclasses.asdict(leng._last_scrub) == batched_056["scrub"],
+                f"per-leaf counters {leng._last_scrub} differ from the batched engine's")
+        require(np.array_equal(ltoks, batched_056["tokens"]),
+                "per-leaf tokens differ from the batched engine's at 0.56 V")
+        n_ = tally.n
+        per_fwd = 7 * cfg.n_layers
+        counts = ops.launch_counts()
+        want = dict.fromkeys(counts, 0)
+        want.update(inject=2 * len(leaves), decode=2 * len(leaves), encode=n_["packs"],
+                    ecc_matmul=per_fwd * (n_["prefill"] + n_["decode"]))
+        require(counts == want, f"per-leaf launches {counts}, expected {want}")
+        require(n_["packs"] == per_fwd and n_["plain_on_card"] == 0, f"per-leaf tally {n_}")
+        per_leaf_run = {"build_s": build_s, "step_056_s": step_s,
+                        "scrub_056": leng._last_scrub.to_dict(), "leaves": len(leaves)}
+        print(f"  per-leaf engine: built in {build_s:.2f} s; 0.56 V step {step_s:.2f} s "
+              f"({len(leaves)} inject + {len(leaves)} scrub launches); planes, counters and "
+              f"tokens equal to phase 4's batched engine; scrub {per_leaf_run['scrub_056']}")
+        print(f"  per-leaf launches: {json.dumps(counts)} = 2 voltage steps x {len(leaves)} leaves, "
+              f"{n_['packs']} packs, {per_fwd} fused matmuls x ({n_['prefill']} prefill + "
+              f"{n_['decode']} decode forwards)")
+        paths_extra["per-leaf"] = {"launches": counts, "matmuls_per_forward": per_fwd,
+                                   "forwards": {"prefill": n_["prefill"], "decode": n_["decode"]},
+                                   "packs": n_["packs"], "commits": 0}
+        del leng, leaves, batched_056
+        torch.cuda.empty_cache()
+
+        ops.reset_launch_count()
+        mask_s = []
+        real_gather = memory.gather_masks
+
+        def timed_gather(*a, **kw):
+            t_ = time.perf_counter()
+            out = real_gather(*a, **kw)
+            mask_s.append(time.perf_counter() - t_)
+            return out
+
+        memory.gather_masks = timed_gather
+        try:
+            with Tally() as tally:
+                t = time.perf_counter()
+                deng = ServingEngine(cfg, params, rel=ReliabilityConfig(voltage=1.0), max_len=64)
+                torch.cuda.synchronize()
+                build_s = time.perf_counter() - t
+                n_arrays, n_words = len(deng.domain.names()), sum(
+                    deng.domain.entry(k).n_words for k in deng.domain.names())
+                require(all(same_bits(a_, b_) for (_, a_), (_, b_) in
+                            zip(base.flatten(deng.params), base.flatten(params))),
+                        "domain mode's nominal read-back differs from the params it wrote")
+                dtoks = deng.generate(prompts, NEW_TOKENS)
+                plain_toks = ServingEngine(cfg, params, rel=None, max_len=64).generate(
+                    prompts, NEW_TOKENS)
+                require(np.array_equal(dtoks, plain_toks),
+                        "domain mode at nominal differs from the unprotected model")
+                before = deng.stats.counters()
+                t = time.perf_counter()
+                deng.set_voltage(0.56)
+                torch.cuda.synchronize()
+                step_s = time.perf_counter() - t
+                step_cnt = deng.stats.counters() - before
+                t = time.perf_counter()
+                d56 = deng.generate(prompts, NEW_TOKENS)
+                gen_s = time.perf_counter() - t
+        finally:
+            memory.gather_masks = real_gather
+        require(d56.shape == (BATCH, NEW_TOKENS) and bool(((d56 >= 0) & (d56 < cfg.vocab)).all()),
+                "domain-mode tokens at 0.56 V")
+        step_stats = dict(zip(("clean", "corrected", "detected", "silent", "words_1bit",
+                               "words_2bit", "words_multi", "faulty_bits"), step_cnt.tolist()))
+        require(step_stats["corrected"] > 0, f"no corrected word at 0.56 V: {step_stats}")
+        # The 0.56 V read-back against the plain read on the same masks (the
+        # fields keep their draw): every array bit for bit, and the counters.
+        require(deng.rel.ecc, "the domain engine reads with ECC")
+        plain_cnt = np.zeros_like(step_cnt)
+        for key, arr in base.flatten(deng.params):
+            e_ = deng.domain.entry("w" + key)
+            m_ = faultsim.device_masks(e_.field, 0.56, dev)
+            plo, phi, pst = ref.decode_ref(*ref.inject_ref(e_.lo, e_.hi, e_.parity, *m_))
+            require(same_bits(arr, quantize.words_to_array(plo, phi, e_.nbytes, e_.shape,
+                                                           e_.dtype)),
+                    f"domain read-back of {key} at 0.56 V differs from the plain read")
+            plain_cnt += FaultStats.from_decode(pst, faultsim.flip_counts(*m_)).counters()
+            del m_, plo, phi, pst
+        require(np.array_equal(plain_cnt, step_cnt),
+                f"domain counters {step_cnt.tolist()} differ from the plain read's "
+                f"{plain_cnt.tolist()}")
+        print(f"  domain 0.56 V read-back: {n_arrays} arrays bit-identical to B7 + B5's plain "
+              "versions on the same masks, counters equal")
+        n_ = tally.n
+        counts = ops.launch_counts()
+        want = dict.fromkeys(counts, 0)
+        want.update(inject=2 * n_arrays, decode=2 * n_arrays, encode=n_arrays)
+        require(counts == want, f"domain launches {counts}, expected {want}")
+        require(n_["prefill"] == n_["decode"] == 0 and n_["plain_on_card"] == 0,
+                f"domain tally {n_}")
+        domain_run = {"build_s": build_s, "arrays": n_arrays, "words": n_words,
+                      "step_056_s": step_s, "host_mask_s": sum(mask_s),
+                      "generate_056_s": gen_s, "agreement_056_with_nominal":
+                      float((d56 == dtoks).mean()), "stats_056": step_stats}
+        print(f"  domain engine: {n_arrays} arrays, {n_words} words, built (write + nominal "
+              f"read) in {build_s:.2f} s; nominal tokens equal the unprotected model's")
+        print(f"  domain 0.56 V step {step_s:.2f} s (host masks {sum(mask_s):.2f} s), "
+              f"generate {gen_s:.2f} s, agreement with nominal "
+              f"{domain_run['agreement_056_with_nominal']:.3f}, stats {json.dumps(step_stats)}")
+        print(f"  domain launches: {json.dumps(counts)} = 2 reads x {n_arrays} arrays, "
+              f"{n_arrays} writes")
+        paths_extra["domain"] = {"launches": counts, "matmuls_per_forward": per_fwd,
+                                 "forwards": {"prefill": 0, "decode": 0}, "packs": n_arrays,
+                                 "commits": 0}
+        del deng
+        torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 9
+    with Phase("9 traced steps, timings and the kernels line"):
         for name, run in runs.items():
             run["steps"] = step_breakdown(traced_params.pop(name), {"prefill": 0, "decode": 0},
                                           walls=run["steps"])
@@ -863,7 +1207,10 @@ def main() -> int:
                   f"{kernel['ms']:.3f} ms of it)")
         print(f"  runs {json.dumps(runs)}")
         print(f"  paged {json.dumps(paged)}")
-        paths = {**runs, **{k: v for k, v in paged.items() if "launches" in v}}
+        print(f"  fig3 {json.dumps(fig3)}")
+        print(f"  per_leaf {json.dumps(per_leaf_run)}")
+        print(f"  domain {json.dumps(domain_run)}")
+        paths = {**runs, **{k: v for k, v in paged.items() if "launches" in v}, **paths_extra}
 
         def by_path(kernel, kind=None):
             """A kernel's launches per path; the fused matmul's split by the
@@ -891,6 +1238,8 @@ def main() -> int:
                               by_path("encode", "commits")),
             "gather_scrub": ("paged_gather.cu", "src/repro/kernels/paged_gather.py:108",
                              by_path("gather_scrub")),
+            "inject": ("fault_inject.cu", "src/repro/kernels/fault_inject.py:25",
+                       by_path("inject")),
         }
         kernels = []
         for name, (source, replaces, launches) in meta.items():
@@ -906,6 +1255,7 @@ def main() -> int:
                 "library_ms": r.get("library_ms"),
                 **({"M": r["M"], "per": "one layer's 7 matmuls", "shapes": r["shapes"],
                     "max_rel_err": r["max_rel_err"]} if mm else {"n_words": r["n_words"]}),
+                **({"mlp": r["mlp"]} if "mlp" in r else {}),
             })
         kernels[[k["name"] for k in kernels].index("encode")]["kv_arena"] = report["encode_kv_arena"]
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,11 @@ import importlib
 
 from repro_torch.configs import shapes
 
-ARCHS = {"qwen3-0.6b": "qwen3_0_6b"}
+ARCHS = {
+    "qwen3-0.6b": "qwen3_0_6b",
+    # the paper's own accelerator workload (MLP on MNIST-class tasks)
+    "paper-nn": "paper_nn",
+}
 
 
 def _module(arch: str):

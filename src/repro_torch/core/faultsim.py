@@ -30,9 +30,9 @@ import os
 import numpy as np
 import torch
 
-from repro_torch.codes.base import narrow
+from repro_torch.codes.base import narrow, popcount32, widen
 from repro_torch.core.voltage import PlatformProfile
-from repro_torch.kernels.backend import resolve_device
+from repro_torch.kernels.backend import resolve_device, to_device
 
 P_MAX = 0.5  # per-bit fault probability ceiling
 N_DATA_BITS = 64
@@ -52,6 +52,31 @@ class FlipMasks:
         """Ground-truth number of flipped bits per codeword."""
         cnt = _popcount32(self.lo) + _popcount32(self.hi)
         return (cnt + _popcount32(self.parity.astype(np.uint32))).astype(np.int32)
+
+
+def flip_counts(mlo: torch.Tensor, mhi: torch.Tensor, mcheck: torch.Tensor) -> torch.Tensor:
+    """Ground-truth flipped bits per codeword of mask tensors (int32 lo/hi
+    bit patterns, uint8 check), on their device (int64)."""
+    return popcount32(widen(mlo)) + popcount32(widen(mhi)) + popcount32(mcheck.to(torch.int64))
+
+
+def device_masks(field: "FaultField", v: float, device, shape=None):
+    """The field's (lo int32, hi int32, check uint8) masks at rail voltage
+    ``v`` as tensors on ``device``, shaped ``shape`` (default flat). At a
+    zero fault rate they are zeros made on the device: no draw, no copy. A
+    drawn field's kept masks are reused, so a caller can draw many fields at
+    once with ``gather_masks`` first."""
+    shape = (field.n_words,) if shape is None else tuple(shape)
+    if field.platform.fault_rate(float(v)) == 0.0:
+        return tuple(
+            torch.zeros(shape, dtype=dt, device=device)
+            for dt in (torch.int32, torch.int32, torch.uint8)
+        )
+    m = field.masks(v)
+    return tuple(
+        to_device(a.reshape(shape), device)
+        for a in (m.lo.view(np.int32), m.hi.view(np.int32), m.parity)
+    )
 
 
 def _popcount32(v: np.ndarray) -> np.ndarray:

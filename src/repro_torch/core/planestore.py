@@ -22,7 +22,7 @@ import torch
 
 from repro_torch import codes
 from repro_torch.codes import DEFAULT_CODEC
-from repro_torch.core.faultsim import FaultField, gather_masks
+from repro_torch.core.faultsim import FaultField, flip_counts, gather_masks
 from repro_torch.core.telemetry import DomainFaultStats, FaultStats
 from repro_torch.core.voltage import PlatformProfile
 from repro_torch.kernels import ops as kops
@@ -33,6 +33,19 @@ def leaf_seed(base_seed: int, key: str) -> int:
     """Per-leaf fault-field seed: the fault pattern is a property of
     (silicon sample, rail), i.e. (seed, leaf)."""
     return (base_seed * 0x9E3779B1 + zlib.crc32(key.encode())) & 0x7FFFFFFF
+
+
+def inject_leaf(leaf, masks, ecc: bool = True):
+    """The per-leaf reference step of one EccWeight leaf: inject ``masks``
+    ((lo, hi, check) tensors shaped like its planes), re-encode the check
+    bits over the faulty data when ECC is off (the decoder then passes the
+    faults through, as when all 72 bits are data), and scrub. Returns (faulty
+    leaf, FaultStats); bit-identical to the leaf's slice of a batched step."""
+    lo, hi, par = kops.inject(leaf.lo, leaf.hi, leaf.parity, *masks)
+    if not ecc:
+        par = kops.encode(lo, hi)
+    faulty = dataclasses.replace(leaf, lo=lo, hi=hi, parity=par)
+    return faulty, FaultStats.from_decode(kops.scrub(faulty), flip_counts(*masks))
 
 
 @dataclasses.dataclass(frozen=True)

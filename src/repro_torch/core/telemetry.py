@@ -5,6 +5,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch import codes
 
@@ -13,6 +14,23 @@ COUNTER_FIELDS = (
     "clean", "corrected", "detected", "silent",
     "words_1bit", "words_2bit", "words_multi", "faulty_bits",
 )
+
+
+def counter_lanes(status: torch.Tensor, flips: torch.Tensor) -> list:
+    """Per-word int64 lanes in ``COUNTER_FIELDS`` order, from ECC status
+    codes and ground-truth flip counts of the same words."""
+    detected = status == codes.STATUS_DETECTED
+    lanes = (
+        (status == codes.STATUS_CLEAN) & (flips == 0),
+        (status == codes.STATUS_CORRECTED) & (flips == 1),
+        detected,
+        (flips >= 2) & ~detected,
+        flips == 1,
+        flips == 2,
+        flips >= 3,
+        flips,
+    )
+    return [t.to(torch.int64) for t in lanes]
 
 
 @dataclasses.dataclass
@@ -67,6 +85,19 @@ class FaultStats:
             "silent": self.silent / n,
         }
 
+    def coverage_row(self) -> dict:
+        """The sweep row: raw counters and the per-outcome coverage
+        fractions (``coverage_<outcome>``)."""
+        return {
+            "words": self.words,
+            "faulty_words": self.faulty_words,
+            "faulty_bits": self.faulty_bits,
+            "corrected": self.corrected,
+            "detected": self.detected,
+            "silent": self.silent,
+            **{f"coverage_{k}": v for k, v in self.coverage().items()},
+        }
+
     def to_dict(self) -> dict:
         out = {"words": self.words}
         out.update({f: getattr(self, f) for f in COUNTER_FIELDS})
@@ -104,22 +135,26 @@ class FaultStats:
         )
 
     @classmethod
-    def from_decode(cls, status: np.ndarray, flip_counts: np.ndarray) -> "FaultStats":
-        """Stats from per-word ECC status codes + ground-truth flip counts."""
-        status = np.asarray(status).reshape(-1)
-        flips = np.asarray(flip_counts).reshape(-1)
-        detected = status == codes.STATUS_DETECTED
-        return cls(
-            words=int(status.size),
-            clean=int(((status == codes.STATUS_CLEAN) & (flips == 0)).sum()),
-            corrected=int(((status == codes.STATUS_CORRECTED) & (flips == 1)).sum()),
-            detected=int(detected.sum()),
-            silent=int(((flips >= 2) & ~detected).sum()),
-            words_1bit=int((flips == 1).sum()),
-            words_2bit=int((flips == 2).sum()),
-            words_multi=int((flips >= 3).sum()),
-            faulty_bits=int(flips.sum()),
-        )
+    def from_decode(cls, status, flip_counts) -> "FaultStats":
+        """Stats from per-word ECC status codes and ground-truth flip counts
+        (numpy arrays or tensors; tensors are reduced on their device and
+        only the counter row crosses to the host)."""
+        status = torch.as_tensor(status).reshape(-1)
+        flips = torch.as_tensor(flip_counts, device=status.device).reshape(-1)
+        row = torch.stack([t.sum() for t in counter_lanes(status, flips)])
+        return cls.from_counters(row.cpu().numpy(), words=status.numel())
+
+    @classmethod
+    def from_flips(cls, flip_counts) -> "FaultStats":
+        """Stats of a read without ECC: ground truth only (``words`` and the
+        flip-count lanes; no ECC outcome is counted)."""
+        flips = torch.as_tensor(flip_counts).reshape(-1)
+        row = torch.stack(
+            [(flips == 1).sum(), (flips == 2).sum(), (flips >= 3).sum(),
+             flips.to(torch.int64).sum()]
+        ).cpu().numpy()
+        return cls(words=flips.numel(), words_1bit=int(row[0]), words_2bit=int(row[1]),
+                   words_multi=int(row[2]), faulty_bits=int(row[3]))
 
 
 @dataclasses.dataclass

@@ -106,6 +106,18 @@ _P_TOTAL_NOM = (bram_power(1.0) - 0.211) / 0.252
 P_REST_W = _P_TOTAL_NOM - bram_power(1.0)
 
 
+def accelerator_power(v: float, ecc: bool = True) -> float:
+    """Total NN-accelerator power (W) with the BRAM rail at ``v`` (paper
+    §IV)."""
+    return P_REST_W + bram_power(v, ecc=ecc)
+
+
+def power_saving(v_from: float, v_to: float, ecc: bool = False) -> float:
+    """Fractional BRAM power saving when undervolting v_from -> v_to."""
+    p0, p1 = bram_power(v_from, ecc=False), bram_power(v_to, ecc=ecc)
+    return 1.0 - p1 / p0
+
+
 def derive_domain_profiles(
     base: PlatformProfile, domains, spread: float = 0.5, seed: int = 0
 ) -> dict:

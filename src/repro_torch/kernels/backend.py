@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("inject_scrub", "secded", "ecc_matmul", "paged_gather")
+SOURCES = ("inject_scrub", "secded", "ecc_matmul", "paged_gather", "fault_inject")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -149,6 +149,20 @@ def check(t: torch.Tensor, dtype: torch.dtype, name: str, shape=None) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def check_planes(lo, hi, chk, mlo, mhi, mchk) -> int:
+    """Raise unless the three planes and their three masks are flat CUDA
+    tensors of one length n (lo/hi int32, check uint8, masks alike);
+    returns n."""
+    n = lo.numel()
+    for t, dt, name in (
+        (lo, torch.int32, "lo"), (hi, torch.int32, "hi"), (chk, torch.uint8, "check"),
+        (mlo, torch.int32, "mask_lo"), (mhi, torch.int32, "mask_hi"),
+        (mchk, torch.uint8, "mask_check"),
+    ):
+        check(t, dt, name, (n,))
+    return n
 
 
 class Kernel:

@@ -20,20 +20,9 @@ INJECT_SCRUB_DOMAINS = B.Kernel(
 )
 
 
-def _check_planes(lo, hi, check, mlo, mhi, mcheck):
-    n = lo.numel()
-    for t, dt, name in (
-        (lo, torch.int32, "lo"), (hi, torch.int32, "hi"), (check, torch.uint8, "check"),
-        (mlo, torch.int32, "mask_lo"), (mhi, torch.int32, "mask_hi"),
-        (mcheck, torch.uint8, "mask_check"),
-    ):
-        B.check(t, dt, name, (n,))
-    return n
-
-
 def inject_scrub(lo, hi, check, mlo, mhi, mcheck, *, codec: Codec, reencode: bool):
     """-> (faulty lo, hi, check, counters (N_COUNTERS,) int32)."""
-    n = _check_planes(lo, hi, check, mlo, mhi, mcheck)
+    n = B.check_planes(lo, hi, check, mlo, mhi, mcheck)
     olo, ohi, ochk = torch.empty_like(lo), torch.empty_like(hi), torch.empty_like(check)
     cnt = torch.zeros(N_COUNTERS, dtype=torch.int32, device=lo.device)
     if n:
@@ -51,7 +40,7 @@ def inject_scrub_domains(
     """-> (faulty lo, hi, check, counters (n_domains, N_COUNTERS) int32);
     ``dom`` holds every word's domain index; a word whose index lies outside
     [0, n_domains) is counted in no row."""
-    n = _check_planes(lo, hi, check, mlo, mhi, mcheck)
+    n = B.check_planes(lo, hi, check, mlo, mhi, mcheck)
     B.check(dom, torch.int32, "domain_ids", (n,))
     if not 1 <= n_domains <= 16:
         raise ValueError(f"n_domains must be in [1, 16], got {n_domains}")

@@ -2,8 +2,9 @@
 
 CPU tensors take the plain version (kernels/ref.py); CUDA tensors launch the
 hand-written kernel (kernels/inject_scrub.py, secded.py, ecc_matmul.py,
-paged_gather.py) or raise. Planes of any shape are flattened; the kernels
-need no padded layout, so no pad correction of the clean counter arises.
+paged_gather.py, fault_inject.py) or raise. Planes of any shape are
+flattened; the kernels need no padded layout, so no pad correction of the
+clean counter arises.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from repro_torch import codes
 from repro_torch.kernels import backend
 from repro_torch.kernels import ecc_matmul as _mm
+from repro_torch.kernels import fault_inject as _fi
 from repro_torch.kernels import inject_scrub as _isc
 from repro_torch.kernels import paged_gather as _pg
 from repro_torch.kernels import ref as _ref
@@ -27,6 +29,7 @@ KERNELS = {
     "ecc_matmul": _mm.ECC_MATMUL,
     "encode": _secded.ENCODE,
     "gather_scrub": _pg.GATHER_SCRUB,
+    "inject": _fi.INJECT,
 }
 
 
@@ -84,6 +87,17 @@ def decode(lo, hi, parity, *, codec: str = codes.DEFAULT_CODEC):
         out = _ref.decode_ref(flo, fhi, fpar, codec)
     else:
         out = _secded.decode(flo, fhi, fpar, codec=codes.get(codec))
+    return tuple(t.reshape(lo.shape) for t in out)
+
+
+def inject(lo, hi, parity, mlo, mhi, mparity):
+    """Read-time fault injection: XOR flip masks into planes of any shape ->
+    (faulty lo, hi, parity)."""
+    planes = _flat(lo, hi, parity, mlo, mhi, mparity)
+    if backend.dispatch(*planes) == "cpu":
+        out = _ref.inject_ref(*planes)
+    else:
+        out = _fi.inject(*planes)
     return tuple(t.reshape(lo.shape) for t in out)
 
 
@@ -157,13 +171,25 @@ def permute_k(x: torch.Tensor, k: int) -> torch.Tensor:
     return x.reshape(*lead, 8, k8).transpose(-1, -2).reshape(*lead, k)
 
 
-def ecc_matmul(x: torch.Tensor, w: EccWeight) -> torch.Tensor:
+def ecc_matmul(x: torch.Tensor, w: EccWeight, *, fuse: bool = True) -> torch.Tensor:
     """``scale * (x @ decode(w))`` with ECC correction on the read path;
-    float32 result of shape (..., N)."""
+    float32 result of shape (..., N).
+
+    fuse=True : one fused decode + dequant + matmul (the kernel on the card);
+    fuse=False: the naive read, a decode pass that materialises the corrected
+                int8 weights, then a float32 ``torch.matmul``."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, w.k).to(torch.float32).contiguous()
-    if backend.dispatch(x2, w.lo, w.hi, w.parity, w.scale) == "cpu":
+    if not fuse:
+        lo, hi, _ = decode(w.lo, w.hi, w.parity)
+        out = (x2 @ _ref.unpack_ecc_weights(lo, hi).to(torch.float32)) * w.scale
+    elif backend.dispatch(x2, w.lo, w.hi, w.parity, w.scale) == "cpu":
         out = _ref.ecc_matmul_ref(x2, w.lo, w.hi, w.parity, w.scale)
     else:
         out = _mm.ecc_matmul(x2, w.lo, w.hi, w.parity, w.scale, codec=codes.get("secded72"))
     return out.reshape(*lead, w.n)
+
+
+def scrub(w: EccWeight) -> torch.Tensor:
+    """Memory-scrubber pass: decode every plane word, return the status."""
+    return decode(w.lo, w.hi, w.parity)[2]

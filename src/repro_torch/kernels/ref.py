@@ -6,7 +6,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch import codes
-from repro_torch.codes.base import narrow, popcount32, widen
+from repro_torch.codes.base import narrow, widen
+from repro_torch.core.faultsim import flip_counts
+from repro_torch.core.telemetry import counter_lanes
 
 N_COUNTERS = 8
 
@@ -58,19 +60,9 @@ def gather_scrub_ref(lo, hi, check, page_ids, words_per_page: int,
     return payload.reshape(idx.shape[0], 2 * words_per_page), cnt
 
 
-def _tallies(status, flips):
-    """(n, 8) int64 counter lanes per word (telemetry.COUNTER_FIELDS)."""
-    detected = status == codes.STATUS_DETECTED
-    lanes = (
-        (status == codes.STATUS_CLEAN) & (flips == 0),
-        (status == codes.STATUS_CORRECTED) & (flips == 1),
-        detected,
-        (flips >= 2) & ~detected,
-        flips == 1,
-        flips == 2,
-        flips >= 3,
-    )
-    return [t.to(torch.int64) for t in lanes] + [flips]
+def inject_ref(lo, hi, check, mlo, mhi, mcheck):
+    """XOR flip masks into the three planes -> (faulty lo, hi, check)."""
+    return lo ^ mlo, hi ^ mhi, check ^ mcheck
 
 
 def _inject_classify(lo, hi, check, mlo, mhi, mcheck, reencode, codec):
@@ -78,10 +70,7 @@ def _inject_classify(lo, hi, check, mlo, mhi, mcheck, reencode, codec):
     flo, fhi = narrow(widen(lo) ^ widen(mlo)), narrow(widen(hi) ^ widen(mhi))
     fchk = c.encode(flo, fhi) if reencode else check ^ mcheck
     status = c.decode(flo, fhi, fchk)[2]
-    flips = (
-        popcount32(widen(mlo)) + popcount32(widen(mhi)) + popcount32(mcheck.to(torch.int64))
-    )
-    return flo, fhi, fchk, status, flips
+    return flo, fhi, fchk, status, flip_counts(mlo, mhi, mcheck)
 
 
 def inject_scrub_ref(lo, hi, check, mlo, mhi, mcheck, reencode=False,
@@ -91,7 +80,7 @@ def inject_scrub_ref(lo, hi, check, mlo, mhi, mcheck, reencode=False,
     flo, fhi, fchk, status, flips = _inject_classify(
         lo, hi, check, mlo, mhi, mcheck, reencode, codec
     )
-    counters = torch.stack([t.sum() for t in _tallies(status, flips)])
+    counters = torch.stack([t.sum() for t in counter_lanes(status, flips)])
     return flo, fhi, fchk, counters.to(torch.int32)
 
 
@@ -102,7 +91,7 @@ def inject_scrub_domains_ref(lo, hi, check, mlo, mhi, mcheck, dom, n_domains: in
     flo, fhi, fchk, status, flips = _inject_classify(
         lo, hi, check, mlo, mhi, mcheck, reencode, codec
     )
-    tallies = _tallies(status, flips)
+    tallies = counter_lanes(status, flips)
     rows = []
     for d in range(n_domains):
         sel = dom == d

@@ -1,5 +1,10 @@
 """Serving engine with ECC-protected weights under an undervolted rail.
 
+Domain mode (the default): the raw bits of every parameter are stored in an
+``EccMemoryDomain`` on the card; every voltage step reads the whole tree
+back through fault injection and SECDED decode, and the forward runs the
+read-back (plain, dense) parameters.
+
 Inline mode: every attention/MLP matrix (and, for multi-rail engines, the
 embedding) is int8-quantized and packed into SECDED(72,64) word planes held
 in one ``PlaneStore`` arena on the card. A voltage step is one fused
@@ -25,8 +30,10 @@ import torch
 from repro_torch.configs import shapes
 from repro_torch.core import voltage as vmod
 from repro_torch.core.controller import MultiRailController, UndervoltController
+from repro_torch.core.faultsim import FaultField, device_masks, gather_masks
 from repro_torch.core.kvpages import PAGE_TOKENS, KVGeometry, KVPageArena
-from repro_torch.core.planestore import PlaneStore
+from repro_torch.core.memory import EccMemoryDomain
+from repro_torch.core.planestore import PlaneStore, inject_leaf, leaf_seed
 from repro_torch.core.telemetry import DomainFaultStats, FaultStats
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -43,11 +50,11 @@ class ReliabilityConfigError(ValueError, AssertionError):
 
 @dataclasses.dataclass(frozen=True)
 class FaultModelConfig:
-    """How faults are generated and applied. Only the defaults are ported:
-    ``validate()`` rejects the others."""
+    """How faults are generated and applied. ``validate()`` rejects what is
+    not ported: device masks, environments and drift."""
 
     mask_source: str = "host"  # NumPy FaultField masks
-    batched: bool = True  # one fused launch over the whole arena
+    batched: bool = True  # one fused launch over the whole arena; False: per leaf
     environment: Any = None
     drift: float | None = None
 
@@ -89,7 +96,7 @@ class ReliabilityConfig:
     platform: str = "vc707"
     ecc: bool = True
     voltage: float | None = None  # None -> nominal
-    mode: str = "domain"  # only "inline" is ported
+    mode: str = "domain"  # "domain" | "inline"
     seed: int = 0
     fault_model: FaultModelConfig = dataclasses.field(default_factory=FaultModelConfig)
     rails: RailsConfig = dataclasses.field(default_factory=RailsConfig)
@@ -104,12 +111,28 @@ class ReliabilityConfig:
             if not cond:
                 raise ReliabilityConfigError(msg)
 
-        fm, prot = self.fault_model, self.protection
+        fm, prot, multi = self.fault_model, self.protection, self.rails.multi_rail
+        _require(
+            self.mode in ("domain", "inline"),
+            f"mode must be 'domain' or 'inline', got {self.mode!r}",
+        )
         _require(self.platform in vmod.PLATFORMS, f"unknown platform {self.platform!r}")
-        _require(self.mode == "inline", f"mode={self.mode!r} is not ported (use 'inline')")
+        if self.mode == "domain":
+            _require(
+                prot.codecs in (None, "secded72"),
+                "domain mode stores raw bits behind the built-in SECDED; "
+                "codec selection needs mode='inline'",
+            )
+            _require(not multi, "domain mode has one rail; multi_rail needs mode='inline'")
+        else:
+            _require(not multi or fm.batched, "multi_rail drives the batched plane arena")
+            _require(
+                fm.batched or prot.codecs in (None, "secded72"),
+                "the per-leaf reference path is SECDED-only; codec selection needs "
+                "the batched arena",
+            )
         _require(mesh is None, "mesh engines are not ported")
         _require(fm.mask_source == "host", "mask_source='device' is not ported")
-        _require(fm.batched, "the per-leaf path (batched=False) is not ported")
         _require(
             fm.environment is None and fm.drift is None,
             "environment scenarios and drift are not ported",
@@ -122,7 +145,7 @@ class ReliabilityConfig:
             all(c == "secded72" for c in codecs), "only the secded72 codec is ported"
         )
         _require(
-            self.rails.multi_rail or prot.codecs is None or isinstance(prot.codecs, str),
+            multi or prot.codecs is None or isinstance(prot.codecs, str),
             "per-domain codec dicts need multi_rail=True",
         )
         _require(prot.escalation is None, "codec escalation is not ported")
@@ -221,8 +244,19 @@ class ServingEngine:
         self._last_scrub = None
         self.kv_arena = None
         self._paged_helper_cache: dict = {}
+        self.domain = None
         if rel is None:
             self.params = params
+            return
+        if rel.mode == "domain":
+            self.domain = EccMemoryDomain(
+                self.platform, seed=rel.seed, ecc_enabled=rel.ecc,
+                voltage=rel.voltage or 1.0, device=self.device,
+            )
+            self.domain.write_pytree("w", params)
+            self._clean_params = params
+            self.params = params  # replaced by every set_voltage's read-back
+            self.set_voltage(self.domain.voltage)
             return
         clean, _ = protect_params_inline(params, cfg, include_embed=rel.embed_protected)
         self._inline_tree = clean
@@ -231,6 +265,7 @@ class ServingEngine:
         self._ecc_slots = [
             (i, key) for i, (key, leaf) in enumerate(flat) if isinstance(leaf, kops.EccWeight)
         ]
+        self._fields: dict[str, FaultField] = {}  # per-leaf path, made on first use
         rail_profiles = (
             vmod.derive_domain_profiles(
                 self.platform, shapes.MEMORY_DOMAINS, spread=rails.spread, seed=rel.seed
@@ -267,17 +302,53 @@ class ServingEngine:
 
     # -- voltage control ------------------------------------------------------
     def set_voltage(self, v: float):
-        """Move the whole rail to ``v``: one fused inject+scrub launch."""
+        """Move the whole rail to ``v``: one fused inject+scrub launch (the
+        per-leaf path: one inject and one scrub per leaf; domain mode: a
+        read of the whole parameter tree)."""
         self.voltage = float(v)
         if self.rel is None:
             return
         if self.rel.rails.multi_rail:
             self.set_rails({d: float(v) for d in self._store.domains})
             return
+        if self.rel.mode == "domain":
+            self.domain.set_voltage(v)
+            self.params, stats = self.domain.read_pytree("w", self._clean_params)
+            self.stats.accumulate(stats)
+            return
+        if not self.rel.fault_model.batched:
+            self._apply_inline_faults(v)
+            return
         leaves, stats = self._store.set_voltage(v, ecc=self.rel.ecc)
         self.params = self._reassemble_params(leaves)
         self.stats.accumulate(stats)
         self._last_scrub = stats
+
+    def _apply_inline_faults(self, v: float):
+        """Per-leaf reference path: every protected leaf takes its own
+        ``inject_leaf`` step, its masks from its own field keyed by its
+        path. The masks of all leaves are drawn first, together, on a pool
+        of threads."""
+        fields = []
+        for i, key in self._ecc_slots:
+            if key not in self._fields:
+                self._fields[key] = FaultField(
+                    self.platform, self._inline_template[i].lo.numel(),
+                    seed=leaf_seed(self.rel.seed, key),
+                )
+            fields.append(self._fields[key])
+        if self.platform.fault_rate(float(v)) > 0.0:
+            gather_masks([(f, v) for f in fields])
+        flat = list(self._inline_template)
+        agg = FaultStats()
+        for (i, key), field in zip(self._ecc_slots, fields):
+            masks = device_masks(field, v, self.device, flat[i].lo.shape)
+            faulty, stats = inject_leaf(flat[i], masks, self.rel.ecc)
+            agg.accumulate(stats)
+            flat[i] = _decode_gather_table(faulty) if "embed" in key else faulty
+        self.params = base.unflatten(self._inline_tree, flat)
+        self.stats.accumulate(agg)
+        self._last_scrub = agg
 
     def set_rails(self, volts: dict):
         """Per-domain voltage step (multi-rail engines): one fused launch,
@@ -402,7 +473,7 @@ class ServingEngine:
         # The kv domain now has real words (power weighting) and counters.
         self.stats.accumulate(report.kv_stats)
         self.rail_stats.accumulate(DomainFaultStats({"kv": report.kv_stats}))
-        if self.rel is not None:
+        if self.rel is not None and self.rel.mode == "inline":
             self._store.register_domain_words("kv", arena.n_words, codec=arena.codec_name)
         if self.rails is not None:
             self.rails["kv"] = arena.voltage
@@ -429,7 +500,9 @@ class ServingEngine:
         if self.rel.rails.multi_rail:
             return self._autotune_rails(max_rounds)
         for _ in range(max_rounds):
-            v = self.controller.update(self._last_scrub)
+            v = self.controller.update(
+                self._last_scrub if self.rel.mode == "inline" else self._domain_scrub()
+            )
             if self.controller.locked:
                 self.set_voltage(self.controller.voltage)
                 break
@@ -446,6 +519,11 @@ class ServingEngine:
             if self.controller.locked:
                 break
         return self.controller.voltages, self.controller.history
+
+    def _domain_scrub(self) -> FaultStats:
+        """A read of every array of the domain at its rail (domain mode's
+        canary round)."""
+        return self.domain.read_pytree("w", self._clean_params)[1]
 
     def _check_bits(self) -> dict:
         store = getattr(self, "_store", None)

@@ -144,9 +144,11 @@ def test_entry_points_default_to_the_card(models, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"mode": "domain"},
+    # domain mode and the per-leaf path are ported; with several rails
+    # neither is valid
+    {"mode": "domain", "rails": teng.RailsConfig(multi_rail=True)},
     {"fault_model": teng.FaultModelConfig(mask_source="device")},
-    {"fault_model": teng.FaultModelConfig(batched=False)},
+    {"fault_model": teng.FaultModelConfig(batched=False), "rails": teng.RailsConfig(multi_rail=True)},
     {"protection": teng.ProtectionConfig(codecs="dected79")},
     {"protection": teng.ProtectionConfig(codecs={"attention": "secded72"})},
     {"rails": teng.RailsConfig(multi_rail=True),

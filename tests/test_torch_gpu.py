@@ -120,3 +120,21 @@ def test_gather_scrub_kernel_bit_identical_with_duplicate_ids(cuda):
     assert torch.equal(k[1], p[1])
     assert int(k[1][:, 1].min()) > 0  # every row, duplicates too, saw corrections
     assert all(torch.equal(a, b) for a, b in zip(k_planes, planes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,offset", [(100_003, 0), (4_099, 1), (7, 0), (1, 3), (3 * 17 * 70, 0)])
+def test_inject_kernel_bit_identical(cuda, n, offset):
+    """Lengths that are not a multiple of 4 or 16 (the check plane's tail),
+    planes that start off the 16-byte boundary (the one-word path), and a
+    stacked 3D leaf."""
+    planes = [t[offset:] for t in _planes(n + offset, 0.02, cuda)]
+    if n == 3 * 17 * 70:
+        planes = [t.reshape(3, 17, 70) for t in planes]
+    before = ops.launch_counts()["inject"]
+    k = ops.inject(*planes)
+    p = ref.inject_ref(*planes)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["inject"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert k[2].dtype == torch.uint8 and k[2].shape == planes[2].shape

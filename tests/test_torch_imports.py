@@ -28,7 +28,10 @@ def test_port_modules_are_listed():
     for m in ("repro_torch.kernels.ops", "repro_torch.serving.engine",
               "repro_torch.core.planestore", "repro_torch.models.lm",
               "repro_torch.kernels.paged_gather", "repro_torch.core.kvpages",
-              "repro_torch.serving.steps", "repro_torch.serving.scheduler"):
+              "repro_torch.serving.steps", "repro_torch.serving.scheduler",
+              "repro_torch.kernels.fault_inject", "repro_torch.core.memory",
+              "repro_torch.core.nn_accel", "repro_torch.data.mnist",
+              "repro_torch.configs.paper_nn"):
         assert m in mods
 
 
