@@ -12,7 +12,10 @@ them. Phases, each printed on its own line with its wall time:
      and 0.54 V, both re-encode settings) and its per-domain form
      (multi-rail arena) and the SECDED decode (faulty embedding) bit for bit,
      the fused decode+matmul at every qwen3-0.6b (K, N) within
-     1e-4 * max|plain| (float32 sums run in another order), and the
+     1e-4 * max|plain| (float32 sums run in another order) at M = batch
+     (its decode kernel) and M = batch x prompt (its tiled kernel), the
+     M = batch rows equal to the same rows of the M = batch x prompt call
+     (one K-sum order in both kernels), and the
      per-domain form with out-of-range domain ids; the SECDED encode over
      the weight arena and a 64-page KV arena and in its token-commit form,
      and the paged scrub-on-read over that arena at 0.54 V with duplicated
@@ -36,7 +39,8 @@ them. Phases, each printed on its own line with its wall time:
      a rail sweep from V_nom and from V_min down to V_crash with ECC on and
      off (error, divergence from the clean predictions, coverage, power,
      BRAM saving), fused against naive reads, per-leaf against batched
-     steps;
+     steps, and the fused matmul at the MLP's M = 4,000 (its rows 0-3 equal
+     to an M = 4 call's);
   8. the per-leaf inline engine (``batched=False``) at 0.56 V against
      phase 4's batched engine (planes, counters, tokens), and a domain-mode
      engine at nominal (read-back bit for bit the params it wrote, tokens
@@ -53,11 +57,15 @@ them. Phases, each printed on its own line with its wall time:
      launched the fault injection and the decode once per leaf, and the
      plain codec never ran on the card;
   9. one prefill and one decode step of paths 4-5 under torch.profiler
-     (device busy time, idle share, fused-matmul time inside the step),
-     tokens/s, voltage-step times and one ``{"kernels": [...]}`` line with
-     times, bounds and per-path launch counts. The fused matmul has two
-     entries, decode (M = batch) and prefill (M = batch x prompt); its count
-     is split between them by the forward passes of each kind.
+     (device busy time, idle share, fused-matmul time inside the step, which
+     must come from the decode kernel in a decode step and the tiled kernel
+     in a prefill), tokens/s, voltage-step times and one
+     ``{"kernels": [...]}`` line with times, bounds and per-path launch
+     counts. The fused matmul has two entries, one per kernel behind its
+     one launcher: decode (``ecc_matmul_decode_kernel``, timed at M = batch)
+     and prefill (``ecc_matmul_kernel``, timed at M = batch x prompt); its
+     count is split between them by the forward passes of at most
+     ``DECODE_MAX_M`` rows and the others.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises.
 """
@@ -141,6 +149,7 @@ def main() -> int:
     from repro_torch.core.voltage import PLATFORMS, power_saving
     from repro_torch.data import mnist
     from repro_torch.kernels import backend, ops, ref
+    from repro_torch.kernels import ecc_matmul as b3_kernel
     from repro_torch.models import base, lm
     from repro_torch.serving import steps as serve_steps
     from repro_torch.serving.engine import (
@@ -150,6 +159,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    # B3's two kernels: decode forwards (M = BATCH) run the decode kernel,
+    # prefill forwards (M = BATCH x PROMPT_LEN) the tiled one.
+    require(BATCH <= b3_kernel.DECODE_MAX_M < BATCH * PROMPT_LEN, "B3 threshold vs shapes")
+    b3_names = b3_kernel.GLOBAL_KERNELS
     print(f"device: {torch.cuda.get_device_name(0)} | {gpu_line()}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
@@ -245,14 +258,15 @@ def main() -> int:
                 continue
             wall = walls[name]["wall_ms"]
             evs = device_events(f)
-            mm = [e for e in evs if "ecc_matmul_kernel" in e[0]]
+            mm = {k: [e for e in evs if v in e[0]] for k, v in b3_names.items()}
             row = {"wall_ms": wall, "traced_device_events": len(evs)}
             if evs:
                 row.update({
                     "device_busy_ms": busy_us(evs) / 1e3,
                     "device_idle_share": 1.0 - busy_us(evs) / 1e3 / wall,
-                    "ecc_matmul_ms": sum(e - s for _, s, e in mm) / 1e3,
-                    "ecc_matmul_launches": len(mm),
+                    "ecc_matmul_ms": sum(e - s for v in mm.values() for _, s, e in v) / 1e3,
+                    "ecc_matmul_launches": sum(map(len, mm.values())),
+                    "ecc_matmul_launches_by_kernel": {k: len(v) for k, v in mm.items()},
                 })
                 row["ecc_matmul_share"] = row["ecc_matmul_ms"] / wall
             out[name] = row
@@ -270,12 +284,13 @@ def main() -> int:
         """While active, counts what a path does that must launch a kernel:
         weight packs and token commits (B4), fault intervals and prefix-hit
         admission scrubs (B6), forward passes of the protected model by kind
-        (B3, 196 each); and every call of the plain codec on a CUDA tensor,
-        which must stay 0."""
+        (B3, 196 each) and those of at most DECODE_MAX_M rows (B3's decode
+        kernel); and every call of the plain codec on a CUDA tensor, which
+        must stay 0."""
 
         def __init__(self):
             self.n = dict(packs=0, commits=0, intervals=0, prefix_scrubs=0,
-                          prefill=0, decode=0, plain_on_card=0)
+                          prefill=0, decode=0, decode_kernel=0, plain_on_card=0)
             self._undo = []
 
         def _wrap(self, obj, name, key):
@@ -283,8 +298,8 @@ def main() -> int:
 
             def wrapped(*a, **kw):
                 k = key(*a, **kw) if callable(key) else key
-                if k:
-                    self.n[k] = self.n.get(k, 0) + 1
+                for k_ in (k,) if isinstance(k, str) else k or ():
+                    self.n[k_] = self.n.get(k_, 0) + 1
                 return real(*a, **kw)
 
             setattr(obj, name, wrapped)
@@ -293,9 +308,14 @@ def main() -> int:
         def __enter__(self):
             on_card = lambda *a, **kw: "plain_on_card" if any(
                 isinstance(t, torch.Tensor) and t.is_cuda for t in a) else None
-            kind = lambda params, tokens, *a, **kw: (
-                ("decode" if tokens.shape[1] == 1 else "prefill")
-                if isinstance(params["blocks"]["p0"]["attn"]["wq"], ops.EccWeight) else None)
+
+            def kind(params, tokens, *a, **kw):
+                if not isinstance(params["blocks"]["p0"]["attn"]["wq"], ops.EccWeight):
+                    return None
+                k = "decode" if tokens.shape[1] == 1 else "prefill"
+                small = tokens.shape[0] * tokens.shape[1] <= b3_kernel.DECODE_MAX_M
+                return (k, "decode_kernel") if small else k
+
             self._wrap(ops, "pack_ecc_weights", "packs")
             self._wrap(kvpages, "_commit_tokens", "commits")
             self._wrap(serve_steps, "_commit_tokens", "commits")
@@ -398,9 +418,12 @@ def main() -> int:
         mm_keys = [f"['blocks']['p0']['attn'][{w!r}]" for w in names] + [
             f"['blocks']['p0']['mlp'][{w!r}]" for w in ("w1", "w3", "w2")
         ]
-        # One entry per M, its times summed over the seven matmuls of a layer.
+        # One entry per M, its times summed over the seven matmuls of a layer:
+        # M = BATCH runs the decode kernel, M = BATCH x PROMPT_LEN the tiled
+        # one, and the decode kernel's rows must equal the tiled kernel's.
         b3 = {m: {"M": m, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-                  "library_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": []}
+                  "library_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": [],
+                  "function": b3_names["decode" if m <= b3_kernel.DECODE_MAX_M else "tiled"]}
               for m in (BATCH, BATCH * PROMPT_LEN)}
         gen = torch.Generator(device=dev).manual_seed(1)
         for key in (k for k in mm_keys if k in by_key):
@@ -408,8 +431,14 @@ def main() -> int:
             layers_ = [ew.layer(g) for g in range(cfg.n_groups)]
             w_deq = [ref.ecc_matmul_ref(torch.eye(ew.k, device=dev), lw.lo, lw.hi,
                                         lw.parity, lw.scale) for lw in layers_[:2]]
+            x_all = torch.randn(BATCH * PROMPT_LEN, ew.k, generator=gen, device=dev)
+            for lw in layers_[:2]:
+                require(torch.equal(ops.ecc_matmul(x_all[:BATCH], lw),
+                                    ops.ecc_matmul(x_all, lw)[:BATCH]),
+                        f"ecc_matmul {key}: the M={BATCH} rows differ from the same rows at "
+                        f"M={BATCH * PROMPT_LEN}")
             for m in (BATCH, BATCH * PROMPT_LEN):
-                x = torch.randn(m, ew.k, generator=gen, device=dev)
+                x = x_all[:m]
                 worst = 0.0
                 for lw in layers_[:2]:
                     k_o = ops.ecc_matmul(x, lw)
@@ -441,12 +470,18 @@ def main() -> int:
                 b3[m]["bytes_ms"] += bt
                 b3[m]["ops_ms"] += ot
                 b3[m]["max_abs_err"] = max(b3[m]["max_abs_err"], worst)
-                print(f"  ecc_matmul M={m} K={k} N={nn}: max err {worst:.3e} "
-                      f"(<= {MATMUL_RTOL}*max|plain|), {ms:.4f} ms, bound {max(bt, ot):.4f} ms "
-                      f"({row['bound_by']}), plain {pms:.4f} ms, torch.matmul {lib:.4f} ms")
+                print(f"  ecc_matmul M={m} K={k} N={nn} ({b3[m]['function']}): max err "
+                      f"{worst:.3e} (<= {MATMUL_RTOL}*max|plain|), {ms:.4f} ms, bound "
+                      f"{max(bt, ot):.4f} ms ({row['bound_by']}), plain {pms:.4f} ms, "
+                      f"torch.matmul {lib:.4f} ms")
+        print(f"  ecc_matmul rows: the M={BATCH} rows of {b3_names['decode']} equal the same "
+              f"rows of {b3_names['tiled']} at M={BATCH * PROMPT_LEN}, every layer shape")
         for r in b3.values():
             r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
             r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
+            print(f"  ecc_matmul M={r['M']} ({r['function']}), a layer's 7 matmuls: "
+                  f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+                  f"{r['plain_ms']:.4f} ms, torch.matmul {r['library_ms']:.4f} ms")
         report["ecc_matmul_decode"] = b3[BATCH]
         report["ecc_matmul_prefill"] = b3[BATCH * PROMPT_LEN]
         del store, faulty, by_key, masks, args, k_out, p_out, w_deq, layers_
@@ -732,7 +767,8 @@ def main() -> int:
             require(counts == want, f"{name} launches {counts}, expected {want}")
             require(tally.n["packs"] == per_fwd + multi, f"{tally.n['packs']} weight packs")
             require(tally.n["plain_on_card"] == 0, "the plain codec ran on the card")
-            run.update(launches=counts, voltage_steps=steps, forwards=dict(fwd),
+            run.update(launches=counts, voltage_steps=steps,
+                       forwards=dict(fwd, decode_kernel=fwd["decode"]),
                        matmuls_per_forward=per_fwd, packs=tally.n["packs"], commits=0,
                        scrubs=0)
             print(f"  launches: {json.dumps(counts)} = {steps} voltage steps, "
@@ -767,7 +803,8 @@ def main() -> int:
               f"{n['packs']} packs + {n['commits']} commits, {n['intervals']} fault intervals + "
               f"{n['prefix_scrubs']} prefix-hit admission scrubs")
         paged[name] = {"launches": counts, "matmuls_per_forward": per_fwd,
-                       "forwards": {"prefill": n["prefill"], "decode": n["decode"]},
+                       "forwards": {"prefill": n["prefill"], "decode": n["decode"],
+                                    "decode_kernel": n["decode_kernel"]},
                        "packs": n["packs"], "commits": n["commits"],
                        "scrubs": n["intervals"] + n["prefix_scrubs"], "voltage_steps": 1}
 
@@ -1010,7 +1047,8 @@ def main() -> int:
               f"{n_.get('mlp_fused', 0)} fused + {n_.get('mlp_naive', 0)} naive predicts, "
               f"{n_['packs']} packs, x {n_layers} layers")
         paths_extra["fig3"] = {"launches": counts, "matmuls_per_forward": n_layers,
-                               "forwards": {"prefill": n_.get("mlp_fused", 0), "decode": 0},
+                               "forwards": {"prefill": n_.get("mlp_fused", 0), "decode": 0,
+                                            "decode_kernel": 0},
                                "packs": want["encode"], "commits": 0}
         # The fused matmul at the MLP's shapes (M = test images), held
         # against its plain version and timed after the path's count.
@@ -1029,6 +1067,9 @@ def main() -> int:
                 x_, l_.faulty.lo, l_.faulty.hi, l_.faulty.parity, l_.faulty.scale)
             err = float((k_o - p_o).abs().max())
             require(err <= MATMUL_RTOL * float(p_o.abs().max()), f"MLP ecc_matmul err {err}")
+            require(torch.equal(ops.ecc_matmul(x_[:BATCH], l_.faulty), k_o[:BATCH]),
+                    f"MLP ecc_matmul K={l_.faulty.k}: the M={BATCH} rows differ from the "
+                    f"same rows at M={MLP_TEST}")
             worst = max(worst, err)
         ffma = sum(2 * MLP_TEST * l_.faulty.k * l_.faulty.n for l_ in mlp.layers)
         nbytes = sum(4 * MLP_TEST * (l_.faulty.k + l_.faulty.n)
@@ -1047,6 +1088,7 @@ def main() -> int:
         }
         r_ = report["ecc_matmul_prefill"]["mlp"]
         print(f"  ecc_matmul at M={MLP_TEST} over the MLP's 3 layers: max err {worst:.3e}, "
+              f"the M={BATCH} rows equal ({b3_names['decode']} vs {b3_names['tiled']}), "
               f"{r_['ms']:.4f} ms, bound {r_['bound_ms']:.4f} ms ({r_['bound_by']}), plain "
               f"{r_['plain_ms']:.3f} ms, torch.matmul {r_['library_ms']:.4f} ms")
         del mlp, acts, deq, h, xtr, xte
@@ -1091,7 +1133,8 @@ def main() -> int:
               f"{n_['packs']} packs, {per_fwd} fused matmuls x ({n_['prefill']} prefill + "
               f"{n_['decode']} decode forwards)")
         paths_extra["per-leaf"] = {"launches": counts, "matmuls_per_forward": per_fwd,
-                                   "forwards": {"prefill": n_["prefill"], "decode": n_["decode"]},
+                                   "forwards": {"prefill": n_["prefill"], "decode": n_["decode"],
+                                                "decode_kernel": n_["decode_kernel"]},
                                    "packs": n_["packs"], "commits": 0}
         del leng, leaves, batched_056
         torch.cuda.empty_cache()
@@ -1176,7 +1219,8 @@ def main() -> int:
         print(f"  domain launches: {json.dumps(counts)} = 2 reads x {n_arrays} arrays, "
               f"{n_arrays} writes")
         paths_extra["domain"] = {"launches": counts, "matmuls_per_forward": per_fwd,
-                                 "forwards": {"prefill": 0, "decode": 0}, "packs": n_arrays,
+                                 "forwards": {"prefill": 0, "decode": 0, "decode_kernel": 0},
+                                 "packs": n_arrays,
                                  "commits": 0}
         del deng
         torch.cuda.empty_cache()
@@ -1188,11 +1232,18 @@ def main() -> int:
                                           walls=run["steps"])
             for k_, r_ in run["steps"].items():
                 if r_["traced_device_events"]:
+                    # a decode step's matmuls ran the decode kernel, a
+                    # prefill's the tiled one (the trace may drop events, so
+                    # no count is required)
+                    want_ = "decode" if k_ == "decode" else "tiled"
+                    by_k = r_["ecc_matmul_launches_by_kernel"]
+                    require(by_k[want_] == r_["ecc_matmul_launches"] > 0,
+                            f"{name} {k_} step traced B3 launches {by_k}")
                     print(f"  {name} {k_} step (batch {BATCH}): wall {r_['wall_ms']:.2f} ms; "
                           f"traced: device busy {r_['device_busy_ms']:.2f} ms (idle share "
                           f"{r_['device_idle_share']:.3f}), fused ECC matmuls "
                           f"{r_['ecc_matmul_ms']:.2f} ms in {r_['ecc_matmul_launches']} "
-                          f"launches (share {r_['ecc_matmul_share']:.3f})")
+                          f"launches of {b3_names[want_]} (share {r_['ecc_matmul_share']:.3f})")
                 else:
                     print(f"  {name} {k_} step (batch {BATCH}): wall {r_['wall_ms']:.2f} ms; "
                           "device time not measured (the profiler traced no device event)")
@@ -1213,14 +1264,18 @@ def main() -> int:
         paths = {**runs, **{k: v for k, v in paged.items() if "launches" in v}, **paths_extra}
 
         def by_path(kernel, kind=None):
-            """A kernel's launches per path; the fused matmul's split by the
-            forward passes of one kind, the encode's into weight packs and
-            token commits."""
+            """A kernel's launches per path; the fused matmul's split between
+            its decode kernel (forward passes of at most DECODE_MAX_M rows)
+            and its tiled kernel (the others), the encode's into weight packs
+            and token commits."""
             if kind in ("packs", "commits"):
                 return {p: r[kind] for p, r in paths.items()}
-            return {p: (r["launches"][kernel] if kind is None
-                        else r["matmuls_per_forward"] * r["forwards"][kind])
-                    for p, r in paths.items()}
+            if kind in ("decode", "tiled"):
+                fwd_ = {p: r["forwards"]["decode_kernel"] if kind == "decode" else
+                        r["forwards"]["prefill"] + r["forwards"]["decode"]
+                        - r["forwards"]["decode_kernel"] for p, r in paths.items()}
+                return {p: paths[p]["matmuls_per_forward"] * f for p, f in fwd_.items()}
+            return {p: r["launches"][kernel] for p, r in paths.items()}
 
         src = "src/repro_torch/kernels/csrc/"
         meta = {
@@ -1232,7 +1287,7 @@ def main() -> int:
             "ecc_matmul_decode": ("ecc_matmul.cu", "src/repro/kernels/ecc_matmul.py:98",
                                   by_path("ecc_matmul", "decode")),
             "ecc_matmul_prefill": ("ecc_matmul.cu", "src/repro/kernels/ecc_matmul.py:98",
-                                   by_path("ecc_matmul", "prefill")),
+                                   by_path("ecc_matmul", "tiled")),
             "encode": ("secded.cu", "src/repro/kernels/secded.py:76", by_path("encode", "packs")),
             "encode_commit": ("secded.cu", "src/repro/kernels/secded.py:76",
                               by_path("encode", "commits")),
@@ -1241,6 +1296,9 @@ def main() -> int:
             "inject": ("fault_inject.cu", "src/repro/kernels/fault_inject.py:25",
                        by_path("inject")),
         }
+        for p_, r_ in paths.items():  # the two B3 kernels split each path's count
+            require(sum(meta[k][2][p_] for k in ("ecc_matmul_decode", "ecc_matmul_prefill"))
+                    == r_["launches"]["ecc_matmul"], f"B3 launch split of {p_}")
         kernels = []
         for name, (source, replaces, launches) in meta.items():
             r = report[name]
@@ -1254,7 +1312,8 @@ def main() -> int:
                 "bound_by": r["bound_by"] if mm else "bytes",
                 "library_ms": r.get("library_ms"),
                 **({"M": r["M"], "per": "one layer's 7 matmuls", "shapes": r["shapes"],
-                    "max_rel_err": r["max_rel_err"]} if mm else {"n_words": r["n_words"]}),
+                    "max_rel_err": r["max_rel_err"], "function": r["function"]}
+                   if mm else {"n_words": r["n_words"]}),
                 **({"mlp": r["mlp"]} if "mlp" in r else {}),
             })
         kernels[[k["name"] for k in kernels].index("encode")]["kv_arena"] = report["encode_kv_arena"]

@@ -18,6 +18,12 @@ through the fused ECC matmul), for each (batch, prompt length) it records:
     of PyTorch operations one decode step dispatches (the host's work;
     the hand-written kernels, launched through ctypes, are not counted).
 
+It also times the fused ECC matmul alone (device time by CUDA events,
+queued behind matmuls so the host's enqueue does not show): a layer's 7
+matrices at M = 4 (decode) and M = 128 (prefill), each cycled through the
+28 layers so the planes come from HBM, and the Fig. 3 MLP's three shapes
+(784-256-128-10, random weights) at M = 4,000.
+
 ``--stream`` also serves the 8-request stream of ``chip_smoke.py`` phase 6
 (0.56 V kv rail, 14 pages, 4 lanes) 8 times and records each run's wall
 time; where the checkout's ``serve`` has a ``scrub_overlap`` option, the
@@ -53,6 +59,60 @@ def _op_counter():
             return func(*args, **(kwargs or {}))
 
     return OpCount
+
+
+def _time_b3(eng, cfg, dev) -> dict:
+    """Device ms of ``ops.ecc_matmul``: per layer (its 7 matrices) at M = 4
+    and 128, and the MLP's 3 layers at M = 4,000."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import base
+
+    busy = torch.randn(4096, 4096, device=dev, dtype=torch.bfloat16)
+
+    def queue(n):
+        for _ in range(n):
+            torch.mm(busy, busy)
+
+    queue(10)
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    queue(50)
+    e.record()
+    e.synchronize()
+    mm_ms = s.elapsed_time(e) / 50
+
+    def device_ms(fn, iters):
+        fn()
+        torch.cuda.synchronize()
+        queue(int(50.0 / mm_ms) + 1)
+        s.record()
+        for _ in range(iters):
+            fn()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e) / iters
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    leaves = [w for k, w in base.flatten(eng.params)
+              if isinstance(w, ops.EccWeight) and ("attn" in k or "mlp" in k)]
+    res = {}
+    for m in (4, 128):
+        shapes = {}
+        for w in leaves:
+            layers = [w.layer(g) for g in range(cfg.n_groups)]
+            x = torch.randn(m, w.k, generator=gen, device=dev)
+            shapes[f"{w.k}x{w.n}"] = shapes.get(f"{w.k}x{w.n}", 0.0) + device_ms(
+                lambda: [ops.ecc_matmul(x, lw) for lw in layers], 5) / len(layers)
+        res[f"M={m}"] = {"per_layer_ms": sum(shapes.values()), "shapes_ms": shapes}
+    mlp = [ops.pack_ecc_weights(torch.randn(k, n, generator=gen, device=dev))
+           for k, n in ((784, 256), (256, 128), (128, 10))]
+    xs = [torch.randn(4000, w.k, generator=gen, device=dev) for w in mlp]
+    res["mlp_M=4000_ms"] = device_ms(lambda: [ops.ecc_matmul(x, w) for x, w in zip(xs, mlp)],
+                                     20)
+    return res
 
 
 def main() -> int:
@@ -123,6 +183,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         out["cases"].append(row)
         print(json.dumps(row), flush=True)
+
+    out["b3"] = _time_b3(eng, cfg, dev)
+    print(json.dumps(out["b3"]), flush=True)
 
     if args.stream:
         r = np.random.default_rng(1)

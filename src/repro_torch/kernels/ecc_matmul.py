@@ -10,10 +10,22 @@ from repro_torch.kernels import backend as B
 
 ECC_MATMUL = B.Kernel("ecc_matmul", "ecc_matmul", [B.VP] * 7 + [B.I32] * 3 + [B.VP])
 
+# kDecodeMaxM of csrc/ecc_matmul.cu: calls with at most this many rows run
+# the decode kernel, larger ones the tiled kernel.
+DECODE_MAX_M = 16
+# The __global__ functions behind the one launcher (profiler event names).
+GLOBAL_KERNELS = {"decode": "ecc_matmul_decode_kernel", "tiled": "ecc_matmul_kernel"}
+
 
 def ecc_matmul(x, lo, hi, check, scale, *, codec: Codec):
     """x (M, K) float32 in natural layout, planes (K/8, N) -> (M, N) float32
-    ``scale * (x @ W)``."""
+    ``scale * (x @ W)``.
+
+    One launch. M <= ``DECODE_MAX_M`` (16) runs the decode kernel (8 output
+    columns per block, one thread per (row, chunk of 64 K values, column)),
+    larger M, or K above ~8,800, the tiled kernel (32 x 64 output tiles).
+    Both sum over K in one fixed order, so a row's output is the same floats
+    whatever M the call has."""
     if x.ndim != 2 or lo.ndim != 2:
         raise ValueError(f"expected 2D x and planes, got {x.shape} and {lo.shape}")
     m, k = x.shape

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch import codes
+from repro_torch.kernels import ecc_matmul as mm
 from repro_torch.kernels import ops, ref
 
 # float32 sums run in another order than the plain version's matmul
@@ -73,7 +74,8 @@ def test_inject_scrub_domains_kernel_drops_out_of_range_ids(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", [(4, 1024, 2048), (128, 3072, 1024), (5, 136, 70)])
+@pytest.mark.parametrize("m,k,n", [(4, 1024, 2048), (128, 3072, 1024), (5, 136, 70),
+                                   (1, 1024, 2048), (16, 3072, 1024), (17, 1024, 3072)])
 def test_ecc_matmul_kernel_within_tolerance(cuda, m, k, n):
     w = ops.pack_ecc_weights(torch.randn(k, n, device=cuda))
     x = torch.randn(m, k, device=cuda)
@@ -81,6 +83,41 @@ def test_ecc_matmul_kernel_within_tolerance(cuda, m, k, n):
     plain = ref.ecc_matmul_ref(x, w.lo, w.hi, w.parity, w.scale)
     torch.cuda.synchronize()
     assert float((out - plain).abs().max()) <= MATMUL_RTOL * float(plain.abs().max())
+
+
+# qwen3-0.6b's seven (K, N) per layer, two with K8 % 8 != 0 and an N tail,
+# and a K whose decode-kernel shared memory does not fit (the tiled kernel
+# takes every M there)
+ROW_SHAPES = {"wq": (1024, 2048), "wk": (1024, 1024), "wv": (1024, 1024),
+              "wo": (2048, 1024), "w1": (1024, 3072), "w3": (1024, 3072),
+              "w2": (3072, 1024), "k136_n70": (136, 70), "k784_n10": (784, 10),
+              "k9216_n64": (9216, 64)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", ROW_SHAPES.values(), ids=ROW_SHAPES.keys())
+def test_ecc_matmul_rows_invariant_across_m(cuda, k, n):
+    """A row's output is the same floats in a call of any M: the decode
+    kernel's rows (M = 1, 4, 16, x aligned and not) equal the tiled
+    kernel's (M = 17, 128), on planes with single and double flips."""
+    g = np.random.default_rng(k + n)
+    w = ops.pack_ecc_weights(torch.from_numpy(g.standard_normal((k, n), np.float32)).to(cuda))
+    flips = np.zeros(w.lo.numel(), np.uint32)
+    hit = g.choice(flips.size, flips.size // 20, replace=False)
+    flips[hit] = 1 << g.integers(0, 32, hit.size, dtype=np.uint32)
+    flips[hit[::7]] |= 1 << 3  # some words get a second flip: detected, not corrected
+    w.lo = w.lo ^ torch.from_numpy(flips.view(np.int32)).to(cuda).view(w.lo.shape)
+    x = torch.from_numpy(g.standard_normal((128, k), np.float32)).to(cuda)
+    before = ops.launch_counts()["ecc_matmul"]
+    tiled = [ops.ecc_matmul(x[:m], w) for m in (mm.DECODE_MAX_M + 1, 128)]
+    for m in (1, 4, mm.DECODE_MAX_M):
+        shifted = torch.empty(m * k + 1, device=cuda)[1:].view(m, k)  # 4 B off alignment
+        shifted.copy_(x[:m])
+        for rows in (ops.ecc_matmul(x[:m], w), ops.ecc_matmul(shifted, w)):
+            assert rows.shape == (m, n)
+            assert all(torch.equal(rows, t[:m]) for t in tiled)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ecc_matmul"] == before + 2 + 3 * 2
 
 
 @pytest.mark.gpu

@@ -3,6 +3,9 @@ reference kernels (Pallas interpret mode on the CPU). The CUDA kernels are
 held against these plain versions in tests/test_torch_gpu.py and
 chip_smoke.py."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +17,7 @@ from repro.core import quantize as jq
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import quantize as tq
+from repro_torch.kernels import ecc_matmul as tmm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -150,6 +154,14 @@ def test_ecc_matmul_plain_within_tolerance(m, k, n):
     # the reference's own oracle agrees too
     oracle = np.asarray(jref.ecc_matmul_ref(x, jw.lo, jw.hi, jw.parity, jw.scale))
     assert np.abs(out - oracle).max() <= MATMUL_RTOL * np.abs(oracle).max()
+
+
+def test_ecc_matmul_decode_threshold_matches_source():
+    """The wrapper's threshold and kernel names are the CUDA source's."""
+    src = (Path(tmm.__file__).parent / "csrc" / "ecc_matmul.cu").read_text()
+    assert int(re.search(r"kDecodeMaxM = (\d+);", src).group(1)) == tmm.DECODE_MAX_M
+    for name in tmm.GLOBAL_KERNELS.values():
+        assert re.search(rf"__global__ void __launch_bounds__\([^)]*\) {name}\(", src), name
 
 
 def test_other_devices_raise():
