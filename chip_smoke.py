@@ -19,9 +19,18 @@ them. Phases, each printed on its own line with its wall time:
      per-domain form with out-of-range domain ids; the SECDED encode over
      the weight arena and a 64-page KV arena and in its token-commit form,
      and the paged scrub-on-read over that arena at 0.54 V with duplicated
-     and scratch page ids, bit for bit;
-  3. the tiny config through the port on the card and on the CPU: equal
-     tokens and equal counters;
+     and scratch page ids, bit for bit; then every codec variant (parity65,
+     ileave88, dected79) of the inject+scrub in both forms, the encode in
+     both forms, the decode and the paged scrub, bit for bit: at the codec
+     path's shapes (its three weight groups and the 55 M-word arena under
+     dected79 at 0.56 V and 0.54 V with host masks, both re-encode
+     settings; the decode over the parity65 and dected79 groups; a 64-page
+     KV arena under each codec with duplicate and scratch page ids), and
+     the variants no path runs (inject+scrub under parity65 and ileave88,
+     its domain form and the decode under ileave88) on masks drawn on the
+     card;
+  3. the tiny config through the port on the card and on the CPU, SECDED
+     and per-domain-codec engines: equal tokens and equal counters;
   4. the full-width qwen3-0.6b engine, single-rail: nominal generate,
      0.56 V generate, prefill and decode step wall times, DED-canary
      autotune from 0.62 V, power report;
@@ -46,7 +55,20 @@ them. Phases, each printed on its own line with its wall time:
      engine at nominal (read-back bit for bit the params it wrote, tokens
      of the unprotected model) and at 0.56 V (every array and the counters
      held against B7 + B5's plain versions on the same masks);
-  4-8 each zero the kernel launch counts at the start of a path and read
+  9. the per-domain-codec engine at full width (multi-rail, attention under
+     parity65, MLP under dected79, embedding under secded72, KV pages under
+     ileave88): nominal tokens equal to phase 5's SECDED engine, a 0.56 V
+     step whose counters equal the plain versions' on the same masks, the
+     DED-canary autotune from 0.62 V (per-domain locks, codecs and check
+     bits of the power report), generate at the locks, paged serve equal to
+     dense generate and an 8-request stream at a 0.56 V kv rail
+     (corrections required); then a single-rail dected79 engine (one 0.56 V
+     step, generate). Each rail step must launch the domain inject+scrub
+     once per codec group (the single-rail engine: the inject+scrub once),
+     each refresh the decode once per leaf under a codec other than SECDED
+     and once for the embedding and the SECDED encode once per re-encoded
+     leaf;
+  4-9 each zero the kernel launch counts at the start of a path and read
      them at its end, and fail unless every voltage step launched its scrub
      kernel once (B1 single-rail, B2 and the embedding's B5 multi-rail,
      none of the other path's), every forward pass of the protected model
@@ -56,7 +78,7 @@ them. Phases, each printed on its own line with its wall time:
      the paged scrub once, every per-leaf step and every domain read
      launched the fault injection and the decode once per leaf, and the
      plain codec never ran on the card;
-  9. one prefill and one decode step of paths 4-5 under torch.profiler
+  10. one prefill and one decode step of paths 4-5 under torch.profiler
      (device busy time, idle share, fused-matmul time inside the step, which
      must come from the decode kernel in a decode step and the tiled kernel
      in a prefill), tokens/s, voltage-step times and one
@@ -65,13 +87,15 @@ them. Phases, each printed on its own line with its wall time:
      one launcher: decode (``ecc_matmul_decode_kernel``, timed at M = batch)
      and prefill (``ecc_matmul_kernel``, timed at M = batch x prompt); its
      count is split between them by the forward passes of at most
-     ``DECODE_MAX_M`` rows and the others.
+     ``DECODE_MAX_M`` rows and the others; the codec-generic kernels have one
+     entry per (kernel, codec), their launches counted per codec.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -87,6 +111,9 @@ BATCH, PROMPT_LEN, NEW_TOKENS = 4, 32, 16
 MATMUL_RTOL = 1e-4  # |kernel - plain| <= MATMUL_RTOL * max|plain|
 PAGED_MAX_LEN, STREAM_PAGES, KV_PAGES = 80, 14, 64
 MLP_TRAIN, MLP_TEST = 20000, 4000  # the Fig. 3 benchmark's split
+# the per-domain-codec engine of phase 9 (embedding keeps secded72)
+CODEC_MIX = {"attention": "parity65", "mlp": "dected79", "kv": "ileave88"}
+POPC_PER_SM_CLK = 16  # Hopper's popc issue rate (CUDA guide throughput table)
 
 T0 = time.perf_counter()
 
@@ -139,6 +166,7 @@ def main() -> int:
 
     import numpy as np
 
+    from repro_torch import codes
     from repro_torch.codes.base import Codec
     from repro_torch.configs import get_config, get_smoke_config, paper_nn, shapes
     from repro_torch.core import faultsim, kvpages, memory, quantize
@@ -153,7 +181,8 @@ def main() -> int:
     from repro_torch.models import base, lm
     from repro_torch.serving import steps as serve_steps
     from repro_torch.serving.engine import (
-        FaultModelConfig, RailsConfig, ReliabilityConfig, ServingEngine, protect_params_inline,
+        FaultModelConfig, ProtectionConfig, RailsConfig, ReliabilityConfig, ServingEngine,
+        protect_params_inline,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -331,6 +360,14 @@ def main() -> int:
                 setattr(obj, name, real)
             return False
 
+        @contextlib.contextmanager
+        def outside(self):
+            """A check that is not part of the path (the plain versions on
+            the card): what it counts is dropped."""
+            saved = dict(self.n)
+            yield
+            self.n = saved
+
     # ---------------------------------------------------------------- 1
     with Phase("1 build kernels"):
         built = backend.build()
@@ -369,7 +406,7 @@ def main() -> int:
                 print(f"  inject_scrub {v} V reencode={reencode}: bit-identical, "
                       f"counters {k_out[3].tolist()}, host masks {mask_s:.2f} s")
                 if v == 0.56 and not reencode:
-                    faulty = store._slice_leaves(*k_out[:3])
+                    faulty = store._slice_leaves([k_out[:3]])
             if v == 0.56:
                 b1["ms"] = sync_ms(lambda: ops.inject_scrub(*args), 20)
                 b1["plain_ms"] = sync_ms(lambda: ref.inject_scrub_ref(*args), 3)
@@ -522,7 +559,7 @@ def main() -> int:
             "plain_ms": sync_ms(lambda: ref.inject_scrub_domains_ref(*args), 3),
             "bound_ms": 1e3 * 31 * n / HBM_BYTES_PER_S,
         }
-        emb = mstore._slice_leaves(*k_out[:3])[-1]
+        emb = mstore._slice_leaves([k_out[:3]])[-1]
         require(mstore.slots[-1].key == "['embed']", mstore.slots[-1].key)
         e_args = (emb.lo, emb.hi, emb.parity)
         k_dec, p_dec = ops.decode(*e_args), ref.decode_ref(*(a.reshape(-1) for a in e_args))
@@ -610,14 +647,265 @@ def main() -> int:
         del arena, k_pl, p_pl, k_gs, p_gs, real_lo, real_hi, k_enc
         torch.cuda.empty_cache()
 
+    # ---------------------------------------------------------------- 2, codecs
+    with Phase("2 codec variants vs plain versions"):
+        sm_clock_hz = 1e6 * float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+        popc_per_s = (POPC_PER_SM_CLK * torch.cuda.get_device_properties(0).multi_processor_count
+                      * sm_clock_hz)
+        print(f"  popc rate {popc_per_s:.3e}/s ({POPC_PER_SM_CLK} per SM per clock at "
+              f"{sm_clock_hz / 1e6:.0f} MHz max SM clock)")
+
+        def bounds(words, codec, b_u8, b_u32, popc_extra=0, encodes=1):
+            """Bytes (``b_u8`` or ``b_u32`` per word by the check plane's
+            width) and popc (one per check bit per encode, plus
+            ``popc_extra``) over this card's rates; the larger bounds."""
+            c = codes.get(codec)
+            bpw = b_u8 if c.n_check <= 8 else b_u32
+            bt = 1e3 * bpw * words / HBM_BYTES_PER_S
+            ot = 1e3 * (encodes * c.n_check + popc_extra) * words / popc_per_s
+            return {"n_words": words, "codec": codec, "bytes_per_word": bpw, "bytes_ms": bt,
+                    "ops_ms": ot, "bound_ms": max(bt, ot),
+                    "bound_by": "bytes" if bt >= ot else "operations"}
+
+        def timed(row, k_fn, p_fn, iters, p_iters=2):
+            row["ms"] = sync_ms(k_fn, iters)
+            row["plain_ms"] = sync_ms(p_fn, p_iters)
+            print(f"  {row['name']} ({row['n_words']} words): bit-identical, {row['ms']:.4f} ms, "
+                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; bytes "
+                  f"{row['bytes_ms']:.4f}, popc {row['ops_ms']:.4f}), plain {row['plain_ms']:.3f} ms")
+            report[row["name"]] = row
+            return row
+
+        cg = torch.Generator(device=dev).manual_seed(3)
+
+        def rand_words(n):
+            return torch.randint(-2**31, 2**31, (n,), generator=cg, device=dev,
+                                 dtype=torch.int64).to(torch.int32)
+
+        def card_masks(n, codec):
+            """Flip masks drawn on the card (each bit flips with probability
+            2^-10: the AND of ten random words), for variants that no path
+            runs; the check mask in the codec's dtype."""
+            c = codes.get(codec)
+
+            def sparse():
+                w = rand_words(n)
+                for _ in range(9):
+                    w &= rand_words(n)
+                return w
+
+            chk = sparse() & ((1 << c.n_check) - 1)
+            return sparse(), sparse(), chk.to(c.check_torch_dtype)
+
+        # a. the codec engine's three weight groups (phase 9's arena)
+        clean, _ = protect_params_inline(params, cfg, include_embed=True)
+        eccs = [(k, w) for k, w in base.flatten(clean) if isinstance(w, ops.EccWeight)]
+        cstore = PlaneStore([w for _, w in eccs], [k for k, _ in eccs], platform,
+                            domain_key=shapes.domain_of, codecs=shapes.domain_codecs(CODEC_MIX),
+                            device=dev)
+        del clean, eccs
+        nd = len(cstore.domains)
+        print(f"  codec arena: {cstore.n_words} words, groups "
+              f"{[(g.name, g.n_words) for g in cstore.groups]}")
+        for g in cstore.groups:
+            require(torch.equal(g.check, ref.encode_ref(g.lo, g.hi, g.name)),
+                    f"encode differs on the {g.name} group")
+            if g.name != "secded72":
+                timed({"name": f"encode_{g.name}", **bounds(g.n_words, g.name, 9, 12)},
+                      lambda g=g: ops.encode(g.lo, g.hi, codec=g.name),
+                      lambda g=g: ref.encode_ref(g.lo, g.hi, g.name), 20)
+        faulty_groups = {}
+        for v in (0.56, 0.54):
+            t = time.perf_counter()
+            gm = cstore.group_host_masks(v)
+            mask_s = time.perf_counter() - t
+            for g, m in zip(cstore.groups, gm):
+                for reencode in (True, False):
+                    args = (g.lo, g.hi, g.check, *m, g.dom_ids, nd)
+                    k_out = ops.inject_scrub_domains(*args, codec=g.name, reencode=reencode)
+                    p_out = ref.inject_scrub_domains_ref(*args, codec=g.name, reencode=reencode)
+                    torch.cuda.synchronize()
+                    require(same(k_out, p_out),
+                            f"inject_scrub_domains {g.name} differs at {v} V reencode={reencode}")
+                print(f"  inject_scrub_domains {g.name} at {v} V ({g.n_words} words, host masks "
+                      f"of all groups {mask_s:.2f} s): bit-identical with and without re-encode, "
+                      f"rows {dict(zip(cstore.domains, k_out[3].tolist()))}")
+                if v == 0.56:
+                    faulty_groups[g.name] = k_out[:3]
+                    if g.name != "secded72":
+                        timed({"name": f"inject_scrub_domains_{g.name}", "host_mask_s": mask_s,
+                               **bounds(g.n_words, g.name, 31, 40, popc_extra=3)},
+                              lambda g=g, m=m: ops.inject_scrub_domains(
+                                  g.lo, g.hi, g.check, *m, g.dom_ids, nd, codec=g.name),
+                              lambda g=g, m=m: ref.inject_scrub_domains_ref(
+                                  g.lo, g.hi, g.check, *m, g.dom_ids, nd, codec=g.name), 20)
+            del gm
+        # the refresh's decode over the faulty parity65 and dected79 leaves
+        for name in ("parity65", "dected79"):
+            planes = faulty_groups[name]
+            k_dec, p_dec = ops.decode(*planes, codec=name), ref.decode_ref(*planes, codec=name)
+            torch.cuda.synchronize()
+            require(same(k_dec, p_dec), f"decode {name} differs")
+            print(f"  decode {name} at 0.56 V: status counts "
+                  f"{torch.bincount(k_dec[2], minlength=3).tolist()}")
+            timed({"name": f"decode_{name}", **bounds(planes[0].numel(), name, 21, 24)},
+                  lambda p_=planes, c_=name: ops.decode(*p_, codec=c_),
+                  lambda p_=planes, c_=name: ref.decode_ref(*p_, codec=c_), 20)
+        # no path: the domain form under ileave88 over the whole arena
+        ichk = ops.encode(cstore.lo, cstore.hi, codec="ileave88")
+        require(torch.equal(ichk, ref.encode_ref(cstore.lo, cstore.hi, "ileave88")),
+                "encode ileave88 differs on the weight arena")
+        im = card_masks(cstore.n_words, "ileave88")
+        for reencode in (False, True):
+            args = (cstore.lo, cstore.hi, ichk, *im, cstore.dom_ids, nd)
+            require(same(ops.inject_scrub_domains(*args, codec="ileave88", reencode=reencode),
+                         ref.inject_scrub_domains_ref(*args, codec="ileave88",
+                                                      reencode=reencode)),
+                    f"inject_scrub_domains ileave88 differs reencode={reencode}")
+        args = (cstore.lo, cstore.hi, ichk, *im, cstore.dom_ids, nd)
+        timed({"name": "inject_scrub_domains_ileave88", "masks": "card",
+               **bounds(cstore.n_words, "ileave88", 31, 40, popc_extra=3)},
+              lambda: ops.inject_scrub_domains(*args, codec="ileave88"),
+              lambda: ref.inject_scrub_domains_ref(*args, codec="ileave88"), 20)
+        del cstore, faulty_groups, planes, k_dec, p_dec, ichk, im, args, k_out, p_out
+        torch.cuda.empty_cache()
+
+        # b. the single-rail arena under dected79 (phase 9's second engine),
+        # then the inject+scrub under parity65 and ileave88 (no path) over it
+        clean, _ = protect_params_inline(params, cfg)
+        eccs = [(k, w) for k, w in base.flatten(clean) if isinstance(w, ops.EccWeight)]
+        dstore = PlaneStore([w for _, w in eccs], [k for k, _ in eccs], platform,
+                            codecs="dected79", device=dev)
+        del clean, eccs
+        (g,) = dstore.groups
+        n = g.n_words
+        require(torch.equal(g.check, ref.encode_ref(g.lo, g.hi, "dected79")),
+                "encode dected79 differs on the single-rail arena")
+        for v in (0.56, 0.54):
+            t = time.perf_counter()
+            m = dstore.group_host_masks(v)[0]
+            mask_s = time.perf_counter() - t
+            for reencode in (False, True):
+                k_out = ops.inject_scrub(g.lo, g.hi, g.check, *m, codec="dected79",
+                                         reencode=reencode)
+                p_out = ref.inject_scrub_ref(g.lo, g.hi, g.check, *m, codec="dected79",
+                                             reencode=reencode)
+                torch.cuda.synchronize()
+                require(same(k_out, p_out), f"inject_scrub dected79 differs at {v} V "
+                                            f"reencode={reencode}")
+                print(f"  inject_scrub dected79 {v} V reencode={reencode} ({n} words): "
+                      f"bit-identical, counters {k_out[3].tolist()}, host masks {mask_s:.2f} s")
+            if v == 0.56:
+                timed({"name": "inject_scrub_dected79", "host_mask_s": mask_s,
+                       **bounds(n, "dected79", 27, 36, popc_extra=3)},
+                      lambda m=m: ops.inject_scrub(g.lo, g.hi, g.check, *m, codec="dected79"),
+                      lambda m=m: ref.inject_scrub_ref(g.lo, g.hi, g.check, *m,
+                                                       codec="dected79"), 20)
+            if v == 0.54:  # dected79's tables are read only where the syndrome is not 0
+                zm = dstore.group_host_masks(1.0)[0]
+                report["inject_scrub_dected79"]["ms_054"] = sync_ms(
+                    lambda m=m: ops.inject_scrub(g.lo, g.hi, g.check, *m, codec="dected79"), 20)
+                report["inject_scrub_dected79"]["ms_nominal"] = sync_ms(
+                    lambda: ops.inject_scrub(g.lo, g.hi, g.check, *zm, codec="dected79"), 20)
+                del zm
+                print(f"  inject_scrub dected79: {report['inject_scrub_dected79']['ms_054']:.4f} "
+                      f"ms at 0.54 V, {report['inject_scrub_dected79']['ms_nominal']:.4f} ms at "
+                      "nominal (zero masks)")
+            del m
+        for name in ("parity65", "ileave88"):
+            chk = ops.encode(g.lo, g.hi, codec=name)
+            require(torch.equal(chk, ref.encode_ref(g.lo, g.hi, name)),
+                    f"encode {name} differs on the single-rail arena")
+            m = card_masks(n, name)
+            for reencode in (False, True):
+                args = (g.lo, g.hi, chk, *m)
+                require(same(ops.inject_scrub(*args, codec=name, reencode=reencode),
+                             ref.inject_scrub_ref(*args, codec=name, reencode=reencode)),
+                        f"inject_scrub {name} differs reencode={reencode}")
+            args = (g.lo, g.hi, chk, *m)
+            timed({"name": f"inject_scrub_{name}", "masks": "card",
+                   **bounds(n, name, 27, 36, popc_extra=3)},
+                  lambda a_=args, c_=name: ops.inject_scrub(*a_, codec=c_),
+                  lambda a_=args, c_=name: ref.inject_scrub_ref(*a_, codec=c_), 20)
+            del chk, m, args
+        del dstore, g, k_out, p_out
+        torch.cuda.empty_cache()
+
+        # c. a 64-page KV arena under each other codec: encode, one 0.54 V
+        # fault interval, the decode, the paged scrub over duplicate and
+        # scratch ids, and a token commit
+        geom = KVGeometry.from_config(cfg)
+        wpp = geom.words_per_page
+        ids = np.concatenate([np.arange(0, KV_PAGES, 2), [5, 5, 6, 6, 6, KV_PAGES, KV_PAGES, 0]])
+        ids_d = torch.as_tensor(ids.astype(np.int32), device=dev)
+        for name in ("parity65", "ileave88", "dected79"):
+            arena = KVPageArena(geom, platform, KV_PAGES, seed=0, codec=name, device=dev)
+            arena.lo, arena.hi = rand_words(arena.lo.numel()), rand_words(arena.lo.numel())
+            nk = arena.n_words
+            real_lo, real_hi = arena.lo[:nk], arena.hi[:nk]
+            k_enc = ops.encode(real_lo, real_hi, codec=name)
+            require(torch.equal(k_enc, ref.encode_ref(real_lo, real_hi, name)),
+                    f"encode {name} differs on the KV arena")
+            arena.parity[:nk] = k_enc
+            if name == "ileave88":
+                timed({"name": "encode_ileave88", **bounds(nk, name, 9, 12)},
+                      lambda: ops.encode(real_lo, real_hi, codec="ileave88"),
+                      lambda: ref.encode_ref(real_lo, real_hi, "ileave88"), 20)
+            arena.set_voltage(0.54)
+            arena.tick()
+            fplanes = (arena.lo[:nk], arena.hi[:nk], arena.parity[:nk])
+            k_dec, p_dec = ops.decode(*fplanes, codec=name), ref.decode_ref(*fplanes, codec=name)
+            torch.cuda.synchronize()
+            require(same(k_dec, p_dec), f"decode {name} differs on the KV arena")
+            if name == "ileave88":
+                timed({"name": "decode_ileave88", **bounds(nk, name, 21, 24)},
+                      lambda: ops.decode(*fplanes, codec="ileave88"),
+                      lambda: ref.decode_ref(*fplanes, codec="ileave88"), 20)
+            k_pl = [t.clone() for t in (arena.lo, arena.hi, arena.parity)]
+            p_pl = [t.clone() for t in (arena.lo, arena.hi, arena.parity)]
+            k_gs = ops.gather_scrub_pages(*k_pl, ids_d, wpp, codec=name)
+            p_gs = ref.gather_scrub_ref(*p_pl, ids_d, wpp, codec=name)
+            torch.cuda.synchronize()
+            require(torch.equal(k_gs[0].view(torch.int32), p_gs[0].view(torch.int32))
+                    and torch.equal(k_gs[1], p_gs[1]), f"gather_scrub {name} differs")
+            require(same(k_pl, p_pl), f"gather_scrub {name} write-back differs")
+            cnt = k_gs[1].sum(dim=0).tolist()
+            require(cnt[2] > 0 and (cnt[1] > 0) == (name != "parity65"),
+                    f"gather_scrub {name} at 0.54 V: {cnt}")
+            print(f"  {name} KV arena ({nk} words) at 0.54 V: encode, decode (status "
+                  f"{torch.bincount(k_dec[2], minlength=3).tolist()}) and gather_scrub over "
+                  f"{len(ids)} page ids bit-identical, (clean, corrected, detected) = {cnt[:3]}")
+            rows = len(ids) * wpp
+            timed({"name": f"gather_scrub_{name}", **bounds(rows, name, 26, 32, encodes=2)},
+                  lambda c_=name: ops.gather_scrub_pages(*k_pl, ids_d, wpp, codec=c_),
+                  lambda c_=name: ref.gather_scrub_ref(*p_pl, ids_d, wpp, codec=c_), 20)
+            payload = torch.randn(BATCH, geom.token_f32, generator=cg, device=dev)
+            commit_base = torch.as_tensor(
+                kvpages.row_bases(np.arange(BATCH) * 3, np.arange(BATCH) % 8, geom), device=dev)
+            ops.encode_commit(payload, commit_base, geom.token_words, *k_pl, codec=name)
+            ref.encode_commit_ref(payload, commit_base, geom.token_words, *p_pl, codec=name)
+            torch.cuda.synchronize()
+            require(same(k_pl, p_pl), f"encode_commit {name} differs")
+            timed({"name": f"encode_commit_{name}", "rows": BATCH,
+                   **bounds(BATCH * geom.token_words, name, 17, 20)},
+                  lambda c_=name: ops.encode_commit(payload, commit_base, geom.token_words,
+                                                    *k_pl, codec=c_),
+                  lambda c_=name: ref.encode_commit_ref(payload, commit_base, geom.token_words,
+                                                        *p_pl, codec=c_), 50, 5)
+            del arena, real_lo, real_hi, k_enc, fplanes, k_dec, p_dec, k_pl, p_pl, k_gs, p_gs
+        torch.cuda.empty_cache()
+
     # ---------------------------------------------------------------- 3
     with Phase("3 tiny config: card vs CPU"):
         tcfg = get_smoke_config("qwen3-0.6b")
         tparams = lm.init_params(tcfg, seed=0, device="cpu")
         prompts = np.random.default_rng(0).integers(0, tcfg.vocab, (2, 8)).astype(np.int32)
-        for multi in (False, True):
+        for multi, cdx in ((False, None), (True, None), (False, "dected79"), (True, CODEC_MIX)):
             rel = ReliabilityConfig(mode="inline", voltage=1.0,
-                                    rails=RailsConfig(multi_rail=multi))
+                                    rails=RailsConfig(multi_rail=multi),
+                                    protection=ProtectionConfig(codecs=cdx))
             engs = {d: ServingEngine(tcfg, tparams, rel=rel, max_len=32, device=d)
                     for d in ("cpu", "cuda")}
             for v in (1.0, 0.56, 0.54):
@@ -626,10 +914,11 @@ def main() -> int:
                     e.set_voltage(v)
                     outs[d] = (e.generate(prompts, 8), e._last_scrub)
                 require(outs["cpu"][1] == outs["cuda"][1],
-                        f"counters differ multi={multi} {v} V")
+                        f"counters differ multi={multi} codecs={cdx} {v} V")
                 require(np.array_equal(outs["cpu"][0], outs["cuda"][0]),
-                        f"tokens differ multi={multi} {v} V")
-            print(f"  multi_rail={multi}: equal tokens and counters at 1.0/0.56/0.54 V")
+                        f"tokens differ multi={multi} codecs={cdx} {v} V")
+            print(f"  multi_rail={multi} codecs={cdx}: equal tokens and counters at "
+                  "1.0/0.56/0.54 V")
         # The smoke-size paper MLP with the same weights on both devices.
         scfg = paper_nn.smoke_config()
         carried = [(l_.w.numpy(), l_.b.numpy()) for l_ in EccMLP(
@@ -669,7 +958,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 4-5
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (BATCH, PROMPT_LEN)).astype(np.int32)
-    runs, traced_params, paths_extra = {}, {}, {}
+    runs, traced_params, paths_extra, nominal_tokens = {}, {}, {}, {}
     for multi in (False, True):
         name = "multi-rail" if multi else "single-rail"
         with Phase(f"{4 + multi} full-width qwen3-0.6b {name} engine"), Tally() as tally:
@@ -683,7 +972,7 @@ def main() -> int:
             torch.cuda.synchronize()
             run["build_s"] = time.perf_counter() - t
             mask_s = []  # one entry per later voltage step
-            host_masks = eng._store.host_masks
+            host_masks = eng._store.group_host_masks
 
             def timed_masks(v, _f=host_masks, _acc=mask_s):
                 t_ = time.perf_counter()
@@ -691,7 +980,7 @@ def main() -> int:
                 _acc.append(time.perf_counter() - t_)
                 return out
 
-            eng._store.host_masks = timed_masks
+            eng._store.group_host_masks = timed_masks
             toks = {}
             for v in (1.0, 0.56):
                 t = time.perf_counter()
@@ -710,6 +999,7 @@ def main() -> int:
                         "planes": [(w.lo, w.hi, w.parity) for _, w in base.flatten(eng.params)
                                    if isinstance(w, ops.EccWeight)],
                         "scrub": dataclasses.asdict(eng._last_scrub), "tokens": toks[v]}
+                nominal_tokens.setdefault(name, toks[1.0])
                 agree = float((toks[v] == toks[1.0]).mean())
                 run[f"{v}V"] = {"step_s": step_s, "host_mask_s": mask_s[-1],
                                 "generate_s": gen_s,
@@ -767,7 +1057,8 @@ def main() -> int:
             require(counts == want, f"{name} launches {counts}, expected {want}")
             require(tally.n["packs"] == per_fwd + multi, f"{tally.n['packs']} weight packs")
             require(tally.n["plain_on_card"] == 0, "the plain codec ran on the card")
-            run.update(launches=counts, voltage_steps=steps,
+            run.update(launches=counts, launches_by_codec=ops.launch_counts_by_codec(),
+                       voltage_steps=steps,
                        forwards=dict(fwd, decode_kernel=fwd["decode"]),
                        matmuls_per_forward=per_fwd, packs=tally.n["packs"], commits=0,
                        scrubs=0)
@@ -802,7 +1093,8 @@ def main() -> int:
               f"matmuls x ({n['prefill']} prefill/chunk + {n['decode']} decode forwards), "
               f"{n['packs']} packs + {n['commits']} commits, {n['intervals']} fault intervals + "
               f"{n['prefix_scrubs']} prefix-hit admission scrubs")
-        paged[name] = {"launches": counts, "matmuls_per_forward": per_fwd,
+        paged[name] = {"launches": counts, "launches_by_codec": ops.launch_counts_by_codec(),
+                       "kv_codec": "secded72", "matmuls_per_forward": per_fwd,
                        "forwards": {"prefill": n["prefill"], "decode": n["decode"],
                                     "decode_kernel": n["decode_kernel"]},
                        "packs": n["packs"], "commits": n["commits"],
@@ -1046,7 +1338,8 @@ def main() -> int:
               f"{per_leaf} per-leaf steps ({n_.get('mlp_per_leaf_no_ecc', 0)} without ECC), "
               f"{n_.get('mlp_fused', 0)} fused + {n_.get('mlp_naive', 0)} naive predicts, "
               f"{n_['packs']} packs, x {n_layers} layers")
-        paths_extra["fig3"] = {"launches": counts, "matmuls_per_forward": n_layers,
+        paths_extra["fig3"] = {"launches": counts, "launches_by_codec": ops.launch_counts_by_codec(),
+                               "matmuls_per_forward": n_layers,
                                "forwards": {"prefill": n_.get("mlp_fused", 0), "decode": 0,
                                             "decode_kernel": 0},
                                "packs": want["encode"], "commits": 0}
@@ -1132,7 +1425,9 @@ def main() -> int:
         print(f"  per-leaf launches: {json.dumps(counts)} = 2 voltage steps x {len(leaves)} leaves, "
               f"{n_['packs']} packs, {per_fwd} fused matmuls x ({n_['prefill']} prefill + "
               f"{n_['decode']} decode forwards)")
-        paths_extra["per-leaf"] = {"launches": counts, "matmuls_per_forward": per_fwd,
+        paths_extra["per-leaf"] = {"launches": counts,
+                                   "launches_by_codec": ops.launch_counts_by_codec(),
+                                   "matmuls_per_forward": per_fwd,
                                    "forwards": {"prefill": n_["prefill"], "decode": n_["decode"],
                                                 "decode_kernel": n_["decode_kernel"]},
                                    "packs": n_["packs"], "commits": 0}
@@ -1218,7 +1513,9 @@ def main() -> int:
               f"{domain_run['agreement_056_with_nominal']:.3f}, stats {json.dumps(step_stats)}")
         print(f"  domain launches: {json.dumps(counts)} = 2 reads x {n_arrays} arrays, "
               f"{n_arrays} writes")
-        paths_extra["domain"] = {"launches": counts, "matmuls_per_forward": per_fwd,
+        paths_extra["domain"] = {"launches": counts,
+                                 "launches_by_codec": ops.launch_counts_by_codec(),
+                                 "matmuls_per_forward": per_fwd,
                                  "forwards": {"prefill": 0, "decode": 0, "decode_kernel": 0},
                                  "packs": n_arrays,
                                  "commits": 0}
@@ -1226,7 +1523,231 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 9
-    with Phase("9 traced steps, timings and the kernels line"):
+    codec_run = {}
+
+    def codec_launch_check(name, counts, by_codec, want_codec, want_total):
+        """Per-codec launch formulas of a codec path, and its totals."""
+        got = {k: v for k, v in by_codec.items() if v}
+        want = {k: {c: n for c, n in v.items() if n} for k, v in want_codec.items()}
+        require(got == {k: v for k, v in want.items() if v},
+                f"{name} launches by codec {by_codec}, expected {want}")
+        require(counts == want_total, f"{name} launches {counts}, expected {want_total}")
+        print(f"  {name} launches: {json.dumps(counts)}; by codec {json.dumps(by_codec)}")
+
+    with Phase("9 per-domain-codec engine, full width"):
+        per_fwd = 7 * cfg.n_layers
+        ops.reset_launch_count()
+        with Tally() as tally:
+            tally._wrap(ServingEngine, "set_rails", "rail_steps")
+            t = time.perf_counter()
+            rel = ReliabilityConfig(mode="inline", voltage=1.0,
+                                    rails=RailsConfig(multi_rail=True, start_v=0.62),
+                                    protection=ProtectionConfig(codecs=CODEC_MIX))
+            ceng = ServingEngine(cfg, params, rel=rel, max_len=PAGED_MAX_LEN)
+            torch.cuda.synchronize()
+            codec_run["build_s"] = time.perf_counter() - t
+            store = ceng._store
+            codec_run["groups"] = {g.name: {"words": g.n_words, "leaves": len(g.slot_ids),
+                                            "check_bits": g.codec.n_check} for g in store.groups}
+            print(f"  engine built in {codec_run['build_s']:.2f} s; domains {store.domains}, "
+                  f"codec groups {json.dumps(codec_run['groups'])}")
+            mask_s, refresh_ms = [], []
+            real_gm, real_re = store.group_host_masks, ceng._reassemble_params
+
+            def timed_gm(v, _f=real_gm, _acc=mask_s):
+                t_ = time.perf_counter()
+                out = _f(v)
+                _acc.append(time.perf_counter() - t_)
+                return out
+
+            def timed_re(leaves, _f=real_re, _acc=refresh_ms):
+                out = []
+                _acc.append(wall_ms(lambda: out.append(_f(leaves))))
+                return out[0]
+
+            store.group_host_masks, ceng._reassemble_params = timed_gm, timed_re
+            ctoks = {1.0: ceng.generate(prompts, NEW_TOKENS)}
+            require(np.array_equal(ctoks[1.0], nominal_tokens["multi-rail"]),
+                    "the codec engine's nominal tokens differ from phase 5's SECDED engine")
+            print("  nominal generate: tokens equal to phase 5's multi-rail SECDED engine")
+            # a 0.56 V step on every rail, held against the plain versions
+            t = time.perf_counter()
+            ceng.set_rails(dict.fromkeys(store.domains, 0.56))
+            torch.cuda.synchronize()
+            codec_run["step_056_s"] = time.perf_counter() - t
+            codec_run["step_056_host_mask_s"] = mask_s[-1]
+            codec_run["refresh_056_ms"] = refresh_ms[-1]
+            with tally.outside():
+                gm = real_gm(dict.fromkeys(store.domains, 0.56))  # the fields' kept masks
+                plain = sum(ref.inject_scrub_domains_ref(g.lo, g.hi, g.check, *m, g.dom_ids,
+                                                         len(store.domains), codec=g.name)[3]
+                            for g, m in zip(store.groups, gm))
+                got = np.stack([ceng._last_scrub[d].counters() for d in store.domains])
+                require(np.array_equal(plain.cpu().numpy(), got),
+                        f"codec engine 0.56 V counters {got.tolist()} differ from the plain "
+                        f"versions' {plain.tolist()}")
+                del gm, plain
+            codec_run["scrub_056"] = {d: ceng._last_scrub[d].to_dict() for d in store.domains}
+            ctoks[0.56] = ceng.generate(prompts, NEW_TOKENS)
+            print(f"  0.56 V step {codec_run['step_056_s']:.2f} s (host masks "
+                  f"{codec_run['step_056_host_mask_s']:.2f} s, refresh "
+                  f"{codec_run['refresh_056_ms']:.1f} ms); counters equal to the plain versions' "
+                  f"on the same masks: {json.dumps(codec_run['scrub_056'])}; tokens agree with "
+                  f"nominal {float((ctoks[0.56] == ctoks[1.0]).mean()):.3f}")
+            # the DED-canary walk from its warm start
+            n_masks = len(mask_s)
+            t = time.perf_counter()
+            lock, hist = ceng.autotune_voltage()
+            torch.cuda.synchronize()
+            codec_run.update(autotune_s=time.perf_counter() - t,
+                             autotune_steps=len(mask_s) - n_masks,
+                             autotune_host_mask_s=sum(mask_s[n_masks:]), lock=lock,
+                             history={d: [(r.voltage, r.corrected, r.detected, r.action,
+                                           r.codec) for r in h] for d, h in hist.items()})
+            require(ceng.controller.locked, "the codec engine's walk did not lock")
+            pr = codec_run["power_report"] = ceng.power_report()
+            want_codecs = {"attention": "parity65", "mlp": "dected79", "embedding": "secded72"}
+            require({d: pr["codecs"][d] for d in want_codecs} == want_codecs,
+                    f"power_report codecs {pr['codecs']}")
+            require({d: pr["check_bits"][d] for d in want_codecs}
+                    == {"attention": 1, "mlp": 15, "embedding": 8},
+                    f"power_report check bits {pr['check_bits']}")
+            print(f"  autotune: lock {lock} in {codec_run['autotune_steps']} voltage steps, "
+                  f"{codec_run['autotune_s']:.1f} s (host masks "
+                  f"{codec_run['autotune_host_mask_s']:.1f} s)")
+            print(f"  history (V, corrected, detected, action, codec) "
+                  f"{json.dumps(codec_run['history'])}")
+            print(f"  power_report {json.dumps(pr)}")
+            ctoks["lock"] = ceng.generate(prompts, NEW_TOKENS)
+            codec_run["agreement_at_lock"] = float((ctoks["lock"] == ctoks[1.0]).mean())
+            print(f"  generate at the locks: agreement with nominal "
+                  f"{codec_run['agreement_at_lock']:.3f}")
+            # paged serve with ileave88 kv pages
+            rep = ceng.serve([(p_, NEW_TOKENS) for p_ in prompts], n_lanes=BATCH, kv_voltage=1.0)
+            got = np.stack([rep.outputs[i] for i in range(BATCH)])
+            require(np.array_equal(got, ceng.generate(prompts, NEW_TOKENS)),
+                    "paged serve with ileave88 pages differs from dense generate")
+            require(rep.arena.codec_name == "ileave88" and rep.arena.parity.dtype == torch.int32
+                    and rep.kv_stats.clean == rep.kv_stats.words > 0,
+                    f"nominal ileave88 serve: {rep.arena.codec_name} {rep.kv_stats}")
+            print(f"  serve at a nominal kv rail (ileave88 pages, weights at the locks): equal to "
+                  f"dense generate; {rep.steps} steps")
+            t = time.perf_counter()
+            srep = ceng.serve(stream, n_lanes=4, kv_voltage=0.56, n_pages=STREAM_PAGES)
+            torch.cuda.synchronize()
+            stream_s = time.perf_counter() - t
+            n_tok = sum(len(v) for v in srep.outputs.values())
+            require(len(srep.outputs) == len(stream) and srep.preemptions >= 1,
+                    f"ileave88 stream: {len(srep.outputs)} finished, {srep.preemptions} preempted")
+            require(srep.kv_stats.corrected > 0, f"no corrected kv word: {srep.kv_stats}")
+            codec_run["stream"] = {"wall_s": stream_s, "tokens": n_tok,
+                                   "tokens_per_s": n_tok / stream_s, "steps": srep.steps,
+                                   "preemptions": srep.preemptions,
+                                   "kv_stats": srep.kv_stats.to_dict()}
+            print(f"  stream of {len(stream)} requests at a 0.56 V kv rail (ileave88, "
+                  f"{STREAM_PAGES} pages): {n_tok} tokens in {stream_s:.2f} s = "
+                  f"{n_tok / stream_s:.1f} tokens/s, {srep.steps} steps, {srep.preemptions} "
+                  f"preemptions, kv {srep.kv_stats.to_dict()}")
+            power_after = ceng.power_report()
+        n_ = tally.n
+        steps = n_["rail_steps"]
+        leaves = {g.name: len(g.slot_ids) for g in store.groups}
+        refreshed = sum(n for c, n in leaves.items() if c != "secded72")
+        counts, by_codec = ops.launch_counts(), ops.launch_counts_by_codec()
+        intervals = n_["intervals"] + n_["prefix_scrubs"]
+        want_codec = {
+            "inject_scrub": {},
+            "inject_scrub_domains": {c: steps for c in leaves},
+            "decode": {c: steps * n for c, n in leaves.items()},  # the embedding is secded72
+            "encode": {"secded72": n_["packs"] + 1 + steps * refreshed, "parity65": 1,
+                       "dected79": 1, "ileave88": n_["commits"]},
+            "gather_scrub": {"ileave88": intervals},
+        }
+        want_total = {k: sum(v.values()) for k, v in want_codec.items()}
+        want_total.update(ecc_matmul=per_fwd * (n_["prefill"] + n_["decode"]), inject=0)
+        require(leaves == {"parity65": 4, "dected79": 3, "secded72": 1}, f"groups {leaves}")
+        require(n_["packs"] == per_fwd + 1 and n_["plain_on_card"] == 0, f"codec tally {n_}")
+        codec_launch_check("codec-multi-rail", counts, by_codec, want_codec,
+                           {k: want_total[k] for k in counts})
+        print(f"  = {steps} rail steps x {len(leaves)} codec groups, {refreshed} refreshed + 1 "
+              f"embedding decodes and {refreshed} re-encodes per step, {n_['packs']} packs + "
+              f"{n_['commits']} ileave88 commits, {intervals} ileave88 scrubs, {per_fwd} fused "
+              f"matmuls x ({n_['prefill']} prefill + {n_['decode']} decode forwards)")
+        paths_extra["codec-multi-rail"] = {
+            "launches": counts, "launches_by_codec": by_codec, "kv_codec": "ileave88",
+            "matmuls_per_forward": per_fwd,
+            "forwards": {"prefill": n_["prefill"], "decode": n_["decode"],
+                         "decode_kernel": n_["decode_kernel"]},
+            "packs": n_["packs"], "commits": n_["commits"], "voltage_steps": steps}
+        codec_run.update(launches=counts, launches_by_codec=by_codec, rail_steps=steps,
+                         refresh_ms=refresh_ms, power_report_after_serve=power_after)
+        # a fault interval (88 bitplanes drawn on the card) and an interval
+        # scrub of the stream's ileave88 arena, as phase 6 times SECDED's
+        arena = srep.arena
+        table = np.full((4, 4), arena.scratch_page, np.int32)
+        table.reshape(-1)[: min(STREAM_PAGES, 16)] = np.arange(min(STREAM_PAGES, 16))
+        table_d = torch.as_tensor(table.reshape(-1), device=dev)
+        arena.set_voltage(0.56)
+        codec_run["stream_breakdown"] = {
+            "tick_ms": min(wall_ms(arena.tick) for _ in range(3)),
+            "interval_scrub_ms": min(wall_ms(lambda: arena.scrub_pages(table)) for _ in range(3)),
+            "interval_scrub_kernel_ms": sync_ms(
+                lambda: ops.gather_scrub_pages(arena.lo, arena.hi, arena.parity, table_d,
+                                               arena.geom.words_per_page, codec="ileave88"), 20),
+            "interval_pages": int(table.size), "arena_words": arena.n_words}
+        print(f"  ileave88 stream breakdown: fault interval (device masks, 88 bitplanes) "
+              f"{codec_run['stream_breakdown']['tick_ms']:.2f} ms, interval scrub of "
+              f"{table.size} pages {codec_run['stream_breakdown']['interval_scrub_ms']:.2f} ms "
+              f"wall (kernel {codec_run['stream_breakdown']['interval_scrub_kernel_ms']:.3f} ms)")
+        del ceng, store, rep, srep, real_gm, real_re, arena
+        torch.cuda.empty_cache()
+
+        # the single-rail dected79 engine: one 0.56 V step and generate
+        ops.reset_launch_count()
+        with Tally() as tally:
+            tally._wrap(ServingEngine, "set_voltage", "voltage_steps")
+            rel = ReliabilityConfig(mode="inline", voltage=1.0,
+                                    protection=ProtectionConfig(codecs="dected79"))
+            deng = ServingEngine(cfg, params, rel=rel, max_len=64)
+            dtoks = {1.0: deng.generate(prompts, NEW_TOKENS)}
+            require(np.array_equal(dtoks[1.0], nominal_tokens["single-rail"]),
+                    "the dected79 engine's nominal tokens differ from phase 4's SECDED engine")
+            t = time.perf_counter()
+            deng.set_voltage(0.56)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t
+            dtoks[0.56] = deng.generate(prompts, NEW_TOKENS)
+            scrub = deng._last_scrub.to_dict()
+        n_ = tally.n
+        steps = n_["voltage_steps"]
+        counts, by_codec = ops.launch_counts(), ops.launch_counts_by_codec()
+        want_codec = {
+            "inject_scrub": {"dected79": steps}, "inject_scrub_domains": {},
+            "decode": {"dected79": 7 * steps},
+            "encode": {"secded72": n_["packs"] + 7 * steps, "dected79": 1}, "gather_scrub": {},
+        }
+        want_total = {k: sum(v.values()) for k, v in want_codec.items()}
+        want_total.update(ecc_matmul=per_fwd * (n_["prefill"] + n_["decode"]), inject=0)
+        require(n_["packs"] == per_fwd and n_["plain_on_card"] == 0, f"dected79 tally {n_}")
+        codec_launch_check("codec-single-dected79", counts, by_codec, want_codec,
+                           {k: want_total[k] for k in counts})
+        codec_run["single_dected79"] = {
+            "step_056_s": step_s, "scrub_056": scrub, "voltage_steps": steps,
+            "agreement_056": float((dtoks[0.56] == dtoks[1.0]).mean())}
+        print(f"  single-rail dected79 engine: nominal tokens equal to phase 4's; 0.56 V step "
+              f"{step_s:.2f} s, scrub {json.dumps(scrub)}, tokens agree with nominal "
+              f"{codec_run['single_dected79']['agreement_056']:.3f}")
+        paths_extra["codec-single-dected79"] = {
+            "launches": counts, "launches_by_codec": by_codec, "kv_codec": None,
+            "matmuls_per_forward": per_fwd,
+            "forwards": {"prefill": n_["prefill"], "decode": n_["decode"],
+                         "decode_kernel": n_["decode_kernel"]},
+            "packs": n_["packs"], "commits": 0, "voltage_steps": steps}
+        del deng
+        torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 10
+    with Phase("10 traced steps, timings and the kernels line"):
         for name, run in runs.items():
             run["steps"] = step_breakdown(traced_params.pop(name), {"prefill": 0, "decode": 0},
                                           walls=run["steps"])
@@ -1263,57 +1784,80 @@ def main() -> int:
         print(f"  domain {json.dumps(domain_run)}")
         paths = {**runs, **{k: v for k, v in paged.items() if "launches" in v}, **paths_extra}
 
-        def by_path(kernel, kind=None):
-            """A kernel's launches per path; the fused matmul's split between
+        print(f"  codec {json.dumps(codec_run)}")
+
+        def by_path(kernel, kind=None, codec="secded72"):
+            """A kernel's launches per path: the fused matmul's split between
             its decode kernel (forward passes of at most DECODE_MAX_M rows)
-            and its tiled kernel (the others), the encode's into weight packs
-            and token commits."""
-            if kind in ("packs", "commits"):
-                return {p: r[kind] for p, r in paths.items()}
+            and its tiled kernel (the others); a codec-generic kernel's
+            launches under ``codec``, the encode's split into its plain form
+            and its token-commit form (the commits of a path's kv codec)."""
             if kind in ("decode", "tiled"):
                 fwd_ = {p: r["forwards"]["decode_kernel"] if kind == "decode" else
                         r["forwards"]["prefill"] + r["forwards"]["decode"]
                         - r["forwards"]["decode_kernel"] for p, r in paths.items()}
                 return {p: paths[p]["matmuls_per_forward"] * f for p, f in fwd_.items()}
-            return {p: r["launches"][kernel] for p, r in paths.items()}
+            if kernel not in ops.launch_counts_by_codec():
+                return {p: r["launches"][kernel] for p, r in paths.items()}
+            out = {}
+            for p, r in paths.items():
+                n = r["launches_by_codec"][kernel].get(codec, 0)
+                if kernel == "encode":
+                    commits = r["commits"] if r.get("kv_codec", "secded72") == codec else 0
+                    n = commits if kind == "commits" else n - commits
+                out[p] = n
+            return out
 
         src = "src/repro_torch/kernels/csrc/"
-        meta = {
+        generic = {  # entry -> (source, reference kernel, kernel, encode form)
             "inject_scrub": ("inject_scrub.cu", "src/repro/kernels/inject_scrub.py:203",
-                             by_path("inject_scrub")),
+                             "inject_scrub", None),
             "inject_scrub_domains": ("inject_scrub.cu", "src/repro/kernels/inject_scrub.py:239",
-                                     by_path("inject_scrub_domains")),
-            "decode": ("secded.cu", "src/repro/kernels/secded.py:92", by_path("decode")),
-            "ecc_matmul_decode": ("ecc_matmul.cu", "src/repro/kernels/ecc_matmul.py:98",
-                                  by_path("ecc_matmul", "decode")),
-            "ecc_matmul_prefill": ("ecc_matmul.cu", "src/repro/kernels/ecc_matmul.py:98",
-                                   by_path("ecc_matmul", "tiled")),
-            "encode": ("secded.cu", "src/repro/kernels/secded.py:76", by_path("encode", "packs")),
-            "encode_commit": ("secded.cu", "src/repro/kernels/secded.py:76",
-                              by_path("encode", "commits")),
+                                     "inject_scrub_domains", None),
+            "decode": ("secded.cu", "src/repro/kernels/secded.py:92", "decode", None),
+            "encode": ("secded.cu", "src/repro/kernels/secded.py:76", "encode", "packs"),
+            "encode_commit": ("secded.cu", "src/repro/kernels/secded.py:76", "encode",
+                              "commits"),
             "gather_scrub": ("paged_gather.cu", "src/repro/kernels/paged_gather.py:108",
-                             by_path("gather_scrub")),
-            "inject": ("fault_inject.cu", "src/repro/kernels/fault_inject.py:25",
-                       by_path("inject")),
+                             "gather_scrub", None),
         }
+        meta, kernel_of = {}, {}
+        for entry, (source, replaces, kernel, kind) in generic.items():
+            for codec in codes.names():
+                name = entry if codec == "secded72" else f"{entry}_{codec}"
+                meta[name] = (source, replaces, by_path(kernel, kind, codec), codec)
+                kernel_of[name] = kernel
+        meta.update({
+            "ecc_matmul_decode": ("ecc_matmul.cu", "src/repro/kernels/ecc_matmul.py:98",
+                                  by_path("ecc_matmul", "decode"), "secded72"),
+            "ecc_matmul_prefill": ("ecc_matmul.cu", "src/repro/kernels/ecc_matmul.py:98",
+                                   by_path("ecc_matmul", "tiled"), "secded72"),
+            "inject": ("fault_inject.cu", "src/repro/kernels/fault_inject.py:25",
+                       by_path("inject"), None),
+        })
         for p_, r_ in paths.items():  # the two B3 kernels split each path's count
             require(sum(meta[k][2][p_] for k in ("ecc_matmul_decode", "ecc_matmul_prefill"))
                     == r_["launches"]["ecc_matmul"], f"B3 launch split of {p_}")
+            for kernel in ops.launch_counts_by_codec():  # the variants split each count
+                require(sum(meta[n][2][p_] for n, k in kernel_of.items() if k == kernel)
+                        == r_["launches"][kernel], f"{kernel} launch split of {p_}")
         kernels = []
-        for name, (source, replaces, launches) in meta.items():
+        for name, (source, replaces, launches, codec) in meta.items():
             r = report[name]
             mm = name.startswith("ecc_matmul")
             kernels.append({
                 "name": name, "route": "cuda", "source": src + source,
                 "replaces": replaces, "launches": sum(launches.values()),
-                "launches_by_path": launches,
+                "launches_by_path": launches, "codec": codec,
                 "max_abs_err": r.get("max_abs_err", 0.0), "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"] if mm else "bytes",
+                "bound_by": r.get("bound_by", "bytes"),
                 "library_ms": r.get("library_ms"),
                 **({"M": r["M"], "per": "one layer's 7 matmuls", "shapes": r["shapes"],
                     "max_rel_err": r["max_rel_err"], "function": r["function"]}
                    if mm else {"n_words": r["n_words"]}),
+                **({k: r[k] for k in ("bytes_ms", "ops_ms", "masks", "ms_054", "ms_nominal")
+                    if k in r}),
                 **({"mlp": r["mlp"]} if "mlp" in r else {}),
             })
         kernels[[k["name"] for k in kernels].index("encode")]["kv_arena"] = report["encode_kv_arena"]

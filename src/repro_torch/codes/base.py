@@ -5,13 +5,17 @@ hold the uint32 bit pattern (numpy ``uint32`` converts with
 ``.view(np.int32)``, zero-copy and exact). Torch on the CPU implements no
 shifts for ``torch.uint32`` and shifts ``int32`` arithmetically, so the plain
 functions here widen to int64 (``widen``) before shifting and narrow back
-with ``narrow``. Check planes are ``torch.uint8``.
+with ``narrow``. Check planes are ``torch.uint8`` up to 8 check bits and
+``torch.int32`` holding the uint32 bit pattern beyond (every value is below
+2**24, so the sign never matters; ``np.uint32`` converts with
+``.view(np.int32)``).
 
 A ``Codec`` carries the systematic parity-check matrix as encode masks (check
 bit ``r`` is the XOR-fold of ``lo & mask_lo[r]`` and ``hi & mask_hi[r]``) and
-a dense syndrome table: status (clean / corrected / detected) and the data
-flips of the correction. The CUDA kernels read the same table from shared
-memory (``kernel_tables``).
+a syndrome classification: status (clean / corrected / detected) and the
+data flips of the correction, from a dense syndrome table where the codec
+has one (``classify`` is overridden where it has not). The CUDA kernels read
+the codec's table layout of ``kernels/csrc/codec.cuh`` (``kernel_tables``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,18 @@ STATUS_CORRECTED = 1
 STATUS_DETECTED = 2
 
 WORD_MASK = 0xFFFFFFFF
+
+
+def check_dtypes(n_check: int):
+    """(numpy, torch) dtypes of a check plane of ``n_check`` bits: uint8 up
+    to 8 bits, else uint32, carried in torch as int32 bit patterns."""
+    return (np.uint8, torch.uint8) if n_check <= 8 else (np.uint32, torch.int32)
+
+
+def as_words(a: np.ndarray) -> np.ndarray:
+    """A uint32 plane viewed as int32 (the bit patterns torch carries); any
+    other plane as it is."""
+    return a.view(np.int32) if a.dtype == np.uint32 else a
 
 
 def widen(words: torch.Tensor) -> torch.Tensor:
@@ -62,9 +78,10 @@ def popcount32(v: torch.Tensor) -> torch.Tensor:
 
 
 class Codec:
-    """One registered ECC scheme over 64-bit data words (<= 8 check bits)."""
+    """One registered ECC scheme over 64-bit data words."""
 
     name: str
+    kernel_id: int  # the codec's id in kernels/csrc/codec.cuh
     n_check: int
     corrects_random: int
     detects_random: int
@@ -72,53 +89,80 @@ class Codec:
     sure_correct: int
     mask_lo: np.ndarray  # (n_check,) uint32
     mask_hi: np.ndarray  # (n_check,) uint32
-    lut_status: np.ndarray  # (2**n_check,) int32
-    lut_flip_lo: np.ndarray  # (2**n_check,) uint32
-    lut_flip_hi: np.ndarray
-    lut_flip_check: np.ndarray
+    # dense syndrome tables of length 2**n_check; None where the syndrome
+    # space is too large (the codec then overrides ``classify``)
+    lut_status: np.ndarray | None  # int32
+    lut_flip_lo: np.ndarray | None  # uint32
+    lut_flip_hi: np.ndarray | None
+    lut_flip_check: np.ndarray | None
+
+    @property
+    def check_dtype(self):
+        """numpy storage dtype of the check plane (uint8 up to 8 check bits,
+        uint32 beyond)."""
+        return check_dtypes(self.n_check)[0]
+
+    @property
+    def check_torch_dtype(self) -> torch.dtype:
+        """torch dtype of the check plane: uint8, or int32 holding the uint32
+        bit pattern."""
+        return check_dtypes(self.n_check)[1]
+
+    @property
+    def exact_tallies(self) -> bool:
+        """Whether the counters compare the correction with the injected data
+        mask to count genuine corrections (codecs that correct more than one
+        random bit or a burst), instead of the single-flip formula that is
+        exact for SEC codes."""
+        return self.corrects_random > 1 or self.corrects_burst > 1
 
     @functools.lru_cache(maxsize=None)
     def tables(self, device: torch.device) -> dict:
-        """The mask and syndrome tables as int64 tensors on ``device``."""
-        as_t = lambda a: torch.as_tensor(a.astype(np.int64), device=device)
-        return {
+        """The masks as ints, and the dense syndrome tables (where the codec
+        has them) as int64 tensors on ``device``."""
+        out = {
             "mask_lo": [int(m) for m in self.mask_lo],
             "mask_hi": [int(m) for m in self.mask_hi],
-            "status": as_t(self.lut_status),
-            "flip_lo": as_t(self.lut_flip_lo),
-            "flip_hi": as_t(self.lut_flip_hi),
         }
+        if self.lut_status is not None:
+            as_t = lambda a: torch.as_tensor(a.astype(np.int64), device=device)
+            out.update(status=as_t(self.lut_status), flip_lo=as_t(self.lut_flip_lo),
+                       flip_hi=as_t(self.lut_flip_hi))
+        return out
+
+    def _classify_table_bytes(self) -> np.ndarray:
+        """Dense form: flip_lo[2**n], flip_hi[2**n] (uint32), status[2**n]
+        (uint8)."""
+        flips = np.concatenate([self.lut_flip_lo, self.lut_flip_hi]).astype(np.uint32)
+        return np.concatenate([flips.view(np.uint8), self.lut_status.astype(np.uint8)])
 
     @functools.lru_cache(maxsize=None)
     def kernel_tables(self, device: torch.device) -> torch.Tensor:
-        """The ``SecdedTables`` struct of kernels/csrc/secded.cuh as bytes on
-        ``device``: mask_lo[8], mask_hi[8], flip_lo[256], flip_hi[256]
-        (uint32), then status[256] (uint8)."""
-        assert self.n_check == 8, self.name
-        words = np.concatenate(
-            [self.mask_lo, self.mask_hi, self.lut_flip_lo, self.lut_flip_hi]
-        ).astype(np.uint32)
-        raw = np.concatenate(
-            [words.view(np.uint8), self.lut_status.astype(np.uint8)]
-        )
+        """The codec's table struct of kernels/csrc/codec.cuh as bytes on
+        ``device``: mask_lo[n_check] and mask_hi[n_check] (uint32), then the
+        codec's classification tables (``_classify_table_bytes``)."""
+        words = np.concatenate([self.mask_lo, self.mask_hi]).astype(np.uint32)
+        raw = np.concatenate([words.view(np.uint8), self._classify_table_bytes()])
         return torch.from_numpy(raw).to(device)
 
     # ---------------------------------------------------------- plain torch
     def encode(self, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
-        """Check plane (uint8) of int32 word planes."""
+        """Check plane (``check_torch_dtype``) of int32 word planes."""
         lo, hi = widen(lo), widen(hi)
         c = torch.zeros_like(lo)
         t = self.tables(lo.device)
         for r in range(self.n_check):
             c |= parity32((lo & t["mask_lo"][r]) ^ (hi & t["mask_hi"][r])) << r
-        return c.to(torch.uint8)
+        return c.to(self.check_torch_dtype)
 
     def syndrome(self, lo, hi, check) -> torch.Tensor:
         """int64 syndrome in [0, 2**n_check)."""
         return self.encode(lo, hi).to(torch.int64) ^ check.to(torch.int64)
 
     def classify(self, synd: torch.Tensor):
-        """Syndrome -> (flip_lo, flip_hi) widened int64, status int32."""
+        """Syndrome -> (flip_lo, flip_hi) widened int64, status int32 (dense
+        table gather). The flips apply whatever the status, as in the
+        reference's decode."""
         t = self.tables(synd.device)
         return t["flip_lo"][synd], t["flip_hi"][synd], t["status"][synd].to(torch.int32)
 

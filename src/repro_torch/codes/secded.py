@@ -107,6 +107,7 @@ class SecdedCodec(Codec):
     """Hsiao SECDED(72,64): corrects any single, detects any double."""
 
     name = "secded72"
+    kernel_id = 1
     n_check = N_PARITY
     corrects_random = 1
     detects_random = 2

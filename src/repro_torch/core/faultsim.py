@@ -30,7 +30,7 @@ import os
 import numpy as np
 import torch
 
-from repro_torch.codes.base import narrow, popcount32, widen
+from repro_torch.codes.base import as_words, check_dtypes, narrow, popcount32, widen
 from repro_torch.core.voltage import PlatformProfile
 from repro_torch.kernels.backend import resolve_device, to_device
 
@@ -46,7 +46,7 @@ class FlipMasks:
 
     lo: np.ndarray  # (n,) uint32 — flips in data bits 0..31
     hi: np.ndarray  # (n,) uint32 — flips in data bits 32..63
-    parity: np.ndarray  # (n,) uint8 — flips in the check bits
+    parity: np.ndarray  # (n,) uint8 or uint32 (> 8 check bits) — flips in the check bits
 
     def flip_counts(self) -> np.ndarray:
         """Ground-truth number of flipped bits per codeword."""
@@ -56,27 +56,25 @@ class FlipMasks:
 
 def flip_counts(mlo: torch.Tensor, mhi: torch.Tensor, mcheck: torch.Tensor) -> torch.Tensor:
     """Ground-truth flipped bits per codeword of mask tensors (int32 lo/hi
-    bit patterns, uint8 check), on their device (int64)."""
+    bit patterns, a uint8 or int32 check plane), on their device (int64)."""
     return popcount32(widen(mlo)) + popcount32(widen(mhi)) + popcount32(mcheck.to(torch.int64))
 
 
 def device_masks(field: "FaultField", v: float, device, shape=None):
-    """The field's (lo int32, hi int32, check uint8) masks at rail voltage
-    ``v`` as tensors on ``device``, shaped ``shape`` (default flat). At a
-    zero fault rate they are zeros made on the device: no draw, no copy. A
-    drawn field's kept masks are reused, so a caller can draw many fields at
-    once with ``gather_masks`` first."""
+    """The field's (lo int32, hi int32, check) masks at rail voltage ``v``
+    as tensors on ``device``, shaped ``shape`` (default flat); the check
+    mask is uint8 or int32 as ``check_dtypes(field.n_check)``. At a zero
+    fault rate they are zeros made on the device: no draw, no copy. A drawn
+    field's kept masks are reused, so a caller can draw many fields at once
+    with ``gather_masks`` first."""
     shape = (field.n_words,) if shape is None else tuple(shape)
     if field.platform.fault_rate(float(v)) == 0.0:
         return tuple(
             torch.zeros(shape, dtype=dt, device=device)
-            for dt in (torch.int32, torch.int32, torch.uint8)
+            for dt in (torch.int32, torch.int32, check_dtypes(field.n_check)[1])
         )
     m = field.masks(v)
-    return tuple(
-        to_device(a.reshape(shape), device)
-        for a in (m.lo.view(np.int32), m.hi.view(np.int32), m.parity)
-    )
+    return tuple(to_device(as_words(a).reshape(shape), device) for a in (m.lo, m.hi, m.parity))
 
 
 def _popcount32(v: np.ndarray) -> np.ndarray:
@@ -87,18 +85,21 @@ def _popcount32(v: np.ndarray) -> np.ndarray:
     return ((v * np.uint32(0x01010101)) >> 24).astype(np.int64)
 
 
-def _zero_masks(n: int) -> FlipMasks:
+def _zero_masks(n: int, n_check: int = N_CHECK_DEFAULT) -> FlipMasks:
     return FlipMasks(
-        np.zeros(n, np.uint32), np.zeros(n, np.uint32), np.zeros(n, np.uint8)
+        np.zeros(n, np.uint32), np.zeros(n, np.uint32), np.zeros(n, check_dtypes(n_check)[0])
     )
 
 
 class FaultField:
-    """Failure-threshold field over ``n_words`` 72-bit codewords.
+    """Failure-threshold field over ``n_words`` codewords of 64 data bits and
+    ``n_check`` check bits (default 8, SECDED).
 
     Deterministic in (platform, seed): repeated calls, any voltage order and
-    any chunking of the work give identical masks. The last voltage's masks
-    are kept, so a rail that did not move costs no draw.
+    any chunking of the work give identical masks. The draw has 64 + n_check
+    bitplanes; its first 64 rows do not depend on ``n_check``, so the data
+    masks are the same under every code. The last voltage's masks are kept,
+    so a rail that did not move costs no draw.
     """
 
     def __init__(
@@ -107,12 +108,13 @@ class FaultField:
         n_words: int,
         seed: int = 0,
         chunk_words: int = 1 << 18,
+        n_check: int = N_CHECK_DEFAULT,
     ):
         self.platform = platform
         self.n_words = int(n_words)
         self.seed = int(seed)
         self.chunk_words = int(chunk_words)
-        self.n_check = N_CHECK_DEFAULT
+        self.n_check = int(n_check)
         self._last: tuple | None = None  # (voltage, FlipMasks)
 
     def _chunk_rng(self, chunk_idx: int) -> np.random.Generator:
@@ -131,15 +133,16 @@ class FaultField:
         u = rng.random((N_DATA_BITS + self.n_check, m), dtype=np.float32)
         p_word = np.clip(rate * f_row, 0.0, P_MAX)[None, :]
         bits = u < p_word
+        pdt = check_dtypes(self.n_check)[0]
         lo = np.zeros(m, np.uint32)
         hi = np.zeros(m, np.uint32)
-        par = np.zeros(m, np.uint8)
+        par = np.zeros(m, pdt)
         for b in range(32):
             lo |= bits[b].astype(np.uint32) << np.uint32(b)
         for b in range(32):
             hi |= bits[32 + b].astype(np.uint32) << np.uint32(b)
         for b in range(self.n_check):
-            par |= bits[64 + b].astype(np.uint8) << np.uint8(b)
+            par |= bits[64 + b].astype(pdt) << pdt(b)
         return lo, hi, par
 
     def chunks(self):
@@ -166,7 +169,7 @@ def gather_masks(requests, workers: int | None = None) -> list:
         if field._last is not None and field._last[0] == v:
             out[i] = field._last[1]
             continue
-        out[i] = _zero_masks(field.n_words)
+        out[i] = _zero_masks(field.n_words, field.n_check)
         drawn.append((field, v, out[i]))
         rate = field.platform.fault_rate(v)
         if rate > 0.0:
@@ -194,9 +197,10 @@ def gather_masks(requests, workers: int | None = None) -> list:
 
 def interval_masks(seed: int, interval: int, n_words: int, rate: float, row_sigma: float,
                    n_check: int = N_CHECK_DEFAULT, device=None):
-    """One fault interval's (lo int32, hi int32, check uint8) flip masks for
-    ``n_words`` words, drawn on ``device`` by a ``torch.Generator`` seeded
-    from (seed ^ 0xCACE, interval), in chunks of ``KV_CHUNK_WORDS``.
+    """One fault interval's (lo int32, hi int32, check) flip masks for
+    ``n_words`` words (check uint8, or int32 beyond 8 check bits), drawn on
+    ``device`` by a ``torch.Generator`` seeded from (seed ^ 0xCACE,
+    interval), in chunks of ``KV_CHUNK_WORDS``.
 
     Per chunk: a lognormal row factor f = exp(sigma z - sigma^2 / 2) (mean
     1), the word's per-bit probability p = clip(rate f, 0, P_MAX) in
@@ -220,8 +224,8 @@ def interval_masks(seed: int, interval: int, n_words: int, rate: float, row_sigm
         faulty = (bits < thresh[None, :]).to(torch.int64)
         los.append(narrow((faulty[:32] * weights).sum(dim=0)))
         his.append(narrow((faulty[32:64] * weights).sum(dim=0)))
-        pars.append((faulty[64:] * weights[:n_check]).sum(dim=0).to(torch.uint8))
+        pars.append((faulty[64:] * weights[:n_check]).sum(dim=0).to(check_dtypes(n_check)[1]))
     if not los:
         z32 = torch.zeros(0, dtype=torch.int32, device=dev)
-        return z32, z32.clone(), torch.zeros(0, dtype=torch.uint8, device=dev)
+        return z32, z32.clone(), torch.zeros(0, dtype=check_dtypes(n_check)[1], device=dev)
     return torch.cat(los), torch.cat(his), torch.cat(pars)

@@ -1,4 +1,5 @@
-"""Paged, SECDED-protected KV-cache arena.
+"""Paged, ECC-protected KV-cache arena (any registered codec; SECDED by
+default).
 
 The weight arena (core/planestore.py) keeps the static model state in
 undervolted ECC memory; this module does the same for the dynamic state, the
@@ -9,14 +10,15 @@ Layout
     scratch page that masked writes land on. A page holds ``page_tokens``
     tokens; one token's payload is every attention layer's K and V row for
     that position as float32, viewed as 32-bit words and packed two per
-    SECDED(72,64) codeword (lo = even, hi = odd f32): lo/hi int32 planes
-    (uint32 bit patterns) plus a uint8 check plane, the word geometry of the
+    64-bit codeword (lo = even, hi = odd f32): lo/hi int32 planes (uint32
+    bit patterns) plus a check plane in the codec's check dtype (uint8 up to
+    8 check bits, int32 bit patterns beyond), the word geometry of the
     weight path.
   * ``PageAllocator`` hands out pages with refcounted-owner bookkeeping;
     ``PrefixTrie`` shares full-page prompt prefixes between requests.
   * Writes encode and scatter in one launch (``kops.encode_commit``); reads
     go through the scrub-on-read kernel (``kops.gather_scrub_pages``), which
-    reads the page rows by id, corrects single-bit faults, writes the
+    reads the page rows by id, corrects what the codec corrects, writes the
     corrected planes back and counts (clean, corrected, detected) per page.
   * ``tick()`` injects one interval's undervolting faults at the `kv` rail
     voltage, XORed into the stored planes: the cache is mutable, so faults
@@ -27,10 +29,10 @@ each method returns new ones): ``commit_tokens``, ``tick``, ``zero_pages``
 and the scrub write-back all modify ``lo``/``hi``/``parity``.
 
 Each interval's masks come from ``mask_fn(interval, n_words, rate,
-row_sigma, n_check) -> (lo, hi, check)`` (numpy uint32/uint8 or tensors),
-by default ``faultsim.interval_masks`` on the arena's device. Not ported:
-codec escalation (``change_codec``, ``SharedPageDEDError``), environment
-bursts and mesh shards.
+row_sigma, n_check) -> (lo, hi, check)`` (numpy uint32 and uint8/uint32,
+or tensors), by default ``faultsim.interval_masks`` on the arena's device.
+Not ported: codec escalation (``change_codec``, ``SharedPageDEDError``),
+environment bursts and mesh shards.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch import codes
+from repro_torch.codes.base import as_words
 from repro_torch.core import faultsim
 from repro_torch.core.telemetry import FaultStats
 from repro_torch.core.voltage import PlatformProfile
@@ -95,7 +98,7 @@ class KVGeometry:
 
     @property
     def token_words(self) -> int:
-        """64-bit SECDED codewords per token (two f32 per codeword)."""
+        """64-bit codewords per token (two f32 per codeword)."""
         return self.token_f32 // 2
 
     @property
@@ -336,7 +339,7 @@ def row_bases(page_ids, slots, geom: KVGeometry) -> np.ndarray:
 
 
 class KVPageArena:
-    """The paged KV store: flat SECDED planes + rail state + fault model.
+    """The paged KV store: flat ECC planes + rail state + fault model.
 
     ``n_pages`` real pages plus one scratch row (index ``n_pages``) that
     masked or inactive writes are steered to; the scratch row is never read
@@ -366,8 +369,10 @@ class KVPageArena:
         self.n_words = self.n_pages * w  # real (non-scratch) words
         self._total_words = (self.n_pages + 1) * w
         z = lambda dt: torch.zeros(self._total_words, dtype=dt, device=self.device)
-        # all-zero data has all-zero check bits: the empty arena is clean
-        self.lo, self.hi, self.parity = z(torch.int32), z(torch.int32), z(torch.uint8)
+        # all-zero data has all-zero check bits under every linear code: the
+        # empty arena is clean
+        self.lo, self.hi = z(torch.int32), z(torch.int32)
+        self.parity = z(self.codec.check_torch_dtype)
         self.voltage = float(profile.v_nom)
         self._interval = 0
         self.faulted = False  # True once any tick() injected a mask
@@ -390,8 +395,7 @@ class KVPageArena:
         else:
             out = self.mask_fn(self._interval, self._total_words, rate, sigma, n_check)
         as_t = lambda a: torch.as_tensor(
-            a.view(np.int32) if isinstance(a, np.ndarray) and a.dtype == np.uint32 else a,
-            device=self.device,
+            as_words(a) if isinstance(a, np.ndarray) else a, device=self.device
         )
         return tuple(as_t(a) for a in out)
 
@@ -458,13 +462,11 @@ class KVPageArena:
 
 
 def arena_from_numpy(arena: KVPageArena, lo, hi, parity) -> KVPageArena:
-    """Carry another arena's planes (numpy uint32 lo/hi, uint8 check, e.g.
-    the reference arena's arrays) into ``arena``."""
+    """Carry another arena's planes (numpy uint32 lo/hi, a uint8 or uint32
+    check plane, e.g. the reference arena's arrays) into ``arena``."""
     for name, a in (("lo", lo), ("hi", hi), ("parity", parity)):
-        a = np.asarray(a)
-        if a.dtype == np.uint32:
-            a = a.view(np.int32)
-        t = torch.from_numpy(np.array(a)).to(arena.device)
-        assert t.shape == getattr(arena, name).shape, (name, t.shape)
+        t = torch.from_numpy(np.array(as_words(np.asarray(a)))).to(arena.device)
+        ref = getattr(arena, name)
+        assert t.shape == ref.shape and t.dtype == ref.dtype, (name, t.shape, t.dtype)
         setattr(arena, name, t)
     return arena

@@ -16,15 +16,26 @@ COUNTER_FIELDS = (
 )
 
 
-def counter_lanes(status: torch.Tensor, flips: torch.Tensor) -> list:
+def counter_lanes(status: torch.Tensor, flips: torch.Tensor, genuine=None) -> list:
     """Per-word int64 lanes in ``COUNTER_FIELDS`` order, from ECC status
-    codes and ground-truth flip counts of the same words."""
+    codes and ground-truth flip counts of the same words.
+
+    ``genuine`` (codecs with ``exact_tallies``) marks the words whose
+    correction restored the clean data; without it a correction counts when
+    the word had one flip, which is exact for SEC codes (a mis-correction
+    needs >= 2 flips and lands in the silent lane)."""
     detected = status == codes.STATUS_DETECTED
+    if genuine is None:
+        corrected = (status == codes.STATUS_CORRECTED) & (flips == 1)
+        silent = (flips >= 2) & ~detected
+    else:
+        corrected = genuine
+        silent = (flips >= 1) & ~detected & ~genuine
     lanes = (
         (status == codes.STATUS_CLEAN) & (flips == 0),
-        (status == codes.STATUS_CORRECTED) & (flips == 1),
+        corrected,
         detected,
-        (flips >= 2) & ~detected,
+        silent,
         flips == 1,
         flips == 2,
         flips >= 3,

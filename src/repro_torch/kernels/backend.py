@@ -151,30 +151,38 @@ def check(t: torch.Tensor, dtype: torch.dtype, name: str, shape=None) -> None:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def check_planes(lo, hi, chk, mlo, mhi, mchk) -> int:
+def check_planes(lo, hi, chk, mlo, mhi, mchk, check_dtype=torch.uint8) -> int:
     """Raise unless the three planes and their three masks are flat CUDA
-    tensors of one length n (lo/hi int32, check uint8, masks alike);
-    returns n."""
+    tensors of one length n (lo/hi int32, check ``check_dtype``, masks
+    alike); returns n."""
     n = lo.numel()
     for t, dt, name in (
-        (lo, torch.int32, "lo"), (hi, torch.int32, "hi"), (chk, torch.uint8, "check"),
+        (lo, torch.int32, "lo"), (hi, torch.int32, "hi"), (chk, check_dtype, "check"),
         (mlo, torch.int32, "mask_lo"), (mhi, torch.int32, "mask_hi"),
-        (mchk, torch.uint8, "mask_check"),
+        (mchk, check_dtype, "mask_check"),
     ):
         check(t, dt, name, (n,))
     return n
 
 
 class Kernel:
-    """One exported C launcher. ``launches`` counts the launches it made;
-    a launch the runtime refused raises."""
+    """One exported C launcher. ``launches`` counts the launches it made; a
+    launcher whose first argument is a codec id (``by_codec``) also counts
+    them per id in ``launches_by_codec``. A launch the runtime refused
+    raises."""
 
-    def __init__(self, source: str, symbol: str, argtypes: list):
+    def __init__(self, source: str, symbol: str, argtypes: list, by_codec: bool = False):
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
+        self.by_codec = by_codec
         self.launches = 0
+        self.launches_by_codec: dict = {}
         self._fn = None
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.launches_by_codec = {}
 
     def __call__(self, *args) -> None:
         if self._fn is None:
@@ -192,6 +200,8 @@ class Kernel:
                 f"{self.symbol}: CUDA error {rc} ({self._errstr(rc).decode()})"
             )
         self.launches += 1
+        if self.by_codec:
+            self.launches_by_codec[args[0]] = self.launches_by_codec.get(args[0], 0) + 1
 
 
 VP = ctypes.c_void_p

@@ -52,7 +52,7 @@
 // Tensor cores, TMA and wgmma are later work. Sums run in another order
 // than the plain version, so the results agree with it within
 // 1e-4 * max|plain|, not bit for bit.
-#include "secded.cuh"
+#include "codec.cuh"
 
 namespace {
 
@@ -83,7 +83,7 @@ __global__ void __launch_bounds__(kThreads) ecc_matmul_kernel(
   __shared__ float xs[kBM][kBK + 1];
   __shared__ __align__(16) float ws[kBK][kBN];
   const int tid = threadIdx.x;
-  load_tables(tab, gtab, tid, kThreads);
+  load_shared<Secded72>(tab, gtab, tid, kThreads);
 
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   const int tx = tid % 16, ty = tid / 16;  // rows 2*ty..+1, columns 4*tx..+3
@@ -101,7 +101,7 @@ __global__ void __launch_bounds__(kThreads) ecc_matmul_kernel(
         const long long idx = (long long)i * N + n;
         l = lo[idx];
         h = hi[idx];
-        const uint32_t s = encode_check(tab, l, h) ^ chk[idx];
+        const uint32_t s = encode<Secded72>(tab, l, h) ^ chk[idx];
         l ^= tab.flip_lo[s];
         h ^= tab.flip_hi[s];
       }
@@ -220,12 +220,12 @@ __global__ void __launch_bounds__(kDThreads, 3) ecc_matmul_decode_kernel(
       rh[b] = ok ? hi[idx] : 0u;
       rc[b] = ok ? chk[idx] : 0u;
     }
-    if (w0 == 0) load_tables(tab, gtab, tid, kDThreads);  // while the words load
+    if (w0 == 0) load_shared<Secded72>(tab, gtab, tid, kDThreads);  // while the words load
 #pragma unroll
     for (int b = 0; b < kDBatch; ++b) {
       const int w = w0 + b * kDThreads + tid;
       if (w < n_words) {
-        const uint32_t s = encode_check(tab, rl[b], rh[b]) ^ rc[b];
+        const uint32_t s = encode<Secded72>(tab, rl[b], rh[b]) ^ rc[b];
         ws[w] = make_uint2((rl[b] ^ tab.flip_lo[s]) ^ 0x80808080u,
                            (rh[b] ^ tab.flip_hi[s]) ^ 0x80808080u);
       }

@@ -13,7 +13,7 @@
 // access per check plane; the last n % 4 words, or all of them when a plane
 // is not aligned, take one word per step. No access reaches past word n - 1,
 // so a check plane of any length needs no padding.
-#include "secded.cuh"
+#include "codec.cuh"
 
 namespace {
 

@@ -1,4 +1,5 @@
-// Fused undervolt fault injection + SECDED scrub over a word-plane arena.
+// Fused undervolt fault injection + ECC scrub over a word-plane arena, for
+// every codec of codec.cuh.
 //
 // Replaces the TPU kernels inject_scrub_2d and inject_scrub_domains_2d of
 // src/repro/kernels/inject_scrub.py (shared tile body _inject_classify).
@@ -6,14 +7,21 @@
 // back, optionally re-encode the check bits over the faulty data (the no-ECC
 // baseline), compute the syndrome, classify it, popcount the masks for ground
 // truth, and tally the 8 counter lanes of telemetry.COUNTER_FIELDS; the
-// domain variant keeps one counter row per memory domain.
+// domain variant keeps one counter row per memory domain. Codecs that
+// correct more than one random bit (ileave88, dected79: kExact) count a
+// correction as genuine only when the decoder's data flips equal the
+// injected data masks (the reference's outcome_tallies).
 //
 // Bound on the H100: bytes. Each word reads 18 bytes (lo, hi, check and their
-// masks; 22 with the domain id) and writes 9, against ~30 integer operations,
-// so the kernel is a stream at HBM rate (3.35 TB/s): 27 B/word, 31 with
-// domains. Design: a grid-stride loop with neighbouring threads on
-// neighbouring words (coalesced loads), the codec tables in shared memory so
-// the syndrome resolves with one table read, counters kept in registers.
+// masks; 22 with the domain id) and writes 9 with a uint8 check plane
+// (parity65, secded72): 27 B/word, 31 with domains; a 32-bit check plane
+// (ileave88, dected79) adds 3 B to each of the check, its mask and the
+// faulty check: 36 and 40 B/word. Operations: one popc per check bit to
+// encode (24 for ileave88), so ileave88 sits within about 2x of its byte
+// bound in issue rate as well. Design: a grid-stride loop with neighbouring
+// threads on neighbouring words (coalesced loads), the codec's small tables
+// in shared memory (dected79's dense tables stay in device memory, read only
+// for the few words whose syndrome is not 0), counters kept in registers.
 // Domains are long contiguous runs of the arena, so a thread flushes its
 // registers to the block's shared histogram only when its domain changes;
 // at the end each warp reduces with __reduce_add_sync, the block sums in
@@ -21,7 +29,7 @@
 // not depend on order, so the counters are bit-identical to the plain
 // version. A word whose domain id lies outside [0, n_rows) is injected and
 // scrubbed but counted in no row, as in the plain version.
-#include "secded.cuh"
+#include "codec.cuh"
 
 namespace {
 
@@ -40,19 +48,19 @@ __device__ __forceinline__ void flush(int* hist, int row, int n_rows, int (&cnt)
   }
 }
 
-template <bool kDomains>
+template <class C, bool kDomains>
 __global__ void __launch_bounds__(kThreads) inject_scrub_kernel(
     const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
-    const uint8_t* __restrict__ chk, const uint32_t* __restrict__ mlo,
-    const uint32_t* __restrict__ mhi, const uint8_t* __restrict__ mchk,
+    const typename C::check_t* __restrict__ chk, const uint32_t* __restrict__ mlo,
+    const uint32_t* __restrict__ mhi, const typename C::check_t* __restrict__ mchk,
     const int32_t* __restrict__ dom, uint32_t* __restrict__ olo,
-    uint32_t* __restrict__ ohi, uint8_t* __restrict__ ochk,
-    int32_t* __restrict__ counters, const SecdedTables* __restrict__ gtab,
+    uint32_t* __restrict__ ohi, typename C::check_t* __restrict__ ochk,
+    int32_t* __restrict__ counters, const typename C::Global* __restrict__ gtab,
     long long n, int reencode, int n_rows) {
-  __shared__ SecdedTables tab;
+  __shared__ typename C::Shared tab;
   __shared__ int hist[kMaxRows * kLanes];
   for (int i = threadIdx.x; i < n_rows * kLanes; i += blockDim.x) hist[i] = 0;
-  load_tables(tab, gtab, threadIdx.x, blockDim.x);
+  load_shared<C>(tab, gtab, threadIdx.x, blockDim.x);
 
   int cnt[kLanes] = {0, 0, 0, 0, 0, 0, 0, 0};
   int row = kDomains ? -1 : 0;  // the domain row cnt belongs to
@@ -67,18 +75,25 @@ __global__ void __launch_bounds__(kThreads) inject_scrub_kernel(
     }
     const uint32_t ml = mlo[i], mh = mhi[i], mc = mchk[i];
     const uint32_t fl = lo[i] ^ ml, fh = hi[i] ^ mh;
-    const uint32_t enc = encode_check(tab, fl, fh);
+    const uint32_t enc = encode<C>(tab, fl, fh);
     const uint32_t fc = reencode ? enc : (uint32_t(chk[i]) ^ mc);
     olo[i] = fl;
     ohi[i] = fh;
-    ochk[i] = uint8_t(fc);
-    const int status = tab.status[enc ^ fc];
+    ochk[i] = typename C::check_t(fc);
+    uint32_t flip_lo, flip_hi;
+    const int status = C::classify(tab, gtab, enc ^ fc, flip_lo, flip_hi);
     const int flips = __popc(ml) + __popc(mh) + __popc(mc);
-    const bool detected = status == 2;
-    cnt[0] += (status == 0) & (flips == 0);
-    cnt[1] += (status == 1) & (flips == 1);
+    const bool detected = status == kDetected;
+    if (C::kExact) {
+      const bool genuine = (status == kCorrected) & (flip_lo == ml) & (flip_hi == mh);
+      cnt[1] += genuine;
+      cnt[3] += (flips >= 1) & !detected & !genuine;
+    } else {
+      cnt[1] += (status == kCorrected) & (flips == 1);
+      cnt[3] += (flips >= 2) & !detected;
+    }
+    cnt[0] += (status == kClean) & (flips == 0);
     cnt[2] += detected;
-    cnt[3] += (flips >= 2) & !detected;
     cnt[4] += flips == 1;
     cnt[5] += flips == 2;
     cnt[6] += flips >= 3;
@@ -99,7 +114,7 @@ __global__ void __launch_bounds__(kThreads) inject_scrub_kernel(
 }
 
 template <bool kDomains>
-int launch(const void* lo, const void* hi, const void* chk, const void* mlo,
+int launch(int codec, const void* lo, const void* hi, const void* chk, const void* mlo,
            const void* mhi, const void* mchk, const void* dom, void* olo, void* ohi,
            void* ochk, void* counters, const void* tables, long long n, int reencode,
            int n_rows, void* stream) {
@@ -108,32 +123,37 @@ int launch(const void* lo, const void* hi, const void* chk, const void* mlo,
   long long blocks = (n + kThreads - 1) / kThreads;
   const long long cap = 16LL * sm_count();
   if (blocks > cap) blocks = cap;
-  inject_scrub_kernel<kDomains><<<int(blocks), kThreads, 0, cudaStream_t(stream)>>>(
-      static_cast<const uint32_t*>(lo), static_cast<const uint32_t*>(hi),
-      static_cast<const uint8_t*>(chk), static_cast<const uint32_t*>(mlo),
-      static_cast<const uint32_t*>(mhi), static_cast<const uint8_t*>(mchk),
-      static_cast<const int32_t*>(dom), static_cast<uint32_t*>(olo),
-      static_cast<uint32_t*>(ohi), static_cast<uint8_t*>(ochk),
-      static_cast<int32_t*>(counters), static_cast<const SecdedTables*>(tables), n,
-      reencode, n_rows);
-  return int(cudaGetLastError());
+  return with_codec(codec, [&](auto c) {
+    using C = decltype(c);
+    using T = typename C::check_t;
+    inject_scrub_kernel<C, kDomains><<<int(blocks), kThreads, 0, cudaStream_t(stream)>>>(
+        static_cast<const uint32_t*>(lo), static_cast<const uint32_t*>(hi),
+        static_cast<const T*>(chk), static_cast<const uint32_t*>(mlo),
+        static_cast<const uint32_t*>(mhi), static_cast<const T*>(mchk),
+        static_cast<const int32_t*>(dom), static_cast<uint32_t*>(olo),
+        static_cast<uint32_t*>(ohi), static_cast<T*>(ochk),
+        static_cast<int32_t*>(counters), static_cast<const typename C::Global*>(tables), n,
+        reencode, n_rows);
+    return int(cudaGetLastError());
+  });
 }
 
 }  // namespace
 
-extern "C" int inject_scrub(const void* lo, const void* hi, const void* chk,
+// Check planes and their masks are uint8 or uint32 as the codec's check_t.
+extern "C" int inject_scrub(int codec, const void* lo, const void* hi, const void* chk,
                             const void* mlo, const void* mhi, const void* mchk,
                             void* olo, void* ohi, void* ochk, void* counters,
                             const void* tables, long long n, int reencode, void* stream) {
-  return launch<false>(lo, hi, chk, mlo, mhi, mchk, nullptr, olo, ohi, ochk, counters,
+  return launch<false>(codec, lo, hi, chk, mlo, mhi, mchk, nullptr, olo, ohi, ochk, counters,
                        tables, n, reencode, 1, stream);
 }
 
-extern "C" int inject_scrub_domains(const void* lo, const void* hi, const void* chk,
-                                    const void* mlo, const void* mhi, const void* mchk,
-                                    const void* dom, void* olo, void* ohi, void* ochk,
-                                    void* counters, const void* tables, long long n,
-                                    int reencode, int n_rows, void* stream) {
-  return launch<true>(lo, hi, chk, mlo, mhi, mchk, dom, olo, ohi, ochk, counters, tables,
-                      n, reencode, n_rows, stream);
+extern "C" int inject_scrub_domains(int codec, const void* lo, const void* hi,
+                                    const void* chk, const void* mlo, const void* mhi,
+                                    const void* mchk, const void* dom, void* olo, void* ohi,
+                                    void* ochk, void* counters, const void* tables,
+                                    long long n, int reencode, int n_rows, void* stream) {
+  return launch<true>(codec, lo, hi, chk, mlo, mhi, mchk, dom, olo, ohi, ochk, counters,
+                      tables, n, reencode, n_rows, stream);
 }

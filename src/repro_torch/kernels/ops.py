@@ -35,7 +35,7 @@ KERNELS = {
 
 def reset_launch_count() -> None:
     for k in KERNELS.values():
-        k.launches = 0
+        k.reset()
 
 
 def launch_counts() -> dict:
@@ -44,12 +44,23 @@ def launch_counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+def launch_counts_by_codec() -> dict:
+    """{kernel: {codec name: launches}} of the codec-generic kernels since
+    the last reset."""
+    by_id = {codes.get(c).kernel_id: c for c in codes.names()}
+    return {
+        name: {by_id[i]: n for i, n in sorted(k.launches_by_codec.items())}
+        for name, k in KERNELS.items() if k.by_codec
+    }
+
+
 def _flat(*planes):
     return [p.reshape(-1) for p in planes]
 
 
 def encode(lo, hi, *, codec: str = codes.DEFAULT_CODEC):
-    """ECC check plane (uint8) for word planes of any shape."""
+    """ECC check plane (the codec's ``check_torch_dtype``) for word planes of
+    any shape."""
     flo, fhi = _flat(lo, hi)
     if backend.dispatch(flo, fhi) == "cpu":
         out = _ref.encode_ref(flo, fhi, codec)
@@ -132,12 +143,13 @@ def inject_scrub_domains(lo, hi, parity, mlo, mhi, mparity, domain_ids, n_domain
 
 @dataclasses.dataclass
 class EccWeight:
-    """SECDED-encoded int8 weight matrix (K, N) as word planes (K/8, N), or a
-    layer-stacked (G, K/8, N) stack of them."""
+    """ECC-encoded int8 weight matrix (K, N) as word planes (K/8, N), or a
+    layer-stacked (G, K/8, N) stack of them. The fused matmul reads SECDED
+    planes; a plane store's codec groups carry other codecs' check planes."""
 
     lo: torch.Tensor  # int32 bit patterns
     hi: torch.Tensor
-    parity: torch.Tensor  # uint8
+    parity: torch.Tensor  # the codec's check dtype (uint8 for SECDED)
     scale: torch.Tensor  # per-column (N,) or stacked (G, N) float32
     k: int
     n: int

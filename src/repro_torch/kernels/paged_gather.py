@@ -10,7 +10,8 @@ from repro_torch.kernels import backend as B
 N_COUNTERS = 8
 
 GATHER_SCRUB = B.Kernel(
-    "paged_gather", "gather_scrub", [B.VP] * 4 + [B.I32, B.I64] + [B.VP] * 5
+    "paged_gather", "gather_scrub", [B.I32] + [B.VP] * 4 + [B.I32, B.I64] + [B.VP] * 5,
+    by_codec=True,
 )
 
 
@@ -22,17 +23,17 @@ def gather_scrub(lo, hi, check, page_ids, words_per_page: int, *, codec: Codec):
     n = lo.numel()
     B.check(lo, torch.int32, "lo", (n,))
     B.check(hi, torch.int32, "hi", (n,))
-    B.check(check, torch.uint8, "check", (n,))
+    B.check(check, codec.check_torch_dtype, "check", (n,))
     p = page_ids.numel()
     B.check(page_ids, torch.int32, "page_ids", (p,))
     if words_per_page < 1 or n % words_per_page:
         raise ValueError(f"arena of {n} words is not a whole number of {words_per_page}-word pages")
     payload = torch.empty(p, words_per_page, 2, dtype=torch.int32, device=lo.device)
-    stage = torch.empty(p, words_per_page, dtype=torch.uint8, device=lo.device)
+    stage = torch.empty(p, words_per_page, dtype=codec.check_torch_dtype, device=lo.device)
     cnt = torch.zeros(p, N_COUNTERS, dtype=torch.int32, device=lo.device)
     if p:
         GATHER_SCRUB(
-            B.ptr(lo), B.ptr(hi), B.ptr(check), B.ptr(page_ids), p, words_per_page,
+            codec.kernel_id, B.ptr(lo), B.ptr(hi), B.ptr(check), B.ptr(page_ids), p, words_per_page,
             B.ptr(payload), B.ptr(stage), B.ptr(cnt), B.ptr(codec.kernel_tables(lo.device)),
             B.stream(lo),
         )

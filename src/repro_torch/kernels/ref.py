@@ -1,5 +1,6 @@
 """Plain PyTorch versions of every kernel (the CPU path and the card's
-yardstick). Word planes are int32 bit patterns, check planes uint8."""
+yardstick). Word planes are int32 bit patterns, check planes the codec's
+``check_torch_dtype`` (uint8, or int32 beyond 8 check bits)."""
 
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ def decode_ref(lo, hi, check, codec: str = codes.DEFAULT_CODEC):
 
 
 def encode_ref(lo, hi, codec: str = codes.DEFAULT_CODEC):
-    """Check plane (uint8) of int32 word planes."""
+    """Check plane of int32 word planes."""
     return codes.get(codec).encode(lo, hi)
 
 
@@ -39,7 +40,8 @@ def gather_scrub_ref(lo, hi, check, page_ids, words_per_page: int,
                      codec: str = codes.DEFAULT_CODEC):
     """Scrub-on-read of pages ``page_ids`` of the flat arena planes: gather
     every row, decode, re-encode the check bits except on detected words
-    (their stored bits stay, so the DED flag stays latched), write the rows
+    (their stored bits stay, so the DED flag stays latched; their data keeps
+    the decoder's flips, as in the reference), write the rows
     back in place. Returns (payload (P, 2 * words_per_page) float32, lo and
     hi interleaved; counters (P, N_COUNTERS) int32, lanes 0..2 = clean,
     corrected, detected). Every row comes from the words as they were
@@ -66,21 +68,26 @@ def inject_ref(lo, hi, check, mlo, mhi, mcheck):
 
 
 def _inject_classify(lo, hi, check, mlo, mhi, mcheck, reencode, codec):
+    """Faulty planes and the per-word counter lanes. Codecs with
+    ``exact_tallies`` count a correction as genuine only when the decoder's
+    data flips equal the injected data masks."""
     c = codes.get(codec)
     flo, fhi = narrow(widen(lo) ^ widen(mlo)), narrow(widen(hi) ^ widen(mhi))
     fchk = c.encode(flo, fhi) if reencode else check ^ mcheck
-    status = c.decode(flo, fhi, fchk)[2]
-    return flo, fhi, fchk, status, flip_counts(mlo, mhi, mcheck)
+    flip_lo, flip_hi, status = c.classify(c.syndrome(flo, fhi, fchk))
+    genuine = (
+        (status == codes.STATUS_CORRECTED) & (flip_lo == widen(mlo)) & (flip_hi == widen(mhi))
+        if c.exact_tallies else None
+    )
+    return flo, fhi, fchk, counter_lanes(status, flip_counts(mlo, mhi, mcheck), genuine)
 
 
 def inject_scrub_ref(lo, hi, check, mlo, mhi, mcheck, reencode=False,
                      codec: str = codes.DEFAULT_CODEC):
     """Inject -> (re-encode) -> decode -> counters: (faulty lo, hi, check,
     counters (8,) int32)."""
-    flo, fhi, fchk, status, flips = _inject_classify(
-        lo, hi, check, mlo, mhi, mcheck, reencode, codec
-    )
-    counters = torch.stack([t.sum() for t in counter_lanes(status, flips)])
+    flo, fhi, fchk, tallies = _inject_classify(lo, hi, check, mlo, mhi, mcheck, reencode, codec)
+    counters = torch.stack([t.sum() for t in tallies])
     return flo, fhi, fchk, counters.to(torch.int32)
 
 
@@ -88,10 +95,7 @@ def inject_scrub_domains_ref(lo, hi, check, mlo, mhi, mcheck, dom, n_domains: in
                              reencode=False, codec: str = codes.DEFAULT_CODEC):
     """As inject_scrub_ref with one counter row per domain index of ``dom``:
     counters (n_domains, 8) int32."""
-    flo, fhi, fchk, status, flips = _inject_classify(
-        lo, hi, check, mlo, mhi, mcheck, reencode, codec
-    )
-    tallies = counter_lanes(status, flips)
+    flo, fhi, fchk, tallies = _inject_classify(lo, hi, check, mlo, mhi, mcheck, reencode, codec)
     rows = []
     for d in range(n_domains):
         sel = dom == d

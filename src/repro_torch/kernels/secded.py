@@ -1,4 +1,5 @@
-"""Launch wrappers of the SECDED encode and decode kernels (csrc/secded.cu)."""
+"""Launch wrappers of the ECC encode and decode kernels (csrc/secded.cu), for
+every codec; check planes are the codec's ``check_torch_dtype``."""
 
 from __future__ import annotations
 
@@ -7,21 +8,23 @@ import torch
 from repro_torch.codes import Codec
 from repro_torch.kernels import backend as B
 
-DECODE = B.Kernel("secded", "decode", [B.VP] * 7 + [B.I64, B.VP])
+DECODE = B.Kernel("secded", "decode", [B.I32] + [B.VP] * 7 + [B.I64, B.VP], by_codec=True)
 ENCODE = B.Kernel(
-    "secded", "encode", [B.VP, B.VP, B.I32, B.VP, B.I32, B.VP, B.VP, B.VP, B.VP, B.I64, B.VP]
+    "secded", "encode",
+    [B.I32, B.VP, B.VP, B.I32, B.VP, B.I32, B.VP, B.VP, B.VP, B.VP, B.I64, B.VP],
+    by_codec=True,
 )
 
 
 def encode(lo, hi, *, codec: Codec):
-    """Flat planes -> check plane (uint8)."""
+    """Flat planes -> check plane."""
     n = lo.numel()
     B.check(lo, torch.int32, "lo", (n,))
     B.check(hi, torch.int32, "hi", (n,))
-    out = torch.empty(n, dtype=torch.uint8, device=lo.device)
+    out = torch.empty(n, dtype=codec.check_torch_dtype, device=lo.device)
     if n:
         ENCODE(
-            B.ptr(lo), B.ptr(hi), 1, None, 0, None, None, B.ptr(out),
+            codec.kernel_id, B.ptr(lo), B.ptr(hi), 1, None, 0, None, None, B.ptr(out),
             B.ptr(codec.kernel_tables(lo.device)), n, B.stream(lo),
         )
     return out
@@ -38,11 +41,11 @@ def encode_commit(payload, row_base, row_words: int, lo, hi, check, *, codec: Co
     n = lo.numel()
     B.check(lo, torch.int32, "lo", (n,))
     B.check(hi, torch.int32, "hi", (n,))
-    B.check(check, torch.uint8, "check", (n,))
+    B.check(check, codec.check_torch_dtype, "check", (n,))
     if r and row_words:
         words = payload.view(torch.int32)
         ENCODE(
-            B.ptr(words), B.ptr(words[:, 1:]), 2, B.ptr(row_base), row_words,
+            codec.kernel_id, B.ptr(words), B.ptr(words[:, 1:]), 2, B.ptr(row_base), row_words,
             B.ptr(lo), B.ptr(hi), B.ptr(check), B.ptr(codec.kernel_tables(lo.device)),
             r * row_words, B.stream(lo),
         )
@@ -53,12 +56,12 @@ def decode(lo, hi, check, *, codec: Codec):
     n = lo.numel()
     B.check(lo, torch.int32, "lo", (n,))
     B.check(hi, torch.int32, "hi", (n,))
-    B.check(check, torch.uint8, "check", (n,))
+    B.check(check, codec.check_torch_dtype, "check", (n,))
     olo, ohi = torch.empty_like(lo), torch.empty_like(hi)
     status = torch.empty(n, dtype=torch.int32, device=lo.device)
     if n:
         DECODE(
-            B.ptr(lo), B.ptr(hi), B.ptr(check), B.ptr(olo), B.ptr(ohi), B.ptr(status),
+            codec.kernel_id, B.ptr(lo), B.ptr(hi), B.ptr(check), B.ptr(olo), B.ptr(ohi), B.ptr(status),
             B.ptr(codec.kernel_tables(lo.device)), n, B.stream(lo),
         )
     return olo, ohi, status

@@ -6,17 +6,21 @@ back through fault injection and SECDED decode, and the forward runs the
 read-back (plain, dense) parameters.
 
 Inline mode: every attention/MLP matrix (and, for multi-rail engines, the
-embedding) is int8-quantized and packed into SECDED(72,64) word planes held
-in one ``PlaneStore`` arena on the card. A voltage step is one fused
-inject+scrub launch whose counters feed the DED-canary controller; every
-forward pass reads the faulty planes through the fused decode + dequant +
-matmul kernel. The embedding, read by gather rather than matmul, is decoded
-into a float table whenever its rail moves. Power comes from the calibrated
-Table-I model.
+embedding) is int8-quantized and packed into word planes held in one
+``PlaneStore`` arena on the card, each memory domain under its own ECC codec
+(``ProtectionConfig.codecs``; SECDED(72,64) by default). A voltage step is
+one fused inject+scrub launch per codec group whose counters feed the
+DED-canary controller; every forward pass reads the faulty planes through
+the fused decode + dequant + matmul kernel, which reads SECDED planes. So
+when its rail moves, a leaf under another codec is decoded under its codec
+and its corrected words re-encoded as SECDED planes (refresh), and the
+embedding, read by gather rather than matmul, is decoded into a float
+table. Power comes from the calibrated Table-I model, weighted by each
+domain's check bits.
 
 ``serve`` drives a stream of variable-length requests through continuous
-batching over a paged KV cache held in SECDED pages on the `kv` voltage
-domain (core/kvpages.py, serving/scheduler.py).
+batching over a paged KV cache held in ECC pages (the `kv` domain's codec)
+on the `kv` voltage domain (core/kvpages.py, serving/scheduler.py).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import codes
 from repro_torch.configs import shapes
 from repro_torch.core import voltage as vmod
 from repro_torch.core.controller import MultiRailController, UndervoltController
@@ -74,7 +79,7 @@ class RailsConfig:
 class ProtectionConfig:
     """Which memories are protected and under which ECC scheme."""
 
-    codecs: Any = None  # None, "secded72" or {domain: "secded72"}
+    codecs: Any = None  # None, a registered codec name, or {domain: name} (multi-rail)
     escalation: Any = None  # not ported: must be None
     embed: bool | None = None  # None -> multi_rail
 
@@ -142,13 +147,18 @@ class ReliabilityConfig:
             else list(dict(prot.codecs).values()) if prot.codecs is not None else []
         )
         _require(
-            all(c == "secded72" for c in codecs), "only the secded72 codec is ported"
+            all(c in codes.names() for c in codecs),
+            f"unknown codec in {prot.codecs!r}; registered: {codes.names()}",
         )
         _require(
             multi or prot.codecs is None or isinstance(prot.codecs, str),
             "per-domain codec dicts need multi_rail=True",
         )
-        _require(prot.escalation is None, "codec escalation is not ported")
+        _require(
+            prot.escalation is None,
+            "codec escalation is not ported yet: it comes with KVPageArena.change_codec, "
+            "the controllers' next_codec and the serialized scrub harvest",
+        )
         _require(self.canary.prompts == 0, "the accuracy canary is not ported")
         return self
 
@@ -166,6 +176,17 @@ def _decode_gather_table(ew: kops.EccWeight, codec: str = "secded72") -> torch.T
         w_i8 = torch.stack([kref.unpack_ecc_weights(lo[g], hi[g]) for g in range(lo.shape[0])])
         return w_i8.to(torch.float32) * ew.scale[:, None, :]
     return kref.unpack_ecc_weights(lo, hi).to(torch.float32) * ew.scale
+
+
+def _refresh_secded(ew: kops.EccWeight, codec: str) -> kops.EccWeight:
+    """A faulty leaf under ``codec`` as the SECDED planes the fused matmul
+    reads: decode under its codec (one decode launch), re-encode the
+    corrected words under SECDED (one encode launch). Its syndromes are then
+    0, so the matmul's weights are the decoded int8 words times the scale,
+    the values the reference's decoded float table holds, and the matmul
+    keeps its one K-sum order (rows do not depend on the batch)."""
+    lo, hi, _ = kops.decode(ew.lo, ew.hi, ew.parity, codec=codec)
+    return dataclasses.replace(ew, lo=lo, hi=hi, parity=kops.encode(lo, hi))
 
 
 def _pack_stacked(leaf) -> kops.EccWeight:
@@ -363,12 +384,23 @@ class ServingEngine:
         self.stats.accumulate(dstats.total())
         self._last_scrub = dstats
 
+    def _leaf_codec(self, key: str) -> str:
+        return self._store.codec_of(next(s.domain for s in self._store.slots if s.key == key))
+
     def _reassemble_params(self, leaves):
-        """Faulty arena slices back into the parameter tree; the embedding
-        is decoded into its float table."""
+        """Faulty arena slices back into the parameter tree. The embedding is
+        decoded under its codec into its float table; any other leaf under a
+        codec other than SECDED is refreshed (``_refresh_secded``), so the
+        fused matmul reads it."""
         flat = list(self._inline_template)
         for (i, key), leaf in zip(self._ecc_slots, leaves):
-            flat[i] = _decode_gather_table(leaf) if "embed" in key else leaf
+            codec = self._leaf_codec(key)
+            if "embed" in key:
+                flat[i] = _decode_gather_table(leaf, codec=codec)
+            elif codec != codes.DEFAULT_CODEC:
+                flat[i] = _refresh_secded(leaf, codec)
+            else:
+                flat[i] = leaf
         return base.unflatten(self._inline_tree, flat)
 
     # -- serving --------------------------------------------------------------
@@ -384,7 +416,7 @@ class ServingEngine:
         rest, _ = lm.greedy_decode_loop(p, tok, self.cfg, cache, s0, n_tokens - 1)
         return torch.cat([tok, rest], dim=1).cpu().numpy().astype(np.int32)
 
-    # -- continuous batching over the paged SECDED KV cache ---------------------
+    # -- continuous batching over the paged ECC KV cache ------------------------
     @torch.no_grad()
     def serve(
         self,
@@ -405,9 +437,9 @@ class ServingEngine:
         """Serve a stream of variable-length requests.
 
         ``requests``: (prompt (s0,) int, max_new_tokens) pairs or
-        ``scheduler.Request`` objects. The KV cache lives in SECDED pages on
-        the `kv` voltage domain and every read scrubs; at nominal voltage the
-        tokens equal ``generate``'s on the same batch composition.
+        ``scheduler.Request`` objects. The KV cache lives in ECC pages (the
+        `kv` domain's codec) on the `kv` voltage domain and every read
+        scrubs; at nominal voltage the tokens equal ``generate``'s on the same batch composition.
         ``share_prefix`` shares full-page prompt prefixes between requests;
         ``speculative=K`` (K >= 2, with ``draft_params``/``draft_cfg``)
         verifies K-1 drafted tokens per block; ``walk_kv`` (multi-rail

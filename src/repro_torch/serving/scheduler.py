@@ -1,11 +1,11 @@
-"""Continuous-batching scheduler over the paged SECDED KV cache.
+"""Continuous-batching scheduler over the paged ECC KV cache (SECDED by default).
 
 A fixed number of batch lanes decode in lock-step, each at its own position:
 
   * requests are admitted FCFS into free lanes when the page arena has room
     for their prompt plus one decode page; admissions of equal (prompt
     length, shared tokens) prefill together;
-  * each lane's KV is committed token by token into SECDED pages
+  * each lane's KV is committed token by token into ECC pages
     (core/kvpages.py), pages allocated as a request crosses a page boundary;
   * under page pressure the youngest running request is preempted
     (recompute: pages freed, request re-queued at the front and re-prefilled

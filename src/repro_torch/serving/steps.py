@@ -2,7 +2,7 @@
 continuous batching.
 
 ``make_paged_helpers`` builds the glue between the dense per-lane decode
-cache and the SECDED page arena (core/kvpages.py): extract tokens' K/V
+cache and the ECC page arena (core/kvpages.py): extract tokens' K/V
 payload, load a prefilled batch cache into a lane, refresh lane caches from
 scrubbed page payloads, and the decode blocks. The payload layout (per
 token: for each attention period position, K then V, each (groups,

@@ -11,6 +11,7 @@ import jax
 
 from conftest import tiny_cfg
 from repro.models import lm as jlm
+from repro.serving.engine import ProtectionConfig as JProt
 from repro.serving.engine import ReliabilityConfig as JRel
 from repro.serving.engine import RailsConfig as JRails
 from repro.serving.engine import ServingEngine as JEngine
@@ -75,16 +76,27 @@ def _drive(eng, multi):
     return out
 
 
-@pytest.fixture(scope="module", params=[False, True], ids=["single_rail", "multi_rail"])
-def runs(request, models):
+CODEC_MIX = {"attention": "parity65", "mlp": "dected79", "kv": "ileave88"}
+# (multi_rail, codecs): the SECDED engines, then the codec engines
+ENGINES = [(False, None), (True, None), (False, "dected79"), (True, CODEC_MIX)]
+
+
+def _engines(models, multi, codecs, **kw):
     cfg, params, tcfg, tparams = models
-    multi = request.param
-    jrel = JRel(platform="vc707", voltage=1.0, mode="inline",
-                rails=JRails(multi_rail=multi, start_v=0.62))
-    trel = teng.ReliabilityConfig(platform="vc707", voltage=1.0, mode="inline",
-                                  rails=teng.RailsConfig(multi_rail=multi, start_v=0.62))
-    jeng = JEngine(cfg, params, rel=jrel, max_len=32)
-    teng_ = teng.ServingEngine(tcfg, tparams, rel=trel, max_len=32, device="cpu")
+    kw = dict(dict(platform="vc707", voltage=1.0, mode="inline"), **kw)
+    jrel = JRel(**kw, rails=JRails(multi_rail=multi, start_v=0.62),
+                protection=JProt(codecs=codecs))
+    trel = teng.ReliabilityConfig(**kw, rails=teng.RailsConfig(multi_rail=multi, start_v=0.62),
+                                  protection=teng.ProtectionConfig(codecs=codecs))
+    return (JEngine(cfg, params, rel=jrel, max_len=32),
+            teng.ServingEngine(tcfg, tparams, rel=trel, max_len=32, device="cpu"))
+
+
+@pytest.fixture(scope="module", params=ENGINES,
+                ids=["single_rail", "multi_rail", "single_rail_dected79", "multi_rail_codecs"])
+def runs(request, models):
+    multi, codecs = request.param
+    jeng, teng_ = _engines(models, multi, codecs)
     return _drive(jeng, multi), _drive(teng_, multi)
 
 
@@ -149,7 +161,8 @@ def test_entry_points_default_to_the_card(models, monkeypatch):
     {"mode": "domain", "rails": teng.RailsConfig(multi_rail=True)},
     {"fault_model": teng.FaultModelConfig(mask_source="device")},
     {"fault_model": teng.FaultModelConfig(batched=False), "rails": teng.RailsConfig(multi_rail=True)},
-    {"protection": teng.ProtectionConfig(codecs="dected79")},
+    # codecs are ported on the batched inline arena; domain mode stays SECDED
+    {"mode": "domain", "protection": teng.ProtectionConfig(codecs="dected79")},
     {"protection": teng.ProtectionConfig(codecs={"attention": "secded72"})},
     {"rails": teng.RailsConfig(multi_rail=True),
      "protection": teng.ProtectionConfig(escalation=("secded72", "dected79"))},
@@ -157,6 +170,12 @@ def test_entry_points_default_to_the_card(models, monkeypatch):
     {"fault_model": teng.FaultModelConfig(drift=0.1)},
     {"canary": teng.CanaryConfig(prompts=2)},
     {"platform": "nope"},
+    {"fault_model": teng.FaultModelConfig(batched=False),
+     "protection": teng.ProtectionConfig(codecs="ileave88")},
+    {"protection": teng.ProtectionConfig(codecs="hamming71")},
+    {"rails": teng.RailsConfig(multi_rail=True),
+     "protection": teng.ProtectionConfig(codecs={"mlp": "dected79"},
+                                         escalation=("dected79",))},
 ])
 def test_validate_rejects_unported(kw):
     with pytest.raises(teng.ReliabilityConfigError):
@@ -182,3 +201,55 @@ def test_config_groups_set_embed_protection(multi, embed, protected):
     assert dataclasses.replace(rel, seed=3).rails == rel.rails
     with pytest.raises(TypeError):  # one spelling: the grouped fields only
         teng.ReliabilityConfig(mode="inline", multi_rail=multi)
+
+
+@pytest.mark.parametrize("kw", [
+    {"protection": teng.ProtectionConfig(codecs="dected79")},
+    {"protection": teng.ProtectionConfig(codecs="parity65")},
+    {"rails": teng.RailsConfig(multi_rail=True), "protection": teng.ProtectionConfig(codecs=CODEC_MIX)},
+    {"rails": teng.RailsConfig(multi_rail=True), "protection": teng.ProtectionConfig(codecs="ileave88")},
+])
+def test_validate_accepts_codecs_on_the_inline_arena(kw):
+    """As the reference's validate: any registered codec on the batched
+    inline arena, a {domain: name} dict with several rails."""
+    rel = teng.ReliabilityConfig(mode="inline", **kw)
+    assert rel.validate() is rel
+    rails = JRails(multi_rail=kw.get("rails", teng.RailsConfig()).multi_rail)
+    JRel(mode="inline", rails=rails, protection=JProt(codecs=kw["protection"].codecs)).validate()
+
+
+def _dequantised(leaf) -> np.ndarray:
+    """The float (K, N) or (G, K, N) table of an EccWeight's int8 words."""
+    from repro_torch.kernels import ref as tref
+
+    if leaf.lo.ndim == 2:
+        return (tref.unpack_ecc_weights(leaf.lo, leaf.hi).to(torch.float32) * leaf.scale).numpy()
+    return np.stack([_dequantised(leaf.layer(g)) for g in range(leaf.lo.shape[0])])
+
+
+@pytest.mark.parametrize("multi,codecs", ENGINES[2:], ids=["single_rail_dected79",
+                                                          "multi_rail_codecs"])
+def test_refreshed_codec_leaves_dequantise_to_the_reference_tables(models, multi, codecs):
+    """A leaf under a codec other than SECDED, after a 0.54 V step: its
+    refreshed SECDED planes decode with syndrome 0 to int8 words whose
+    dequantised values are exactly the reference's decoded float table
+    (``_decode_gather_table``); SECDED leaves stay planes in both."""
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import ops as tops
+
+    jeng, teng_ = _engines(models, multi, codecs, voltage=0.54)
+    jflat = {jax.tree_util.keystr(p): leaf for p, leaf in jax.tree_util.tree_flatten_with_path(
+        jeng.params, is_leaf=lambda x: isinstance(x, jops.EccWeight))[0]}
+    refreshed = 0
+    for key, leaf in tbase.flatten(teng_.params):
+        if not isinstance(leaf, tops.EccWeight):
+            continue
+        if teng_._leaf_codec(key) == "secded72":
+            assert isinstance(jflat[key], jops.EccWeight)
+            continue
+        assert not tops.decode(leaf.lo, leaf.hi, leaf.parity)[2].any()  # syndromes all 0
+        np.testing.assert_array_equal(_dequantised(leaf), np.asarray(jflat[key]))
+        refreshed += 1
+    # every protected attention and MLP leaf is under a codec other than SECDED
+    assert refreshed == sum(isinstance(w, tops.EccWeight) and "embed" not in k
+                            for k, w in tbase.flatten(teng_.params)) > 0

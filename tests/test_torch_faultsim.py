@@ -5,6 +5,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import faultsim as jfs
 from repro.core import telemetry as jtel
@@ -103,3 +104,31 @@ def test_fault_stats_from_decode_and_counters():
     td.accumulate(td)
     for d in names:
         assert dataclasses.asdict(td[d]) == dataclasses.asdict(jd[d])
+
+
+@pytest.mark.parametrize("n_check", [1, 15, 24])
+@pytest.mark.parametrize("v", [0.56, 0.54])
+def test_fault_field_masks_bit_identical_per_codec_width(n_check, v):
+    """A field with another codec's check bits: 64 + n_check bitplanes, the
+    check mask in the codec's dtype, the data masks those of every width."""
+    p = tv.PLATFORMS["vc707"]
+    j = jfs.FaultField(jv.PLATFORMS["vc707"], 2500, seed=4, chunk_words=1024,
+                       n_check=n_check).masks(v)
+    t = tfs.FaultField(p, 2500, seed=4, chunk_words=1024, n_check=n_check).masks(v)
+    np.testing.assert_array_equal(j.lo, t.lo)
+    np.testing.assert_array_equal(j.hi, t.hi)
+    np.testing.assert_array_equal(j.parity, t.parity)
+    assert t.parity.dtype == j.parity.dtype == (np.uint8 if n_check <= 8 else np.uint32)
+    assert int(t.parity.max()) < (1 << n_check)
+    np.testing.assert_array_equal(j.flip_counts(), t.flip_counts())
+    secded = tfs.FaultField(p, 2500, seed=4, chunk_words=1024).masks(v)
+    np.testing.assert_array_equal(secded.lo, t.lo)
+    np.testing.assert_array_equal(secded.hi, t.hi)
+    field = tfs.FaultField(p, 2500, seed=4, n_check=n_check)
+    chk = tfs.device_masks(field, v, torch.device("cpu"))[2]
+    assert chk.dtype == (torch.uint8 if n_check <= 8 else torch.int32)
+    np.testing.assert_array_equal(chk.numpy().view(t.parity.dtype), field.masks(v).parity)
+    zero = tfs.device_masks(field, 1.0, torch.device("cpu"))
+    assert zero[2].dtype == chk.dtype and not zero[2].any()
+    dl = tfs.interval_masks(3, 1, 4000, 1e-3, 0.5, n_check=n_check, device="cpu")
+    assert dl[2].dtype == chk.dtype and int(dl[2].max()) < (1 << n_check)

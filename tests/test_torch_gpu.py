@@ -175,3 +175,96 @@ def test_inject_kernel_bit_identical(cuda, n, offset):
     assert ops.launch_counts()["inject"] == before + 1
     assert all(torch.equal(a, b) for a, b in zip(k, p))
     assert k[2].dtype == torch.uint8 and k[2].shape == planes[2].shape
+
+
+CODECS = ("parity65", "secded72", "ileave88", "dected79")
+
+
+def _codec_planes(codec, n, p, device, seed=2):
+    """Random clean planes under ``codec`` and flip masks over its codeword
+    bits (per-bit probability p, plus 4-bit data bursts on 1% of words)."""
+    c = codes.get(codec)
+    g = np.random.default_rng(seed)
+    word = lambda a: torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(device)
+    lo = word(g.integers(0, 2**32, n, dtype=np.uint32))
+    hi = word(g.integers(0, 2**32, n, dtype=np.uint32))
+    bits = g.random((n, 64 + c.n_check)) < p
+    burst = np.flatnonzero(g.random(n) < 0.01)
+    start = g.integers(0, 60, burst.size)
+    for i, s in zip(burst, start):
+        bits[i, s : s + 4] = True
+    pack = lambda b: b.astype(np.uint64) @ (1 << np.arange(b.shape[1], dtype=np.uint64))
+    mchk = pack(bits[:, 64:]).astype(c.check_dtype)
+    mchk = torch.from_numpy(mchk.view(np.int32) if c.n_check > 8 else mchk).to(device)
+    return (lo, hi, c.encode(lo, hi), word(pack(bits[:, :32])), word(pack(bits[:, 32:64])),
+            mchk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", CODECS)
+def test_codec_inject_scrub_kernels_bit_identical(cuda, codec):
+    """Both forms, both re-encode settings; the counters include the exact
+    tallies of the multi-bit correctors."""
+    planes = _codec_planes(codec, 200_003, 0.01, cuda)
+    dom = torch.arange(3, device=cuda, dtype=torch.int32).repeat_interleave(
+        torch.tensor([60_000, 100_000, 40_003], device=cuda))
+    for reencode in (False, True):
+        k = ops.inject_scrub(*planes, codec=codec, reencode=reencode)
+        p = ref.inject_scrub_ref(*planes, codec=codec, reencode=reencode)
+        assert all(torch.equal(a, b) for a, b in zip(k, p))
+        assert k[2].dtype == codes.get(codec).check_torch_dtype
+        k = ops.inject_scrub_domains(*planes, dom, 3, codec=codec, reencode=reencode)
+        p = ref.inject_scrub_domains_ref(*planes, dom, 3, codec=codec, reencode=reencode)
+        assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert int(p[3][:, 2].sum()) == 0  # re-encoded: nothing detected
+    k = ops.inject_scrub(*planes, codec=codec)
+    assert int(k[3][2]) > 0 and (int(k[3][1]) > 0) == (codec != "parity65")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", CODECS)
+def test_codec_encode_decode_kernels_bit_identical(cuda, codec):
+    lo, hi, chk, mlo, mhi, mchk = _codec_planes(codec, 200_003, 0.01, cuda)
+    assert torch.equal(ops.encode(lo, hi, codec=codec), chk)
+    faulty = (lo ^ mlo, hi ^ mhi, chk ^ mchk)
+    k = ops.decode(*faulty, codec=codec)
+    p = ref.decode_ref(*faulty, codec=codec)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert set(torch.unique(k[2]).tolist()) == ({0, 2} if codec == "parity65" else {0, 1, 2})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", CODECS)
+def test_codec_commit_and_gather_scrub_kernels_bit_identical(cuda, codec):
+    wpp, tw = 8192, 512
+    lo, hi, chk, mlo, mhi, mchk = _codec_planes(codec, 17 * wpp, 0.003, cuda)
+    payload = torch.randn(16, 2 * tw, device=cuda)
+    base = torch.tensor([(i * 5 % 17) * wpp + (i % 16) * tw for i in range(16)], device=cuda)
+    k, p = [t.clone() for t in (lo, hi, chk)], [t.clone() for t in (lo, hi, chk)]
+    ops.encode_commit(payload, base, tw, *k, codec=codec)
+    ref.encode_commit_ref(payload, base, tw, *p, codec=codec)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    planes = [k[0] ^ mlo, k[1] ^ mhi, k[2] ^ mchk]
+    ids = torch.tensor([3, 16, 3, 16, 16, 0, 7, 3, 9, 9], dtype=torch.int32, device=cuda)
+    k_planes = [t.clone() for t in planes]
+    kg = ops.gather_scrub_pages(*k_planes, ids, wpp, codec=codec)
+    pg = ref.gather_scrub_ref(*planes, ids, wpp, codec=codec)
+    torch.cuda.synchronize()
+    assert torch.equal(kg[0].view(torch.int32), pg[0].view(torch.int32))
+    assert torch.equal(kg[1], pg[1])
+    assert all(torch.equal(a, b) for a, b in zip(k_planes, planes))
+    assert int(kg[1][:, 2].sum()) > 0
+
+
+@pytest.mark.gpu
+def test_codec_launches_counted_per_codec(cuda):
+    ops.reset_launch_count()
+    for codec in CODECS:
+        planes = _codec_planes(codec, 1000, 0.01, cuda)
+        ops.inject_scrub(*planes, codec=codec)
+        ops.encode(*planes[:2], codec=codec)
+        ops.encode(*planes[:2], codec=codec)
+    by = ops.launch_counts_by_codec()
+    assert by["inject_scrub"] == dict.fromkeys(CODECS, 1)
+    assert by["encode"] == dict.fromkeys(CODECS, 2)
+    assert ops.launch_counts()["encode"] == 8

@@ -31,7 +31,8 @@ def test_port_modules_are_listed():
               "repro_torch.serving.steps", "repro_torch.serving.scheduler",
               "repro_torch.kernels.fault_inject", "repro_torch.core.memory",
               "repro_torch.core.nn_accel", "repro_torch.data.mnist",
-              "repro_torch.configs.paper_nn"):
+              "repro_torch.configs.paper_nn", "repro_torch.codes.parity",
+              "repro_torch.codes.interleaved", "repro_torch.codes.dected"):
         assert m in mods
 
 

@@ -127,7 +127,7 @@ class SharedMasks:
         w = (1 << np.arange(32, dtype=np.uint64))[:, None]
         lo = (bits[:32] * w).sum(0).astype(np.uint32)
         hi = (bits[32:64] * w).sum(0).astype(np.uint32)
-        chk = (bits[64:] * w[:n_check]).sum(0).astype(np.uint8)
+        chk = (bits[64:] * w[:n_check]).sum(0).astype(np.uint8 if n_check <= 8 else np.uint32)
         return lo, hi, chk
 
     def reference(self):
@@ -153,7 +153,8 @@ def _geoms():
 def _planes_equal(ja, ta):
     np.testing.assert_array_equal(ta.lo.numpy().view(np.uint32), np.asarray(ja.lo))
     np.testing.assert_array_equal(ta.hi.numpy().view(np.uint32), np.asarray(ja.hi))
-    np.testing.assert_array_equal(ta.parity.numpy(), np.asarray(ja.parity))
+    jp = np.asarray(ja.parity)
+    np.testing.assert_array_equal(ta.parity.numpy().view(jp.dtype), jp)
 
 
 @pytest.mark.parametrize("ecc", [True, False])
@@ -197,6 +198,66 @@ def test_arena_sequence_bit_identical_under_shared_masks(monkeypatch, ecc):
         ta.zero_pages(zero)
         _planes_equal(ja, ta)
     assert jm.calls == tm.calls == 3  # no draw inside the guardband
+
+
+CODECS = ("parity65", "secded72", "ileave88", "dected79")
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_arena_round_trip_at_nominal_under_every_codec(codec):
+    """Commit, tick (no draw inside the guardband) and scrub give back the
+    committed payload; the check plane has the codec's dtype and every
+    scrubbed word is clean."""
+    _, tgeom = _geoms()
+    ta = tkv.KVPageArena(tgeom, tv.PLATFORMS["vc707"], 5, codec=codec, device="cpu",
+                         mask_fn=lambda *a: pytest.fail("drew at nominal"))
+    assert ta.parity.dtype == ta.codec.check_torch_dtype
+    rng = np.random.default_rng(3)
+    payload = rng.standard_normal((8, tgeom.token_f32)).astype(np.float32)
+    pages, slots = np.repeat([0, 2, 4], [4, 3, 1]), np.array([0, 1, 2, 3, 0, 2, 3, 1])
+    ta.commit_tokens(torch.from_numpy(payload), pages, slots)
+    ta.tick()
+    out, cnt = ta.scrub_pages([0, 2, 4])
+    for row, (p, s_) in enumerate(zip(pages, slots)):
+        np.testing.assert_array_equal(out[[0, 2, 4].index(p), s_].numpy(), payload[row])
+    assert cnt[:, 0].sum() == 3 * tgeom.words_per_page and cnt[:, 1:3].sum() == 0
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_arena_commit_and_scrub_bit_identical_per_codec(monkeypatch, codec):
+    """Commit -> tick -> scrub under each codec with the same masks handed to
+    both packages: planes in the codec's check dtype, payloads and per-page
+    counters bit for bit (a stronger code corrects what SECDED detects)."""
+    jgeom, tgeom = _geoms()
+    from repro.core import voltage as jv
+
+    jm, tm = SharedMasks(11), SharedMasks(11)
+    monkeypatch.setattr(jkv, "_device_chunk_masks_jit", jm.reference())
+    n_pages = 6
+    ja = jkv.KVPageArena(jgeom, jv.PLATFORMS["vc707"], n_pages, seed=1, codec=codec)
+    ta = tkv.KVPageArena(tgeom, tv.PLATFORMS["vc707"], n_pages, seed=1, codec=codec,
+                         device="cpu", mask_fn=tm.port())
+    rng = np.random.default_rng(2)
+    seen = np.zeros(3, np.int64)
+    for v in (0.56, 0.54):
+        payload = rng.standard_normal((4, tgeom.token_f32)).astype(np.float32)
+        pages, slots = np.array([0, 1, 3, 5]), np.array([0, 2, 1, 3])
+        ja.commit_tokens(jnp.asarray(payload), pages, slots)
+        ta.commit_tokens(torch.from_numpy(payload), pages, slots)
+        _planes_equal(ja, ta)
+        for a in (ja, ta):
+            a.set_voltage(v)
+            a.tick()
+        _planes_equal(ja, ta)
+        ids = np.array([0, n_pages, 1, 0, 5, 3], np.int32)
+        jp, jc = ja.scrub_pages(ids)
+        tp, tc = ta.scrub_pages(ids)
+        np.testing.assert_array_equal(tc, jc)
+        np.testing.assert_array_equal(tp.numpy().view(np.uint32), np.asarray(jp).view(np.uint32))
+        _planes_equal(ja, ta)
+        seen += tc[:, :3].sum(0)
+    assert seen[2] > 0 and (seen[1] > 0) == (codec != "parity65")
+    assert jm.calls == tm.calls == 2
 
 
 def test_arena_from_numpy_carries_reference_planes():

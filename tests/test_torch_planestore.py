@@ -180,3 +180,115 @@ def test_multirail_controller_records_identical():
 def test_escalation_is_not_ported():
     with pytest.raises(NotImplementedError):
         tctl.UndervoltController(tv.PLATFORMS["vc707"], escalation=("secded72", "dected79"))
+
+
+CODEC_KEYS = KEYS + ("['blocks']['p0']['attn']['wo']", "['blocks']['p0']['mlp']['w2']")
+MIXED = {"attention": "parity65", "mlp": "dected79", "embedding": "ileave88"}
+
+
+@pytest.fixture(scope="module")
+def codec_leaves():
+    rng = np.random.default_rng(5)
+    ws = [rng.standard_normal(s).astype(np.float32)
+          for s in ((64, 96), (128, 64), (256, 64), (96, 64), (64, 128))]
+    return (
+        [jops.pack_ecc_weights(jnp.asarray(w)) for w in ws],
+        [tops.pack_ecc_weights(torch.from_numpy(w)) for w in ws],
+    )
+
+
+def _assert_codec_leaves_equal(jl, tl):
+    for a, b in zip(jl, tl):
+        np.testing.assert_array_equal(b.lo.numpy().view(np.uint32), np.asarray(a.lo))
+        np.testing.assert_array_equal(b.hi.numpy().view(np.uint32), np.asarray(a.hi))
+        pa = np.asarray(a.parity)
+        np.testing.assert_array_equal(b.parity.numpy().view(pa.dtype), pa)
+
+
+def _assert_groups_equal(jstore, tstore):
+    assert [g.name for g in tstore.groups] == [g.name for g in jstore._groups]
+    for jg, tg in zip(jstore._groups, tstore.groups):
+        assert (tg.slot_ids, tg.offsets, tg.n_words) == (jg.slot_ids, jg.offsets, jg.n_words)
+        assert tg.check.dtype == tg.codec.check_torch_dtype
+        jc = np.asarray(jg.check)
+        np.testing.assert_array_equal(tg.check.numpy().view(jc.dtype), jc)
+        np.testing.assert_array_equal(tg.lo.numpy().view(np.uint32), np.asarray(jg.lo))
+        np.testing.assert_array_equal(tg.dom_ids.numpy(), np.asarray(jg.dom_ids))
+        for si in tg.slot_ids:
+            key = tstore.slots[si].key
+            assert tstore._host_fields[key].n_check == jstore._host_fields[key].n_check
+    assert tstore.codecs_by_domain() == jstore.codecs_by_domain()
+    assert tstore.check_bits_by_domain() == jstore.check_bits_by_domain()
+
+
+def test_mixed_codec_partition_and_dtypes(codec_leaves):
+    jl, tl = codec_leaves
+    jstore = jps.PlaneStore(jl, CODEC_KEYS, jv.PLATFORMS["vc707"], seed=2,
+                            domain_key=jshapes.domain_of, codecs=MIXED)
+    tstore = tps.PlaneStore(tl, CODEC_KEYS, tv.PLATFORMS["vc707"], seed=2,
+                            domain_key=tshapes.domain_of, codecs=MIXED)
+    _assert_groups_equal(jstore, tstore)
+    assert [g.name for g in tstore.groups] == ["parity65", "dected79", "ileave88"]
+    masks = tstore.group_host_masks({"attention": 0.55, "mlp": 1.0, "embedding": 0.56})
+    assert [m[2].dtype for m in masks] == [torch.uint8, torch.int32, torch.int32]
+    assert not any(m.any() for m in masks[1])  # the nominal mlp rail draws nothing
+    # one codec: one group aliasing the master planes
+    single = tps.PlaneStore(tl, CODEC_KEYS, tv.PLATFORMS["vc707"], codecs="dected79")
+    (g,) = single.groups
+    assert g.lo is single.lo and g.hi is single.hi and g.check.dtype == torch.int32
+    (g,) = tps.PlaneStore(tl, CODEC_KEYS, tv.PLATFORMS["vc707"]).groups
+    assert g.check is not None and g.name == "secded72"
+
+
+def test_set_domain_codec_keeps_the_other_groups(codec_leaves):
+    jl, tl = codec_leaves
+    kw = dict(seed=2, codecs=MIXED)
+    jstore = jps.PlaneStore(jl, CODEC_KEYS, jv.PLATFORMS["vc707"],
+                            domain_key=jshapes.domain_of, **kw)
+    tstore = tps.PlaneStore(tl, CODEC_KEYS, tv.PLATFORMS["vc707"],
+                            domain_key=tshapes.domain_of, **kw)
+    before = {g.name: (g.slot_ids, g.check.clone()) for g in tstore.groups}
+    volts = {"attention": 0.55, "mlp": 0.56, "embedding": 0.54}
+    _, first = tstore.set_rails(volts)
+    for store in (jstore, tstore):
+        store.set_domain_codec("mlp", "secded72")
+        store.set_domain_codec("attention", "parity65")  # unchanged: a no-op
+    _assert_groups_equal(jstore, tstore)
+    after = {g.name: g for g in tstore.groups}
+    assert "dected79" not in after and after["secded72"].codec.n_check == 8
+    for name in ("parity65", "ileave88"):
+        assert after[name].slot_ids == before[name][0]
+        assert torch.equal(after[name].check, before[name][1])
+    jf, js = jstore.set_rails(volts)
+    tf, ts = tstore.set_rails(volts)
+    _assert_codec_leaves_equal(jf, tf)
+    for d in ts.domains:
+        assert _stats(ts[d]) == _stats(js[d])
+    for d in ("attention", "embedding"):  # their masks did not change
+        assert _stats(ts[d]) == _stats(first[d])
+
+
+@pytest.mark.parametrize("codecs,multi", [("dected79", False), ("ileave88", False),
+                                          ("parity65", True), (MIXED, True)])
+@pytest.mark.parametrize("ecc", [True, False])
+def test_codec_walk_bit_identical(codec_leaves, codecs, multi, ecc):
+    jl, tl = codec_leaves
+    dk = dict(domain_key=jshapes.domain_of) if multi else {}
+    tk = dict(domain_key=tshapes.domain_of) if multi else {}
+    jstore = jps.PlaneStore(jl, CODEC_KEYS, jv.PLATFORMS["vc707"], seed=4, codecs=codecs, **dk)
+    tstore = tps.PlaneStore(tl, CODEC_KEYS, tv.PLATFORMS["vc707"], seed=4, codecs=codecs, **tk)
+    _assert_groups_equal(jstore, tstore)
+    for v in WALK:
+        if multi:
+            volts = {"attention": v, "mlp": round(v + 0.01, 2), "embedding": v}
+            jf, js = jstore.set_rails(volts, ecc=ecc)
+            tf, ts = tstore.set_rails(volts, ecc=ecc)
+            assert {d: _stats(ts[d]) for d in ts.domains} == {
+                d: _stats(js[d]) for d in js.domains}, v
+        else:
+            jf, js = jstore.set_voltage(v, ecc=ecc)
+            tf, ts = tstore.set_voltage(v, ecc=ecc)
+            assert _stats(ts) == _stats(js), v
+        _assert_codec_leaves_equal(jf, tf)
+    total = ts.total() if multi else ts
+    assert total.faulty_words > 0

@@ -22,6 +22,7 @@ import jax
 from conftest import tiny_cfg
 from repro.core import kvpages as jkv
 from repro.models import lm as jlm
+from repro.serving.engine import ProtectionConfig as JProt
 from repro.serving.engine import RailsConfig as JRails
 from repro.serving.engine import ReliabilityConfig as JRel
 from repro.serving.engine import ServingEngine as JEngine
@@ -67,6 +68,10 @@ RELS = {
     "plain": None,
     "single": dict(rails=dict(multi_rail=False)),
     "multi": dict(rails=dict(multi_rail=True, start_v=0.57)),
+    # kv pages under a stronger code than SECDED
+    "codecs": dict(rails=dict(multi_rail=True, start_v=0.57),
+                   codecs={"attention": "parity65", "mlp": "dected79", "kv": "ileave88"}),
+    "dected": dict(rails=dict(multi_rail=False), codecs="dected79"),
 }
 
 
@@ -77,9 +82,12 @@ def engines(models):
     for name, rel in RELS.items():
         jrel = trel = None
         if rel is not None:
-            jrel = JRel(platform="vc707", voltage=1.0, mode="inline", rails=JRails(**rel["rails"]))
+            codecs = rel.get("codecs")
+            jrel = JRel(platform="vc707", voltage=1.0, mode="inline", rails=JRails(**rel["rails"]),
+                        protection=JProt(codecs=codecs))
             trel = teng.ReliabilityConfig(platform="vc707", voltage=1.0, mode="inline",
-                                          rails=teng.RailsConfig(**rel["rails"]))
+                                          rails=teng.RailsConfig(**rel["rails"]),
+                                          protection=teng.ProtectionConfig(codecs=codecs))
         out[name] = (
             JEngine(cfg, params, rel=jrel, max_len=MAX_LEN),
             teng.ServingEngine(tcfg, tparams, rel=trel, max_len=MAX_LEN, device="cpu"),
@@ -103,7 +111,8 @@ class Masks:
         w = (1 << np.arange(32, dtype=np.uint64))[:, None]
         lo = (bits[:32] * w).sum(0).astype(np.uint32) & self.MANTISSA
         hi = (bits[32:64] * w).sum(0).astype(np.uint32) & self.MANTISSA
-        return lo, hi, (bits[64:] * w[:n_check]).sum(0).astype(np.uint8)
+        chk = (bits[64:] * w[:n_check]).sum(0)
+        return lo, hi, chk.astype(np.uint8 if n_check <= 8 else np.uint32)
 
     def install(self, monkeypatch):
         import jax.numpy as jnp
@@ -169,7 +178,15 @@ CASES = {
     "undervolt_serial": ("single", MIXED, dict(n_lanes=3, kv_voltage=0.55, scrub_overlap=False)),
     "undervolt_shared": ("single", SHARED, dict(n_lanes=2, kv_voltage=0.55, share_prefix=True)),
     "walk_kv": ("multi", SHARED, dict(n_lanes=2, walk_kv=True, scrub_interval=2)),
+    "undervolt_ileave88": ("codecs", MIXED, dict(n_lanes=3, kv_voltage=0.55)),
+    "walk_kv_ileave88": ("codecs", SHARED, dict(n_lanes=2, walk_kv=True, scrub_interval=2)),
+    "undervolt_dected79": ("dected", MIXED, dict(n_lanes=3, kv_voltage=0.55, max_block=4)),
 }
+
+
+# denser faults where the kv canary must see a DED, and where a stronger code
+# than SECDED must meet uncorrectable words
+SCALES = {"walk_kv": 40.0, "walk_kv_ileave88": 150.0, "undervolt_dected79": 40.0}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -177,8 +194,7 @@ def test_serve_matches_reference(models, engines, monkeypatch, finite_logits, ca
     engine, reqs, kw = CASES[case]
     jeng, teng_ = engines[engine]
     kw = dict(kw, page_tokens=PT)
-    # denser faults where the kv canary must see a DED
-    masks = Masks(seed=len(case), scale=40.0 if case == "walk_kv" else 6.0).install(monkeypatch)
+    masks = Masks(seed=len(case), scale=SCALES.get(case, 6.0)).install(monkeypatch)
     if kw.get("speculative"):
         dcfg, dparams, tdcfg, tdparams = models[4]
         jk = dict(kw, draft_params=dparams, draft_cfg=dcfg)
@@ -201,7 +217,7 @@ def test_serve_matches_reference(models, engines, monkeypatch, finite_logits, ca
         assert t.spec_dispatches > 0
     if case == "preempt":
         assert t.preemptions >= 1
-    if case == "walk_kv":
+    if case.startswith("walk_kv"):
         jr, tr = jeng.controller.rails["kv"], teng_.controller.rails["kv"]
         assert [_record(r) for r in tr.history] == [_record(r) for r in jr.history]
         assert tr.locked
@@ -216,6 +232,21 @@ def test_paged_serve_equals_dense_generate(engines):
     dense = eng.generate(prompts, 7)
     rep = eng.serve([(p, 7) for p in prompts], n_lanes=4, page_tokens=PT, scrub_interval=1)
     np.testing.assert_array_equal(np.stack([rep.outputs[i] for i in range(4)]), dense)
+    assert rep.kv_stats.words > 0 and rep.kv_stats.clean == rep.kv_stats.words
+
+
+@pytest.mark.parametrize("engine", ["codecs", "dected"])
+def test_paged_serve_equals_dense_generate_under_codecs(engines, engine):
+    """kv pages under ileave88 / dected79 and weights refreshed into SECDED
+    planes: at nominal the paged stream is still the dense decode loop."""
+    _, eng = engines[engine]
+    prompts = PROMPTS[:4, :8]
+    dense = eng.generate(prompts, 7)
+    rep = eng.serve([(p, 7) for p in prompts], n_lanes=4, page_tokens=PT, scrub_interval=1,
+                    kv_voltage=1.0)
+    np.testing.assert_array_equal(np.stack([rep.outputs[i] for i in range(4)]), dense)
+    assert rep.arena.codec_name == ("ileave88" if engine == "codecs" else "dected79")
+    assert rep.arena.parity.dtype == torch.int32
     assert rep.kv_stats.words > 0 and rep.kv_stats.clean == rep.kv_stats.words
 
 
