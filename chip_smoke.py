@@ -12,10 +12,12 @@ them. Phases, each printed on its own line with its wall time:
      and 0.54 V, both re-encode settings) and its per-domain form
      (multi-rail arena) and the SECDED decode (faulty embedding) bit for bit,
      the fused decode+matmul at every qwen3-0.6b (K, N) within
-     1e-4 * max|plain| (float32 sums run in another order) at M = batch
-     (its decode kernel) and M = batch x prompt (its tiled kernel), the
-     M = batch rows equal to the same rows of the M = batch x prompt call
-     (one K-sum order in both kernels), and the
+     1e-4 * max|plain| (the tensor cores sum in another order) at M = batch
+     (its decode kernel), M = 20 (a speculative verify block) and M = batch
+     x prompt (its tiled kernel), each with its byte bound, its bf16 MMA
+     bound (three pieces of x) and the old float32 FFMA bound, the M = batch
+     rows equal to the same rows of the M = batch x prompt call (one chunk
+     order in both kernels), and the
      per-domain form with out-of-range domain ids; the SECDED encode over
      the weight arena and a 64-page KV arena and in its token-commit form,
      and the paged scrub-on-read over that arena at 0.54 V with duplicated
@@ -107,7 +109,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 BATCH, PROMPT_LEN, NEW_TOKENS = 4, 32, 16
+VERIFY_M = 20  # a speculative verify block: 4 lanes x 5 positions
 MATMUL_RTOL = 1e-4  # |kernel - plain| <= MATMUL_RTOL * max|plain|
 PAGED_MAX_LEN, STREAM_PAGES, KV_PAGES = 80, 14, 64
 MLP_TRAIN, MLP_TEST = 20000, 4000  # the Fig. 3 benchmark's split
@@ -456,12 +460,16 @@ def main() -> int:
             f"['blocks']['p0']['mlp'][{w!r}]" for w in ("w1", "w3", "w2")
         ]
         # One entry per M, its times summed over the seven matmuls of a layer:
-        # M = BATCH runs the decode kernel, M = BATCH x PROMPT_LEN the tiled
-        # one, and the decode kernel's rows must equal the tiled kernel's.
+        # M = BATCH runs the decode kernel, M = VERIFY_M and BATCH x PROMPT_LEN
+        # the tiled one, and the decode kernel's rows must equal the tiled
+        # kernel's. Bounds: the bytes, the bf16 MMAs of the three-piece split
+        # (3 x 2MKN on the tensor cores; "ops_ms", the operations bound) and,
+        # beside them, the float32 FFMA bound of one product per weight.
         b3 = {m: {"M": m, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-                  "library_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": [],
+                  "ffma_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0,
+                  "shapes": [],
                   "function": b3_names["decode" if m <= b3_kernel.DECODE_MAX_M else "tiled"]}
-              for m in (BATCH, BATCH * PROMPT_LEN)}
+              for m in (BATCH, VERIFY_M, BATCH * PROMPT_LEN)}
         gen = torch.Generator(device=dev).manual_seed(1)
         for key in (k for k in mm_keys if k in by_key):
             ew = by_key[key]
@@ -474,7 +482,7 @@ def main() -> int:
                                     ops.ecc_matmul(x_all, lw)[:BATCH]),
                         f"ecc_matmul {key}: the M={BATCH} rows differ from the same rows at "
                         f"M={BATCH * PROMPT_LEN}")
-            for m in (BATCH, BATCH * PROMPT_LEN):
+            for m in b3:
                 x = x_all[:m]
                 worst = 0.0
                 for lw in layers_[:2]:
@@ -496,31 +504,33 @@ def main() -> int:
                 lib = sync_ms(lambda: [torch.matmul(x, w) for w in w_deq], 20) / len(w_deq)
                 k, nn = ew.k, ew.n
                 nbytes = 4 * m * k + 9 * k * nn // 8 + 4 * nn + 4 * m * nn
-                bt, ot = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * 2 * m * k * nn / FP32_FLOPS
+                bt, ot = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * 3 * 2 * m * k * nn / BF16_TC_FLOPS
+                ft = 1e3 * 2 * m * k * nn / FP32_FLOPS
                 row = {"key": key, "M": m, "K": k, "N": nn, "ms": ms, "plain_ms": pms,
                        "library_ms": lib, "bound_ms": max(bt, ot),
                        "bound_by": "bytes" if bt >= ot else "operations",
-                       "max_abs_err": worst}
+                       "bytes_ms": bt, "ops_ms": ot, "ffma_ms": ft, "max_abs_err": worst}
                 b3[m]["shapes"].append(row)
-                for f in ("ms", "plain_ms", "library_ms"):
+                for f in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "ffma_ms"):
                     b3[m][f] += row[f]
-                b3[m]["bytes_ms"] += bt
-                b3[m]["ops_ms"] += ot
                 b3[m]["max_abs_err"] = max(b3[m]["max_abs_err"], worst)
                 print(f"  ecc_matmul M={m} K={k} N={nn} ({b3[m]['function']}): max err "
                       f"{worst:.3e} (<= {MATMUL_RTOL}*max|plain|), {ms:.4f} ms, bound "
-                      f"{max(bt, ot):.4f} ms ({row['bound_by']}), plain {pms:.4f} ms, "
-                      f"torch.matmul {lib:.4f} ms")
+                      f"{max(bt, ot):.4f} ms ({row['bound_by']}; bytes {bt:.4f}, bf16 MMAs "
+                      f"{ot:.4f}, FFMA {ft:.4f}), plain {pms:.4f} ms, torch.matmul {lib:.4f} ms")
         print(f"  ecc_matmul rows: the M={BATCH} rows of {b3_names['decode']} equal the same "
               f"rows of {b3_names['tiled']} at M={BATCH * PROMPT_LEN}, every layer shape")
         for r in b3.values():
             r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
             r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
             print(f"  ecc_matmul M={r['M']} ({r['function']}), a layer's 7 matmuls: "
-                  f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-                  f"{r['plain_ms']:.4f} ms, torch.matmul {r['library_ms']:.4f} ms")
+                  f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; bytes "
+                  f"{r['bytes_ms']:.4f}, bf16 MMAs {r['ops_ms']:.4f}, FFMA {r['ffma_ms']:.4f}), "
+                  f"max rel err {r['max_rel_err']:.2e}, plain {r['plain_ms']:.4f} ms, "
+                  f"torch.matmul {r['library_ms']:.4f} ms")
         report["ecc_matmul_decode"] = b3[BATCH]
         report["ecc_matmul_prefill"] = b3[BATCH * PROMPT_LEN]
+        report["ecc_matmul_prefill"]["verify"] = b3[VERIFY_M]
         del store, faulty, by_key, masks, args, k_out, p_out, w_deq, layers_
         torch.cuda.empty_cache()
 
@@ -1354,23 +1364,26 @@ def main() -> int:
         deq = [ref.ecc_matmul_ref(torch.eye(l_.faulty.k, device=dev), l_.faulty.lo,
                                   l_.faulty.hi, l_.faulty.parity, l_.faulty.scale)
                for l_ in mlp.layers]
-        worst = 0.0
+        worst = worst_rel = 0.0
         for x_, l_ in zip(acts, mlp.layers):
             k_o, p_o = ops.ecc_matmul(x_, l_.faulty), ref.ecc_matmul_ref(
                 x_, l_.faulty.lo, l_.faulty.hi, l_.faulty.parity, l_.faulty.scale)
             err = float((k_o - p_o).abs().max())
             require(err <= MATMUL_RTOL * float(p_o.abs().max()), f"MLP ecc_matmul err {err}")
+            worst_rel = max(worst_rel, err / float(p_o.abs().max()))
             require(torch.equal(ops.ecc_matmul(x_[:BATCH], l_.faulty), k_o[:BATCH]),
                     f"MLP ecc_matmul K={l_.faulty.k}: the M={BATCH} rows differ from the "
                     f"same rows at M={MLP_TEST}")
             worst = max(worst, err)
-        ffma = sum(2 * MLP_TEST * l_.faulty.k * l_.faulty.n for l_ in mlp.layers)
+        flop = sum(2 * MLP_TEST * l_.faulty.k * l_.faulty.n for l_ in mlp.layers)
         nbytes = sum(4 * MLP_TEST * (l_.faulty.k + l_.faulty.n)
                      + 9 * l_.faulty.k * l_.faulty.n // 8 + 4 * l_.faulty.n for l_ in mlp.layers)
-        bt, ot = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ffma / FP32_FLOPS
+        bt, ot = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * 3 * flop / BF16_TC_FLOPS
         report["ecc_matmul_prefill"]["mlp"] = {
             "M": MLP_TEST, "shapes": [[l_.faulty.k, l_.faulty.n] for l_ in mlp.layers],
             "per": "the 3 layers of one predict", "max_abs_err": worst,
+            "max_rel_err": worst_rel, "bytes_ms": bt, "ops_ms": ot,
+            "ffma_ms": 1e3 * flop / FP32_FLOPS,
             "ms": sync_ms(lambda: [ops.ecc_matmul(x_, l_.faulty)
                                    for x_, l_ in zip(acts, mlp.layers)], 20),
             "plain_ms": sync_ms(lambda: [ref.ecc_matmul_ref(
@@ -1380,10 +1393,12 @@ def main() -> int:
             "bound_ms": max(bt, ot), "bound_by": "bytes" if bt >= ot else "operations",
         }
         r_ = report["ecc_matmul_prefill"]["mlp"]
-        print(f"  ecc_matmul at M={MLP_TEST} over the MLP's 3 layers: max err {worst:.3e}, "
-              f"the M={BATCH} rows equal ({b3_names['decode']} vs {b3_names['tiled']}), "
-              f"{r_['ms']:.4f} ms, bound {r_['bound_ms']:.4f} ms ({r_['bound_by']}), plain "
-              f"{r_['plain_ms']:.3f} ms, torch.matmul {r_['library_ms']:.4f} ms")
+        print(f"  ecc_matmul at M={MLP_TEST} over the MLP's 3 layers: max err {worst:.3e} "
+              f"(rel {worst_rel:.2e}), the M={BATCH} rows equal ({b3_names['decode']} vs "
+              f"{b3_names['tiled']}), {r_['ms']:.4f} ms, bound {r_['bound_ms']:.4f} ms "
+              f"({r_['bound_by']}; bytes {bt:.4f}, bf16 MMAs {ot:.4f}, FFMA "
+              f"{r_['ffma_ms']:.4f}), plain {r_['plain_ms']:.3f} ms, torch.matmul "
+              f"{r_['library_ms']:.4f} ms")
         del mlp, acts, deq, h, xtr, xte
 
     # ---------------------------------------------------------------- 8
@@ -1856,9 +1871,9 @@ def main() -> int:
                 **({"M": r["M"], "per": "one layer's 7 matmuls", "shapes": r["shapes"],
                     "max_rel_err": r["max_rel_err"], "function": r["function"]}
                    if mm else {"n_words": r["n_words"]}),
-                **({k: r[k] for k in ("bytes_ms", "ops_ms", "masks", "ms_054", "ms_nominal")
-                    if k in r}),
-                **({"mlp": r["mlp"]} if "mlp" in r else {}),
+                **({k: r[k] for k in ("bytes_ms", "ops_ms", "ffma_ms", "masks", "ms_054",
+                                      "ms_nominal") if k in r}),
+                **({k: r[k] for k in ("mlp", "verify") if k in r}),
             })
         kernels[[k["name"] for k in kernels].index("encode")]["kv_arena"] = report["encode_kv_arena"]
     print(json.dumps({"kernels": kernels}))

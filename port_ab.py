@@ -20,7 +20,8 @@ through the fused ECC matmul), for each (batch, prompt length) it records:
 
 It also times the fused ECC matmul alone (device time by CUDA events,
 queued behind matmuls so the host's enqueue does not show): a layer's 7
-matrices at M = 4 (decode) and M = 128 (prefill), each cycled through the
+matrices at M = 4 (decode), M = 20 (a speculative verify block) and M = 128
+(prefill), each cycled through the
 28 layers so the planes come from HBM, and the Fig. 3 MLP's three shapes
 (784-256-128-10, random weights) at M = 4,000.
 
@@ -62,8 +63,8 @@ def _op_counter():
 
 
 def _time_b3(eng, cfg, dev) -> dict:
-    """Device ms of ``ops.ecc_matmul``: per layer (its 7 matrices) at M = 4
-    and 128, and the MLP's 3 layers at M = 4,000."""
+    """Device ms of ``ops.ecc_matmul``: per layer (its 7 matrices) at M = 4,
+    20 and 128, and the MLP's 3 layers at M = 4,000."""
     import torch
 
     from repro_torch.kernels import ops
@@ -99,7 +100,7 @@ def _time_b3(eng, cfg, dev) -> dict:
     leaves = [w for k, w in base.flatten(eng.params)
               if isinstance(w, ops.EccWeight) and ("attn" in k or "mlp" in k)]
     res = {}
-    for m in (4, 128):
+    for m in (4, 20, 128):
         shapes = {}
         for w in leaves:
             layers = [w.layer(g) for g in range(cfg.n_groups)]

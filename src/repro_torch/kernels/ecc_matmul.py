@@ -22,10 +22,12 @@ def ecc_matmul(x, lo, hi, check, scale, *, codec: Codec):
     ``scale * (x @ W)``.
 
     One launch. M <= ``DECODE_MAX_M`` (16) runs the decode kernel (8 output
-    columns per block, one thread per (row, chunk of 64 K values, column)),
-    larger M, or K above ~8,800, the tiled kernel (32 x 64 output tiles).
-    Both sum over K in one fixed order, so a row's output is the same floats
-    whatever M the call has."""
+    columns per block, one warp per chunk of 64 K values), larger M, or K
+    above ~8,800, the tiled kernel (32-, 64- or 128-row tiles of 8-32
+    columns, each plane word decoded once per block). Both run one chunk
+    chain of bf16 tensor-core MMAs on an exact three-piece split of x,
+    folded over the chunks in ascending order, so a row's output is the same
+    floats whatever M the call has."""
     if x.ndim != 2 or lo.ndim != 2:
         raise ValueError(f"expected 2D x and planes, got {x.shape} and {lo.shape}")
     m, k = x.shape

@@ -14,7 +14,7 @@ from repro_torch import codes
 from repro_torch.kernels import ecc_matmul as mm
 from repro_torch.kernels import ops, ref
 
-# float32 sums run in another order than the plain version's matmul
+# the tensor cores sum in another order than the plain version's matmul
 MATMUL_RTOL = 1e-4
 
 
@@ -75,7 +75,10 @@ def test_inject_scrub_domains_kernel_drops_out_of_range_ids(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [(4, 1024, 2048), (128, 3072, 1024), (5, 136, 70),
-                                   (1, 1024, 2048), (16, 3072, 1024), (17, 1024, 3072)])
+                                   (1, 1024, 2048), (16, 3072, 1024), (17, 1024, 3072),
+                                   (20, 1024, 3072),
+                                   # the Fig. 3 MLP's predict over its 4,000 test images
+                                   (4000, 784, 256), (4000, 256, 128), (4000, 128, 10)])
 def test_ecc_matmul_kernel_within_tolerance(cuda, m, k, n):
     w = ops.pack_ecc_weights(torch.randn(k, n, device=cuda))
     x = torch.randn(m, k, device=cuda)
@@ -97,9 +100,14 @@ ROW_SHAPES = {"wq": (1024, 2048), "wk": (1024, 1024), "wv": (1024, 1024),
 @pytest.mark.gpu
 @pytest.mark.parametrize("k,n", ROW_SHAPES.values(), ids=ROW_SHAPES.keys())
 def test_ecc_matmul_rows_invariant_across_m(cuda, k, n):
-    """A row's output is the same floats in a call of any M: the decode
-    kernel's rows (M = 1, 4, 16, x aligned and not) equal the tiled
-    kernel's (M = 17, 128), on planes with single and double flips."""
+    """A row's output is the same floats in a call of any M, on planes with
+    single and double flips, against the rows of one call at M = 600
+    (128-row tiles): at every position 0..15 of an MMA fragment (0..15
+    other rows put before it, in the tiled kernel and in the decode
+    kernel), on both sides of the 32-row tile boundaries (M = 17, 20, 63,
+    64, 65, 128, 129), and in the decode kernel at M = 1, 4, 16 with x
+    aligned and not. For a float32 x whose values are not bf16 (all three
+    pieces of the split matter) and for a bf16-valued x (the LM's)."""
     g = np.random.default_rng(k + n)
     w = ops.pack_ecc_weights(torch.from_numpy(g.standard_normal((k, n), np.float32)).to(cuda))
     flips = np.zeros(w.lo.numel(), np.uint32)
@@ -107,17 +115,31 @@ def test_ecc_matmul_rows_invariant_across_m(cuda, k, n):
     flips[hit] = 1 << g.integers(0, 32, hit.size, dtype=np.uint32)
     flips[hit[::7]] |= 1 << 3  # some words get a second flip: detected, not corrected
     w.lo = w.lo ^ torch.from_numpy(flips.view(np.int32)).to(cuda).view(w.lo.shape)
-    x = torch.from_numpy(g.standard_normal((128, k), np.float32)).to(cuda)
+    xf = torch.from_numpy(g.standard_normal((600, k), np.float32)).to(cuda)
+    assert not torch.equal(xf, xf.bfloat16().float())
+    other = torch.from_numpy(g.standard_normal((15, k), np.float32)).to(cuda)
     before = ops.launch_counts()["ecc_matmul"]
-    tiled = [ops.ecc_matmul(x[:m], w) for m in (mm.DECODE_MAX_M + 1, 128)]
-    for m in (1, 4, mm.DECODE_MAX_M):
-        shifted = torch.empty(m * k + 1, device=cuda)[1:].view(m, k)  # 4 B off alignment
-        shifted.copy_(x[:m])
-        for rows in (ops.ecc_matmul(x[:m], w), ops.ecc_matmul(shifted, w)):
-            assert rows.shape == (m, n)
-            assert all(torch.equal(rows, t[:m]) for t in tiled)
+    calls = 0
+    for kind, x in (("f32", xf), ("bf16", xf.bfloat16().float())):
+        want = ops.ecc_matmul(x, w)
+        calls += 1
+        for m in (mm.DECODE_MAX_M + 1, 20, 63, 64, 65, 128, 129):
+            assert torch.equal(ops.ecc_matmul(x[:m], w), want[:m]), f"{kind} M={m}"
+            calls += 1
+        for p in range(16):
+            for rows in (20, 1):  # M = p + 20: tiled kernel; M = p + 1: decode kernel
+                out = ops.ecc_matmul(torch.cat([other[:p], x[:rows]]), w)
+                assert torch.equal(out[p:], want[:rows]), f"{kind} {rows} rows at position {p}"
+                calls += 1
+        for m in (1, 4, mm.DECODE_MAX_M):
+            shifted = torch.empty(m * k + 1, device=cuda)[1:].view(m, k)  # 4 B off alignment
+            shifted.copy_(x[:m])
+            for rows in (ops.ecc_matmul(x[:m], w), ops.ecc_matmul(shifted, w)):
+                assert rows.shape == (m, n)
+                assert torch.equal(rows, want[:m]), f"{kind} decode M={m}"
+            calls += 2
     torch.cuda.synchronize()
-    assert ops.launch_counts()["ecc_matmul"] == before + 2 + 3 * 2
+    assert ops.launch_counts()["ecc_matmul"] == before + calls
 
 
 @pytest.mark.gpu
