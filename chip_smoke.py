@@ -30,7 +30,12 @@ them. Phases, each printed on its own line with its wall time:
      KV arena under each codec with duplicate and scratch page ids), and
      the variants no path runs (inject+scrub under parity65 and ileave88,
      its domain form and the decode under ileave88) on masks drawn on the
-     card;
+     card. The paged scrub is timed with its faults restored before every
+     call (and the L2 filled with clean lines), so each timed call scrubs
+     the same faulty words; its row gives the (clean, corrected, detected)
+     counts of those words, the words that change, its bound at those
+     counts and the earlier two-pass design's bound of 26 / 32 B a word
+     beside it;
   3. the tiny config through the port on the card and on the CPU, SECDED
      and per-domain-codec engines: equal tokens and equal counters;
   4. the full-width qwen3-0.6b engine, single-rail: nominal generate,
@@ -90,7 +95,8 @@ them. Phases, each printed on its own line with its wall time:
      and prefill (``ecc_matmul_kernel``, timed at M = batch x prompt); its
      count is split between them by the forward passes of at most
      ``DECODE_MAX_M`` rows and the others; the codec-generic kernels have one
-     entry per (kernel, codec), their launches counted per codec.
+     entry per (kernel, codec), their launches counted per codec. Phases 6
+     and 9 time the stream's interval scrub the same way as phase 2.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises.
 """
@@ -240,6 +246,112 @@ def main() -> int:
         fn()
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t_)
+
+    sm_clock_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    popc_per_s = (POPC_PER_SM_CLK * torch.cuda.get_device_properties(0).multi_processor_count
+                  * sm_clock_hz)
+    print(f"popc rate {popc_per_s:.3e}/s ({POPC_PER_SM_CLK} per SM per clock at "
+          f"{sm_clock_hz / 1e6:.0f} MHz max SM clock)")
+
+    def bounds(words, codec, b_u8, b_u32, popc_extra=0, encodes=1, changed=0, c_u8=0, c_u32=0,
+               reencoded=0, extra_bytes=0):
+        """Bytes (``b_u8`` or ``b_u32`` per word by the check plane's width,
+        plus ``c_u8`` or ``c_u32`` per ``changed`` word, plus
+        ``extra_bytes``) and popc (one per check bit per encode, ``encodes``
+        a word and one per ``reencoded`` word, plus ``popc_extra`` a word)
+        over this card's rates; the larger bounds."""
+        c = codes.get(codec)
+        u8 = c.n_check <= 8
+        bpw = b_u8 if u8 else b_u32
+        bt = 1e3 * (bpw * words + (c_u8 if u8 else c_u32) * changed + extra_bytes) / HBM_BYTES_PER_S
+        ot = 1e3 * ((encodes * c.n_check + popc_extra) * words + c.n_check * reencoded) / popc_per_s
+        return {"n_words": words, "codec": codec, "bytes_per_word": bpw, "bytes_ms": bt,
+                "ops_ms": ot, "bound_ms": max(bt, ot),
+                "bound_by": "bytes" if bt >= ot else "operations"}
+
+    l2_flush = torch.zeros(32 * 2**20, device=dev)  # 128 MB, 2.5x the L2
+
+    def restored_ms(fn, planes, saved, iters: int) -> float:
+        """Device time of ``fn`` alone (CUDA events around each call), each
+        call on ``planes`` restored from ``saved`` first and the L2 then
+        filled with clean lines (a read of 128 MB), both outside its window;
+        the calls queued behind ~50 ms of matmuls. ``planes`` end
+        restored."""
+        def restore():
+            for p_, s_ in zip(planes, saved):
+                p_.copy_(s_)
+
+        fn()
+        torch.cuda.synchronize()
+        evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+               for _ in range(iters)]
+        preroll(int(50.0 / busy_mm_ms) + 1)
+        for start, end in evs:
+            restore()
+            l2_flush.sum()
+            start.record()
+            fn()
+            end.record()
+        restore()
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in evs) / iters
+
+    def gather_scrub_row(name, planes, ids_d, wpp, codec="secded72", iters=20, p_iters=2):
+        """B6 over the pages ``ids_d`` of the faulty arena ``planes`` (left
+        as they are): the kernel and its plain version timed on a copy
+        restored before every call, so each timed call scrubs the same
+        faults. The row holds the (clean, corrected, detected) counts of the
+        timed row words (duplicate rows included, as the kernel reports
+        them) and of the words of the distinct page ids, the distinct words
+        that change, the bound at those counts (9 / 12 B read per distinct
+        word, 8 B of payload per row word, 9 / 12 B written back per changed
+        distinct word; one encode per distinct word and one per corrected
+        one) and the earlier two-pass design's bound (26 / 32 B a row
+        word, two encodes) beside it."""
+        work = [t_.clone() for t_ in planes]
+        counts = ops.gather_scrub_pages(*work, ids_d, wpp, codec=codec)[1][:, :3].sum(0).tolist()
+        uniq = torch.unique(ids_d)
+        once = [t_.clone() for t_ in planes]
+        u_counts = ops.gather_scrub_pages(*once, uniq, wpp, codec=codec)[1][:, :3].sum(0).tolist()
+        idx = uniq.long()[:, None] * wpp + torch.arange(wpp, device=dev)
+        changed = int(sum((a[idx] != b[idx]).int() for a, b in zip(planes, once)).bool().sum())
+        words, distinct = ids_d.numel() * wpp, idx.numel()
+        del idx, once
+        old = bounds(words, codec, 26, 32, encodes=2)
+        row = {"name": name, **bounds(distinct, codec, 9, 12, changed=changed, c_u8=9, c_u32=12,
+                                      reencoded=u_counts[1], extra_bytes=8 * words),
+               "n_words": words, "distinct_words": distinct, "counts": counts,
+               "distinct_counts": u_counts, "changed_words": changed,
+               "bound_26_32_ms": old["bound_ms"], "bound_26_32_by": old["bound_by"]}
+        row["ms"] = restored_ms(
+            lambda: ops.gather_scrub_pages(*work, ids_d, wpp, codec=codec), work, planes, iters)
+        row["plain_ms"] = restored_ms(
+            lambda: ref.gather_scrub_ref(*work, ids_d, wpp, codec), work, planes, p_iters)
+        print(f"  {name} ({words} row words, {distinct} distinct; faults restored before each "
+              f"call; (clean, corrected, detected) = {counts}, distinct {u_counts}, {changed} "
+              f"words change): {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}; bytes {row['bytes_ms']:.4f}, popc {row['ops_ms']:.4f}; "
+              f"two-pass 26/32 B bound {old['bound_ms']:.4f}), plain {row['plain_ms']:.3f} ms")
+        return row
+
+    def interval_scrub_times(arena, table, table_d, name) -> dict:
+        """A stream's interval scrub of ``table`` on ``arena`` as it stands
+        (faulty): wall time of ``scrub_pages`` (best of 3) and the B6 row,
+        each call on the planes restored first."""
+        faulty = [t_.clone() for t_ in (arena.lo, arena.hi, arena.parity)]
+
+        def scrub_wall():
+            for p_, s_ in zip((arena.lo, arena.hi, arena.parity), faulty):
+                p_.copy_(s_)
+            return wall_ms(lambda: arena.scrub_pages(table))
+
+        out = {"interval_scrub_ms": min(scrub_wall() for _ in range(3))}
+        row = gather_scrub_row(name, faulty, table_d, arena.geom.words_per_page,
+                               arena.codec_name)
+        out.update(interval_scrub_kernel_ms=row["ms"], interval_scrub_kernel=row)
+        return out
 
     def device_events(fn) -> list:
         """(name, start_us, end_us) of every device event (kernels, copies)
@@ -603,6 +715,9 @@ def main() -> int:
         k_enc = ops.encode(real_lo, real_hi)
         require(torch.equal(k_enc, ref.encode_ref(real_lo, real_hi)), "encode differs on the KV arena")
         arena.parity[:nk] = k_enc
+        # the scratch row a codeword too, as in serving (zeroed, then written
+        # only by encoded commits), so its syndromes are the faults' alone
+        arena.parity[nk:] = ops.encode(arena.lo[nk:], arena.hi[nk:])
         arena.set_voltage(0.54)
         arena.tick()
         ids = np.concatenate([np.arange(0, KV_PAGES, 2), [5, 5, 6, 6, 6, KV_PAGES, KV_PAGES, 0]])
@@ -629,13 +744,9 @@ def main() -> int:
         torch.cuda.synchronize()
         require(same(k_pl, p_pl), "encode_commit differs")
         print(f"  encode over the KV arena ({nk} words) and a {BATCH}-token commit: bit-identical")
-        rows = len(ids) * wpp
         report["gather_scrub"] = {
-            "n_words": rows, "arena_words": nk, "page_ids": ids.tolist(),
-            "ms": sync_ms(lambda: ops.gather_scrub_pages(*k_pl, ids_d, wpp), 20),
-            "plain_ms": sync_ms(lambda: ref.gather_scrub_ref(*p_pl, ids_d, wpp), 2),
-            "bound_ms": 1e3 * 26 * rows / HBM_BYTES_PER_S,
-        }
+            **gather_scrub_row("gather_scrub", (arena.lo, arena.hi, arena.parity), ids_d, wpp),
+            "arena_words": nk, "page_ids": ids.tolist()}
         report["encode_kv_arena"] = {
             "n_words": nk, "ms": sync_ms(lambda: ops.encode(real_lo, real_hi), 20),
             "plain_ms": sync_ms(lambda: ref.encode_ref(real_lo, real_hi), 2),
@@ -650,7 +761,7 @@ def main() -> int:
                                                               geom.token_words, *p_pl), 5),
             "bound_ms": 1e3 * 17 * cw / HBM_BYTES_PER_S,
         }
-        for key in ("gather_scrub", "encode_kv_arena", "encode_commit"):
+        for key in ("encode_kv_arena", "encode_commit"):
             r = report[key]
             print(f"  {key} ({r['n_words']} words): {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                   f"(bytes), plain {r['plain_ms']:.3f} ms")
@@ -659,26 +770,6 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 2, codecs
     with Phase("2 codec variants vs plain versions"):
-        sm_clock_hz = 1e6 * float(subprocess.run(
-            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-            capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
-        popc_per_s = (POPC_PER_SM_CLK * torch.cuda.get_device_properties(0).multi_processor_count
-                      * sm_clock_hz)
-        print(f"  popc rate {popc_per_s:.3e}/s ({POPC_PER_SM_CLK} per SM per clock at "
-              f"{sm_clock_hz / 1e6:.0f} MHz max SM clock)")
-
-        def bounds(words, codec, b_u8, b_u32, popc_extra=0, encodes=1):
-            """Bytes (``b_u8`` or ``b_u32`` per word by the check plane's
-            width) and popc (one per check bit per encode, plus
-            ``popc_extra``) over this card's rates; the larger bounds."""
-            c = codes.get(codec)
-            bpw = b_u8 if c.n_check <= 8 else b_u32
-            bt = 1e3 * bpw * words / HBM_BYTES_PER_S
-            ot = 1e3 * (encodes * c.n_check + popc_extra) * words / popc_per_s
-            return {"n_words": words, "codec": codec, "bytes_per_word": bpw, "bytes_ms": bt,
-                    "ops_ms": ot, "bound_ms": max(bt, ot),
-                    "bound_by": "bytes" if bt >= ot else "operations"}
-
         def timed(row, k_fn, p_fn, iters, p_iters=2):
             row["ms"] = sync_ms(k_fn, iters)
             row["plain_ms"] = sync_ms(p_fn, p_iters)
@@ -859,6 +950,7 @@ def main() -> int:
             require(torch.equal(k_enc, ref.encode_ref(real_lo, real_hi, name)),
                     f"encode {name} differs on the KV arena")
             arena.parity[:nk] = k_enc
+            arena.parity[nk:] = ops.encode(arena.lo[nk:], arena.hi[nk:], codec=name)  # scratch
             if name == "ileave88":
                 timed({"name": "encode_ileave88", **bounds(nk, name, 9, 12)},
                       lambda: ops.encode(real_lo, real_hi, codec="ileave88"),
@@ -887,10 +979,8 @@ def main() -> int:
             print(f"  {name} KV arena ({nk} words) at 0.54 V: encode, decode (status "
                   f"{torch.bincount(k_dec[2], minlength=3).tolist()}) and gather_scrub over "
                   f"{len(ids)} page ids bit-identical, (clean, corrected, detected) = {cnt[:3]}")
-            rows = len(ids) * wpp
-            timed({"name": f"gather_scrub_{name}", **bounds(rows, name, 26, 32, encodes=2)},
-                  lambda c_=name: ops.gather_scrub_pages(*k_pl, ids_d, wpp, codec=c_),
-                  lambda c_=name: ref.gather_scrub_ref(*p_pl, ids_d, wpp, codec=c_), 20)
+            report[f"gather_scrub_{name}"] = gather_scrub_row(
+                f"gather_scrub_{name}", (arena.lo, arena.hi, arena.parity), ids_d, wpp, name)
             payload = torch.randn(BATCH, geom.token_f32, generator=cg, device=dev)
             commit_base = torch.as_tensor(
                 kvpages.row_bases(np.arange(BATCH) * 3, np.arange(BATCH) % 8, geom), device=dev)
@@ -1205,12 +1295,10 @@ def main() -> int:
             "commit_ms": min(wall_ms(lambda: arena.commit_tokens(payload4, pages4, slots4))
                              for _ in range(3)),
             "tick_ms": min(wall_ms(timed_tick) for _ in range(3)),
-            "interval_scrub_ms": min(wall_ms(lambda: arena.scrub_pages(table)) for _ in range(3)),
-            "interval_scrub_kernel_ms": sync_ms(
-                lambda: ops.gather_scrub_pages(arena.lo, arena.hi, arena.parity, table_d,
-                                               geom.words_per_page), 20),
             "interval_pages": int(table.size), "arena_words": arena.n_words,
         }
+        # the scrubs are timed against the faults of those intervals
+        parts.update(interval_scrub_times(arena, table, table_d, "interval_scrub"))
         # Traced after every timed part of this engine's path: device time
         # inside one decode step and one fault interval + scrub.
         for key, fn in (("decode_step", lambda: lm.decode_step(eng.params, tok4, cfg, cache, pos4, kv4)),
@@ -1705,11 +1793,8 @@ def main() -> int:
         arena.set_voltage(0.56)
         codec_run["stream_breakdown"] = {
             "tick_ms": min(wall_ms(arena.tick) for _ in range(3)),
-            "interval_scrub_ms": min(wall_ms(lambda: arena.scrub_pages(table)) for _ in range(3)),
-            "interval_scrub_kernel_ms": sync_ms(
-                lambda: ops.gather_scrub_pages(arena.lo, arena.hi, arena.parity, table_d,
-                                               arena.geom.words_per_page, codec="ileave88"), 20),
-            "interval_pages": int(table.size), "arena_words": arena.n_words}
+            "interval_pages": int(table.size), "arena_words": arena.n_words,
+            **interval_scrub_times(arena, table, table_d, "interval_scrub_ileave88")}
         print(f"  ileave88 stream breakdown: fault interval (device masks, 88 bitplanes) "
               f"{codec_run['stream_breakdown']['tick_ms']:.2f} ms, interval scrub of "
               f"{table.size} pages {codec_run['stream_breakdown']['interval_scrub_ms']:.2f} ms "
@@ -1872,7 +1957,9 @@ def main() -> int:
                     "max_rel_err": r["max_rel_err"], "function": r["function"]}
                    if mm else {"n_words": r["n_words"]}),
                 **({k: r[k] for k in ("bytes_ms", "ops_ms", "ffma_ms", "masks", "ms_054",
-                                      "ms_nominal") if k in r}),
+                                      "ms_nominal", "counts", "distinct_words", "distinct_counts",
+                                      "changed_words", "bound_26_32_ms", "bound_26_32_by")
+                    if k in r}),
                 **({k: r[k] for k in ("mlp", "verify") if k in r}),
             })
         kernels[[k["name"] for k in kernels].index("encode")]["kv_arena"] = report["encode_kv_arena"]

@@ -2,7 +2,7 @@
 """Prefill and decode times of the port's forward at serving lengths, for
 an A/B of two checkouts on one card.
 
-    PYTHONPATH=<checkout>/src python3 port_ab.py --label NAME [--out FILE] [--stream]
+    PYTHONPATH=<checkout>/src python3 port_ab.py --label NAME [--out FILE] [--stream] [--b6]
 
 ``repro_torch`` is imported from PYTHONPATH, so the same script times any
 checkout of the port; run the checkouts interleaved on one card (A, B, B,
@@ -24,6 +24,18 @@ matrices at M = 4 (decode), M = 20 (a speculative verify block) and M = 128
 (prefill), each cycled through the
 28 layers so the planes come from HBM, and the Fig. 3 MLP's three shapes
 (784-256-128-10, random weights) at M = 4,000.
+
+``--b6`` times the paged scrub-on-read (B6, ``ops.gather_scrub_pages``) alone
+instead, at its main-path shapes, by CUDA events around each call with the
+faults restored and the L2 filled with clean lines before it (outside the
+window), so every call scrubs the same faulty words from device memory:
+the 40-id table of ``chip_smoke.py`` phase 2 (duplicate and scratch ids)
+over a 64-page arena after one 0.54 V fault interval, under each codec
+(and over the same arena before it, where no word has a fault),
+and the serve stream's interval scrub (16 ids: 14 pages and two scratch
+rows of a 14-page arena after three 0.56 V intervals) under secded72
+(phase 6) and ileave88 (phase 9). Every arena row, the scratch row
+included, is a codeword before the faults. It builds no model.
 
 ``--stream`` also serves the 8-request stream of ``chip_smoke.py`` phase 6
 (0.56 V kv rail, 14 pages, 4 lanes) 8 times and records each run's wall
@@ -62,6 +74,29 @@ def _op_counter():
     return OpCount
 
 
+def _device_queue(dev):
+    """``queue()``: enqueues ~50 ms of large matmuls, so that the timed window
+    queued behind it measures device time only (the host has enqueued the
+    window's launches before the card reaches them)."""
+    import torch
+
+    busy = torch.randn(4096, 4096, device=dev, dtype=torch.bfloat16)
+
+    def mm(n):
+        for _ in range(n):
+            torch.mm(busy, busy)
+
+    mm(10)
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    mm(50)
+    e.record()
+    e.synchronize()
+    mm_ms = s.elapsed_time(e) / 50
+    return lambda: mm(int(50.0 / mm_ms) + 1)
+
+
 def _time_b3(eng, cfg, dev) -> dict:
     """Device ms of ``ops.ecc_matmul``: per layer (its 7 matrices) at M = 4,
     20 and 128, and the MLP's 3 layers at M = 4,000."""
@@ -70,25 +105,13 @@ def _time_b3(eng, cfg, dev) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.models import base
 
-    busy = torch.randn(4096, 4096, device=dev, dtype=torch.bfloat16)
-
-    def queue(n):
-        for _ in range(n):
-            torch.mm(busy, busy)
-
-    queue(10)
-    torch.cuda.synchronize()
+    queue = _device_queue(dev)
     s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    queue(50)
-    e.record()
-    e.synchronize()
-    mm_ms = s.elapsed_time(e) / 50
 
     def device_ms(fn, iters):
         fn()
         torch.cuda.synchronize()
-        queue(int(50.0 / mm_ms) + 1)
+        queue()
         s.record()
         for _ in range(iters):
             fn()
@@ -116,11 +139,83 @@ def _time_b3(eng, cfg, dev) -> dict:
     return res
 
 
+def _time_b6(dev, iters: int = 20) -> dict:
+    """Device ms of ``ops.gather_scrub_pages`` per call, faults restored
+    before each call (see ``--b6``), with the (clean, corrected, detected)
+    counts of the timed words."""
+    import numpy as np
+    import torch
+
+    from repro_torch import codes
+    from repro_torch.configs import get_config
+    from repro_torch.core.kvpages import KVGeometry, KVPageArena
+    from repro_torch.core.voltage import PLATFORMS
+    from repro_torch.kernels import ops
+
+    queue = _device_queue(dev)
+    l2_flush = torch.zeros(32 * 2**20, device=dev)  # 128 MB, 2.5x the L2
+    geom = KVGeometry.from_config(get_config("qwen3-0.6b"))
+    wpp = geom.words_per_page
+
+    def faulty_arena(n_pages, codec, volts, intervals):
+        """Random words, every row a codeword (the scratch row too, as in
+        serving), then ``intervals`` fault intervals at ``volts``."""
+        arena = KVPageArena(geom, PLATFORMS["vc707"], n_pages, seed=0, codec=codec, device=dev)
+        g = torch.Generator(device=dev).manual_seed(2)
+        word = lambda: torch.randint(-2**31, 2**31, arena.lo.shape, generator=g, device=dev,
+                                     dtype=torch.int64).to(torch.int32)
+        arena.lo, arena.hi = word(), word()
+        arena.parity.copy_(ops.encode(arena.lo, arena.hi, codec=codec))
+        arena.set_voltage(volts)
+        for _ in range(intervals):
+            arena.tick()
+        return arena
+
+    def row(arena, ids, codec):
+        ids_d = torch.as_tensor(np.asarray(ids, np.int32), device=dev)
+        saved = (arena.lo, arena.hi, arena.parity)
+        work = [t.clone() for t in saved]
+        counts = ops.gather_scrub_pages(*work, ids_d, wpp, codec=codec)[1][:, :3].sum(0).tolist()
+        evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+               for _ in range(iters)]
+
+        def restore():
+            for w, t in zip(work, saved):
+                w.copy_(t)
+
+        torch.cuda.synchronize()
+        queue()
+        for s, e in evs:
+            restore()
+            l2_flush.sum()  # the L2 filled with clean lines
+            s.record()
+            ops.gather_scrub_pages(*work, ids_d, wpp, codec=codec)
+            e.record()
+        torch.cuda.synchronize()
+        return {"ms": sum(s.elapsed_time(e) for s, e in evs) / iters, "n_words": len(ids) * wpp,
+                "counts": counts}
+
+    res = {}
+    table40 = np.concatenate([np.arange(0, 64, 2), [5, 5, 6, 6, 6, 64, 64, 0]])
+    for codec in codes.names():
+        # the same words before the interval: the cost of the faults is the difference
+        for name, intervals in ((f"table40_{codec}_clean", 0), (f"table40_{codec}", 1)):
+            res[name] = row(faulty_arena(64, codec, 0.54, intervals), table40, codec)
+            print(json.dumps({name: res[name]}), flush=True)
+    interval = np.concatenate([np.arange(14), [14, 14]])  # 14 pages, two scratch rows
+    for codec in ("secded72", "ileave88"):
+        # three intervals, as chip_smoke.py's stream breakdown ticks before its scrub
+        res[f"interval_{codec}"] = row(faulty_arena(14, codec, 0.56, 3), interval, codec)
+        print(json.dumps({f"interval_{codec}": res[f"interval_{codec}"]}), flush=True)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", required=True)
     ap.add_argument("--out")
     ap.add_argument("--stream", action="store_true")
+    ap.add_argument("--b6", action="store_true")
     args = ap.parse_args()
 
     import numpy as np
@@ -140,6 +235,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
+    if args.b6:
+        return _emit({"label": args.label, "gpu": gpu, "torch": torch.__version__,
+                      "b6": _time_b6(dev)}, args.out)
     cfg = get_config("qwen3-0.6b")
     params = lm.init_params(cfg, seed=0, device=dev)
     eng = ServingEngine(cfg, params, rel=ReliabilityConfig(mode="inline", voltage=1.0),
@@ -208,9 +306,13 @@ def main() -> int:
             print(json.dumps(runs[-1]), flush=True)
         out["stream"] = runs
 
+    return _emit(out, args.out)
+
+
+def _emit(out: dict, path) -> int:
     line = json.dumps(out)
-    if args.out:
-        with open(args.out, "w") as f:
+    if path:
+        with open(path, "w") as f:
             f.write(line + "\n")
     print(line)
     return 0

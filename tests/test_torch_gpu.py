@@ -290,3 +290,107 @@ def test_codec_launches_counted_per_codec(cuda):
     assert by["inject_scrub"] == dict.fromkeys(CODECS, 1)
     assert by["encode"] == dict.fromkeys(CODECS, 2)
     assert ops.launch_counts()["encode"] == 8
+
+
+def _b6_planes(codec, n, faults, device, seed=4):
+    """Clean planes of n words under ``codec`` and their faulty copy:
+    ``faults`` is None (no fault), a per-bit rate (with 4-bit bursts, as
+    ``_codec_planes``) or "heavy" (one flip in every word, a second in one
+    word of five)."""
+    c = codes.get(codec)
+    rate = faults if isinstance(faults, float) else 0.0
+    lo, hi, chk, mlo, mhi, mchk = _codec_planes(codec, n, rate, device, seed)
+    if faults is None:
+        return (lo, hi, chk), (lo.clone(), hi.clone(), chk.clone())
+    if faults != "heavy":
+        return (lo, hi, chk), (lo ^ mlo, hi ^ mhi, chk ^ mchk)
+    g = np.random.default_rng(seed)
+    width = 64 + c.n_check
+    bits = np.zeros((n, width), bool)
+    bits[np.arange(n), g.integers(0, width, n)] = True
+    two = np.flatnonzero(g.random(n) < 0.2)
+    bits[two, g.integers(0, width, two.size)] ^= True
+    pack = lambda b: b.astype(np.uint64) @ (1 << np.arange(b.shape[1], dtype=np.uint64))
+    word = lambda a: torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(device)
+    mchk = pack(bits[:, 64:]).astype(c.check_dtype)
+    mchk = torch.from_numpy(mchk.view(np.int32) if c.n_check > 8 else mchk).to(device)
+    return (lo, hi, chk), (lo ^ word(pack(bits[:, :32])), hi ^ word(pack(bits[:, 32:64])),
+                           chk ^ mchk)
+
+
+def _at_offset(t, offset):
+    """A copy of ``t`` that starts ``offset`` elements past an allocation's
+    (aligned) start."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    buf[offset:] = t
+    return buf[offset:]
+
+
+# name -> (words per page, page ids of a 17-page arena, faults, plane offset)
+B6_CASES = {
+    "one_row": (8192, [11], 0.003, 0),
+    "one_faulty_id_in_every_row": (8192, [6] * 9, 0.003, 0),
+    "shared_ids_first_seen_late": (8192, [16, 2, 7, 2, 9, 16, 7, 0, 16], 0.003, 0),
+    "pages_off_quad_boundary": (1001, [0, 1, 2, 3, 5, 3, 6, 1, 16, 15], 0.003, 0),
+    "planes_off_16_bytes": (1001, [4, 9, 4, 1, 2], 0.003, 1),
+    "most_words_change": (4096, [4, 4, 9, 1, 9, 12, 3], "heavy", 0),
+    "all_clean": (8192, [3, 16, 3, 0, 7, 7, 12], None, 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(B6_CASES))
+@pytest.mark.parametrize("codec", CODECS)
+def test_gather_scrub_kernel_edge_tables(cuda, codec, case):
+    """Payload, counters and the three arena planes bit-identical to the
+    plain version on tables of one row, of one faulty id in every row, of
+    shared ids whose rows are not adjacent, with page bases that are not a
+    multiple of four words, with planes that start off a 16-byte boundary,
+    with most words changing, and on a clean arena, whose planes must keep
+    their bytes."""
+    wpp, ids, faults, offset = B6_CASES[case]
+    clean, planes = _b6_planes(codec, 17 * wpp, faults, cuda)
+    ids = torch.tensor(ids, dtype=torch.int32, device=cuda)
+    k_planes = [_at_offset(t, offset) for t in planes]
+    p_planes = [t.clone() for t in planes]
+    before = ops.launch_counts()["gather_scrub"]
+    k = ops.gather_scrub_pages(*k_planes, ids, wpp, codec=codec)
+    p = ref.gather_scrub_ref(*p_planes, ids, wpp, codec=codec)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gather_scrub"] == before + 1
+    assert torch.equal(k[0].view(torch.int32), p[0].view(torch.int32))
+    assert torch.equal(k[1], p[1])
+    assert all(torch.equal(a, b) for a, b in zip(k_planes, p_planes))
+    assert torch.equal(k[1][:, :3].sum(dim=1), torch.full_like(k[1][:, 0], wpp))
+    idx = ids.long()[:, None] * wpp + torch.arange(wpp, device=cuda)
+    changed = sum((a[idx] != b[idx]) for a, b in zip(planes, p_planes)).bool()
+    if faults is None:
+        assert all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in zip(k_planes, clean))
+        assert int(k[1][:, 0].sum()) == idx.numel()
+    elif faults == "heavy" and codec != "parity65":  # parity65 corrects nothing
+        assert float(changed.float().mean()) > 0.5
+    else:
+        assert int(k[1][:, 2].sum()) > 0
+
+
+@pytest.mark.gpu
+def test_gather_scrub_kernel_refuses_a_short_record(cuda):
+    """The kernel needs exactly the changed-word record the wrapper sizes
+    (``record_words``; the other tests pass that size) and refuses a
+    smaller one instead of writing past it."""
+    from repro_torch.kernels import backend
+    from repro_torch.kernels import paged_gather as pg
+
+    lo, hi, chk = _planes(4 * 1001, 0.0, cuda)[:3]
+    ids = torch.tensor([0, 2], dtype=torch.int32, device=cuda)
+    out = torch.empty(2, 1001, 2, dtype=torch.int32, device=cuda)
+    cnt = torch.zeros(3, 8, dtype=torch.int32, device=cuda)
+    short = pg.record_words(2, 1001) - 1
+    rec = torch.empty(short, dtype=torch.int32, device=cuda)
+    c = codes.get("secded72")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pg.GATHER_SCRUB(c.kernel_id, *map(backend.ptr, (lo, hi, chk, ids)), 2, 1001,
+                        backend.ptr(out), backend.ptr(rec), short, backend.ptr(cnt),
+                        backend.ptr(c.kernel_tables(lo.device)),
+                        backend.ptr(c.kernel_tables(torch.device("cpu"))), backend.stream(lo))

@@ -3,6 +3,9 @@ encode (B4) and the paged scrub-on-read (B6) against the reference kernels
 (Pallas interpret mode on the CPU), bit for bit, and the two entry points the
 encode now serves: weight packing and the store's device."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +19,7 @@ from repro.kernels import paged_gather as jpg
 from repro_torch.core import planestore as tps
 from repro_torch.core import voltage as tv
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import paged_gather as tpg
 from repro_torch.kernels import ref as tref
 
 
@@ -151,3 +155,39 @@ def test_planestore_device_follows_leaves_else_the_card():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tps.PlaneStore([], [], tv.PLATFORMS["vc707"])
+
+
+@pytest.mark.parametrize("wpp", [1, 2, 3, 4, 5, 127, 128, 129, 1001, 8192, 229376])
+def test_gather_scrub_record_holds_every_word(wpp):
+    """The wrapper sizes the changed-word record as the card's launcher
+    checks it: its chunk and record constants and its chunks_per_row are
+    the CUDA source's (the C++ expressions evaluated here), and the chunks
+    of a row cover its W words at any offset of the page base from a
+    four-word boundary (up to three words)."""
+    src = (Path(tpg.__file__).parent / "csrc" / "paged_gather.cu").read_text()
+    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    chunk_quads, record = const("kChunkQuads"), const("kRecordWords")
+    assert (4 * chunk_quads, record) == (tpg.CHUNK_WORDS, tpg.RECORD_WORDS_PER_CHUNK)
+    body = re.search(r"long long chunks_per_row\(long long words_per_page\) \{(.*?)\n\}",
+                     src, re.S).group(1)
+    quads_expr = re.search(r"const long long quads = (.*?);", body).group(1)
+    chunks_expr = re.search(r"return (.*?);", body).group(1)
+    c_div = lambda expr, **env: eval(expr.replace("/", "//"), {}, env)  # integer C division
+    quads = c_div(quads_expr, words_per_page=wpp)
+    chunks = c_div(chunks_expr, quads=quads, kChunkQuads=chunk_quads)
+    assert tpg.chunks_per_row(wpp) == chunks
+    assert chunks * tpg.CHUNK_WORDS >= wpp + 3
+    # the launcher refuses record_words < n_rows * chunks * kRecordWords
+    for n_rows in (1, 40):
+        assert tpg.record_words(n_rows, wpp) == n_rows * chunks * record
+
+
+@pytest.mark.parametrize("codec", ["parity65", "secded72", "ileave88", "dected79"])
+def test_syndrome_zero_is_clean_without_flips(codec):
+    """The card's paged scrub neither classifies nor writes back a word whose
+    syndrome is 0: every codec reads it as clean with no flips, so its
+    corrected words and re-encoded check bits are the stored ones."""
+    from repro_torch import codes
+
+    flo, fhi, status = codes.get(codec).classify(torch.zeros(1, dtype=torch.int64))
+    assert (int(flo[0]), int(fhi[0]), int(status[0])) == (0, 0, codes.STATUS_CLEAN)
