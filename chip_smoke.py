@@ -30,8 +30,14 @@ them. Phases, each printed on its own line with its wall time:
      KV arena under each codec with duplicate and scratch page ids), and
      the variants no path runs (inject+scrub under parity65 and ileave88,
      its domain form and the decode under ileave88) on masks drawn on the
-     card. The paged scrub is timed with its faults restored before every
-     call (and the L2 filled with clean lines), so each timed call scrubs
+     card; then, for every codec, the edge cases of the token commit (one
+     row, a verify block, a 4 x 32-token prompt, an odd row width, row bases
+     off a quad boundary) and of the inject+scrub in both forms (planes cut
+     at word offsets 1-3, one plane off 16 bytes, 1, 3, 5 and 4,097 words,
+     domain boundaries inside quads and out-of-range ids), bit for bit. Every token-commit row carries the floor of one
+     launch in the same timing loop (a one-element in-place add). The
+     paged scrub is timed with its faults restored before every call (and
+     the L2 filled with clean lines), so each timed call scrubs
      the same faulty words; its row gives the (clean, corrected, detected)
      counts of those words, the words that change, its bound at those
      counts and the earlier two-pass design's bound of 26 / 32 B a word
@@ -752,14 +758,19 @@ def main() -> int:
             "plain_ms": sync_ms(lambda: ref.encode_ref(real_lo, real_hi), 2),
             "bound_ms": 1e3 * 9 * nk / HBM_BYTES_PER_S,
         }
+        # The floor of one launch in this timing loop: a one-element
+        # in-place add, beside every commit entry (whose bound lies below it).
+        one = torch.zeros(1, device=dev)
+        launch_floor_ms = sync_ms(lambda: one.add_(1), 50)
+        print(f"  launch floor (one-element add_ in the same loop): {launch_floor_ms:.4f} ms")
         cw = BATCH * geom.token_words
         report["encode_commit"] = {
-            "n_words": cw, "rows": BATCH,
+            "rows": BATCH, "launch_floor_ms": launch_floor_ms,
+            **bounds(cw, "secded72", 17, 20, extra_bytes=8 * BATCH),
             "ms": sync_ms(lambda: ops.encode_commit(payload, commit_base, geom.token_words,
                                                     *k_pl), 50),
             "plain_ms": sync_ms(lambda: ref.encode_commit_ref(payload, commit_base,
                                                               geom.token_words, *p_pl), 5),
-            "bound_ms": 1e3 * 17 * cw / HBM_BYTES_PER_S,
         }
         for key in ("encode_kv_arena", "encode_commit"):
             r = report[key]
@@ -989,12 +1000,73 @@ def main() -> int:
             torch.cuda.synchronize()
             require(same(k_pl, p_pl), f"encode_commit {name} differs")
             timed({"name": f"encode_commit_{name}", "rows": BATCH,
-                   **bounds(BATCH * geom.token_words, name, 17, 20)},
+                   "launch_floor_ms": launch_floor_ms,
+                   **bounds(BATCH * geom.token_words, name, 17, 20, extra_bytes=8 * BATCH)},
                   lambda c_=name: ops.encode_commit(payload, commit_base, geom.token_words,
                                                     *k_pl, codec=c_),
                   lambda c_=name: ref.encode_commit_ref(payload, commit_base, geom.token_words,
                                                         *p_pl, codec=c_), 50, 5)
             del arena, real_lo, real_hi, k_enc, fplanes, k_dec, p_dec, k_pl, p_pl, k_gs, p_gs
+        torch.cuda.empty_cache()
+
+        # d. every codec, bit for bit: B4's commit form at the full token
+        # width into a 64-page arena (one row, a verify block, a 4 x 32-token
+        # prompt, an odd row width, row bases off a quad boundary), and B1 and
+        # B2 (both re-encode settings) on planes cut at word offsets 1-3 and
+        # on one plane off 16 bytes (the word loop), on 1, 3, 5 and 4,097
+        # words, and with domain boundaries inside quads and out-of-range ids
+        tw, slots = geom.token_words, KV_PAGES * geom.page_tokens
+        commit_cases = {  # name -> (row words, rows, row shifts)
+            "one_row": (tw, 1, 0), "verify_block": (tw, VERIFY_M, 0),
+            "prompt_4x32": (tw, BATCH * 32, 0), "odd_row_words": (tw - 1, 6, 0),
+            "bases_off_quad": (tw - 4, 6, np.arange(6) % 3 + 1)}
+
+        def at_offset(t_, k):
+            buf = torch.empty(t_.numel() + k, dtype=t_.dtype, device=dev)
+            buf[k:] = t_
+            return buf[k:]
+
+        inject_cases = {  # name -> (words, offsets of lo, hi, check, 3 masks, ids)
+            "word_1": (4097, (1,) * 7), "word_2": (4097, (2,) * 7),
+            "word_3": (4097, (3,) * 7), "n_1": (1, (0,) * 7), "n_3": (3, (0,) * 7),
+            "n_5": (5, (0,) * 7), "n_4097": (4097, (0,) * 7),
+            "one_plane_off_16_bytes": (4097, (0, 0, 0, 0, 0, 0, 3))}
+        runs = torch.tensor([0, 1, 2, 0, -1, 1, 3, 2], device=dev, dtype=torch.int32)
+        run_len = torch.tensor([5, 3, 7, 1, 2, 6, 3, 9], device=dev)
+        for name in codes.names():
+            c = codes.get(name)
+            n_arena = (KV_PAGES + 1) * wpp
+            base_pl = [rand_words(n_arena), rand_words(n_arena)]
+            base_pl.append(ops.encode(*base_pl, codec=name))
+            for case, (rw, rows, shift) in commit_cases.items():
+                dest = torch.randperm(slots, generator=cg, device=dev)[:rows]
+                rb = (dest * tw + torch.as_tensor(shift, device=dev)).contiguous()
+                pay = torch.randn(rows, 2 * rw, generator=cg, device=dev)
+                k_pl = [t_.clone() for t_ in base_pl]
+                p_pl = [t_.clone() for t_ in base_pl]
+                ops.encode_commit(pay, rb, rw, *k_pl, codec=name)
+                ref.encode_commit_ref(pay, rb, rw, *p_pl, codec=name)
+                torch.cuda.synchronize()
+                require(same(k_pl, p_pl), f"encode_commit {name} differs: {case}")
+            del base_pl, k_pl, p_pl
+            for case, (n_, offs) in inject_cases.items():
+                planes = [rand_words(n_), rand_words(n_)]
+                planes += [ops.encode(*planes, codec=name), *card_masks(n_, name)]
+                dom = runs.repeat_interleave(run_len).repeat(n_ // int(run_len.sum()) + 1)[:n_]
+                *planes, dom = [at_offset(t_, o) for t_, o in zip((*planes, dom), offs)]
+                for reencode in (False, True):
+                    require(same(ops.inject_scrub(*planes, codec=name, reencode=reencode),
+                                 ref.inject_scrub_ref(*planes, codec=name, reencode=reencode)),
+                            f"inject_scrub {name} differs: {case} reencode={reencode}")
+                    require(same(ops.inject_scrub_domains(*planes, dom, 3, codec=name,
+                                                          reencode=reencode),
+                                 ref.inject_scrub_domains_ref(*planes, dom, 3, codec=name,
+                                                              reencode=reencode)),
+                            f"inject_scrub_domains {name} differs: {case} reencode={reencode}")
+            print(f"  {name} edge cases bit-identical: commit {list(commit_cases)} "
+                  f"({c.n_check} check bits, {tw}-word tokens); inject_scrub and its domain "
+                  f"form {list(inject_cases)}, domain runs {run_len.tolist()} of ids "
+                  f"{runs.tolist()} (3 rows), both re-encode settings")
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 3
@@ -1957,6 +2029,7 @@ def main() -> int:
                     "max_rel_err": r["max_rel_err"], "function": r["function"]}
                    if mm else {"n_words": r["n_words"]}),
                 **({k: r[k] for k in ("bytes_ms", "ops_ms", "ffma_ms", "masks", "ms_054",
+                                      "launch_floor_ms",
                                       "ms_nominal", "counts", "distinct_words", "distinct_counts",
                                       "changed_words", "bound_26_32_ms", "bound_26_32_by")
                     if k in r}),

@@ -2,7 +2,8 @@
 """Prefill and decode times of the port's forward at serving lengths, for
 an A/B of two checkouts on one card.
 
-    PYTHONPATH=<checkout>/src python3 port_ab.py --label NAME [--out FILE] [--stream] [--b6]
+    PYTHONPATH=<checkout>/src python3 port_ab.py --label NAME [--out FILE] [--stream]
+        [--b4] [--b2] [--b6]
 
 ``repro_torch`` is imported from PYTHONPATH, so the same script times any
 checkout of the port; run the checkouts interleaved on one card (A, B, B,
@@ -36,6 +37,21 @@ and the serve stream's interval scrub (16 ids: 14 pages and two scratch
 rows of a 14-page arena after three 0.56 V intervals) under secded72
 (phase 6) and ileave88 (phase 9). Every arena row, the scratch row
 included, is a codeword before the faults. It builds no model.
+
+``--b4`` times the token commit (B4's commit form, ``ops.encode_commit``)
+alone under each codec, by CUDA events over a window of calls queued behind
+matmuls: 4 rows (a decode step), 20 rows (a speculative verify block) and
+128 rows (a 4 x 32-token prompt) of qwen3-0.6b's 28,672-word tokens into a
+64-page arena, with the time of a one-element in-place ``add_`` in the same
+loop (the floor of one launch) beside it. ``--b2`` times the fused
+inject+scrub (B1, ``ops.inject_scrub``) and its per-domain form (B2,
+``ops.inject_scrub_domains``) alone under each codec at ``chip_smoke.py``'s
+word counts (B1: the 55,050,240-word single-rail arena; B2: the
+74,498,048-word multi-rail arena in three domain runs, and under parity65
+and dected79 the attention and MLP groups of the per-domain-codec engine)
+on random words and masks drawn on the card (each bit flips with
+probability 2^-10). Neither builds a model; ``--b4``, ``--b2`` and ``--b6``
+may be given together and replace the model's timings.
 
 ``--stream`` also serves the 8-request stream of ``chip_smoke.py`` phase 6
 (0.56 V kv rail, 14 pages, 4 lanes) 8 times and records each run's wall
@@ -97,6 +113,23 @@ def _device_queue(dev):
     return lambda: mm(int(50.0 / mm_ms) + 1)
 
 
+def _window_ms(queue, fn, iters: int) -> float:
+    """Device ms per call of ``fn``: CUDA events around ``iters`` calls
+    queued behind ~50 ms of matmuls, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    queue()
+    s.record()
+    for _ in range(iters):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / iters
+
+
 def _time_b3(eng, cfg, dev) -> dict:
     """Device ms of ``ops.ecc_matmul``: per layer (its 7 matrices) at M = 4,
     20 and 128, and the MLP's 3 layers at M = 4,000."""
@@ -106,19 +139,6 @@ def _time_b3(eng, cfg, dev) -> dict:
     from repro_torch.models import base
 
     queue = _device_queue(dev)
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-
-    def device_ms(fn, iters):
-        fn()
-        torch.cuda.synchronize()
-        queue()
-        s.record()
-        for _ in range(iters):
-            fn()
-        e.record()
-        e.synchronize()
-        return s.elapsed_time(e) / iters
-
     gen = torch.Generator(device=dev).manual_seed(1)
     leaves = [w for k, w in base.flatten(eng.params)
               if isinstance(w, ops.EccWeight) and ("attn" in k or "mlp" in k)]
@@ -128,14 +148,14 @@ def _time_b3(eng, cfg, dev) -> dict:
         for w in leaves:
             layers = [w.layer(g) for g in range(cfg.n_groups)]
             x = torch.randn(m, w.k, generator=gen, device=dev)
-            shapes[f"{w.k}x{w.n}"] = shapes.get(f"{w.k}x{w.n}", 0.0) + device_ms(
-                lambda: [ops.ecc_matmul(x, lw) for lw in layers], 5) / len(layers)
+            shapes[f"{w.k}x{w.n}"] = shapes.get(f"{w.k}x{w.n}", 0.0) + _window_ms(
+                queue, lambda: [ops.ecc_matmul(x, lw) for lw in layers], 5) / len(layers)
         res[f"M={m}"] = {"per_layer_ms": sum(shapes.values()), "shapes_ms": shapes}
     mlp = [ops.pack_ecc_weights(torch.randn(k, n, generator=gen, device=dev))
            for k, n in ((784, 256), (256, 128), (128, 10))]
     xs = [torch.randn(4000, w.k, generator=gen, device=dev) for w in mlp]
-    res["mlp_M=4000_ms"] = device_ms(lambda: [ops.ecc_matmul(x, w) for x, w in zip(xs, mlp)],
-                                     20)
+    res["mlp_M=4000_ms"] = _window_ms(
+        queue, lambda: [ops.ecc_matmul(x, w) for x, w in zip(xs, mlp)], 20)
     return res
 
 
@@ -210,11 +230,101 @@ def _time_b6(dev, iters: int = 20) -> dict:
     return res
 
 
+def _time_b4(dev, iters: int = 50) -> dict:
+    """Device ms of ``ops.encode_commit`` per call (see ``--b4``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import codes
+    from repro_torch.configs import get_config
+    from repro_torch.core.kvpages import KVGeometry, row_bases
+    from repro_torch.kernels import ops
+
+    queue = _device_queue(dev)
+    geom = KVGeometry.from_config(get_config("qwen3-0.6b"))
+    g = torch.Generator(device=dev).manual_seed(7)
+    one = torch.zeros(1, device=dev)
+    res = {"launch_floor_ms": _window_ms(queue, lambda: one.add_(1), iters)}
+    n = 65 * geom.words_per_page  # 64 pages and the scratch row
+    tables = {"rows4": (np.arange(4) * 3, np.arange(4) % 8),
+              "rows20": (np.arange(20) // 8 * 2, np.arange(20) % 8),
+              "prompt4x32": (np.arange(128) // 8, np.arange(128) % 8)}
+    for codec in codes.names():
+        c = codes.get(codec)
+        planes = [torch.zeros(n, dtype=torch.int32, device=dev),
+                  torch.zeros(n, dtype=torch.int32, device=dev),
+                  torch.zeros(n, dtype=c.check_torch_dtype, device=dev)]
+        for name, (pages, slots) in tables.items():
+            base = torch.as_tensor(row_bases(pages, slots, geom), device=dev)
+            payload = torch.randn(len(pages), geom.token_f32, generator=g, device=dev)
+            ms = _window_ms(queue, lambda: ops.encode_commit(
+                payload, base, geom.token_words, *planes, codec=codec), iters)
+            res[f"{name}_{codec}"] = {"ms": ms, "rows": len(pages),
+                                      "n_words": len(pages) * geom.token_words}
+            print(json.dumps({f"{name}_{codec}": res[f"{name}_{codec}"]}), flush=True)
+    return res
+
+
+def _time_b2(dev, iters: int = 20) -> dict:
+    """Device ms of ``ops.inject_scrub`` and ``ops.inject_scrub_domains`` per
+    call (see ``--b2``)."""
+    import torch
+
+    from repro_torch import codes
+    from repro_torch.kernels import ops
+
+    queue = _device_queue(dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+
+    def words(n):
+        return torch.randint(-2**31, 2**31, (n,), generator=g, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    def sparse(n):
+        w = words(n)
+        for _ in range(9):
+            w &= words(n)
+        return w
+
+    runs = {"attention": 22_020_096, "mlp": 33_030_144, "embedding": 19_447_808}
+    single = 55_050_240
+    res = {}
+    for codec in codes.names():
+        c = codes.get(codec)
+        cases = [("inject_scrub", single, None)]
+        if codec in ("parity65", "dected79"):  # the codec engine's attention / MLP group
+            d = "attention" if codec == "parity65" else "mlp"
+            cases.append(("inject_scrub_domains", runs[d], [(list(runs).index(d), runs[d])]))
+        if codec in ("secded72", "ileave88"):  # the whole multi-rail arena
+            cases.append(("inject_scrub_domains", sum(runs.values()),
+                          list(enumerate(runs.values()))))
+        for kernel, n, dom_runs in cases:
+            lo, hi = words(n), words(n)
+            chk = ops.encode(lo, hi, codec=codec)
+            masks = (sparse(n), sparse(n),
+                     (sparse(n) & ((1 << c.n_check) - 1)).to(c.check_torch_dtype))
+            if dom_runs is None:
+                fn = lambda: ops.inject_scrub(lo, hi, chk, *masks, codec=codec)
+            else:
+                dom = torch.cat([torch.full((k,), i, dtype=torch.int32, device=dev)
+                                 for i, k in dom_runs])
+                fn = lambda: ops.inject_scrub_domains(lo, hi, chk, *masks, dom, len(runs),
+                                                      codec=codec)
+            key = f"{kernel}_{codec}"
+            res[key] = {"ms": _window_ms(queue, fn, iters), "n_words": n}
+            print(json.dumps({key: res[key]}), flush=True)
+            del lo, hi, chk, masks, fn
+            torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", required=True)
     ap.add_argument("--out")
     ap.add_argument("--stream", action="store_true")
+    ap.add_argument("--b4", action="store_true")
+    ap.add_argument("--b2", action="store_true")
     ap.add_argument("--b6", action="store_true")
     args = ap.parse_args()
 
@@ -235,9 +345,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
-    if args.b6:
-        return _emit({"label": args.label, "gpu": gpu, "torch": torch.__version__,
-                      "b6": _time_b6(dev)}, args.out)
+    timers = {"b4": _time_b4, "b2": _time_b2, "b6": _time_b6}
+    if any(getattr(args, k) for k in timers):
+        out = {"label": args.label, "gpu": gpu, "torch": torch.__version__}
+        out.update({k: f(dev) for k, f in timers.items() if getattr(args, k)})
+        return _emit(out, args.out)
     cfg = get_config("qwen3-0.6b")
     params = lm.init_params(cfg, seed=0, device=dev)
     eng = ServingEngine(cfg, params, rel=ReliabilityConfig(mode="inline", voltage=1.0),

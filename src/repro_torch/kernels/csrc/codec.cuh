@@ -9,10 +9,12 @@
 // memory (Shared), and classify(synd, flip_lo, flip_hi) -> status (0 clean,
 // 1 corrected, 2 detected). encode() is shared: check bit r is the parity of
 // (lo & mask_lo[r]) ^ (hi & mask_hi[r]), one popc per check bit;
-// encode_bytes() computes the same bits by byte tables. The flips
-// apply whatever the status (a subcode of ileave88 may correct while another
-// detects), as in the reference's decode. Small tables are resolved by table
-// reads in shared memory instead of the TPU kernels' compare/select chains.
+// encode_bytes() computes the same bits by byte tables where the trait's
+// kByteEncode says so (ByteTables below): the one choice of encode for the
+// kernels that encode many words a block. The flips apply whatever the
+// status (a subcode of ileave88 may correct while another detects), as in
+// the reference's decode. Small tables are resolved by table reads in
+// shared memory instead of the TPU kernels' compare/select chains.
 //
 // Each kernel of inject_scrub.cu, secded.cu and paged_gather.cu is a
 // template over these traits, instantiated once per codec; its extern "C"
@@ -22,6 +24,7 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <mutex>
 
 enum CodecId : int { kParity65 = 0, kSecded72 = 1, kIleave88 = 2, kDected79 = 3 };
 
@@ -31,6 +34,7 @@ constexpr int kClean = 0, kCorrected = 1, kDetected = 2;
 struct Parity65 {
   static constexpr int kCheck = 1;
   static constexpr bool kExact = false;
+  static constexpr bool kByteEncode = false;
   using check_t = uint8_t;
   struct Global {
     uint32_t mask_lo[1];
@@ -57,6 +61,7 @@ struct SecdedTables {
 struct Secded72 {
   static constexpr int kCheck = 8;
   static constexpr bool kExact = false;
+  static constexpr bool kByteEncode = false;
   using check_t = uint8_t;
   using Global = SecdedTables;
   using Shared = SecdedTables;
@@ -75,6 +80,7 @@ static_assert(sizeof(Secded72::Global) == 2368, "layout shared with Codec.kernel
 struct Ileave88 {
   static constexpr int kCheck = 24;
   static constexpr bool kExact = true;
+  static constexpr bool kByteEncode = true;
   using check_t = uint32_t;
   struct Global {
     uint32_t mask_lo[24];
@@ -111,6 +117,7 @@ static_assert(sizeof(Ileave88::Global) == 256, "layout shared with Codec.kernel_
 struct Dected79 {
   static constexpr int kCheck = 15;
   static constexpr bool kExact = true;
+  static constexpr bool kByteEncode = true;
   using check_t = uint32_t;
   struct Shared {
     uint32_t mask_lo[15];
@@ -168,16 +175,46 @@ struct EncodeMasks {
   uint32_t mask_hi[C::kCheck];
 };
 
-// The encode by byte tables, for codecs of more than 8 check bits. The
-// encode is linear: a word's check bits are the XOR of those of its 8
-// bytes, bytes[256 * b + v] for value v at byte b, so it takes 8 reads of
-// shared memory instead of one popc per check bit (24 for ileave88, 15 for
-// dected79). Codecs of at most 8 check bits keep the popc encode and the
-// tables are empty. The paged scrub (paged_gather.cu) encodes so; the other
-// kernels still take the popc encode.
+// The encode masks of the codec table struct at `tables` (device memory),
+// for a launcher that passes them by value and is given the tables on the
+// device only. A codec's masks are constants, so they are read once per
+// (codec, table address) by a blocking copy (the first launch waits for the
+// device once) and kept on the host.
+template <class C>
+int masks_of(const void* tables, EncodeMasks<C>& out) {
+  struct Entry {
+    const void* at;
+    EncodeMasks<C> masks;
+  };
+  static std::mutex mu;
+  static Entry seen[8];
+  static int n_seen = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_seen; ++i)
+    if (seen[i].at == tables) {
+      out = seen[i].masks;
+      return 0;
+    }
+  const cudaError_t err = cudaMemcpy(&out, tables, sizeof(out), cudaMemcpyDeviceToHost);
+  if (err != cudaSuccess) return int(err);
+  if (n_seen < 8) seen[n_seen++] = {tables, out};
+  return 0;
+}
+
+// The encode by byte tables, for the codecs whose trait sets kByteEncode
+// (ileave88's 24 and dected79's 15 check bits). The encode is linear: a
+// word's check bits are the XOR of those of its 8 bytes, bytes[256 * b + v]
+// for value v at byte b, so it takes 8 reads of shared memory instead of one
+// popc per check bit. The other codecs keep the popc encode and the tables
+// are empty. The paged scrub (paged_gather.cu) and the inject+scrub
+// (inject_scrub.cu) encode so; the decode and the encode (secded.cu) take
+// the popc encode. kByteEncode was chosen on the H100 against the popc
+// encode with masks by value: ileave88's tables are faster in all three
+// kernels; dected79's ~10% faster in the paged scrub and ~1% slower in the
+// inject+scrub, so it takes them too.
 template <class C>
 struct ByteTables {
-  static constexpr bool kUsed = C::kCheck > 8;
+  static constexpr bool kUsed = C::kByteEncode;
   uint32_t col[kUsed ? 64 : 1];  // check bits of data bit i alone
   uint32_t bytes[kUsed ? 8 * 256 : 1];
 };
@@ -225,6 +262,10 @@ int with_codec(int id, F&& f) {
     case kDected79: return f(Dected79{});
     default: return int(cudaErrorInvalidValue);
   }
+}
+
+inline bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
 inline int sm_count() {

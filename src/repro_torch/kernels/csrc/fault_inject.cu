@@ -47,10 +47,6 @@ __global__ void __launch_bounds__(kThreads) inject_kernel(
   }
 }
 
-bool aligned(const void* p, uintptr_t bytes) {
-  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
-}
-
 }  // namespace
 
 // out = planes ^ masks for n words: lo, hi, mlo, mhi, olo, ohi uint32 and

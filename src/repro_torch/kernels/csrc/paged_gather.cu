@@ -69,10 +69,6 @@ constexpr int kRecordWords = 9;   // per chunk: 4 data-changed and 4 check-chang
                                   // ballots, and one write-back list entry
 constexpr unsigned kFull = 0xffffffffu;
 
-bool aligned(const void* p, uintptr_t bytes) {
-  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
-}
-
 // A table row in the arena: quad word p of the row is arena word abase + p,
 // row word p - a, payload word pay + p.
 struct RowGeo {

@@ -131,6 +131,32 @@ def test_encode_commit_plain_matches_reference(codec):
     _assert_planes((tlo, thi, tchk), j, c)
 
 
+# (token words, rows): odd widths, whose rows start off a 16-byte boundary
+# of the payload and off a quad boundary of the arena, and a single row
+COMMIT_EDGES = [(1, 6), (3, 6), (5, 6), (17, 6), (16, 1), (17, 1)]
+
+
+@pytest.mark.parametrize("token_words,rows", COMMIT_EDGES)
+@pytest.mark.parametrize("codec", ALL)
+def test_encode_commit_plain_matches_reference_edge_rows(codec, token_words, rows):
+    """The token commit equals the reference's ``_commit_tokens`` at odd
+    token widths and on one row (distinct destinations)."""
+    c = jcodes.get(codec)
+    wpp = 4 * token_words
+    lo, hi, chk = _planes(codec, (N_PAGES + 1) * wpp, 30 + token_words)[:3]
+    rng = np.random.default_rng(token_words)
+    payload = rng.standard_normal((rows, 2 * token_words)).astype(np.float32)
+    dest = rng.permutation(N_PAGES * 4)[:rows]
+    pages, slots = (dest // 4).astype(np.int32), (dest % 4).astype(np.int32)
+    j = jkv._commit_tokens(*map(jnp.asarray, (lo, hi, chk, payload, pages, slots)),
+                           token_words=token_words, words_per_page=wpp, codec=codec)
+    tlo, thi, tchk = _words(lo.copy()), _words(hi.copy()), _check(chk.copy())
+    base = torch.from_numpy(pages.astype(np.int64) * wpp + slots * token_words)
+    tops.encode_commit(torch.from_numpy(payload), base, token_words, tlo, thi, tchk,
+                       codec=codec)
+    _assert_planes((tlo, thi, tchk), j, c)
+
+
 TABLES = {
     "unique": [0, 1, 2, 3, 4, 5, 6, 7],
     "faulty_scratch_dups": [N_PAGES, 5, N_PAGES, 5, 2, 2, N_PAGES, 0, 7, 7, 7],

@@ -394,3 +394,108 @@ def test_gather_scrub_kernel_refuses_a_short_record(cuda):
                         backend.ptr(out), backend.ptr(rec), short, backend.ptr(cnt),
                         backend.ptr(c.kernel_tables(lo.device)),
                         backend.ptr(c.kernel_tables(torch.device("cpu"))), backend.stream(lo))
+
+
+def _commit_table(tw, rows, shifts, seed=5):
+    """Distinct destinations: row r at slot perm[r] of (tw + 4)-word slots,
+    ``shifts[r]`` words in (0..3, so a row may start off a quad boundary);
+    returns (row bases, arena words)."""
+    perm = np.random.default_rng(seed).permutation(rows)
+    base = perm * (tw + 4) + np.asarray(shifts)
+    return torch.from_numpy(base.astype(np.int64)), rows * (tw + 4) + 8
+
+
+# name -> (row words, rows, row shifts (None: 0), plane offset, payload
+# offset); every case has words outside whole aligned quads (a row's tail,
+# odd rows, unaligned bases or planes), so each reaches the word path
+COMMIT_CASES = {
+    "one_row": (510, 1, None, 0, 0),
+    "one_word": (1, 1, None, 0, 0),
+    "verify_block": (510, 20, None, 0, 0),
+    "prompt_4x32": (510, 128, None, 0, 0),
+    "odd_row_words_3": (3, 9, None, 0, 0),
+    "odd_row_words_17": (17, 12, [1, 2, 3, 0] * 3, 0, 0),
+    "odd_row_words_511": (511, 6, None, 0, 0),
+    "bases_off_quad": (512, 8, [1, 2, 3, 0, 3, 2, 1, 1], 0, 0),
+    "planes_off_16_bytes": (512, 6, None, 1, 0),
+    "payload_off_16_bytes": (512, 6, None, 0, 1),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(COMMIT_CASES))
+@pytest.mark.parametrize("codec", CODECS)
+def test_encode_commit_kernel_edge_rows(cuda, codec, case):
+    """The token commit bit-identical to its plain version, one launch, on
+    one row, one word, a verify block, a prompt, odd row widths (payload
+    words off 16 bytes), row bases off a quad boundary, planes and payload
+    that start off a 16-byte boundary; no word outside the rows changes."""
+    tw, rows, shifts, offset, p_off = COMMIT_CASES[case]
+    base, n = _commit_table(tw, rows, [0] * rows if shifts is None else shifts)
+    lo, hi, chk = _codec_planes(codec, n, 0.0, cuda)[:3]
+    k = [_at_offset(t, offset) for t in (lo, hi, chk)]
+    p = [t.clone() for t in (lo, hi, chk)]
+    payload = _at_offset(torch.randn(rows, 2 * tw, device=cuda).reshape(-1), p_off)
+    payload = payload.reshape(rows, 2 * tw)
+    base = base.to(cuda)
+    before = ops.launch_counts()["encode"]
+    ops.encode_commit(payload, base, tw, *k, codec=codec)
+    ref.encode_commit_ref(payload, base, tw, *p, codec=codec)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["encode"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    idx = base[:, None] + torch.arange(tw, device=cuda)
+    untouched = torch.ones(n, dtype=torch.bool, device=cuda)
+    untouched[idx.reshape(-1)] = False
+    assert torch.equal(k[0][untouched], lo[untouched])
+
+
+def _domain_ids(n, pattern, device):
+    """Domain ids in runs: ``pattern`` is [(id, run length), ...], repeated
+    to n words."""
+    ids = np.concatenate([np.full(k, d, np.int32) for d, k in pattern])
+    return torch.from_numpy(np.resize(ids, n)).to(device)
+
+
+# name -> (words, input plane offsets (lo, hi, check, masks, ids), domain runs)
+INJECT_CASES = {
+    "planes_at_word_1": (4097, (1,) * 7, [(0, 1500), (1, 2597)]),
+    "planes_at_word_2": (4097, (2,) * 7, [(0, 1500), (1, 2597)]),
+    "planes_at_word_3": (4097, (3,) * 7, [(0, 1500), (1, 2597)]),
+    "n_1": (1, (0,) * 7, [(2, 1)]),
+    "n_3": (3, (0,) * 7, [(0, 1), (2, 2)]),
+    "n_5": (5, (0,) * 7, [(1, 3), (0, 2)]),
+    "n_4097": (4097, (0,) * 7, [(0, 1000), (1, 1000), (2, 2097)]),
+    "one_plane_off_16_bytes": (4097, (0, 0, 0, 0, 0, 0, 3), [(0, 2000), (2, 2097)]),
+    "boundaries_inside_quads": (
+        4099, (0,) * 7, [(0, 5), (1, 3), (2, 7), (0, 1), (-1, 2), (1, 6), (3, 3), (2, 9)]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(INJECT_CASES))
+@pytest.mark.parametrize("codec", CODECS)
+def test_inject_scrub_kernels_edge_planes(cuda, codec, case):
+    """Both inject+scrub forms, both re-encode settings, bit-identical to
+    their plain versions on planes cut at word offsets 1-3 and on one plane
+    off 16 bytes (the word loop), on 1, 3, 5 and 4,097 words (the quad
+    loop's tail), and with domain boundaries inside quads and out-of-range
+    ids (-1, 3 of 3 rows)."""
+    n, offsets, runs = INJECT_CASES[case]
+    planes = _codec_planes(codec, n, 0.02, cuda, seed=6)
+    dom = _domain_ids(n, runs, cuda)
+    *planes, dom = [_at_offset(t, o) for t, o in zip((*planes, dom), offsets)]
+    before = dict(ops.launch_counts())
+    for reencode in (False, True):
+        k = ops.inject_scrub(*planes, codec=codec, reencode=reencode)
+        p = ref.inject_scrub_ref(*planes, codec=codec, reencode=reencode)
+        assert all(torch.equal(a, b) for a, b in zip(k, p))
+        k = ops.inject_scrub_domains(*planes, dom, 3, codec=codec, reencode=reencode)
+        p = ref.inject_scrub_domains_ref(*planes, dom, 3, codec=codec, reencode=reencode)
+        assert all(torch.equal(a, b) for a, b in zip(k, p))
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["inject_scrub"] == before["inject_scrub"] + 2
+    assert after["inject_scrub_domains"] == before["inject_scrub_domains"] + 2
+    if n > 1000:
+        assert int(k[3][:, 7].sum()) > 0
