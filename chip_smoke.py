@@ -34,7 +34,14 @@ them. Phases, each printed on its own line with its wall time:
      row, a verify block, a 4 x 32-token prompt, an odd row width, row bases
      off a quad boundary) and of the inject+scrub in both forms (planes cut
      at word offsets 1-3, one plane off 16 bytes, 1, 3, 5 and 4,097 words,
-     domain boundaries inside quads and out-of-range ids), bit for bit. Every token-commit row carries the floor of one
+     domain boundaries inside quads and out-of-range ids), of the decode
+     (1, 3, 5 and 4,099 words, planes at word offsets 1-3, a stacked 3-D
+     leaf, on words with 0-3 flipped bits, so every status) and of the fault
+     injection (the same, and whole 4,096-word blocks with a tail that is
+     not a multiple of 16), bit for bit. The fault injection is timed beside
+     its library call (three torch.bitwise_xor), and every decode entry
+     names the loop its timed call took (quad or word) and the loops the
+     decodes of phases 4-9 took. Every token-commit row carries the floor of one
      launch in the same timing loop (a one-element in-place add). The
      paged scrub is timed with its faults restored before every call (and
      the L2 filled with clean lines), so each timed call scrubs
@@ -194,6 +201,7 @@ def main() -> int:
     from repro_torch.data import mnist
     from repro_torch.kernels import backend, ops, ref
     from repro_torch.kernels import ecc_matmul as b3_kernel
+    from repro_torch.kernels import secded as b5_kernel
     from repro_torch.models import base, lm
     from repro_torch.serving import steps as serve_steps
     from repro_torch.serving.engine import (
@@ -541,8 +549,10 @@ def main() -> int:
         def inject_row(args_, words, iters):
             require(same(ops.inject(*args_), ref.inject_ref(*args_)),
                     f"inject differs over {words} words")
+            xor3 = lambda: [torch.bitwise_xor(a_, m_) for a_, m_ in zip(args_[:3], args_[3:])]
             return {"n_words": words, "ms": sync_ms(lambda: ops.inject(*args_), iters),
                     "plain_ms": sync_ms(lambda: ref.inject_ref(*args_), 3),
+                    "library_ms": sync_ms(xor3, iters),
                     "bound_ms": 1e3 * 27 * words / HBM_BYTES_PER_S}
 
         report["inject"] = inject_row((store.lo, store.hi, store.parity, *masks), n, 20)
@@ -555,7 +565,8 @@ def main() -> int:
         for r_ in (report["inject"], report["inject"]["mlp"]):
             print(f"  inject at 0.54 V over {r_['n_words']} words: bit-identical, "
                   f"{r_['ms']:.4f} ms, bound {r_['bound_ms']:.4f} ms (bytes), "
-                  f"plain {r_['plain_ms']:.3f} ms")
+                  f"plain {r_['plain_ms']:.3f} ms, three torch.bitwise_xor "
+                  f"{r_['library_ms']:.4f} ms")
         del mlp_store, ms_
 
         # SECDED encode (B4) over the whole weight arena: the check plane of
@@ -698,7 +709,7 @@ def main() -> int:
               f"status counts {st}")
         ne = emb.lo.numel()
         report["decode"] = {
-            "n_words": ne,
+            "n_words": ne, "path": b5_kernel.decode_path(*(a.reshape(-1) for a in e_args)),
             "ms": sync_ms(lambda: ops.decode(*e_args), 50),
             "plain_ms": sync_ms(lambda: ref.decode_ref(*e_args), 3),
             "bound_ms": 1e3 * 21 * ne / HBM_BYTES_PER_S,
@@ -862,7 +873,8 @@ def main() -> int:
             require(same(k_dec, p_dec), f"decode {name} differs")
             print(f"  decode {name} at 0.56 V: status counts "
                   f"{torch.bincount(k_dec[2], minlength=3).tolist()}")
-            timed({"name": f"decode_{name}", **bounds(planes[0].numel(), name, 21, 24)},
+            timed({"name": f"decode_{name}", "path": b5_kernel.decode_path(*planes),
+                   **bounds(planes[0].numel(), name, 21, 24)},
                   lambda p_=planes, c_=name: ops.decode(*p_, codec=c_),
                   lambda p_=planes, c_=name: ref.decode_ref(*p_, codec=c_), 20)
         # no path: the domain form under ileave88 over the whole arena
@@ -973,7 +985,8 @@ def main() -> int:
             torch.cuda.synchronize()
             require(same(k_dec, p_dec), f"decode {name} differs on the KV arena")
             if name == "ileave88":
-                timed({"name": "decode_ileave88", **bounds(nk, name, 21, 24)},
+                timed({"name": "decode_ileave88", "path": b5_kernel.decode_path(*fplanes),
+                       **bounds(nk, name, 21, 24)},
                       lambda: ops.decode(*fplanes, codec="ileave88"),
                       lambda: ref.decode_ref(*fplanes, codec="ileave88"), 20)
             k_pl = [t.clone() for t in (arena.lo, arena.hi, arena.parity)]
@@ -1033,6 +1046,32 @@ def main() -> int:
             "one_plane_off_16_bytes": (4097, (0, 0, 0, 0, 0, 0, 3))}
         runs = torch.tensor([0, 1, 2, 0, -1, 1, 3, 2], device=dev, dtype=torch.int32)
         run_len = torch.tensor([5, 3, 7, 1, 2, 6, 3, 9], device=dev)
+        # B5 and B7: 1, 3, 5 and 4,099 words, planes cut at word offsets 1-3
+        # (the word loop), a stacked 3-D leaf; B5 on words with 0-3 flipped
+        # bits (every status), B7 also on a length with whole 4,096-word
+        # blocks and a tail that is not a multiple of 16
+        plane_cases = {  # name -> (shape, offset of every plane)
+            "n_1": ((1,), 0), "n_3": ((3,), 0), "n_5": ((5,), 0), "n_4099": ((4099,), 0),
+            "word_1": ((4099,), 1), "word_2": ((4099,), 2), "word_3": ((4099,), 3),
+            "stacked_3d": ((3, 17, 70), 0)}
+        fg = np.random.default_rng(9)
+
+        def flipped(n_, codec):
+            """Codewords of n_ random words with 0-3 random codeword bits
+            flipped in each."""
+            c_ = codes.get(codec)
+            w_ = 64 + c_.n_check
+            bits = np.zeros((n_, w_), bool)
+            for i_, k_ in enumerate(fg.integers(0, 4, n_)):
+                bits[i_, fg.choice(w_, k_, replace=False)] = True
+            pack = lambda b_: torch.as_tensor((b_.astype(np.uint64) @ (
+                1 << np.arange(b_.shape[1], dtype=np.uint64))).astype(np.uint32).view(np.int32),
+                device=dev)
+            lo_, hi_ = rand_words(n_), rand_words(n_)
+            chk_ = ops.encode(lo_, hi_, codec=codec)
+            mchk_ = pack(bits[:, 64:]).to(c_.check_torch_dtype)
+            return lo_ ^ pack(bits[:, :32]), hi_ ^ pack(bits[:, 32:64]), chk_ ^ mchk_
+
         for name in codes.names():
             c = codes.get(name)
             n_arena = (KV_PAGES + 1) * wpp
@@ -1063,10 +1102,32 @@ def main() -> int:
                                  ref.inject_scrub_domains_ref(*planes, dom, 3, codec=name,
                                                               reencode=reencode)),
                             f"inject_scrub_domains {name} differs: {case} reencode={reencode}")
+            statuses = set()
+            for case, (shape, off) in plane_cases.items():
+                n_ = int(np.prod(shape))
+                planes = [at_offset(t_, off).reshape(shape) for t_ in flipped(n_, name)]
+                k_dec = ops.decode(*planes, codec=name)
+                require(same(k_dec, ref.decode_ref(*planes, codec=name)),
+                        f"decode {name} differs: {case}")
+                statuses |= set(torch.unique(k_dec[2]).tolist())
+            require(statuses == ({0, 2} if name == "parity65" else {0, 1, 2}),
+                    f"decode {name} edge cases: statuses {statuses}")
             print(f"  {name} edge cases bit-identical: commit {list(commit_cases)} "
                   f"({c.n_check} check bits, {tw}-word tokens); inject_scrub and its domain "
                   f"form {list(inject_cases)}, domain runs {run_len.tolist()} of ids "
-                  f"{runs.tolist()} (3 rows), both re-encode settings")
+                  f"{runs.tolist()} (3 rows), both re-encode settings; decode "
+                  f"{list(plane_cases)} on words with 0-3 flipped bits, statuses "
+                  f"{sorted(statuses)}")
+        for case, (shape, off) in {**plane_cases, "blocks_and_tail": ((3 * 4096 + 1005,), 0),
+                                   "blocks_and_tail_word_1": ((3 * 4096 + 1005,), 1)}.items():
+            n_ = int(np.prod(shape))
+            planes = [rand_words(n_), rand_words(n_),
+                      (rand_words(n_) & 255).to(torch.uint8), *card_masks(n_, "secded72")]
+            planes = [at_offset(t_, off).reshape(shape) for t_ in planes]
+            require(same(ops.inject(*planes), ref.inject_ref(*planes)),
+                    f"inject differs: {case}")
+        print(f"  inject edge cases bit-identical: {list(plane_cases)}, blocks_and_tail "
+              f"({3 * 4096 + 1005} words) at offsets 0 and 1")
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 3
@@ -1127,6 +1188,18 @@ def main() -> int:
               f"(logits within {MATMUL_RTOL} x max|cpu|; {unclear} rows within that of a tie) "
               f"at 0.56/0.54 V, ECC on and off, batched and per-leaf")
         del mlps
+
+    # Every decode (B5) launch of phases 4-9 by the loop it takes: the
+    # callers hand it whole planes or views at leaf offsets.
+    decode_loops: dict = {}
+    b5_launch = b5_kernel.decode
+
+    def b5_counted(lo_, hi_, chk_, *, codec):
+        key_ = f"{codec.name}:{b5_kernel.decode_path(lo_, hi_, chk_)}"
+        decode_loops[key_] = decode_loops.get(key_, 0) + 1
+        return b5_launch(lo_, hi_, chk_, codec=codec)
+
+    b5_kernel.decode = b5_counted
 
     # ---------------------------------------------------------------- 4-5
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (BATCH, PROMPT_LEN)).astype(np.int32)
@@ -1957,6 +2030,7 @@ def main() -> int:
         paths = {**runs, **{k: v for k, v in paged.items() if "launches" in v}, **paths_extra}
 
         print(f"  codec {json.dumps(codec_run)}")
+        print(f"  decode launches of phases 4-9 by codec and loop: {decode_loops}")
 
         def by_path(kernel, kind=None, codec="secded72"):
             """A kernel's launches per path: the fused matmul's split between
@@ -2016,6 +2090,9 @@ def main() -> int:
         kernels = []
         for name, (source, replaces, launches, codec) in meta.items():
             r = report[name]
+            if kernel_of.get(name) == "decode":
+                r["loops_phases_4_9"] = {
+                    loop: decode_loops.get(f"{codec}:{loop}", 0) for loop in ("quad", "word")}
             mm = name.startswith("ecc_matmul")
             kernels.append({
                 "name": name, "route": "cuda", "source": src + source,
@@ -2029,7 +2106,7 @@ def main() -> int:
                     "max_rel_err": r["max_rel_err"], "function": r["function"]}
                    if mm else {"n_words": r["n_words"]}),
                 **({k: r[k] for k in ("bytes_ms", "ops_ms", "ffma_ms", "masks", "ms_054",
-                                      "launch_floor_ms",
+                                      "launch_floor_ms", "path", "loops_phases_4_9",
                                       "ms_nominal", "counts", "distinct_words", "distinct_counts",
                                       "changed_words", "bound_26_32_ms", "bound_26_32_by")
                     if k in r}),

@@ -3,7 +3,7 @@
 an A/B of two checkouts on one card.
 
     PYTHONPATH=<checkout>/src python3 port_ab.py --label NAME [--out FILE] [--stream]
-        [--b4] [--b2] [--b6]
+        [--b4] [--b2] [--b5] [--b6] [--b7]
 
 ``repro_torch`` is imported from PYTHONPATH, so the same script times any
 checkout of the port; run the checkouts interleaved on one card (A, B, B,
@@ -50,8 +50,20 @@ word counts (B1: the 55,050,240-word single-rail arena; B2: the
 74,498,048-word multi-rail arena in three domain runs, and under parity65
 and dected79 the attention and MLP groups of the per-domain-codec engine)
 on random words and masks drawn on the card (each bit flips with
-probability 2^-10). Neither builds a model; ``--b4``, ``--b2`` and ``--b6``
-may be given together and replace the model's timings.
+probability 2^-10). ``--b5`` times the decode (B5, ``ops.decode``) alone
+under each codec at ``chip_smoke.py``'s word counts (secded72: the
+19,447,808-word embedding; parity65 and dected79: the attention and MLP
+groups of the per-domain-codec engine, 22,020,096 and 33,030,144 words;
+ileave88: the 64-page KV arena, 14,680,064 words) on random codewords with
+the faults of one 0.54 V draw of the device field
+(``faultsim.interval_masks``), and records the status counts and whether the
+planes are aligned for quad loads. ``--b7`` times the fault injection (B7, ``ops.inject``) and
+the three ``torch.bitwise_xor`` calls that compute the same function, over
+the 55,050,240-word single-rail arena and the Fig. 3 MLP's 29,344 words, on
+random planes and masks drawn on the card. Both time each call by CUDA
+events with the L2 filled with clean lines before it, as ``--b6`` does.
+None of these builds a model; ``--b4``, ``--b2``, ``--b5``, ``--b6`` and
+``--b7`` may be given together and replace the model's timings.
 
 ``--stream`` also serves the 8-request stream of ``chip_smoke.py`` phase 6
 (0.56 V kv rail, 14 pages, 4 lanes) 8 times and records each run's wall
@@ -130,6 +142,30 @@ def _window_ms(queue, fn, iters: int) -> float:
     return s.elapsed_time(e) / iters
 
 
+def _cold_ms(queue, fn, iters: int, before=None) -> float:
+    """Device ms per call of ``fn``: CUDA events around each of ``iters``
+    calls, each after ``before()`` (if given) and a read of 128 MB that fills
+    the L2 (50 MB) with clean lines, both outside its window; the calls
+    queued behind ~50 ms of matmuls, after one warm-up call."""
+    import torch
+
+    l2_flush = torch.zeros(32 * 2**20, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+           for _ in range(iters)]
+    queue()
+    for s, e in evs:
+        if before is not None:
+            before()
+        l2_flush.sum()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in evs) / iters
+
+
 def _time_b3(eng, cfg, dev) -> dict:
     """Device ms of ``ops.ecc_matmul``: per layer (its 7 matrices) at M = 4,
     20 and 128, and the MLP's 3 layers at M = 4,000."""
@@ -173,7 +209,6 @@ def _time_b6(dev, iters: int = 20) -> dict:
     from repro_torch.kernels import ops
 
     queue = _device_queue(dev)
-    l2_flush = torch.zeros(32 * 2**20, device=dev)  # 128 MB, 2.5x the L2
     geom = KVGeometry.from_config(get_config("qwen3-0.6b"))
     wpp = geom.words_per_page
 
@@ -196,24 +231,14 @@ def _time_b6(dev, iters: int = 20) -> dict:
         saved = (arena.lo, arena.hi, arena.parity)
         work = [t.clone() for t in saved]
         counts = ops.gather_scrub_pages(*work, ids_d, wpp, codec=codec)[1][:, :3].sum(0).tolist()
-        evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-               for _ in range(iters)]
 
         def restore():
             for w, t in zip(work, saved):
                 w.copy_(t)
 
-        torch.cuda.synchronize()
-        queue()
-        for s, e in evs:
-            restore()
-            l2_flush.sum()  # the L2 filled with clean lines
-            s.record()
-            ops.gather_scrub_pages(*work, ids_d, wpp, codec=codec)
-            e.record()
-        torch.cuda.synchronize()
-        return {"ms": sum(s.elapsed_time(e) for s, e in evs) / iters, "n_words": len(ids) * wpp,
-                "counts": counts}
+        ms = _cold_ms(queue, lambda: ops.gather_scrub_pages(*work, ids_d, wpp, codec=codec),
+                      iters, restore)
+        return {"ms": ms, "n_words": len(ids) * wpp, "counts": counts}
 
     res = {}
     table40 = np.concatenate([np.arange(0, 64, 2), [5, 5, 6, 6, 6, 64, 64, 0]])
@@ -318,6 +343,75 @@ def _time_b2(dev, iters: int = 20) -> dict:
     return res
 
 
+def _time_b5(dev, iters: int = 20) -> dict:
+    """Device ms of ``ops.decode`` per call (see ``--b5``)."""
+    import torch
+
+    from repro_torch import codes
+    from repro_torch.core import faultsim
+    from repro_torch.core.voltage import PLATFORMS
+    from repro_torch.kernels import ops
+
+    queue = _device_queue(dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    platform = PLATFORMS["vc707"]
+    words = {"secded72": 19_447_808, "parity65": 22_020_096, "ileave88": 14_680_064,
+             "dected79": 33_030_144}
+    res = {}
+    for codec in codes.names():
+        c, n = codes.get(codec), words[codec]
+        lo, hi = (torch.randint(-2**31, 2**31, (n,), generator=g, device=dev,
+                                dtype=torch.int64).to(torch.int32) for _ in range(2))
+        chk = ops.encode(lo, hi, codec=codec)
+        mlo, mhi, mchk = faultsim.interval_masks(
+            0, 0, n, platform.fault_rate(0.54), platform.row_sigma, c.n_check, device=dev)
+        planes = (lo ^ mlo, hi ^ mhi, chk ^ mchk)
+        del lo, hi, chk, mlo, mhi, mchk
+        status = torch.bincount(ops.decode(*planes, codec=codec)[2], minlength=3).tolist()
+        key = f"decode_{codec}"
+        # the planes start where the change's decode takes its quad loop
+        quads = all(t.data_ptr() % (4 * t.element_size()) == 0 for t in planes)
+        res[key] = {"ms": _cold_ms(queue, lambda: ops.decode(*planes, codec=codec), iters),
+                    "n_words": n, "status_counts": status, "aligned_for_quads": quads}
+        print(json.dumps({key: res[key]}), flush=True)
+        del planes
+        torch.cuda.empty_cache()
+    return res
+
+
+def _time_b7(dev, iters: int = 20) -> dict:
+    """Device ms of ``ops.inject`` and of three ``torch.bitwise_xor`` calls
+    per call (see ``--b7``)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    queue = _device_queue(dev)
+    g = torch.Generator(device=dev).manual_seed(10)
+
+    def words(n):
+        return torch.randint(-2**31, 2**31, (n,), generator=g, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    def sparse(n):
+        w = words(n)
+        for _ in range(9):
+            w &= words(n)
+        return w
+
+    res = {}
+    for name, n in (("arena", 55_050_240), ("mlp", 29_344)):
+        planes = (words(n), words(n), (words(n) & 255).to(torch.uint8),
+                  sparse(n), sparse(n), (sparse(n) & 255).to(torch.uint8))
+        xor3 = lambda: [torch.bitwise_xor(a, m) for a, m in zip(planes[:3], planes[3:])]
+        res[name] = {"n_words": n, "ms": _cold_ms(queue, lambda: ops.inject(*planes), iters),
+                     "library_ms": _cold_ms(queue, xor3, iters)}
+        print(json.dumps({f"inject_{name}": res[name]}), flush=True)
+        del planes
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", required=True)
@@ -325,7 +419,9 @@ def main() -> int:
     ap.add_argument("--stream", action="store_true")
     ap.add_argument("--b4", action="store_true")
     ap.add_argument("--b2", action="store_true")
+    ap.add_argument("--b5", action="store_true")
     ap.add_argument("--b6", action="store_true")
+    ap.add_argument("--b7", action="store_true")
     args = ap.parse_args()
 
     import numpy as np
@@ -345,7 +441,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
-    timers = {"b4": _time_b4, "b2": _time_b2, "b6": _time_b6}
+    timers = {"b4": _time_b4, "b2": _time_b2, "b5": _time_b5, "b6": _time_b6, "b7": _time_b7}
     if any(getattr(args, k) for k in timers):
         out = {"label": args.label, "gpu": gpu, "torch": torch.__version__}
         out.update({k: f(dev) for k, f in timers.items() if getattr(args, k)})

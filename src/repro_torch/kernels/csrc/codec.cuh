@@ -142,6 +142,25 @@ struct Dected79 {
 };
 static_assert(sizeof(Dected79::Global) == 295032, "layout shared with Codec.kernel_tables");
 
+// The classification tables alone: the words of a codec's Shared tables
+// past its encode masks (secded72's flips and status, ileave88's
+// sub_action; none for parity65 and dected79), for a kernel that takes the
+// masks by value. Cooperative copy into the same offsets of dst; ends with a
+// barrier where there is anything to copy.
+template <class C>
+__device__ __forceinline__ void load_class_tables(typename C::Shared& dst,
+                                                  const typename C::Global* src, int tid,
+                                                  int n_threads) {
+  constexpr int kMaskWords = 2 * C::kCheck;
+  constexpr int kWords = int(sizeof(typename C::Shared) / 4) - kMaskWords;
+  if constexpr (kWords > 0) {
+    const uint32_t* s = reinterpret_cast<const uint32_t*>(src) + kMaskWords;
+    uint32_t* d = reinterpret_cast<uint32_t*>(&dst) + kMaskWords;
+    for (int i = tid; i < kWords; i += n_threads) d[i] = s[i];
+    __syncthreads();
+  }
+}
+
 // Cooperative copy of the shared prefix of a codec's tables; ends with a
 // barrier.
 template <class C>
@@ -206,12 +225,13 @@ int masks_of(const void* tables, EncodeMasks<C>& out) {
 // word's check bits are the XOR of those of its 8 bytes, bytes[256 * b + v]
 // for value v at byte b, so it takes 8 reads of shared memory instead of one
 // popc per check bit. The other codecs keep the popc encode and the tables
-// are empty. The paged scrub (paged_gather.cu) and the inject+scrub
-// (inject_scrub.cu) encode so; the decode and the encode (secded.cu) take
-// the popc encode. kByteEncode was chosen on the H100 against the popc
-// encode with masks by value: ileave88's tables are faster in all three
-// kernels; dected79's ~10% faster in the paged scrub and ~1% slower in the
-// inject+scrub, so it takes them too.
+// are empty. The paged scrub (paged_gather.cu), the inject+scrub
+// (inject_scrub.cu) and the decode (secded.cu) encode so; only the encode
+// (secded.cu, its plain and its token-commit form) takes the popc encode.
+// kByteEncode was chosen on the H100 against the popc encode with masks by
+// value: ileave88's tables are faster in the paged scrub and the
+// inject+scrub; dected79's ~10% faster in the paged scrub and ~1% slower
+// in the inject+scrub, so it takes them too.
 template <class C>
 struct ByteTables {
   static constexpr bool kUsed = C::kByteEncode;
@@ -262,6 +282,30 @@ int with_codec(int id, F&& f) {
     case kDected79: return f(Dected79{});
     default: return int(cudaErrorInvalidValue);
   }
+}
+
+constexpr int kQuad = 4;  // words of a quad: one 16-byte load or store of a uint32 plane
+
+// Four consecutive values of a plane from one aligned load: a uint4, or for
+// a uint8 plane a 4-byte word split into its bytes.
+template <class T>
+__device__ __forceinline__ void load4(const T* p, uint32_t (&v)[kQuad]) {
+  if constexpr (sizeof(T) == 1) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+    for (int k = 0; k < kQuad; ++k) v[k] = (w >> (8 * k)) & 0xffu;
+  } else {
+    const uint4 w = *reinterpret_cast<const uint4*>(p);
+    v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
+  }
+}
+
+template <class T>
+__device__ __forceinline__ void store4(T* p, const uint32_t (&v)[kQuad]) {
+  if constexpr (sizeof(T) == 1)
+    *reinterpret_cast<uint32_t*>(p) = v[0] | v[1] << 8 | v[2] << 16 | v[3] << 24;
+  else
+    *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
 }
 
 inline bool aligned(const void* p, uintptr_t bytes) {

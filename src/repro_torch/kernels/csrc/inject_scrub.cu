@@ -47,7 +47,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kQuad = 4;  // words of a quad: one 16-byte load or store of a uint32 plane
 static_assert(kQuad == 4, "a uint8 plane's quad is one 4-byte word");
 constexpr int kLanes = 8;
 constexpr int kMaxRows = 16;
@@ -100,28 +99,6 @@ __device__ __forceinline__ void scrub_word(const typename C::Shared& tab,
   cnt[5] += flips == 2;
   cnt[6] += flips >= 3;
   cnt[7] += flips;
-}
-
-// Four consecutive values of a plane from one aligned load: a uint4, or for
-// a uint8 plane a 4-byte word split into its bytes.
-template <class T>
-__device__ __forceinline__ void load4(const T* p, uint32_t (&v)[kQuad]) {
-  if constexpr (sizeof(T) == 1) {
-    const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
-#pragma unroll
-    for (int k = 0; k < kQuad; ++k) v[k] = (w >> (8 * k)) & 0xffu;
-  } else {
-    const uint4 w = *reinterpret_cast<const uint4*>(p);
-    v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
-  }
-}
-
-template <class T>
-__device__ __forceinline__ void store4(T* p, const uint32_t (&v)[kQuad]) {
-  if constexpr (sizeof(T) == 1)
-    *reinterpret_cast<uint32_t*>(p) = v[0] | v[1] << 8 | v[2] << 16 | v[3] << 24;
-  else
-    *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
 }
 
 // vec: every plane is aligned for quad loads and stores (16 bytes, 4 for a

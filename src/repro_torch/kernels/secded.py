@@ -51,6 +51,16 @@ def encode_commit(payload, row_base, row_words: int, lo, hi, check, *, codec: Co
         )
 
 
+def decode_path(lo, hi, check) -> str:
+    """The loop the decode kernel takes on these input planes: "quad" where
+    lo and hi start on 16 bytes and the check plane on a quad of its words
+    (its last n % 4 words then take the word loop), else "word". Its
+    outputs are new allocations, aligned."""
+    quad = 4 * check.element_size()
+    ok = lo.data_ptr() % 16 == 0 and hi.data_ptr() % 16 == 0 and check.data_ptr() % quad == 0
+    return "quad" if ok else "word"
+
+
 def decode(lo, hi, check, *, codec: Codec):
     """Flat planes -> (corrected lo, corrected hi, status int32)."""
     n = lo.numel()

@@ -157,6 +157,42 @@ def test_encode_commit_plain_matches_reference_edge_rows(codec, token_words, row
     _assert_planes((tlo, thi, tchk), j, c)
 
 
+# word counts and one stacked 3-D leaf: every quad of the kernel's loop cut
+# short somewhere (1, 3 and 5 words, a 4,099-word tail of three)
+DECODE_EDGES = [(1,), (3,), (5,), (4099,), (3, 5, 7)]
+
+
+@pytest.mark.parametrize("shape", DECODE_EDGES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("codec", ALL)
+def test_decode_plain_matches_reference_edge_shapes(codec, shape):
+    """The plain decode equals the reference's (interpret mode) on words
+    with 0, 1, 2 or 3 flipped codeword bits, at lengths that are not a
+    multiple of four and on a stacked 3-D leaf: corrected words and status."""
+    c = jcodes.get(codec)
+    n = int(np.prod(shape))
+    rng = np.random.default_rng(40 + n + ALL.index(codec))
+    lo = rng.integers(0, 2**32, n, dtype=np.uint32)
+    hi = rng.integers(0, 2**32, n, dtype=np.uint32)
+    chk = c.encode_np(lo, hi)
+    width = 64 + c.n_check
+    flips = np.zeros((n, width), bool)
+    for i, k in enumerate(np.arange(n) % 4 if n < 8 else rng.integers(0, 4, n)):
+        flips[i, rng.choice(width, k, replace=False)] = True
+    w = 1 << np.arange(32, dtype=np.uint64)
+    lo ^= (flips[:, :32] @ w).astype(np.uint32)
+    hi ^= (flips[:, 32:64] @ w).astype(np.uint32)
+    chk ^= (flips[:, 64:] @ w[: c.n_check]).astype(c.check_dtype)
+    lo, hi, chk = (a.reshape(shape) for a in (lo, hi, chk))
+    j = jops.decode(*map(jnp.asarray, (lo, hi, chk)), codec=codec)
+    t = tops.decode(_words(lo), _words(hi), _check(chk), codec=codec)
+    assert tuple(t[0].shape) == shape and t[2].dtype == torch.int32
+    np.testing.assert_array_equal(_np(t[0], np.uint32), np.asarray(j[0]))
+    np.testing.assert_array_equal(_np(t[1], np.uint32), np.asarray(j[1]))
+    np.testing.assert_array_equal(t[2].numpy(), np.asarray(j[2]))
+    if n >= 5:  # clean words and faulty ones (parity65 only detects)
+        assert (t[2].numpy() == 0).any() and (t[2].numpy() > 0).any()
+
+
 TABLES = {
     "unique": [0, 1, 2, 3, 4, 5, 6, 7],
     "faulty_scratch_dups": [N_PAGES, 5, N_PAGES, 5, 2, 2, N_PAGES, 0, 7, 7, 7],

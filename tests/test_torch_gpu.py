@@ -199,6 +199,43 @@ def test_inject_kernel_bit_identical(cuda, n, offset):
     assert k[2].dtype == torch.uint8 and k[2].shape == planes[2].shape
 
 
+# name -> (shape, offset of each of the six input planes); every case has
+# words on the word path (a tail past the last 4,096-word block, or a plane
+# off 16 bytes, which sends every word there)
+INJECT_EDGES = {
+    "n_1": ((1,), (0,) * 6),
+    "n_3": ((3,), (0,) * 6),
+    "n_5": ((5,), (0,) * 6),
+    "n_4099": ((4099,), (0,) * 6),
+    "n_not_multiple_of_16": ((3 * 4096 + 1005,), (0,) * 6),
+    "planes_at_word_1": ((3 * 4096 + 1005,), (1,) * 6),
+    "planes_at_word_2": ((4099,), (2,) * 6),
+    "planes_at_word_3": ((4099,), (3,) * 6),
+    "check_plane_at_byte_4": ((2 * 4096 + 16,), (0, 0, 4, 0, 0, 4)),
+    "stacked_3d_leaf": ((3, 33, 130), (0,) * 6),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(INJECT_EDGES))
+def test_inject_kernel_edge_planes(cuda, case):
+    """One launch, bit-identical to the plain version (and so to
+    torch.bitwise_xor), on 1, 3, 5 and 4,099 words, a length with whole
+    4,096-word blocks and a tail that is not a multiple of 16, planes cut at
+    word offsets 1-3, check planes 4 bytes off 16, and a stacked 3-D
+    leaf."""
+    shape, offsets = INJECT_EDGES[case]
+    n = int(np.prod(shape))
+    planes = [_at_offset(t, o).reshape(shape)
+              for t, o in zip(_planes(n, 0.02, cuda, seed=7), offsets)]
+    before = ops.launch_counts()["inject"]
+    k = ops.inject(*planes)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["inject"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(k, ref.inject_ref(*planes)))
+    assert all(a.shape == shape for a in k)
+
+
 CODECS = ("parity65", "secded72", "ileave88", "dected79")
 
 
@@ -253,6 +290,66 @@ def test_codec_encode_decode_kernels_bit_identical(cuda, codec):
     p = ref.decode_ref(*faulty, codec=codec)
     assert all(torch.equal(a, b) for a, b in zip(k, p))
     assert set(torch.unique(k[2]).tolist()) == ({0, 2} if codec == "parity65" else {0, 1, 2})
+
+
+def _flipped_planes(codec, n, device, seed=8):
+    """Clean planes of n words under ``codec`` with 0, 1, 2 or 3 codeword
+    bits flipped in each word (random counts and bits), so every status
+    appears: parity65 detects odd counts, secded72 corrects one flip and
+    detects two, dected79 corrects two and detects three, ileave88 corrects
+    one per subcode."""
+    c = codes.get(codec)
+    g = np.random.default_rng(seed)
+    lo, hi, chk = _codec_planes(codec, n, 0.0, device, seed)[:3]
+    width = 64 + c.n_check
+    bits = np.zeros((n, width), bool)
+    for i, k in enumerate(g.integers(0, 4, n)):
+        bits[i, g.choice(width, k, replace=False)] = True
+    pack = lambda b: b.astype(np.uint64) @ (1 << np.arange(b.shape[1], dtype=np.uint64))
+    word = lambda a: torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(device)
+    mchk = pack(bits[:, 64:]).astype(c.check_dtype)
+    mchk = torch.from_numpy(mchk.view(np.int32) if c.n_check > 8 else mchk).to(device)
+    return lo ^ word(pack(bits[:, :32])), hi ^ word(pack(bits[:, 32:64])), chk ^ mchk
+
+
+# name -> (shape, offsets of lo, hi and the check plane); every case has
+# words on the word path: the last n % 4 words, or every word where a plane
+# is not aligned for quads
+DECODE_EDGES = {
+    "n_1": ((1,), (0, 0, 0)),
+    "n_3": ((3,), (0, 0, 0)),
+    "n_5": ((5,), (0, 0, 0)),
+    "n_4099": ((4099,), (0, 0, 0)),
+    "planes_at_word_1": ((4099,), (1, 1, 1)),
+    "planes_at_word_2": ((4099,), (2, 2, 2)),
+    "planes_at_word_3": ((4099,), (3, 3, 3)),
+    "check_plane_off_a_quad": ((4099,), (0, 0, 1)),
+    "stacked_3d_leaf": ((3, 17, 70), (0, 0, 0)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(DECODE_EDGES))
+@pytest.mark.parametrize("codec", CODECS)
+def test_decode_kernel_edge_planes(cuda, codec, case):
+    """The decode bit-identical to its plain version, one launch, on 1, 3, 5
+    and 4,099 words (the quad loop's tail), planes cut at word offsets 1-3
+    and a check plane off a quad (the word loop) and a stacked 3-D leaf, on
+    words with 0-3 flipped bits: the larger planes hold every status."""
+    shape, offsets = DECODE_EDGES[case]
+    n = int(np.prod(shape))
+    faulty = _flipped_planes(codec, n, cuda)
+    planes = [_at_offset(t, o).reshape(shape) for t, o in zip(faulty, offsets)]
+    before = ops.launch_counts()["decode"]
+    k = ops.decode(*planes, codec=codec)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode"] == before + 1
+    p = ref.decode_ref(*planes, codec=codec)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert all(a.shape == shape for a in k) and k[2].dtype == torch.int32
+    if n > 1000:
+        want = {0, 2} if codec == "parity65" else {0, 1, 2}
+        assert set(torch.unique(k[2]).tolist()) == want
 
 
 @pytest.mark.gpu
