@@ -88,17 +88,35 @@ them. Phases, each printed on its own line with its wall time:
      each refresh the decode once per leaf under a codec other than SECDED
      and once for the embedding and the SECDED encode once per re-encoded
      leaf;
-  4-9 each zero the kernel launch counts at the start of a path and read
+  10. the device fault field (``DeviceFaultField``, the fault-field
+     kernel, ``csrc/fault_field.cu``): phases 4-5's engines with
+     ``mask_source="device"``: a 0.56 V step (one field launch per codec
+     group, none at nominal; no host-to-device copy of 1 MiB or more, by a
+     dispatch mode over its PyTorch operations and by a torch.profiler
+     trace, both first shown to see an arena-size copy), the DED-canary
+     autotune from 0.62 V with its locks beside phases 4-5's host-mask
+     locks, a DED-free final scrub and generate at the locks; then the
+     kernel against its plain version bit for bit for every check width (1,
+     8, 15, 24), scalar and per-word rates (a third of the words at rate 0)
+     and 0, 1, 3, 4,097 and 2^20 + 5 words, its SASS size (cuobjdump) and
+     its time beside its bound and the plain version's at the single-rail
+     arena's, the multi-rail arena's (per-word rates) and a KV interval's
+     word counts; the device field against the host field over 4 M words at
+     0.56/0.55/0.54 V (total flips within 0.6-1.6x, multi-bit share of
+     faulty words within 0.1); FIP from 0.58 to 0.54 V over the full arena;
+  4-10 each zero the kernel launch counts at the start of a path and read
      them at its end, and fail unless every voltage step launched its scrub
      kernel once (B1 single-rail, B2 and the embedding's B5 multi-rail,
      none of the other path's), every forward pass of the protected model
      launched the fused matmul once per protected matrix of each layer
      (7 x 28 = 196), every weight pack and token commit launched the
      encode once, every fault interval and prefix-hit admission launched
-     the paged scrub once, every per-leaf step and every domain read
-     launched the fault injection and the decode once per leaf, and the
-     plain codec never ran on the card;
-  10. one prefill and one decode step of paths 4-5 under torch.profiler
+     the paged scrub once, every KV fault interval below V_min and every
+     device-mask step of a codec group below V_min launched the fault field
+     once, every per-leaf step and every domain read launched the fault
+     injection and the decode once per leaf, and the plain codec never ran
+     on the card;
+  11. one prefill and one decode step of paths 4-5 under torch.profiler
      (device busy time, idle share, fused-matmul time inside the step, which
      must come from the decode kernel in a decode step and the tiled kernel
      in a prefill), tokens/s, voltage-step times and one
@@ -108,8 +126,9 @@ them. Phases, each printed on its own line with its wall time:
      and prefill (``ecc_matmul_kernel``, timed at M = batch x prompt); its
      count is split between them by the forward passes of at most
      ``DECODE_MAX_M`` rows and the others; the codec-generic kernels have one
-     entry per (kernel, codec), their launches counted per codec. Phases 6
-     and 9 time the stream's interval scrub the same way as phase 2.
+     entry per (kernel, codec), their launches counted per codec (the fault
+     field's by check width). Phases 6 and 9 time the stream's interval
+     scrub the same way as phase 2, and the interval's mask draw.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises.
 """
@@ -119,8 +138,10 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -137,6 +158,17 @@ MLP_TRAIN, MLP_TEST = 20000, 4000  # the Fig. 3 benchmark's split
 # the per-domain-codec engine of phase 9 (embedding keeps secded72)
 CODEC_MIX = {"attention": "parity65", "mlp": "dected79", "kv": "ileave88"}
 POPC_PER_SM_CLK = 16  # Hopper's popc issue rate (CUDA guide throughput table)
+INT_PER_SM_CLK = 64  # Hopper's 32-bit integer multiply and logic rates (same table)
+# One fault-field Philox4x32-10 call and its four planes: 10 rounds of two
+# 32 x 32 -> 64-bit multiplies (one IMAD.WIDE each, on the FMA pipe) and
+# two three-input XORs (LOP3, on the integer ALU pipe), then a compare and
+# a merge per plane on the ALU pipe. The pipes run side by side, so the
+# bound is the busier one's: the ALU's.
+FIELD_MULS_PER_GROUP = 10 * 2
+FIELD_ALU_OPS_PER_GROUP = 10 * 2 + 4 * 2
+FIELD_SIZES = (0, 1, 3, 4097, 2**20 + 5)
+FIELD_N_CHECKS = (1, 8, 15, 24)  # parity65, secded72, dected79, ileave88
+FIELD_STATS_WORDS = 1 << 22
 
 T0 = time.perf_counter()
 
@@ -188,6 +220,7 @@ def main() -> int:
     import dataclasses
 
     import numpy as np
+    from torch.utils._python_dispatch import TorchDispatchMode
 
     from repro_torch import codes
     from repro_torch.codes.base import Codec
@@ -448,7 +481,7 @@ def main() -> int:
         must stay 0."""
 
         def __init__(self):
-            self.n = dict(packs=0, commits=0, intervals=0, prefix_scrubs=0,
+            self.n = dict(packs=0, commits=0, intervals=0, draws=0, prefix_scrubs=0,
                           prefill=0, decode=0, decode_kernel=0, plain_on_card=0)
             self._undo = []
 
@@ -479,6 +512,7 @@ def main() -> int:
             self._wrap(kvpages, "_commit_tokens", "commits")
             self._wrap(serve_steps, "_commit_tokens", "commits")
             self._wrap(KVPageArena, "tick", "intervals")
+            self._wrap(KVPageArena, "_masks", "draws")
             self._wrap(KVPageArena, "scrub_pages", "prefix_scrubs")
             self._wrap(lm, "forward", kind)
             self._wrap(Codec, "encode", on_card)
@@ -1298,12 +1332,13 @@ def main() -> int:
                     "inject_scrub_domains": steps if multi else 0,
                     "decode": steps if multi else 0,
                     "ecc_matmul": per_fwd * (fwd["prefill"] + fwd["decode"]),
-                    "encode": tally.n["packs"], "gather_scrub": 0, "inject": 0}
+                    "encode": tally.n["packs"], "gather_scrub": 0, "inject": 0,
+                    "fault_field": 0}
             require(counts == want, f"{name} launches {counts}, expected {want}")
             require(tally.n["packs"] == per_fwd + multi, f"{tally.n['packs']} weight packs")
             require(tally.n["plain_on_card"] == 0, "the plain codec ran on the card")
             run.update(launches=counts, launches_by_codec=ops.launch_counts_by_codec(),
-                       voltage_steps=steps,
+                       voltage_steps=steps, arena_words=eng._store.n_words,
                        forwards=dict(fwd, decode_kernel=fwd["decode"]),
                        matmuls_per_forward=per_fwd, packs=tally.n["packs"], commits=0,
                        scrubs=0)
@@ -1330,13 +1365,15 @@ def main() -> int:
         want = {"inject_scrub": 0 if multi else 1, "inject_scrub_domains": int(multi),
                 "decode": int(multi), "ecc_matmul": per_fwd * (n["prefill"] + n["decode"]),
                 "encode": n["packs"] + n["commits"],
-                "gather_scrub": n["intervals"] + n["prefix_scrubs"], "inject": 0}
+                "gather_scrub": n["intervals"] + n["prefix_scrubs"], "inject": 0,
+                "fault_field": n["draws"]}
         require(counts == want, f"{name} launches {counts}, expected {want}")
         require(n["packs"] == per_fwd + multi, f"{n['packs']} weight packs")
         require(n["plain_on_card"] == 0, "the plain codec ran on the card")
         print(f"  {name} launches: {json.dumps(counts)} = 1 voltage step, {per_fwd} fused "
               f"matmuls x ({n['prefill']} prefill/chunk + {n['decode']} decode forwards), "
-              f"{n['packs']} packs + {n['commits']} commits, {n['intervals']} fault intervals + "
+              f"{n['packs']} packs + {n['commits']} commits, {n['intervals']} fault intervals "
+              f"({n['draws']} field draws) + "
               f"{n['prefix_scrubs']} prefix-hit admission scrubs")
         paged[name] = {"launches": counts, "launches_by_codec": ops.launch_counts_by_codec(),
                        "kv_codec": "secded72", "matmuls_per_forward": per_fwd,
@@ -1441,6 +1478,9 @@ def main() -> int:
                              for _ in range(3)),
             "tick_ms": min(wall_ms(timed_tick) for _ in range(3)),
             "interval_pages": int(table.size), "arena_words": arena.n_words,
+            "words_per_page": geom.words_per_page,
+            "draw_ms": min(wall_ms(lambda: arena._masks(arena.profile.fault_rate(0.56)))
+                           for _ in range(3)),
         }
         # the scrubs are timed against the faults of those intervals
         parts.update(interval_scrub_times(arena, table, table_d, "interval_scrub"))
@@ -1460,7 +1500,7 @@ def main() -> int:
         paged["breakdown"] = parts
         print(f"  stream breakdown (4 lanes): decode step {parts['decode_step_ms']:.2f} ms, "
               f"commit {parts['commit_ms']:.3f} ms, fault interval (device masks) "
-              f"{parts['tick_ms']:.2f} ms, interval scrub of {table.size} pages "
+              f"{parts['tick_ms']:.2f} ms (its draw {parts['draw_ms']:.2f} ms), interval scrub of {table.size} pages "
               f"{parts['interval_scrub_ms']:.2f} ms wall (kernel "
               f"{parts['interval_scrub_kernel_ms']:.3f} ms)")
         if "decode_step_device_busy_ms" in parts:
@@ -1910,6 +1950,7 @@ def main() -> int:
             "encode": {"secded72": n_["packs"] + 1 + steps * refreshed, "parity65": 1,
                        "dected79": 1, "ileave88": n_["commits"]},
             "gather_scrub": {"ileave88": intervals},
+            "fault_field": {"ileave88": n_["draws"]},
         }
         want_total = {k: sum(v.values()) for k, v in want_codec.items()}
         want_total.update(ecc_matmul=per_fwd * (n_["prefill"] + n_["decode"]), inject=0)
@@ -1938,10 +1979,13 @@ def main() -> int:
         arena.set_voltage(0.56)
         codec_run["stream_breakdown"] = {
             "tick_ms": min(wall_ms(arena.tick) for _ in range(3)),
+            "draw_ms": min(wall_ms(lambda: arena._masks(arena.profile.fault_rate(0.56)))
+                           for _ in range(3)),
             "interval_pages": int(table.size), "arena_words": arena.n_words,
             **interval_scrub_times(arena, table, table_d, "interval_scrub_ileave88")}
         print(f"  ileave88 stream breakdown: fault interval (device masks, 88 bitplanes) "
-              f"{codec_run['stream_breakdown']['tick_ms']:.2f} ms, interval scrub of "
+              f"{codec_run['stream_breakdown']['tick_ms']:.2f} ms (its draw "
+              f"{codec_run['stream_breakdown']['draw_ms']:.2f} ms), interval scrub of "
               f"{table.size} pages {codec_run['stream_breakdown']['interval_scrub_ms']:.2f} ms "
               f"wall (kernel {codec_run['stream_breakdown']['interval_scrub_kernel_ms']:.3f} ms)")
         del ceng, store, rep, srep, real_gm, real_re, arena
@@ -1970,6 +2014,7 @@ def main() -> int:
             "inject_scrub": {"dected79": steps}, "inject_scrub_domains": {},
             "decode": {"dected79": 7 * steps},
             "encode": {"secded72": n_["packs"] + 7 * steps, "dected79": 1}, "gather_scrub": {},
+            "fault_field": {},
         }
         want_total = {k: sum(v.values()) for k, v in want_codec.items()}
         want_total.update(ecc_matmul=per_fwd * (n_["prefill"] + n_["decode"]), inject=0)
@@ -1992,7 +2037,351 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 10
-    with Phase("10 traced steps, timings and the kernels line"):
+    # The device fault field: the fault-field kernel against its plain
+    # version, the device field against the host field, and the engines of
+    # phases 4-5 with masks drawn on the card.
+    int_per_s = INT_PER_SM_CLK * torch.cuda.get_device_properties(0).multi_processor_count \
+        * sm_clock_hz
+    device_runs = {}
+
+    def field_groups(nc: int) -> int:
+        return (64 + nc + 3) // 4
+
+    def field_bound(words, drawn, nc, per_word) -> dict:
+        """Bytes (f_row, per-word rates, the three masks) at HBM rate and the
+        integer operations of the drawn words (a word at threshold 0 draws
+        nothing) on the busier of the FMA pipe (multiplies) and the ALU
+        pipe, each INT_PER_SM_CLK a clock per SM; the larger."""
+        bpw = 4 + 4 * per_word + 8 + (1 if nc <= 8 else 4)
+        bt = 1e3 * bpw * words / HBM_BYTES_PER_S
+        ops_word = field_groups(nc) * max(FIELD_MULS_PER_GROUP, FIELD_ALU_OPS_PER_GROUP)
+        ot = 1e3 * ops_word * drawn / int_per_s
+        return {"n_words": words, "drawn_words": drawn, "bytes_per_word": bpw,
+                "ops_per_drawn_word": ops_word,
+                "multiplies_per_drawn_word": field_groups(nc) * FIELD_MULS_PER_GROUP,
+                "bytes_ms": bt, "ops_ms": ot,
+                "bound_ms": max(bt, ot), "bound_by": "bytes" if bt >= ot else "operations"}
+
+    def drawn_words(f_row, rate) -> int:
+        p = torch.clamp(torch.as_tensor(rate, dtype=torch.float32, device=dev) * f_row, 0.0,
+                        faultsim.P_MAX)
+        return int(((p * 4294967296.0).to(torch.int64) > 0).sum())
+
+    def plain_chunked(f_row, rate, key, nc, chunk=1 << 22):
+        """The plain version over ``f_row`` on the card, 2^22 words a call
+        (its int64 transients)."""
+        parts = [ref.fault_field_ref(f_row[s:s + chunk], rate, key, nc, base=s)
+                 for s in range(0, f_row.numel(), chunk)]
+        return tuple(torch.cat(t) for t in zip(*parts))
+
+    def sass_sizes() -> dict:
+        """Instructions of each fault-field kernel in the SASS (cuobjdump),
+        by (n_check, per-word rates): the kernels have no loop, so this is
+        what a drawn word's thread runs, its early exit aside."""
+        cuobjdump = os.path.join(os.path.dirname(backend.nvcc_path()), "cuobjdump")
+        if not os.path.exists(cuobjdump):
+            return {}
+        text = subprocess.run([cuobjdump, "-sass", str(backend.library_path("fault_field"))],
+                              capture_output=True, text=True, timeout=120).stdout
+        out, cur = {}, None
+        for line in text.splitlines():
+            if "Function :" in line:
+                m = re.search(r"ILi(\d+)ELb([01])E", line)
+                cur = f"{m.group(1)}{'/rates' if m.group(2) == '1' else ''}" if m else None
+                if cur:
+                    out[cur] = {"instructions": 0, "integer_multiplies": 0}
+            elif cur and re.match(r"\s+/\*[0-9a-f]{4}\*/\s+\S", line):
+                op = line.split("*/", 1)[1].split()[0]
+                if op.startswith("@"):
+                    op = line.split("*/", 1)[1].split()[1]
+                if op == "NOP":
+                    continue
+                out[cur]["instructions"] += 1
+                out[cur]["integer_multiplies"] += op.startswith("IMAD")
+        return out
+
+    pad = torch.zeros(1, device=dev)
+
+    def htod_trace(fn, expect) -> dict:
+        """Host-to-device copies that ``fn`` causes, from torch.profiler's
+        trace (its Chrome export carries each copy's bytes): {"copies":
+        [(name, bytes, us)], "kernels": n, "recorded": bool}. ``fn`` runs
+        between two runs of 4,096 one-element kernels, and the window is
+        taken up to three times until every name in ``expect`` is among its
+        kernels: in this process the profiler drops the first device records
+        of a window (all of a few-kernel window, and a step's field and
+        scrub kernels ahead of 4,096 kernels that it kept, once phases 4-9
+        have run). ``recorded`` says whether it kept them."""
+        cuda = torch.autograd.DeviceType.CUDA
+        for _ in range(3):
+            torch.cuda.synchronize()
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(4096):
+                    pad.add_(1.0)
+                fn()
+                for _ in range(4096):
+                    pad.add_(1.0)
+                torch.cuda.synchronize()
+            kernels_ = [e.name for e in prof.events() if e.device_type == cuda]
+            if all(any(x in k for k in kernels_) for x in expect):
+                break
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                trace = json.load(f)
+        evs = trace.get("traceEvents", []) if isinstance(trace, dict) else trace
+        copies = [(e["name"], int(e.get("args", {}).get("bytes", 0)), float(e.get("dur", 0.0)))
+                  for e in evs if "HtoD" in str(e.get("name", ""))]
+        return {"copies": copies, "kernels": len(kernels_),
+                "recorded": all(any(x in k for k in kernels_) for x in expect)}
+
+    class HostToDevice(TorchDispatchMode):
+        """The bytes of every PyTorch operation run inside it that copies a
+        host tensor to the card (``to``, ``copy_``, ``as_tensor``...)."""
+
+        def __init__(self):
+            super().__init__()
+            self.copies = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            into = func is torch.ops.aten.copy_.default
+            src = args[1] if into else (args[0] if args else None)
+            dst = args[0] if into else out
+            if (isinstance(src, torch.Tensor) and isinstance(dst, torch.Tensor)
+                    and src.device.type == "cpu" and dst.device.type == "cuda"):
+                self.copies.append((str(func), src.numel() * src.element_size()))
+            return out
+
+    with Phase("10 device fault field and device-mask engines, full width"):
+        n_arena = runs["single-rail"]["arena_words"]
+        n_multi = runs["multi-rail"]["arena_words"]
+        interval_words = (STREAM_PAGES + 1) * paged["breakdown"]["words_per_page"]
+        key = faultsim.philox_key(0xECC ^ 0xF00D)  # both 32-bit halves nonzero
+        # both copy checks see an arena-size copy from the host
+        arena_host = torch.from_numpy(np.zeros(n_arena, np.int32))
+        with HostToDevice() as h2d:
+            arena_host.to(dev)
+        control = htod_trace(lambda: arena_host.to(dev), ("Memcpy HtoD",))
+        require(h2d.copies and max(b for _, b in h2d.copies) == 4 * n_arena,
+                f"the dispatch check missed a host copy: {h2d.copies}")
+        require(not control["recorded"] or any(b == 4 * n_arena for _, b, _ in control["copies"]),
+                f"the trace missed a host copy: {control['copies']}")
+        print(f"  copy checks on a {4 * n_arena}-byte host-to-device copy: dispatch "
+              f"{h2d.copies}, traced {control['copies']}"
+              f"{'' if control['recorded'] else ' (the profiler kept no record)'}")
+        del arena_host
+        # a. the engines of phases 4-5 with device masks
+        for multi in (False, True):
+            name = "device-multi-rail" if multi else "device-single-rail"
+            host_name = "multi-rail" if multi else "single-rail"
+            run = device_runs[name] = {}
+            ops.reset_launch_count()
+            with Tally() as tally:
+                tally._wrap(PlaneStore, "group_masks", lambda store, v, *a, **kw: [
+                    "field_draws" for g in store.groups if any(
+                        store.domain_profile(store.slots[si].domain).fault_rate(float(
+                            (v if isinstance(v, dict) else dict.fromkeys(store.domains, v))
+                            [store.slots[si].domain])) > 0.0 for si in g.slot_ids)])
+                tally._wrap(PlaneStore, "set_voltage_async", "store_steps")
+                tally._wrap(PlaneStore, "set_rails_async", "store_steps")
+                t = time.perf_counter()
+                rel = ReliabilityConfig(mode="inline", voltage=1.0,
+                                        fault_model=FaultModelConfig(mask_source="device"),
+                                        rails=RailsConfig(multi_rail=multi, start_v=0.62))
+                eng = ServingEngine(cfg, params, rel=rel, max_len=64)
+                torch.cuda.synchronize()
+                run["build_s"] = time.perf_counter() - t
+                groups = len(eng._store.groups)
+                before = ops.launch_counts()["fault_field"]
+                run["step_056_s"] = wall_ms(lambda: eng.set_voltage(0.56)) / 1e3
+                step_launches = ops.launch_counts()["fault_field"] - before
+                require(step_launches == groups, f"{name}: {step_launches} field launches in a "
+                        f"0.56 V step of {groups} groups")
+                run["scrub_056"] = (eng._last_scrub.total() if multi else eng._last_scrub).to_dict()
+                require(run["scrub_056"]["faulty_bits"] > 0, f"{name}: no fault at 0.56 V")
+                before = ops.launch_counts()["fault_field"]
+                run["step_nominal_s"] = wall_ms(lambda: eng.set_voltage(1.0)) / 1e3
+                require(ops.launch_counts()["fault_field"] == before,
+                        f"{name}: the field launched at nominal")
+                # no copy of arena size from the host: every PyTorch copy of
+                # the step (dispatch mode), and the card's own record of it
+                with HostToDevice() as h2d:
+                    eng.set_voltage(0.56)
+                require(all(b < 1 << 20 for _, b in h2d.copies),
+                        f"{name}: host-to-device copies in a device-mask step: {h2d.copies}")
+                traced = htod_trace(lambda: eng.set_voltage(0.56),
+                                    ("field_kernel", "inject_scrub_kernel"))
+                big = [c for c in traced["copies"]
+                       if c[1] >= 1 << 20 or (c[1] == 0 and c[2] > 1000.0)]
+                require(not big, f"{name}: traced host-to-device copies in a device-mask "
+                        f"step: {big}")
+                run["htod_copies"] = {"dispatch": h2d.copies, **traced}
+                if not multi:
+                    eng.set_voltage(eng.controller.voltage)
+                t = time.perf_counter()
+                lock, hist = eng.autotune_voltage()
+                torch.cuda.synchronize()
+                run["autotune_s"] = time.perf_counter() - t
+                require(eng.controller.locked, f"{name} walk did not lock")
+                run["lock"] = lock
+                run["history"] = ({d: [(r.voltage, r.detected, r.action) for r in h]
+                                   for d, h in hist.items()} if multi
+                                  else [(r.voltage, r.detected, r.action) for r in hist])
+                final = ([eng._last_scrub[d] for d in eng._store.domains] if multi
+                         else [eng._last_scrub])
+                require(all(s.detected == 0 for s in final), f"{name}: DED in the final scrub")
+                toks_ = eng.generate(prompts, NEW_TOKENS)
+                require(toks_.shape == (BATCH, NEW_TOKENS)
+                        and bool(((toks_ >= 0) & (toks_ < cfg.vocab)).all()), "token range")
+                run["agreement_at_lock_with_nominal"] = float(
+                    (toks_ == nominal_tokens[host_name]).mean())
+                run["power_report"] = eng.power_report()
+            counts, n_ = ops.launch_counts(), tally.n
+            steps = n_.get("store_steps", 0)
+            per_fwd = 7 * cfg.n_layers
+            want = {"inject_scrub": 0 if multi else steps,
+                    "inject_scrub_domains": steps if multi else 0,
+                    "decode": steps if multi else 0,
+                    "ecc_matmul": per_fwd * (n_["prefill"] + n_["decode"]),
+                    "encode": n_["packs"], "gather_scrub": 0, "inject": 0,
+                    "fault_field": n_.get("field_draws", 0)}
+            require(counts == want, f"{name} launches {counts}, expected {want}")
+            require(n_["plain_on_card"] == 0, "the plain codec ran on the card")
+            run.update(launches=counts, voltage_steps=steps, field_draws=n_.get("field_draws", 0))
+            paths_extra[name] = {
+                "launches": counts, "launches_by_codec": ops.launch_counts_by_codec(),
+                "kv_codec": None, "matmuls_per_forward": per_fwd,
+                "forwards": {"prefill": n_["prefill"], "decode": n_["decode"],
+                             "decode_kernel": n_["decode_kernel"]},
+                "packs": n_["packs"], "commits": 0, "voltage_steps": steps}
+            hrun = runs[host_name]
+            print(f"  {name}: built in {run['build_s']:.2f} s; 0.56 V step "
+                  f"{run['step_056_s'] * 1e3:.2f} ms ({step_launches} field launch(es); host "
+                  f"masks, phase {4 + multi}: {hrun['0.56V']['step_s'] * 1e3:.1f} ms), nominal "
+                  f"step {run['step_nominal_s'] * 1e3:.2f} ms; scrub {run['scrub_056']}")
+            print(f"  {name}: autotune lock {json.dumps(lock)} in {run['autotune_s']:.3f} s "
+                  f"(host masks, phase {4 + multi}: lock {json.dumps(hrun['lock'])} in "
+                  f"{hrun['autotune_s']:.1f} s); final scrub DED-free; tokens at the lock agree "
+                  f"with nominal {run['agreement_at_lock_with_nominal']:.3f}")
+            print(f"  {name}: history {json.dumps(run['history'])}")
+            print(f"  {name}: host-to-device copies in a 0.56 V step: PyTorch operations "
+                  f"{json.dumps(run['htod_copies']['dispatch'])}; traced "
+                  f"{json.dumps(run['htod_copies']['copies'])} ("
+                  f"{'the step recorded' if run['htod_copies']['recorded'] else 'the profiler kept no record of the step (not measured)'}, "
+                  f"{run['htod_copies']['kernels']} device events)")
+            print(f"  {name} launches: {json.dumps(counts)} = {steps} voltage steps, "
+                  f"{n_.get('field_draws', 0)} field draws, {n_['packs']} packs, "
+                  f"{per_fwd} fused matmuls x ({n_['prefill']} + {n_['decode']}) forwards")
+            del eng
+            torch.cuda.empty_cache()
+
+        # b. the kernel against its plain version, bit for bit: every width,
+        # scalar and per-word rates (a third of the words at rate 0, a third
+        # at another rail), several sizes
+        r056, r054 = platform.fault_rate(0.56), platform.fault_rate(0.54)
+        checked = 0
+        for n in FIELD_SIZES:
+            f_row = faultsim.row_factor(n, platform.row_sigma, 0x5EED + n, dev)
+            rates = torch.full((n,), r054, device=dev)
+            rates[n // 3: 2 * n // 3] = 0.0
+            rates[2 * n // 3:] = r056
+            for nc in FIELD_N_CHECKS:
+                for rate in (r054, rates):
+                    got = ops.fault_field(f_row, rate, key, nc)
+                    want = ref.fault_field_ref(f_row, rate, key, nc)
+                    require(all(same_bits(a, b) for a, b in zip(got, want)),
+                            f"fault field n={n} n_check={nc} "
+                            f"{'per-word' if isinstance(rate, torch.Tensor) else 'scalar'}")
+                    if isinstance(rate, torch.Tensor) and n >= 3:
+                        require(not any(m_[n // 3: 2 * n // 3].any() for m_ in got),
+                                "a word at rate 0 drew a fault")
+                    checked += 1
+        print(f"  fault field: kernel = plain version bit for bit in {checked} cases "
+              f"(n in {FIELD_SIZES}, n_check in {FIELD_N_CHECKS}, scalar rate and per-word "
+              f"rates with a zero range)")
+        sass = sass_sizes()
+        print(f"  SASS instructions per kernel (n_check[/rates]): {json.dumps(sass)}")
+        # times and bounds per width at the arenas' and the interval's sizes
+        f55 = faultsim.row_factor(n_arena, platform.row_sigma, 0xECC, dev)
+        f_int = f55[:interval_words]
+        rates_multi = torch.full((n_multi,), r056, device=dev)
+        f_multi = faultsim.row_factor(n_multi, platform.row_sigma, 0xECD, dev)
+        drawn55, drawn_int = drawn_words(f55, r056), drawn_words(f_int, r056)
+        for nc in FIELD_N_CHECKS:
+            codec = next(c for c in codes.names() if codes.get(c).n_check == nc)
+            name = "fault_field" if codec == "secded72" else f"fault_field_{codec}"
+            row = {**field_bound(n_arena, drawn55, nc, False), "codec": codec,
+                   "max_abs_err": 0.0, "library_ms": None,
+                   "sass_instructions": sass.get(str(nc), {}).get("instructions")}
+            row["ms"] = sync_ms(lambda: ops.fault_field(f55, r056, key, nc), iters=10)
+            row["plain_ms"] = sync_ms(lambda: plain_chunked(f55, r056, key, nc), iters=1)
+            row["ms_interval"] = sync_ms(lambda: ops.fault_field(f_int, r056, key, nc), iters=20)
+            row["plain_ms_interval"] = sync_ms(
+                lambda: plain_chunked(f_int, r056, key, nc), iters=1)
+            row["interval"] = field_bound(interval_words, drawn_int, nc, False)
+            row["ms_multi_rail"] = sync_ms(
+                lambda: ops.fault_field(f_multi, rates_multi, key, nc), iters=5)
+            row["multi_rail"] = field_bound(n_multi, drawn_words(f_multi, r056), nc, True)
+            report[name] = row
+            print(f"  {name} at 0.56 V: {n_arena} words {row['ms']:.3f} ms (bound "
+                  f"{row['bound_ms']:.3f} ms, {row['bound_by']}; bytes {row['bytes_ms']:.3f}, "
+                  f"integer ops {row['ops_ms']:.3f}), plain {row['plain_ms']:.1f} ms; "
+                  f"{interval_words} words (a KV interval) {row['ms_interval']:.4f} ms "
+                  f"(bound {row['interval']['bound_ms']:.4f}), plain "
+                  f"{row['plain_ms_interval']:.2f} ms; {n_multi} words, per-word rates "
+                  f"{row['ms_multi_rail']:.3f} ms (bound {row['multi_rail']['bound_ms']:.3f})")
+        draw_ms = {c: min(wall_ms(lambda: faultsim.interval_masks(
+            0, 1, interval_words, r056, platform.row_sigma, codes.get(c).n_check))
+            for _ in range(3)) for c in ("secded72", "ileave88")}
+        device_runs["interval_draw_wall_ms"] = draw_ms
+        print(f"  interval_masks at 0.56 V, {interval_words} words (row factor + kernel), wall: "
+              f"{json.dumps(draw_ms)} ms")
+        del f_row, rates, got, want, f_int, f_multi, rates_multi
+        torch.cuda.empty_cache()
+
+        # c. the device field against the host field (the model's oracle)
+        stats_rows = []
+        host = faultsim.FaultField(platform, FIELD_STATS_WORDS, seed=11)
+        dfield = faultsim.DeviceFaultField(platform, FIELD_STATS_WORDS, seed=11)
+        for v in (0.56, 0.55, 0.54):
+            hc = faultsim.gather_masks([(host, v)])[0].flip_counts()
+            dc = faultsim.flip_counts(*dfield.masks(v))
+            frac = lambda ge2, ge1: float(ge2) / max(float(ge1), 1.0)
+            h_frac = frac((hc >= 2).sum(), (hc >= 1).sum())
+            d_frac = frac((dc >= 2).sum(), (dc >= 1).sum())
+            ratio = float(dc.sum()) / float(hc.sum())
+            require(hc.sum() > 100 and 0.6 < ratio < 1.6,
+                    f"device/host flips at {v} V: {int(dc.sum())} / {int(hc.sum())}")
+            require(abs(h_frac - d_frac) < 0.1, f"multi-bit share at {v} V: {d_frac} vs {h_frac}")
+            stats_rows.append({"voltage": v, "host_flips": int(hc.sum()),
+                               "device_flips": int(dc.sum()), "ratio": ratio,
+                               "host_multibit_share": h_frac, "device_multibit_share": d_frac})
+        device_runs["statistics"] = stats_rows
+        print(f"  statistics over {FIELD_STATS_WORDS} words (device / host flips in 0.6-1.6, "
+              f"multi-bit share within 0.1): {json.dumps(stats_rows)}")
+        del host, dfield
+
+        # d. FIP at full arena width
+        field = faultsim.DeviceFaultField(platform, n_arena, seed=0)
+        prev = None
+        for v in (0.58, 0.57, 0.56, 0.55, 0.54):
+            cur = field.masks(v)
+            if prev is not None:
+                require(not any(bool((p_ & ~c_).any()) for p_, c_ in zip(prev, cur)),
+                        f"FIP broken between {v + 0.01:.2f} and {v} V")
+            prev = cur
+        require(not any(m_.any() for m_ in field.masks(0.8)), "faults inside the guardband")
+        fip_flips = int(faultsim.flip_counts(*prev).sum())
+        print(f"  FIP holds 0.58 -> 0.54 V over {n_arena} words ({fip_flips} flips at 0.54 V); "
+              f"none at 0.8 V")
+        del field, prev, cur
+        torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 11
+    with Phase("11 traced steps, timings and the kernels line"):
         for name, run in runs.items():
             run["steps"] = step_breakdown(traced_params.pop(name), {"prefill": 0, "decode": 0},
                                           walls=run["steps"])
@@ -2027,6 +2416,7 @@ def main() -> int:
         print(f"  fig3 {json.dumps(fig3)}")
         print(f"  per_leaf {json.dumps(per_leaf_run)}")
         print(f"  domain {json.dumps(domain_run)}")
+        print(f"  device {json.dumps(device_runs)}")
         paths = {**runs, **{k: v for k, v in paged.items() if "launches" in v}, **paths_extra}
 
         print(f"  codec {json.dumps(codec_run)}")
@@ -2066,6 +2456,9 @@ def main() -> int:
                               "commits"),
             "gather_scrub": ("paged_gather.cu", "src/repro/kernels/paged_gather.py:108",
                              "gather_scrub", None),
+            # no pallas_call: the reference draws with jax.random
+            "fault_field": ("fault_field.cu", "src/repro/core/faultsim.py:204",
+                            "fault_field", None),
         }
         meta, kernel_of = {}, {}
         for entry, (source, replaces, kernel, kind) in generic.items():
@@ -2108,7 +2501,10 @@ def main() -> int:
                 **({k: r[k] for k in ("bytes_ms", "ops_ms", "ffma_ms", "masks", "ms_054",
                                       "launch_floor_ms", "path", "loops_phases_4_9",
                                       "ms_nominal", "counts", "distinct_words", "distinct_counts",
-                                      "changed_words", "bound_26_32_ms", "bound_26_32_by")
+                                      "changed_words", "bound_26_32_ms", "bound_26_32_by",
+                                      "drawn_words", "ops_per_drawn_word", "bytes_per_word",
+                                      "sass_instructions", "ms_interval", "plain_ms_interval",
+                                      "interval", "ms_multi_rail", "multi_rail")
                     if k in r}),
                 **({k: r[k] for k in ("mlp", "verify") if k in r}),
             })

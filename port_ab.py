@@ -3,7 +3,7 @@
 an A/B of two checkouts on one card.
 
     PYTHONPATH=<checkout>/src python3 port_ab.py --label NAME [--out FILE] [--stream]
-        [--b4] [--b2] [--b5] [--b6] [--b7]
+        [--b4] [--b2] [--b5] [--b6] [--b7] [--field]
 
 ``repro_torch`` is imported from PYTHONPATH, so the same script times any
 checkout of the port; run the checkouts interleaved on one card (A, B, B,
@@ -62,8 +62,14 @@ the three ``torch.bitwise_xor`` calls that compute the same function, over
 the 55,050,240-word single-rail arena and the Fig. 3 MLP's 29,344 words, on
 random planes and masks drawn on the card. Both time each call by CUDA
 events with the L2 filled with clean lines before it, as ``--b6`` does.
-None of these builds a model; ``--b4``, ``--b2``, ``--b5``, ``--b6`` and
-``--b7`` may be given together and replace the model's timings.
+``--field`` times a KV fault interval's mask draw
+(``faultsim.interval_masks`` at 0.56 V over the serve stream's 14-page
+arena and its scratch page, 3,440,640 words, under secded72 and ileave88):
+device ms by CUDA events and wall ms (synchronised, min of 5), whatever the
+checkout draws it with; where the checkout has ``DeviceFaultField``, also
+a 0.56 V draw of the 55,050,240-word single-rail arena's field. None of
+these builds a model; ``--b4``, ``--b2``, ``--b5``, ``--b6``, ``--b7`` and
+``--field`` may be given together and replace the model's timings.
 
 ``--stream`` also serves the 8-request stream of ``chip_smoke.py`` phase 6
 (0.56 V kv rail, 14 pages, 4 lanes) 8 times and records each run's wall
@@ -412,6 +418,45 @@ def _time_b7(dev, iters: int = 20) -> dict:
     return res
 
 
+def _time_field(dev, iters: int = 20) -> dict:
+    """Device and wall ms of the KV interval's mask draw and of the device
+    field (see ``--field``)."""
+    import torch
+
+    from repro_torch.core import faultsim
+    from repro_torch.core.voltage import PLATFORMS
+
+    queue = _device_queue(dev)
+    platform = PLATFORMS["vc707"]
+    rate, sigma = platform.fault_rate(0.56), platform.row_sigma
+
+    def wall_ms(fn) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    res = {}
+    for codec, n_check in (("secded72", 8), ("ileave88", 24)):
+        n = 15 * 229_376
+        fn = lambda: faultsim.interval_masks(0, 1, n, rate, sigma, n_check, device=dev)
+        key = f"interval_masks_{codec}"
+        res[key] = {"n_words": n, "ms": _window_ms(queue, fn, iters),
+                    "wall_ms": min(wall_ms(fn) for _ in range(5))}
+        print(json.dumps({key: res[key]}), flush=True)
+    if hasattr(faultsim, "DeviceFaultField"):
+        field = faultsim.DeviceFaultField(platform, 55_050_240, seed=0)
+        fn = lambda: field.masks(0.56)
+        res["device_field_secded72"] = {"n_words": field.n_words,
+                                        "ms": _window_ms(queue, fn, iters),
+                                        "wall_ms": min(wall_ms(fn) for _ in range(5))}
+        print(json.dumps({"device_field_secded72": res["device_field_secded72"]}), flush=True)
+        del field
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", required=True)
@@ -422,6 +467,7 @@ def main() -> int:
     ap.add_argument("--b5", action="store_true")
     ap.add_argument("--b6", action="store_true")
     ap.add_argument("--b7", action="store_true")
+    ap.add_argument("--field", action="store_true")
     args = ap.parse_args()
 
     import numpy as np
@@ -441,7 +487,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
-    timers = {"b4": _time_b4, "b2": _time_b2, "b5": _time_b5, "b6": _time_b6, "b7": _time_b7}
+    timers = {"b4": _time_b4, "b2": _time_b2, "b5": _time_b5, "b6": _time_b6, "b7": _time_b7,
+              "field": _time_field}
     if any(getattr(args, k) for k in timers):
         out = {"label": args.label, "gpu": gpu, "torch": torch.__version__}
         out.update({k: f(dev) for k, f in timers.items() if getattr(args, k)})

@@ -6,19 +6,24 @@ At rail voltage V the cell is faulty iff ``u_i < clip(rate(V) * f_w, 0,
 P_MAX)``. ``rate`` falls with V and ``u_i`` is fixed, so the faulty set at a
 lower voltage is a superset (the paper's Fault Inclusion Property).
 
-The stream is the host numpy stream of the reference fault model, bit for
-bit. Two shortcuts keep it identical: at ``fault_rate(v) == 0`` (at or
+``FaultField`` is the host numpy stream of the reference fault model, bit
+for bit. Two shortcuts keep it identical: at ``fault_rate(v) == 0`` (at or
 above V_min) no draw is made and the masks are zero, since ``u < 0`` is
 never true; and ``gather_masks`` draws the chunks of many fields on a
 thread pool (numpy's generators and elementwise ops release the GIL), each
 chunk from its own counter-keyed generator, so the order of work does not
 matter.
 
-``interval_masks`` is the paged KV cache's per-interval draw on the arena's
-device: the same model (lognormal row weakness, per-bit Bernoulli) from a
-``torch.Generator``. The reference draws it with JAX's threefry, which no
-torch generator reproduces, so that stream is equal to the reference's in
-distribution only; parity tests hand both packages the same numpy masks.
+``DeviceFaultField`` draws the same model on the card, in one launch of the
+fault-field kernel (kernels/csrc/fault_field.cu): a word's row weakness is
+drawn once per field by ``torch.randn`` and kept, and bit b of word w flips
+iff output b % 4 of Philox4x32-10 at counter (w, b // 4) is below
+``uint32(clip(rate f_w, 0, P_MAX) 2^32)``. The masks never exist on the
+host. The reference draws its device field with JAX's threefry, which no
+torch generator reproduces, so the device streams equal the reference's (and
+the host field's) in distribution only; the host field stays the default
+and the parity oracle. ``interval_masks``, the paged KV cache's
+per-interval draw, is one such field per interval.
 """
 
 from __future__ import annotations
@@ -32,12 +37,15 @@ import torch
 
 from repro_torch.codes.base import as_words, check_dtypes, narrow, popcount32, widen
 from repro_torch.core.voltage import PlatformProfile
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.backend import resolve_device, to_device
 
 P_MAX = 0.5  # per-bit fault probability ceiling
 N_DATA_BITS = 64
 N_CHECK_DEFAULT = 8  # SECDED(72,64)
-KV_CHUNK_WORDS = 1 << 18  # words per draw of interval_masks
+# The bit stream's Philox key is its generator seed XOR this constant, so on
+# the card it never replays the Philox stream of torch's own generator.
+PHILOX_KEY_SALT = 0xD1B54A32D192ED03
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +60,9 @@ class FlipMasks:
         """Ground-truth number of flipped bits per codeword."""
         cnt = _popcount32(self.lo) + _popcount32(self.hi)
         return (cnt + _popcount32(self.parity.astype(np.uint32))).astype(np.int32)
+
+    def total_flips(self) -> int:
+        return int(self.flip_counts().sum())
 
 
 def flip_counts(mlo: torch.Tensor, mhi: torch.Tensor, mcheck: torch.Tensor) -> torch.Tensor:
@@ -69,10 +80,7 @@ def device_masks(field: "FaultField", v: float, device, shape=None):
     with ``gather_masks`` first."""
     shape = (field.n_words,) if shape is None else tuple(shape)
     if field.platform.fault_rate(float(v)) == 0.0:
-        return tuple(
-            torch.zeros(shape, dtype=dt, device=device)
-            for dt in (torch.int32, torch.int32, check_dtypes(field.n_check)[1])
-        )
+        return tuple(t.reshape(shape) for t in zero_masks(field.n_words, field.n_check, device))
     m = field.masks(v)
     return tuple(to_device(as_words(a).reshape(shape), device) for a in (m.lo, m.hi, m.parity))
 
@@ -154,6 +162,27 @@ class FaultField:
         """XOR flip masks for the whole memory at rail voltage ``v``."""
         return gather_masks([(self, v)], workers=1)[0]
 
+    def device_field(self, device=None) -> "DeviceFaultField":
+        """The device field over the same geometry and seed (its own
+        stream); ``device`` None is the card."""
+        return DeviceFaultField(self.platform, self.n_words, seed=self.seed,
+                                n_check=self.n_check, device=device)
+
+    def sweep_histogram(self, voltages) -> list[dict]:
+        """Per-voltage fault statistics (paper Fig. 1 / Fig. 2b)."""
+        out = []
+        for v in voltages:
+            counts = self.masks(v).flip_counts()
+            out.append({
+                "voltage": float(v),
+                "faulty_bits": int(counts.sum()),
+                "faults_per_mbit": counts.sum() / (self.n_words * 72 / (1024 * 1024)),
+                "words_1bit": int((counts == 1).sum()),
+                "words_2bit": int((counts == 2).sum()),
+                "words_multi": int((counts >= 3).sum()),
+            })
+        return out
+
 
 def gather_masks(requests, workers: int | None = None) -> list:
     """Masks of several fields, ``requests`` = [(field, voltage), ...].
@@ -195,37 +224,95 @@ def gather_masks(requests, workers: int | None = None) -> list:
     return out
 
 
+def philox_key(seed_key: int) -> int:
+    """The 64-bit Philox key of the bit stream whose row weakness comes from
+    a generator seeded with ``seed_key``."""
+    return (int(seed_key) ^ PHILOX_KEY_SALT) & (2**64 - 1)
+
+
+def row_factor(n_words: int, row_sigma: float, seed_key: int, device) -> torch.Tensor:
+    """(n_words,) float32 lognormal row weakness f = exp(sigma z - sigma^2 /
+    2) (mean 1), z from ``torch.randn`` on a generator on ``device`` seeded
+    with ``seed_key``."""
+    gen = torch.Generator(device=device).manual_seed(int(seed_key))
+    z = torch.randn(n_words, generator=gen, device=device, dtype=torch.float32)
+    return torch.exp(row_sigma * z - 0.5 * row_sigma * row_sigma)
+
+
+class DeviceFaultField:
+    """Failure-threshold field drawn on the device by the fault-field kernel.
+
+    In place of a FaultField in the batched voltage step: ``masks(v)``
+    returns (lo int32, hi int32, check) tensors on the field's device and
+    never touches host memory. The row weakness is drawn once, when the field
+    is made (seeded from ``seed ^ 0xECC``), and kept; the random bits depend
+    only on (seed, word), so voltage enters through each word's threshold
+    alone and FIP holds per word. ``chunk_words`` bounds the plain version's
+    transients on the CPU; the card draws the field in one launch, and the
+    masks do not depend on it. ``device`` None is the card.
+    """
+
+    def __init__(
+        self,
+        platform: PlatformProfile,
+        n_words: int,
+        seed: int = 0,
+        chunk_words: int = 1 << 18,
+        n_check: int = N_CHECK_DEFAULT,
+        burst=None,
+        device=None,
+    ):
+        if burst is not None:
+            raise NotImplementedError("burst fault shapes are not ported")
+        self.platform = platform
+        self.n_words = int(n_words)
+        self.seed = int(seed)
+        self.chunk_words = int(chunk_words)
+        self.n_check = int(n_check)
+        self.device = resolve_device(device)
+        self.key = philox_key(self.seed ^ 0xECC)
+        self.f_row = row_factor(self.n_words, float(platform.row_sigma), self.seed ^ 0xECC,
+                                self.device)
+
+    def masks(self, v: float):
+        """(lo, hi, check) flip masks at rail voltage ``v``."""
+        return self.masks_for_rates(self.platform.fault_rate(float(v)))
+
+    def masks_for_rates(self, rates):
+        """Masks for a scalar rate or an (n_words,) per-word rate vector
+        (tensor or array), rounded to float32.
+
+        Per-word rates are how multi-rail domains share one stream: a word's
+        rail enters through its threshold alone, so a uniform rate vector
+        gives the scalar path's masks bit for bit. A zero scalar rate gives
+        zero masks made on the device, without a launch."""
+        if not isinstance(rates, (torch.Tensor, np.ndarray)) or np.ndim(rates) == 0:
+            rate = float(np.float32(rates))
+            if rate == 0.0:
+                return zero_masks(self.n_words, self.n_check, self.device)
+        else:
+            rate = torch.as_tensor(rates).to(self.device, torch.float32)
+            if rate.shape != (self.n_words,):
+                raise ValueError(f"expected ({self.n_words},) rates, got {tuple(rate.shape)}")
+        return kops.fault_field(self.f_row, rate, self.key, self.n_check,
+                                chunk_words=self.chunk_words)
+
+
+def zero_masks(n_words: int, n_check: int, device):
+    """All-zero (lo int32, hi int32, check) masks made on ``device``."""
+    return tuple(torch.zeros(n_words, dtype=dt, device=device)
+                 for dt in (torch.int32, torch.int32, check_dtypes(n_check)[1]))
+
+
 def interval_masks(seed: int, interval: int, n_words: int, rate: float, row_sigma: float,
                    n_check: int = N_CHECK_DEFAULT, device=None):
     """One fault interval's (lo int32, hi int32, check) flip masks for
-    ``n_words`` words (check uint8, or int32 beyond 8 check bits), drawn on
-    ``device`` by a ``torch.Generator`` seeded from (seed ^ 0xCACE,
-    interval), in chunks of ``KV_CHUNK_WORDS``.
-
-    Per chunk: a lognormal row factor f = exp(sigma z - sigma^2 / 2) (mean
-    1), the word's per-bit probability p = clip(rate f, 0, P_MAX) in
-    float32, and bit b of the word flips iff its uniform 32-bit draw is below
-    floor(p 2^32), for 64 + n_check bitplanes. ``device`` None is the card."""
+    ``n_words`` words (check uint8, or int32 beyond 8 check bits) on
+    ``device``: a fault field keyed by (seed ^ 0xCACE, interval), its row
+    weakness drawn anew for the interval by one ``torch.randn``, its bits by
+    one launch of the fault-field kernel (the plain version off the card).
+    ``device`` None is the card."""
     dev = resolve_device(device)
     key = (((int(seed) ^ 0xCACE) << 32) | (int(interval) & 0xFFFFFFFF)) & ((1 << 63) - 1)
-    gen = torch.Generator(device=dev).manual_seed(key)
-    nb = N_DATA_BITS + n_check
-    weights = torch.bitwise_left_shift(
-        torch.ones(32, dtype=torch.int64, device=dev), torch.arange(32, device=dev)
-    )[:, None]
-    los, his, pars = [], [], []
-    for start in range(0, n_words, KV_CHUNK_WORDS):
-        m = min(KV_CHUNK_WORDS, n_words - start)
-        z = torch.randn(m, generator=gen, device=dev, dtype=torch.float32)
-        f_row = torch.exp(row_sigma * z - 0.5 * row_sigma * row_sigma)
-        p_word = torch.clamp(float(rate) * f_row, 0.0, P_MAX)
-        thresh = (p_word * 4294967296.0).to(torch.int64)
-        bits = torch.randint(0, 1 << 32, (nb, m), generator=gen, device=dev, dtype=torch.int64)
-        faulty = (bits < thresh[None, :]).to(torch.int64)
-        los.append(narrow((faulty[:32] * weights).sum(dim=0)))
-        his.append(narrow((faulty[32:64] * weights).sum(dim=0)))
-        pars.append((faulty[64:] * weights[:n_check]).sum(dim=0).to(check_dtypes(n_check)[1]))
-    if not los:
-        z32 = torch.zeros(0, dtype=torch.int32, device=dev)
-        return z32, z32.clone(), torch.zeros(0, dtype=check_dtypes(n_check)[1], device=dev)
-    return torch.cat(los), torch.cat(his), torch.cat(pars)
+    f_row = row_factor(n_words, float(row_sigma), key, dev)
+    return kops.fault_field(f_row, float(np.float32(rate)), philox_key(key), n_check)

@@ -37,12 +37,14 @@ class _Layer:
 
 class EccMLP:
     """MLP classifier with SECDED-protected int8 weights (the paper's
-    accelerator). ``device=None`` runs on the card and raises without one."""
+    accelerator). ``mask_source`` ("host" or "device") feeds the batched
+    step's plane store; the per-leaf step keeps its host fields.
+    ``device=None`` runs on the card and raises without one."""
 
     def __init__(self, layer_sizes, platform: str = "vc707", seed: int = 0,
                  mask_source: str = "host", device=None):
-        if mask_source != "host":
-            raise NotImplementedError(f"mask_source={mask_source!r} is not ported (use 'host')")
+        if mask_source not in ("host", "device"):
+            raise ValueError(f"mask_source must be 'host' or 'device', got {mask_source!r}")
         self.sizes = tuple(layer_sizes)
         self.platform = vmod.PLATFORMS[platform]
         self.seed = seed
@@ -111,7 +113,7 @@ class EccMLP:
                                  seed=leaf_seed(self.seed, f"layer{i}"))
         self._store = PlaneStore(
             [l.enc for l in self.layers], [f"layer{i}" for i in range(len(self.layers))],
-            self.platform, seed=self.seed, device=self.device,
+            self.platform, seed=self.seed, mask_source=self.mask_source, device=self.device,
         )
         self.set_voltage(self.voltage, self.ecc_enabled)
 

@@ -6,9 +6,14 @@ protect time into flat (n_words,) arenas on the model's device, with a leaf
 ``inject_scrub`` launch over the whole arena (``inject_scrub_domains`` with a
 per-domain rail schedule), and only the counter block crosses to the host.
 
-Masks come from the host numpy ``FaultField``, one field per leaf keyed by
-``leaf_seed(seed, key)`` with the leaf's codec's check bits, so the faulty
-planes are bit-identical to the reference store's.
+Mask sources:
+  * "host" (the default): the numpy ``FaultField``, one field per leaf keyed
+    by ``leaf_seed(seed, key)`` with the leaf's codec's check bits, so the
+    faulty planes are bit-identical to the reference store's;
+  * "device": one ``DeviceFaultField`` per codec group, keyed by the
+    reference's group seeds, drawn on the store's device by the fault-field
+    kernel: the masks never exist in host memory (statistically equal to
+    the host field, FIP holds). A rail at or above V_min costs no launch.
 
 Codecs: every memory domain selects a registered ECC scheme (``codecs`` maps
 domain -> codec name; default the built-in ``secded72``). Slots sharing a
@@ -17,12 +22,19 @@ under the group's codec from the clean data) and domain ids, and a voltage
 step is one fused launch per group with the counters summed over groups. A
 store of one codec is one group whose planes alias the master arenas (and,
 under SECDED, the check plane the leaves arrived with).
+
+Every voltage step also has a ``*_async`` form that queues the launches and
+returns a ``PendingFaultStats`` at once; its ``harvest()`` is the one copy
+of the counters to the host. The reference also rotates each group's planes
+through a depth-2 ring of buffers that it donates back to XLA; PyTorch's
+caching allocator already reuses freed blocks, so the port keeps no ring.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import zlib
+from typing import Any
 
 import numpy as np
 import torch
@@ -30,11 +42,13 @@ import torch
 from repro_torch import codes
 from repro_torch.codes import DEFAULT_CODEC
 from repro_torch.codes.base import as_words
-from repro_torch.core.faultsim import FaultField, flip_counts, gather_masks
+from repro_torch.core.faultsim import (
+    DeviceFaultField, FaultField, flip_counts, gather_masks, zero_masks,
+)
 from repro_torch.core.telemetry import DomainFaultStats, FaultStats
 from repro_torch.core.voltage import PlatformProfile
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.backend import resolve_device
+from repro_torch.kernels.backend import resolve_device, to_device
 
 
 def leaf_seed(base_seed: int, key: str) -> int:
@@ -54,6 +68,22 @@ def inject_leaf(leaf, masks, ecc: bool = True):
         par = kops.encode(lo, hi)
     faulty = dataclasses.replace(leaf, lo=lo, hi=hi, parity=par)
     return faulty, FaultStats.from_decode(kops.scrub(faulty), flip_counts(*masks))
+
+
+@dataclasses.dataclass
+class PendingFaultStats:
+    """The counters of a queued voltage step (``set_voltage_async``,
+    ``set_rails_async``): per group, a device counter block. The faulty
+    planes are usable at once; ``harvest()`` copies the counters to the host
+    and returns the stats object the synchronous step returns."""
+
+    counters: list
+    finish: Any  # callable(numpy counter block summed over groups) -> the stats
+
+    def harvest(self):
+        if not self.counters:
+            return self.finish(None)
+        return self.finish(torch.stack(self.counters).sum(dim=0).cpu().numpy())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +110,7 @@ class CodecGroup:
     hi: torch.Tensor
     check: torch.Tensor  # (n_words,) the codec's check dtype
     dom_ids: torch.Tensor  # (n_words,) int32 store-global domain indices
+    field: DeviceFaultField | None = None  # mask_source="device"
 
 
 class PlaneStore:
@@ -89,7 +120,8 @@ class PlaneStore:
     memory domains; ``set_rails`` drives one rail voltage per domain and
     returns one counter row per domain. ``profiles`` optionally gives a
     domain its own PlatformProfile; ``codecs`` (a name, or {domain: name})
-    its ECC scheme.
+    its ECC scheme; ``mask_source`` where the masks come from ("host" or
+    "device").
     """
 
     def __init__(
@@ -98,14 +130,18 @@ class PlaneStore:
         keys,
         platform: PlatformProfile,
         seed: int = 0,
+        mask_source: str = "host",
         domain_key=None,
         profiles=None,
         codecs=None,
         device=None,
     ):
+        if mask_source not in ("host", "device"):
+            raise ValueError(f"mask_source must be 'host' or 'device', got {mask_source!r}")
         assert len(leaves) == len(set(keys)), "leaf keys must be unique"
         self.platform = platform
         self.seed = int(seed)
+        self.mask_source = mask_source
         self._profiles = dict(profiles or {})
         classify = domain_key if domain_key is not None else (lambda _k: "all")
         slots, off = [], 0
@@ -159,8 +195,11 @@ class PlaneStore:
 
     def _build_groups(self) -> None:
         """(Re)build the per-codec groups from the master clean planes, and
-        the per-leaf host fields with each group's check bits. One codec:
-        one group aliasing the master planes (and SECDED's check plane)."""
+        the per-leaf host fields with each group's check bits (device
+        stores: one device field per group, seeded ``seed`` for a single
+        group, else from the seed and the codec's name, so regrouping keeps
+        the streams of unchanged groups). One codec: one group aliasing the
+        master planes (and SECDED's check plane)."""
         by_codec: dict = {}
         for si, s in enumerate(self.slots):
             by_codec.setdefault(self.codec_of(s.domain), []).append(si)
@@ -184,8 +223,13 @@ class PlaneStore:
                 check = self.parity  # the leaves arrived SECDED-encoded
             else:
                 check = kops.encode(lo, hi, codec=name)
+            field = None
+            if self.mask_source == "device":
+                dseed = self.seed if single else (self.seed ^ zlib.crc32(name.encode())) & 0x7FFFFFFF
+                field = DeviceFaultField(self.platform, off, seed=dseed, n_check=codec.n_check,
+                                         device=self.device)
             groups.append(CodecGroup(name, codec, tuple(slot_ids), tuple(offsets), off,
-                                     lo, hi, check, dom))
+                                     lo, hi, check, dom, field))
         self.groups = tuple(groups)
         self._host_fields = {
             self.slots[si].key: FaultField(
@@ -268,21 +312,73 @@ class PlaneStore:
         assert len(self.groups) == 1, "host_masks is a single-group helper"
         return self.group_host_masks(v)[0]
 
+    def _group_device_masks(self, g: CodecGroup, v):
+        """A group's masks from its device field: the scalar path for a
+        float rail without per-domain profiles, else a per-word rate vector
+        gathered on the device from the per-domain rates by the words'
+        domain ids. A group whose rails all lie at or above V_min gets zero
+        masks without a launch."""
+        if not isinstance(v, dict) and not self._profiles:
+            return g.field.masks(v)
+        volts = v if isinstance(v, dict) else {d: v for d in self.domains}
+        rates = np.array([self.domain_profile(d).fault_rate(float(volts[d]))
+                          for d in self.domains], np.float32)
+        present = {self.slots[si].domain for si in g.slot_ids}
+        if not any(rates[self._dom_index[d]] for d in present):
+            return zero_masks(g.n_words, g.codec.n_check, self.device)
+        table = to_device(rates, self.device)
+        return g.field.masks_for_rates(torch.index_select(table, 0, g.dom_ids))
+
+    def group_masks(self, v) -> list:
+        """Per group, its arena-order (mask_lo, mask_hi, mask_check) at rail
+        voltage ``v`` (a float or a {domain: voltage} schedule) from the
+        store's mask source."""
+        if self.mask_source == "device":
+            return [self._group_device_masks(g, v) for g in self.groups]
+        return self.group_host_masks(v)
+
     # -- the batched voltage step --------------------------------------------
+    def set_voltage_async(self, v: float, ecc: bool = True):
+        """``set_voltage`` with its counters left on the device: one fused
+        inject+scrub launch per codec group, queued. Returns (faulty_leaves,
+        PendingFaultStats) at once; ``harvest()`` gives the FaultStats."""
+        if self.n_words == 0:
+            return list(self._leaves), PendingFaultStats([], lambda _c: FaultStats())
+        outs = [
+            kops.inject_scrub(g.lo, g.hi, g.check, *m, codec=g.name, reencode=not ecc)
+            for g, m in zip(self.groups, self.group_masks(v))
+        ]
+        finish = lambda c, n=self.n_words: FaultStats.from_counters(c, words=n)
+        return self._slice_leaves([o[:3] for o in outs]), PendingFaultStats(
+            [o[3] for o in outs], finish)
+
     def set_voltage(self, v: float, ecc: bool = True):
         """One fused inject+scrub launch per codec group.
 
         Returns (faulty_leaves, FaultStats): the leaves with lo/hi/parity
         replaced by group slices at rail voltage ``v``."""
+        leaves, pending = self.set_voltage_async(v, ecc=ecc)
+        return leaves, pending.harvest()
+
+    def set_rails_async(self, volts: dict, ecc: bool = True):
+        """``set_rails`` with its counters left on the device (as
+        ``set_voltage_async``): (faulty_leaves, PendingFaultStats) whose
+        ``harvest()`` gives the DomainFaultStats."""
+        missing = set(self.domains) - set(volts)
+        assert not missing, f"rails missing for domains: {sorted(missing)}"
         if self.n_words == 0:
-            return list(self._leaves), FaultStats()
+            return list(self._leaves), PendingFaultStats([], lambda _c: DomainFaultStats())
         outs = [
-            kops.inject_scrub(g.lo, g.hi, g.check, *m, codec=g.name, reencode=not ecc)
-            for g, m in zip(self.groups, self.group_host_masks(v))
+            kops.inject_scrub_domains(
+                g.lo, g.hi, g.check, *m, g.dom_ids, len(self.domains),
+                codec=g.name, reencode=not ecc,
+            )
+            for g, m in zip(self.groups, self.group_masks(dict(volts)))
         ]
-        cnt = torch.stack([o[3] for o in outs]).sum(dim=0)
-        stats = FaultStats.from_counters(cnt.cpu().numpy(), words=self.n_words)
-        return self._slice_leaves([o[:3] for o in outs]), stats
+        finish = lambda c: FaultStats.from_counter_matrix(
+            c, self.domains, self.words_by_domain())
+        return self._slice_leaves([o[:3] for o in outs]), PendingFaultStats(
+            [o[3] for o in outs], finish)
 
     def set_rails(self, volts: dict, ecc: bool = True):
         """One fused inject+scrub launch per codec group with a separate rail
@@ -291,22 +387,8 @@ class PlaneStore:
         ``volts`` maps every domain to its voltage. Returns (faulty_leaves,
         DomainFaultStats); a uniform schedule gives the planes and total
         counters of ``set_voltage``."""
-        missing = set(self.domains) - set(volts)
-        assert not missing, f"rails missing for domains: {sorted(missing)}"
-        if self.n_words == 0:
-            return list(self._leaves), DomainFaultStats()
-        outs = [
-            kops.inject_scrub_domains(
-                g.lo, g.hi, g.check, *m, g.dom_ids, len(self.domains),
-                codec=g.name, reencode=not ecc,
-            )
-            for g, m in zip(self.groups, self.group_host_masks(dict(volts)))
-        ]
-        cnt = torch.stack([o[3] for o in outs]).sum(dim=0)
-        stats = FaultStats.from_counter_matrix(
-            cnt.cpu().numpy(), self.domains, self.words_by_domain()
-        )
-        return self._slice_leaves([o[:3] for o in outs]), stats
+        leaves, pending = self.set_rails_async(volts, ecc=ecc)
+        return leaves, pending.harvest()
 
     def _slice_leaves(self, planes) -> list:
         """Per-leaf EccWeight views of the groups' faulty planes, ``planes``

@@ -26,7 +26,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("inject_scrub", "secded", "ecc_matmul", "paged_gather", "fault_inject")
+SOURCES = (
+    "inject_scrub", "secded", "ecc_matmul", "paged_gather", "fault_inject", "fault_field",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -167,15 +169,19 @@ def check_planes(lo, hi, chk, mlo, mhi, mchk, check_dtype=torch.uint8) -> int:
 
 class Kernel:
     """One exported C launcher. ``launches`` counts the launches it made; a
-    launcher whose first argument is a codec id (``by_codec``) also counts
-    them per id in ``launches_by_codec``. A launch the runtime refused
+    launcher whose first argument names the codec (``by_codec``) also counts
+    them per value of that argument in ``launches_by_codec``: the
+    ``codec_key`` attribute of the ``Codec`` it came from (its kernel id, or
+    its check-bit count for the fault field). A launch the runtime refused
     raises."""
 
-    def __init__(self, source: str, symbol: str, argtypes: list, by_codec: bool = False):
+    def __init__(self, source: str, symbol: str, argtypes: list, by_codec: bool = False,
+                 codec_key: str = "kernel_id"):
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
         self.by_codec = by_codec
+        self.codec_key = codec_key
         self.launches = 0
         self.launches_by_codec: dict = {}
         self._fn = None
@@ -207,3 +213,5 @@ class Kernel:
 VP = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong
+F32 = ctypes.c_float
+U64 = ctypes.c_ulonglong

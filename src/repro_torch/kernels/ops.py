@@ -2,7 +2,7 @@
 
 CPU tensors take the plain version (kernels/ref.py); CUDA tensors launch the
 hand-written kernel (kernels/inject_scrub.py, secded.py, ecc_matmul.py,
-paged_gather.py, fault_inject.py) or raise. Planes of any shape are
+paged_gather.py, fault_inject.py, fault_field.py) or raise. Planes of any shape are
 flattened; the kernels need no padded layout, so no pad correction of the
 clean counter arises.
 """
@@ -16,6 +16,7 @@ import torch
 from repro_torch import codes
 from repro_torch.kernels import backend
 from repro_torch.kernels import ecc_matmul as _mm
+from repro_torch.kernels import fault_field as _ff
 from repro_torch.kernels import fault_inject as _fi
 from repro_torch.kernels import inject_scrub as _isc
 from repro_torch.kernels import paged_gather as _pg
@@ -30,6 +31,7 @@ KERNELS = {
     "encode": _secded.ENCODE,
     "gather_scrub": _pg.GATHER_SCRUB,
     "inject": _fi.INJECT,
+    "fault_field": _ff.FAULT_FIELD,
 }
 
 
@@ -47,11 +49,12 @@ def launch_counts() -> dict:
 def launch_counts_by_codec() -> dict:
     """{kernel: {codec name: launches}} of the codec-generic kernels since
     the last reset."""
-    by_id = {codes.get(c).kernel_id: c for c in codes.names()}
-    return {
-        name: {by_id[i]: n for i, n in sorted(k.launches_by_codec.items())}
-        for name, k in KERNELS.items() if k.by_codec
-    }
+    out = {}
+    for name, k in KERNELS.items():
+        if k.by_codec:
+            by_id = {getattr(codes.get(c), k.codec_key): c for c in codes.names()}
+            out[name] = {by_id[i]: n for i, n in sorted(k.launches_by_codec.items())}
+    return out
 
 
 def _flat(*planes):
@@ -110,6 +113,26 @@ def inject(lo, hi, parity, mlo, mhi, mparity):
     else:
         out = _fi.inject(*planes)
     return tuple(t.reshape(lo.shape) for t in out)
+
+
+def fault_field(f_row, rate, key: int, n_check: int, *, chunk_words: int = 1 << 15):
+    """Flip masks (lo int32, hi int32, check) of a fault field's words:
+    ``f_row`` (n,) float32 row weakness, ``rate`` a float or an (n,) float32
+    tensor of per-word rates, ``key`` the field's 64-bit Philox key. One
+    launch on the card; the plain version draws ``chunk_words`` words at a
+    time (its transients are (64 + n_check) x chunk int64 tensors; 2^15
+    words keep them in the CPU's caches), and the masks do not depend on the
+    chunking."""
+    per_word = isinstance(rate, torch.Tensor)
+    if backend.dispatch(f_row, *((rate,) if per_word else ())) == "cuda":
+        return _ff.fault_field(f_row, rate, key, n_check)
+    n = f_row.numel()
+    parts = [
+        _ref.fault_field_ref(f_row[s:s + chunk_words], rate[s:s + chunk_words] if per_word
+                             else rate, key, n_check, base=s)
+        for s in range(0, n, chunk_words)
+    ] or [_ref.fault_field_ref(f_row, 0.0, key, n_check)]
+    return tuple(torch.cat(ts) for ts in zip(*parts))
 
 
 def inject_scrub(lo, hi, parity, mlo, mhi, mparity, *,

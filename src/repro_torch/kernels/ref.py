@@ -7,11 +7,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch import codes
-from repro_torch.codes.base import narrow, widen
-from repro_torch.core.faultsim import flip_counts
+from repro_torch.codes.base import WORD_MASK, check_dtypes, narrow, widen
+from repro_torch.core import faultsim  # its fault field calls back into this module
 from repro_torch.core.telemetry import counter_lanes
 
 N_COUNTERS = 8
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # Philox4x32 round multipliers
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)  # Weyl increments of the round keys
 
 
 def decode_ref(lo, hi, check, codec: str = codes.DEFAULT_CODEC):
@@ -79,7 +81,7 @@ def _inject_classify(lo, hi, check, mlo, mhi, mcheck, reencode, codec):
         (status == codes.STATUS_CORRECTED) & (flip_lo == widen(mlo)) & (flip_hi == widen(mhi))
         if c.exact_tallies else None
     )
-    return flo, fhi, fchk, counter_lanes(status, flip_counts(mlo, mhi, mcheck), genuine)
+    return flo, fhi, fchk, counter_lanes(status, faultsim.flip_counts(mlo, mhi, mcheck), genuine)
 
 
 def inject_scrub_ref(lo, hi, check, mlo, mhi, mcheck, reencode=False,
@@ -132,3 +134,47 @@ def ecc_matmul_ref(x, lo, hi, check, scale=None, codec: str = codes.DEFAULT_CODE
     if scale is not None:
         out = out * scale
     return out
+
+
+def mulhilo32(a, m):
+    """(hi, lo) 32-bit halves of the 64-bit product of ``a`` and ``m``,
+    values in [0, 2**32) held in int64 (tensors or ints). A 32 x 32-bit
+    product overflows a signed int64, so ``m`` is split into 16-bit halves:
+    t = a * m_lo16 and u = a * m_hi16 + (t >> 16) stay below 2**49."""
+    t = a * (m & 0xFFFF)
+    u = a * (m >> 16) + (t >> 16)
+    return u >> 16, ((u & 0xFFFF) << 16) | (t & 0xFFFF)
+
+
+def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 of the counter (c0, c1, c2, c3) under the key (k0, k1):
+    four int64 tensors (broadcast together) of values in [0, 2**32)."""
+    for _ in range(10):
+        hi0, lo0 = mulhilo32(c0, PHILOX_M[0])
+        hi1, lo1 = mulhilo32(c2, PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + PHILOX_W[0]) & WORD_MASK, (k1 + PHILOX_W[1]) & WORD_MASK
+    return c0, c1, c2, c3
+
+
+def fault_field_ref(f_row, rate, key: int, n_check: int, base: int = 0):
+    """Flip masks of the words ``base .. base + n`` of a fault field (the
+    fault-field kernel's arithmetic): ``f_row`` (n,) float32 row weakness,
+    ``rate`` a float or an (n,) float32 tensor, ``key`` the field's 64-bit
+    Philox key. Word w's bit b flips iff output b % 4 of Philox4x32-10 at
+    counter (w low 32 bits, w high 32 bits, b // 4, 0) is below
+    uint32(clip(rate f, 0, P_MAX) 2^32). Returns (lo int32, hi int32, check
+    uint8 or int32) bit patterns."""
+    dev, n = f_row.device, f_row.numel()
+    rate = torch.as_tensor(rate, dtype=torch.float32, device=dev)
+    thresh = (torch.clamp(rate * f_row, 0.0, faultsim.P_MAX) * 4294967296.0).to(torch.int64)
+    w = torch.arange(base, base + n, dtype=torch.int64, device=dev)[None, :]
+    groups = (64 + n_check + 3) // 4
+    g = torch.arange(groups, dtype=torch.int64, device=dev)[:, None]
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    out = philox4x32_10(w & WORD_MASK, w >> 32, g, zero, key & WORD_MASK, key >> 32)
+    bits = torch.stack(out, dim=1).reshape(4 * groups, n)[: 64 + n_check]
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)[:, None]
+    pack = lambda rows: ((rows < thresh).to(torch.int64) << shifts[: rows.shape[0]]).sum(dim=0)
+    return (narrow(pack(bits[:32])), narrow(pack(bits[32:64])),
+            pack(bits[64:]).to(check_dtypes(n_check)[1]))

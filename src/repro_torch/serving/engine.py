@@ -56,9 +56,12 @@ class ReliabilityConfigError(ValueError, AssertionError):
 @dataclasses.dataclass(frozen=True)
 class FaultModelConfig:
     """How faults are generated and applied. ``validate()`` rejects what is
-    not ported: device masks, environments and drift."""
+    not ported: environments and drift. ``mask_source="device"`` draws the
+    inline batched arena's masks on the device (``DeviceFaultField``);
+    domain mode and the per-leaf path keep host fields, as in the
+    reference."""
 
-    mask_source: str = "host"  # NumPy FaultField masks
+    mask_source: str = "host"  # "host": NumPy FaultField masks; "device"
     batched: bool = True  # one fused launch over the whole arena; False: per leaf
     environment: Any = None
     drift: float | None = None
@@ -137,7 +140,10 @@ class ReliabilityConfig:
                 "the batched arena",
             )
         _require(mesh is None, "mesh engines are not ported")
-        _require(fm.mask_source == "host", "mask_source='device' is not ported")
+        _require(
+            fm.mask_source in ("host", "device"),
+            f"mask_source must be 'host' or 'device', got {fm.mask_source!r}",
+        )
         _require(
             fm.environment is None and fm.drift is None,
             "environment scenarios and drift are not ported",
@@ -300,6 +306,7 @@ class ServingEngine:
             [key for _, key in self._ecc_slots],
             self.platform,
             seed=rel.seed,
+            mask_source=rel.fault_model.mask_source,
             domain_key=shapes.domain_of if rails.multi_rail else None,
             profiles=rail_profiles,
             codecs=shapes.domain_codecs(codecs) if rails.multi_rail else codecs,

@@ -159,7 +159,6 @@ def test_entry_points_default_to_the_card(models, monkeypatch):
     # domain mode and the per-leaf path are ported; with several rails
     # neither is valid
     {"mode": "domain", "rails": teng.RailsConfig(multi_rail=True)},
-    {"fault_model": teng.FaultModelConfig(mask_source="device")},
     {"fault_model": teng.FaultModelConfig(batched=False), "rails": teng.RailsConfig(multi_rail=True)},
     # codecs are ported on the batched inline arena; domain mode stays SECDED
     {"mode": "domain", "protection": teng.ProtectionConfig(codecs="dected79")},

@@ -596,3 +596,62 @@ def test_inject_scrub_kernels_edge_planes(cuda, codec, case):
     assert after["inject_scrub_domains"] == before["inject_scrub_domains"] + 2
     if n > 1000:
         assert int(k[3][:, 7].sum()) > 0
+
+
+FIELD_N_CHECKS = (1, 8, 15, 24)  # parity65, secded72, dected79, ileave88
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 3, 4097, 2**20 + 5])
+@pytest.mark.parametrize("n_check", FIELD_N_CHECKS)
+def test_fault_field_kernel_bit_identical(cuda, n_check, n):
+    """The fault-field kernel against its plain version on the same row
+    factor: a scalar rate and per-word rates (a third of the words at rate
+    0, a third at another rail), a key with both 32-bit halves nonzero."""
+    from repro_torch.core import faultsim
+    from repro_torch.core.voltage import PLATFORMS
+
+    plat = PLATFORMS["vc707"]
+    f_row = faultsim.row_factor(n, plat.row_sigma, 77 + n, cuda)
+    rates = torch.full((n,), plat.fault_rate(0.54), device=cuda)
+    rates[n // 3: 2 * n // 3] = 0.0
+    rates[2 * n // 3:] = plat.fault_rate(0.56)
+    key = faultsim.philox_key(0x1234_5678_9ABC)
+    before = ops.launch_counts()["fault_field"]
+    for rate in (plat.fault_rate(0.54), rates):
+        k = ops.fault_field(f_row, rate, key, n_check)
+        p = ref.fault_field_ref(f_row, rate, key, n_check)
+        torch.cuda.synchronize()
+        assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(k, p))
+    assert ops.launch_counts()["fault_field"] == before + 2 * (n > 0)
+    if n > 2**20:
+        assert all(int(m.count_nonzero()) > 0 for m in k)
+        assert not any(m[n // 3: 2 * n // 3].any() for m in k)
+
+
+@pytest.mark.gpu
+def test_device_mask_store_launches_the_field_per_drawn_group(cuda):
+    """A device-mask plane store draws with the kernel once per codec group
+    whose rail lies below V_min, and not at all at or above it."""
+    from repro_torch.configs import shapes
+    from repro_torch.core.planestore import PlaneStore
+    from repro_torch.core.voltage import PLATFORMS
+
+    g = np.random.default_rng(3)
+    leaves = [ops.pack_ecc_weights(torch.from_numpy(g.standard_normal(s).astype(np.float32))
+                                   .to(cuda)) for s in ((64, 96), (128, 64), (256, 64))]
+    keys = ["['blocks']['p0']['attn']['wq']", "['blocks']['p0']['mlp']['w1']", "['embed']"]
+    store = PlaneStore(leaves, keys, PLATFORMS["vc707"], seed=3, mask_source="device",
+                       domain_key=shapes.domain_of,
+                       codecs={"attention": "parity65", "mlp": "dected79"})
+    assert len(store.groups) == 3
+    ops.reset_launch_count()
+    store.set_rails({d: 1.0 for d in store.domains})
+    store.set_voltage(0.8)
+    assert ops.launch_counts()["fault_field"] == 0
+    _, stats = store.set_rails({"attention": 1.0, "mlp": 0.55, "embedding": 0.54})
+    assert ops.launch_counts_by_codec()["fault_field"] == {"dected79": 1, "secded72": 1}
+    assert stats["attention"].faulty_bits == 0 < stats["mlp"].faulty_bits
+    _, s = store.set_voltage(0.55)
+    assert ops.launch_counts()["fault_field"] == 5 and s.faulty_bits > 0
+    assert ops.launch_counts()["inject_scrub"] == 6  # 0.8 V and 0.55 V, three groups each

@@ -173,8 +173,16 @@ def test_train_matches_reference():
 
 
 def test_device_masks_are_rejected():
-    with pytest.raises(NotImplementedError, match="mask_source"):
-        TMLP(SIZES, mask_source="device", device="cpu")
+    """Device masks are no longer rejected: the MLP hands them to its plane
+    store, and only an unknown source is refused."""
+    t = TMLP(SIZES, mask_source="device", device="cpu")
+    t.store()
+    assert t._store.mask_source == "device"
+    assert all(g.field is not None for g in t._store.groups)
+    t.set_voltage(0.54)
+    assert t.stats.words == sum(l.enc.lo.numel() for l in t.layers) and t.stats.faulty_bits > 0
+    with pytest.raises(ValueError, match="disk"):
+        TMLP(SIZES, mask_source="disk", device="cpu")
 
 
 def test_mlp_defaults_to_the_card():
