@@ -92,18 +92,20 @@ them. Phases, each printed on its own line with its wall time:
      kernel, ``csrc/fault_field.cu``): phases 4-5's engines with
      ``mask_source="device"``: a 0.56 V step (one field launch per codec
      group, none at nominal; no host-to-device copy of 1 MiB or more, by a
-     dispatch mode over its PyTorch operations and by a torch.profiler
-     trace, both first shown to see an arena-size copy), the DED-canary
-     autotune from 0.62 V with its locks beside phases 4-5's host-mask
-     locks, a DED-free final scrub and generate at the locks; then the
-     kernel against its plain version bit for bit for every check width (1,
-     8, 15, 24), scalar and per-word rates (a third of the words at rate 0)
-     and 0, 1, 3, 4,097 and 2^20 + 5 words, its SASS size (cuobjdump) and
-     its time beside its bound and the plain version's at the single-rail
-     arena's, the multi-rail arena's (per-word rates) and a KV interval's
-     word counts; the device field against the host field over 4 M words at
-     0.56/0.55/0.54 V (total flips within 0.6-1.6x, multi-bit share of
-     faulty words within 0.1); FIP from 0.58 to 0.54 V over the full arena;
+     dispatch mode over its PyTorch operations, first shown to see an
+     arena-size copy), the DED-canary autotune from 0.62 V with its locks
+     beside phases 4-5's host-mask locks, a DED-free final scrub and
+     generate at the locks; then the kernel against its plain version bit
+     for bit for every check width (1, 8, 15, 24): scalar and per-word rates
+     (a third of the words at rate 0) at 0, 1, 3, 4,097 and 2^20 + 5 words,
+     and at the main path's sizes: the single-rail arena's and a KV
+     interval's word counts at 0.56 V and the multi-rail store's own field
+     with the per-word rates it builds at mixed rails (one domain at rate
+     0); its SASS size (cuobjdump) and its time at those three sizes beside
+     its bound and the plain version's; the device field against the host
+     field over 4 M words at 0.56/0.55/0.54 V (total flips within 0.6-1.6x,
+     multi-bit share of faulty words within 0.1); FIP from 0.58 to 0.54 V
+     over the full arena;
   4-10 each zero the kernel launch counts at the start of a path and read
      them at its end, and fail unless every voltage step launched its scrub
      kernel once (B1 single-rail, B2 and the embedding's B5 multi-rail,
@@ -141,7 +143,6 @@ import os
 import re
 import subprocess
 import sys
-import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -169,6 +170,9 @@ FIELD_ALU_OPS_PER_GROUP = 10 * 2 + 4 * 2
 FIELD_SIZES = (0, 1, 3, 4097, 2**20 + 5)
 FIELD_N_CHECKS = (1, 8, 15, 24)  # parity65, secded72, dected79, ileave88
 FIELD_STATS_WORDS = 1 << 22
+# phase 10's multi-rail rails for the per-word-rate check: two domains below
+# V_min, the embedding above it (rate 0, a run of words that draw nothing)
+MIXED_RAILS = {"attention": 0.56, "mlp": 0.55, "embedding": 1.0}
 
 T0 = time.perf_counter()
 
@@ -2068,11 +2072,22 @@ def main() -> int:
         return int(((p * 4294967296.0).to(torch.int64) > 0).sum())
 
     def plain_chunked(f_row, rate, key, nc, chunk=1 << 22):
-        """The plain version over ``f_row`` on the card, 2^22 words a call
-        (its int64 transients)."""
-        parts = [ref.fault_field_ref(f_row[s:s + chunk], rate, key, nc, base=s)
+        """The plain version over ``f_row`` (scalar or per-word ``rate``) on
+        the card, 2^22 words a call (its int64 transients)."""
+        per_word = isinstance(rate, torch.Tensor)
+        parts = [ref.fault_field_ref(f_row[s:s + chunk], rate[s:s + chunk] if per_word else rate,
+                                     key, nc, base=s)
                  for s in range(0, f_row.numel(), chunk)]
         return tuple(torch.cat(t) for t in zip(*parts))
+
+    def mask_err(got, want) -> float:
+        """Largest |kernel - plain| over the words of the three masks, as
+        integers (0 iff every bit agrees); a dtype or shape mismatch fails."""
+        require(all(a.dtype == b.dtype and a.shape == b.shape for a, b in zip(got, want)),
+                f"fault field dtypes/shapes {[(a.dtype, a.shape) for a in got]} vs "
+                f"{[(b.dtype, b.shape) for b in want]}")
+        return max(float((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel()
+                   else 0.0 for a, b in zip(got, want))
 
     def sass_sizes() -> dict:
         """Instructions of each fault-field kernel in the SASS (cuobjdump),
@@ -2100,43 +2115,6 @@ def main() -> int:
                 out[cur]["integer_multiplies"] += op.startswith("IMAD")
         return out
 
-    pad = torch.zeros(1, device=dev)
-
-    def htod_trace(fn, expect) -> dict:
-        """Host-to-device copies that ``fn`` causes, from torch.profiler's
-        trace (its Chrome export carries each copy's bytes): {"copies":
-        [(name, bytes, us)], "kernels": n, "recorded": bool}. ``fn`` runs
-        between two runs of 4,096 one-element kernels, and the window is
-        taken up to three times until every name in ``expect`` is among its
-        kernels: in this process the profiler drops the first device records
-        of a window (all of a few-kernel window, and a step's field and
-        scrub kernels ahead of 4,096 kernels that it kept, once phases 4-9
-        have run). ``recorded`` says whether it kept them."""
-        cuda = torch.autograd.DeviceType.CUDA
-        for _ in range(3):
-            torch.cuda.synchronize()
-            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                for _ in range(4096):
-                    pad.add_(1.0)
-                fn()
-                for _ in range(4096):
-                    pad.add_(1.0)
-                torch.cuda.synchronize()
-            kernels_ = [e.name for e in prof.events() if e.device_type == cuda]
-            if all(any(x in k for k in kernels_) for x in expect):
-                break
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                trace = json.load(f)
-        evs = trace.get("traceEvents", []) if isinstance(trace, dict) else trace
-        copies = [(e["name"], int(e.get("args", {}).get("bytes", 0)), float(e.get("dur", 0.0)))
-                  for e in evs if "HtoD" in str(e.get("name", ""))]
-        return {"copies": copies, "kernels": len(kernels_),
-                "recorded": all(any(x in k for k in kernels_) for x in expect)}
-
     class HostToDevice(TorchDispatchMode):
         """The bytes of every PyTorch operation run inside it that copies a
         host tensor to the card (``to``, ``copy_``, ``as_tensor``...)."""
@@ -2160,18 +2138,13 @@ def main() -> int:
         n_multi = runs["multi-rail"]["arena_words"]
         interval_words = (STREAM_PAGES + 1) * paged["breakdown"]["words_per_page"]
         key = faultsim.philox_key(0xECC ^ 0xF00D)  # both 32-bit halves nonzero
-        # both copy checks see an arena-size copy from the host
+        # the copy check sees an arena-size copy from the host
         arena_host = torch.from_numpy(np.zeros(n_arena, np.int32))
         with HostToDevice() as h2d:
             arena_host.to(dev)
-        control = htod_trace(lambda: arena_host.to(dev), ("Memcpy HtoD",))
         require(h2d.copies and max(b for _, b in h2d.copies) == 4 * n_arena,
-                f"the dispatch check missed a host copy: {h2d.copies}")
-        require(not control["recorded"] or any(b == 4 * n_arena for _, b, _ in control["copies"]),
-                f"the trace missed a host copy: {control['copies']}")
-        print(f"  copy checks on a {4 * n_arena}-byte host-to-device copy: dispatch "
-              f"{h2d.copies}, traced {control['copies']}"
-              f"{'' if control['recorded'] else ' (the profiler kept no record)'}")
+                f"the copy check missed a host copy: {h2d.copies}")
+        print(f"  copy check on a {4 * n_arena}-byte host-to-device copy: {h2d.copies}")
         del arena_host
         # a. the engines of phases 4-5 with device masks
         for multi in (False, True):
@@ -2207,18 +2180,12 @@ def main() -> int:
                 require(ops.launch_counts()["fault_field"] == before,
                         f"{name}: the field launched at nominal")
                 # no copy of arena size from the host: every PyTorch copy of
-                # the step (dispatch mode), and the card's own record of it
+                # the step
                 with HostToDevice() as h2d:
                     eng.set_voltage(0.56)
                 require(all(b < 1 << 20 for _, b in h2d.copies),
                         f"{name}: host-to-device copies in a device-mask step: {h2d.copies}")
-                traced = htod_trace(lambda: eng.set_voltage(0.56),
-                                    ("field_kernel", "inject_scrub_kernel"))
-                big = [c for c in traced["copies"]
-                       if c[1] >= 1 << 20 or (c[1] == 0 and c[2] > 1000.0)]
-                require(not big, f"{name}: traced host-to-device copies in a device-mask "
-                        f"step: {big}")
-                run["htod_copies"] = {"dispatch": h2d.copies, **traced}
+                run["htod_copies"] = h2d.copies
                 if not multi:
                     eng.set_voltage(eng.controller.voltage)
                 t = time.perf_counter()
@@ -2267,14 +2234,28 @@ def main() -> int:
                   f"{hrun['autotune_s']:.1f} s); final scrub DED-free; tokens at the lock agree "
                   f"with nominal {run['agreement_at_lock_with_nominal']:.3f}")
             print(f"  {name}: history {json.dumps(run['history'])}")
-            print(f"  {name}: host-to-device copies in a 0.56 V step: PyTorch operations "
-                  f"{json.dumps(run['htod_copies']['dispatch'])}; traced "
-                  f"{json.dumps(run['htod_copies']['copies'])} ("
-                  f"{'the step recorded' if run['htod_copies']['recorded'] else 'the profiler kept no record of the step (not measured)'}, "
-                  f"{run['htod_copies']['kernels']} device events)")
+            print(f"  {name}: host-to-device copies in a 0.56 V step: "
+                  f"{json.dumps(run['htod_copies'])}")
             print(f"  {name} launches: {json.dumps(counts)} = {steps} voltage steps, "
                   f"{n_.get('field_draws', 0)} field draws, {n_['packs']} packs, "
                   f"{per_fwd} fused matmuls x ({n_['prefill']} + {n_['decode']}) forwards")
+            if multi:
+                # the per-word rates the store hands its field at mixed
+                # rails, the embedding's above V_min (rate 0), kept with the
+                # field's row factor and key for part b
+                store = eng._store
+                require(len(store.groups) == 1, f"{name}: {len(store.groups)} codec groups")
+                field_ = store.groups[0].field
+                require(set(store.domains) == set(MIXED_RAILS),
+                        f"{name}: domains {store.domains}")
+                kept = []
+                field_.masks_for_rates = kept.append
+                store.group_masks(MIXED_RAILS)
+                del field_.masks_for_rates
+                require(len(kept) == 1 and kept[0].shape == (n_multi,),
+                        f"{name}: the store drew no per-word rates")
+                store_draw = (field_.f_row, kept[0], field_.key)
+                del store, field_, kept
             del eng
             torch.cuda.empty_cache()
 
@@ -2304,42 +2285,62 @@ def main() -> int:
               f"rates with a zero range)")
         sass = sass_sizes()
         print(f"  SASS instructions per kernel (n_check[/rates]): {json.dumps(sass)}")
-        # times and bounds per width at the arenas' and the interval's sizes
+        # the kernel against its plain version at the main path's sizes, bit
+        # for bit (the single-rail arena, a KV interval, and the multi-rail
+        # store's own field at mixed rails), and times and bounds per width
         f55 = faultsim.row_factor(n_arena, platform.row_sigma, 0xECC, dev)
         f_int = f55[:interval_words]
-        rates_multi = torch.full((n_multi,), r056, device=dev)
-        f_multi = faultsim.row_factor(n_multi, platform.row_sigma, 0xECD, dev)
+        f_multi, rates_multi, key_multi = store_draw
         drawn55, drawn_int = drawn_words(f55, r056), drawn_words(f_int, r056)
+        drawn_multi = drawn_words(f_multi, rates_multi)
+
+        def plain_kept(*args):
+            """(the plain version's masks, its device time) from one call."""
+            box = []
+            ms = sync_ms(lambda: box.append(plain_chunked(*args)), iters=1, warmup=0)
+            return box[-1], ms
+
         for nc in FIELD_N_CHECKS:
             codec = next(c for c in codes.names() if codes.get(c).n_check == nc)
             name = "fault_field" if codec == "secded72" else f"fault_field_{codec}"
             row = {**field_bound(n_arena, drawn55, nc, False), "codec": codec,
-                   "max_abs_err": 0.0, "library_ms": None,
+                   "library_ms": None,
                    "sass_instructions": sass.get(str(nc), {}).get("instructions")}
+            errs = {}
+            for size, f_, rate_, key_ in (("arena", f55, r056, key),
+                                          ("interval", f_int, r056, key),
+                                          ("multi_rail", f_multi, rates_multi, key_multi)):
+                want, plain_ms = plain_kept(f_, rate_, key_, nc)
+                errs[size] = mask_err(ops.fault_field(f_, rate_, key_, nc), want)
+                require(errs[size] == 0.0, f"{name} at the {size} size: kernel differs from "
+                        f"its plain version by {errs[size]}")
+                row["plain_ms" if size == "arena" else f"plain_ms_{size}"] = plain_ms
+            row["max_abs_err"] = max(errs.values())
+            row["max_abs_err_by_size"] = errs
             row["ms"] = sync_ms(lambda: ops.fault_field(f55, r056, key, nc), iters=10)
-            row["plain_ms"] = sync_ms(lambda: plain_chunked(f55, r056, key, nc), iters=1)
             row["ms_interval"] = sync_ms(lambda: ops.fault_field(f_int, r056, key, nc), iters=20)
-            row["plain_ms_interval"] = sync_ms(
-                lambda: plain_chunked(f_int, r056, key, nc), iters=1)
             row["interval"] = field_bound(interval_words, drawn_int, nc, False)
             row["ms_multi_rail"] = sync_ms(
-                lambda: ops.fault_field(f_multi, rates_multi, key, nc), iters=5)
-            row["multi_rail"] = field_bound(n_multi, drawn_words(f_multi, r056), nc, True)
+                lambda: ops.fault_field(f_multi, rates_multi, key_multi, nc), iters=5)
+            row["multi_rail"] = field_bound(n_multi, drawn_multi, nc, True)
             report[name] = row
-            print(f"  {name} at 0.56 V: {n_arena} words {row['ms']:.3f} ms (bound "
-                  f"{row['bound_ms']:.3f} ms, {row['bound_by']}; bytes {row['bytes_ms']:.3f}, "
-                  f"integer ops {row['ops_ms']:.3f}), plain {row['plain_ms']:.1f} ms; "
-                  f"{interval_words} words (a KV interval) {row['ms_interval']:.4f} ms "
-                  f"(bound {row['interval']['bound_ms']:.4f}), plain "
-                  f"{row['plain_ms_interval']:.2f} ms; {n_multi} words, per-word rates "
-                  f"{row['ms_multi_rail']:.3f} ms (bound {row['multi_rail']['bound_ms']:.3f})")
+            print(f"  {name} at 0.56 V: kernel = plain version bit for bit at {n_arena}, "
+                  f"{interval_words} and {n_multi} words; {n_arena} words {row['ms']:.3f} ms "
+                  f"(bound {row['bound_ms']:.3f} ms, {row['bound_by']}; bytes "
+                  f"{row['bytes_ms']:.3f}, integer ops {row['ops_ms']:.3f}), plain "
+                  f"{row['plain_ms']:.1f} ms; {interval_words} words (a KV interval) "
+                  f"{row['ms_interval']:.4f} ms (bound {row['interval']['bound_ms']:.4f}), plain "
+                  f"{row['plain_ms_interval']:.2f} ms; {n_multi} words, the store's per-word "
+                  f"rates at {json.dumps(MIXED_RAILS)} ({drawn_multi} words drawn) "
+                  f"{row['ms_multi_rail']:.3f} ms (bound {row['multi_rail']['bound_ms']:.3f}), "
+                  f"plain {row['plain_ms_multi_rail']:.1f} ms")
         draw_ms = {c: min(wall_ms(lambda: faultsim.interval_masks(
             0, 1, interval_words, r056, platform.row_sigma, codes.get(c).n_check))
             for _ in range(3)) for c in ("secded72", "ileave88")}
         device_runs["interval_draw_wall_ms"] = draw_ms
         print(f"  interval_masks at 0.56 V, {interval_words} words (row factor + kernel), wall: "
               f"{json.dumps(draw_ms)} ms")
-        del f_row, rates, got, want, f_int, f_multi, rates_multi
+        del f_row, rates, got, want, f_int, f_multi, rates_multi, store_draw
         torch.cuda.empty_cache()
 
         # c. the device field against the host field (the model's oracle)

@@ -247,8 +247,9 @@ class DeviceFaultField:
     never touches host memory. The row weakness is drawn once, when the field
     is made (seeded from ``seed ^ 0xECC``), and kept; the random bits depend
     only on (seed, word), so voltage enters through each word's threshold
-    alone and FIP holds per word. ``chunk_words`` bounds the plain version's
-    transients on the CPU; the card draws the field in one launch, and the
+    alone and FIP holds per word. ``chunk_words`` (None: the plain
+    version's own ``FIELD_CPU_CHUNK``) is the words the plain version draws
+    at a time on the CPU; the card draws the field in one launch, and the
     masks do not depend on it. ``device`` None is the card.
     """
 
@@ -257,7 +258,7 @@ class DeviceFaultField:
         platform: PlatformProfile,
         n_words: int,
         seed: int = 0,
-        chunk_words: int = 1 << 18,
+        chunk_words: int | None = None,
         n_check: int = N_CHECK_DEFAULT,
         burst=None,
         device=None,
@@ -267,7 +268,7 @@ class DeviceFaultField:
         self.platform = platform
         self.n_words = int(n_words)
         self.seed = int(seed)
-        self.chunk_words = int(chunk_words)
+        self.chunk_words = kops.FIELD_CPU_CHUNK if chunk_words is None else int(chunk_words)
         self.n_check = int(n_check)
         self.device = resolve_device(device)
         self.key = philox_key(self.seed ^ 0xECC)
