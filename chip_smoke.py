@@ -106,7 +106,18 @@ them. Phases, each printed on its own line with its wall time:
      field over 4 M words at 0.56/0.55/0.54 V (total flips within 0.6-1.6x,
      multi-bit share of faulty words within 0.1); FIP from 0.58 to 0.54 V
      over the full arena;
-  4-10 each zero the kernel launch counts at the start of a path and read
+  11. the flight recorder (``repro_torch.obs``) on phase 6's engine and
+     stream (8 requests, 4 lanes, 14 pages, one preemption, kv rail 0.56 V,
+     the prefix trie on), then a speculative serve of the shared-prefix
+     requests: the same run without a recorder, with one and with one
+     under the dispatch profiler gives equal tokens, KV counters, kv
+     voltages, steps and launches per kernel and codec; the two traced
+     runs give byte-identical JSONL that the schema validates (events by
+     kind per serve: an admission per request and per preemption, a
+     retirement per request, a ``kv_scrub`` and three gauges per interval);
+     the profiler's rows (CUDA events, tagged ``cuda``) and the serve wall
+     times with and without the recorder (printed, not gated);
+  4-11 each zero the kernel launch counts at the start of a path and read
      them at its end, and fail unless every voltage step launched its scrub
      kernel once (B1 single-rail, B2 and the embedding's B5 multi-rail,
      none of the other path's), every forward pass of the protected model
@@ -118,7 +129,7 @@ them. Phases, each printed on its own line with its wall time:
      once, every per-leaf step and every domain read launched the fault
      injection and the decode once per leaf, and the plain codec never ran
      on the card;
-  11. one prefill and one decode step of paths 4-5 under torch.profiler
+  12. one prefill and one decode step of paths 4-5 under torch.profiler
      (device busy time, idle share, fused-matmul time inside the step, which
      must come from the decode kernel in a decode step and the tiled kernel
      in a prefill), tokens/s, voltage-step times and one
@@ -2382,7 +2393,132 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 11
-    with Phase("11 traced steps, timings and the kernels line"):
+    # The flight recorder on phase 6's stream: recorder off against on,
+    # two traced runs byte for byte, the schema, and the dispatch profiler.
+    with Phase("11 flight recorder, full width"):
+        from repro_torch.obs import KernelProfiler, TraceRecorder, validate_events
+        from repro_torch.obs import profile as obs_profile
+
+        dparams = lm.init_params(dcfg, seed=1, device=dev)
+
+        def recorder_run(recorder, profiler=None):
+            """Phase 6's engine built with ``recorder``; the stream at a 0.56 V
+            kv rail in STREAM_PAGES pages with the prefix trie on, then a
+            speculative serve of the shared-prefix requests (a scrub every 4
+            steps, so blocks of 4 tokens verify). Launch counts
+            and the path's tally from the engine build to the last serve."""
+            ops.reset_launch_count()
+            if profiler is not None:
+                obs_profile.enable(profiler)
+            try:
+                with Tally() as tally:
+                    eng_ = ServingEngine(cfg, params, rel=ReliabilityConfig(mode="inline",
+                                                                            voltage=1.0),
+                                         max_len=PAGED_MAX_LEN, recorder=recorder)
+                    torch.cuda.synchronize()
+                    walls_, reps_ = {}, {}
+                    for key_, kw_ in (
+                            ("stream", dict(requests=stream, n_pages=STREAM_PAGES)),
+                            ("speculative", dict(requests=shared_reqs, speculative=4,
+                                                 scrub_interval=4, draft_params=dparams,
+                                                 draft_cfg=dcfg))):
+                        t_ = time.perf_counter()
+                        reps_[key_] = eng_.serve(kw_.pop("requests"), n_lanes=4, kv_voltage=0.56,
+                                                 share_prefix=True, **kw_)
+                        torch.cuda.synchronize()
+                        walls_[key_] = time.perf_counter() - t_
+            finally:
+                obs_profile.disable()
+            del eng_
+            torch.cuda.empty_cache()
+            return {"reps": reps_, "walls": walls_, "tally": tally,
+                    "launches": ops.launch_counts(), "by_codec": ops.launch_counts_by_codec()}
+
+        def serve_view(rep_):
+            return {"outputs": {r: rep_.outputs[r].tolist() for r in sorted(rep_.outputs)},
+                    "kv_counters": rep_.kv_stats.counters().tolist(),
+                    "kv_voltages": rep_.kv_voltages, "steps": rep_.steps,
+                    "preemptions": rep_.preemptions}
+
+        rec_on, rec_again, prof = TraceRecorder(), TraceRecorder(), KernelProfiler()
+        off = recorder_run(None)
+        on = recorder_run(rec_on)
+        check_paged_launches("recorder", on["tally"], on["launches"], multi=False)
+        again = recorder_run(rec_again, profiler=prof)
+        # a. recorder off against on: tokens, counters, rail walk, steps, launches
+        for key_ in ("stream", "speculative"):
+            require(serve_view(off["reps"][key_]) == serve_view(on["reps"][key_]),
+                    f"{key_}: the recorder changed the serve")
+            require(serve_view(on["reps"][key_]) == serve_view(again["reps"][key_]),
+                    f"{key_}: the profiled serve differs")
+        require(off["launches"] == on["launches"] == again["launches"]
+                and off["by_codec"] == on["by_codec"] == again["by_codec"],
+                f"launches off {off['by_codec']} / on {on['by_codec']} / profiled "
+                f"{again['by_codec']}")
+        srep_, prep_ = on["reps"]["stream"], on["reps"]["speculative"]
+        require(srep_.preemptions >= 1, f"no preemption with {STREAM_PAGES} pages")
+        require(srep_.kv_stats.corrected > 0, f"no corrected word at 0.56 V: {srep_.kv_stats}")
+        require(prep_.spec_dispatches > 0 and prep_.prefix_hit_tokens > 0,
+                "the speculative serve ran no verify block or no prefix hit")
+        print(f"  recorder off = on = on + profiler: equal tokens, kv counters, kv voltages, "
+              f"steps (stream {srep_.steps}, {srep_.preemptions} preemption(s); speculative "
+              f"{prep_.steps}, {prep_.spec_dispatches} verify blocks) and launches "
+              f"{json.dumps(on['by_codec'])}")
+        # b. two traced runs, byte for byte; the schema
+        jsonl = rec_on.to_jsonl()
+        require(jsonl == rec_again.to_jsonl(), "two traced runs gave different JSONL")
+        events_ = [json.loads(line_) for line_ in jsonl.splitlines()]
+        require(validate_events(events_) == len(rec_on.events) > 0, "schema")
+        begins = [i for i, e in enumerate(events_) if e["kind"] == "serve_begin"]
+        kinds_by_serve = {}
+        for key_, lo_, hi_ in zip(("stream", "speculative"), begins, begins[1:] + [None]):
+            kinds_ = {}
+            for e in events_[lo_:hi_]:
+                kinds_[e["kind"]] = kinds_.get(e["kind"], 0) + 1
+            rep_, n_req = on["reps"][key_], len(stream if key_ == "stream" else shared_reqs)
+            require(kinds_["admit"] == n_req + rep_.preemptions
+                    and kinds_["retire"] == n_req == len(rep_.outputs)
+                    and kinds_.get("preempt", 0) == rep_.preemptions
+                    and kinds_["kv_scrub"] == len(rep_.kv_voltages)
+                    and kinds_["gauge"] == 3 * len(rep_.kv_voltages)
+                    and kinds_.get("spec_block", 0) == rep_.spec_dispatches,
+                    f"{key_} events {kinds_}")
+            kinds_by_serve[key_] = dict(sorted(kinds_.items()))
+        # the clock is decode progress: the stream's serve_end sits at its steps
+        ends = [e["step"] for e in events_ if e["kind"] == "serve_end"]
+        require(ends[0] == srep_.steps and all(
+            a_["step"] <= b_["step"] for a_, b_ in zip(events_, events_[1:])), f"clock {ends}")
+        print(f"  two traced runs: byte-identical JSONL ({len(jsonl)} bytes, "
+              f"{len(events_)} events, schema valid); events by kind {json.dumps(kinds_by_serve)}")
+        # c. the dispatch profiler: CUDA-event rows, tagged cuda
+        rows = prof.to_rows()
+        names = {r["name"] for r in rows}
+        want_rows = {"decode.prefill", "decode.multistep", "decode.chunk_prefill",
+                     "decode.spec_multistep", "kv.inject_masks", "kv.commit_tokens",
+                     "kv.paged_gather_scrub"}
+        require(want_rows <= names, f"profiler rows {sorted(names)}")
+        require(all(r["backend"] == "cuda" for r in rows), f"profiler backends {rows}")
+        for r in rows:
+            print(f"  profile {r['name']}: {r['calls']} calls, mean {r['mean_ms']:.3f} ms, "
+                  f"min {r['min_ms']:.3f}, max {r['max_ms']:.3f} ({r['backend']}, CUDA events)")
+        for g in prof.gauge_rows():
+            print(f"  profile gauge {g['name']}: n {g['n']}, mean {g['mean']:.3f}, "
+                  f"min {g['min']:.3f}, max {g['max']:.3f}")
+        recorder_report = {
+            "walls_s": {"off": off["walls"], "on": on["walls"], "profiled": again["walls"]},
+            "traced_over_untraced": {k: off["walls"][k] / on["walls"][k] for k in off["walls"]},
+            "events": kinds_by_serve, "jsonl_bytes": len(jsonl), "profile": rows,
+            "profile_gauges": prof.gauge_rows(), "gpu": gpu_line()}
+        print(f"  serve wall s (not gated): untraced {json.dumps(off['walls'])}, traced "
+              f"{json.dumps(on['walls'])}, traced + profiler {json.dumps(again['walls'])}; "
+              f"untraced / traced {json.dumps(recorder_report['traced_over_untraced'])} "
+              f"| {gpu_line()}")
+        print(f"  recorder {json.dumps(recorder_report)}")
+        del off, on, again, dparams, srep_, prep_
+        torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 12
+    with Phase("12 traced steps, timings and the kernels line"):
         for name, run in runs.items():
             run["steps"] = step_breakdown(traced_params.pop(name), {"prefill": 0, "decode": 0},
                                           walls=run["steps"])

@@ -40,7 +40,9 @@ class ControllerRecord:
 class UndervoltController:
     """DED-canary voltage search: V_nom -> first DED, then back off + lock.
 
-    Codec escalation is not ported: ``escalation`` must be None.
+    Codec escalation is not ported: ``escalation`` must be None. With a
+    flight recorder bound (``bind_recorder``), every ``update`` mirrors its
+    ControllerRecord as a ``rail_step`` event.
     """
 
     def __init__(
@@ -53,6 +55,8 @@ class UndervoltController:
         escalation=None,
         codec: str | None = None,
         adaptive: bool = False,
+        shard: int = -1,
+        domain: str | None = None,
     ):
         if escalation is not None:
             raise NotImplementedError("codec escalation is not ported")
@@ -61,6 +65,9 @@ class UndervoltController:
         self.backoff_steps = backoff_steps
         self.paranoid = paranoid
         self.adaptive = adaptive
+        self.shard = int(shard)
+        self.domain = domain  # rail name when owned by a MultiRailController
+        self.recorder = None  # optional obs.TraceRecorder
         # Warm start anywhere in the fault-free guardband [v_min, v_nom].
         self.voltage = (
             platform.v_nom if start_v is None
@@ -69,6 +76,10 @@ class UndervoltController:
         self.locked = False
         self.history: list[ControllerRecord] = []
         self.codec = codec or DEFAULT_CODEC
+
+    def bind_recorder(self, recorder) -> None:
+        """Attach a flight recorder (obs.TraceRecorder)."""
+        self.recorder = recorder
 
     def update(self, stats: FaultStats) -> float:
         """Feed one read-interval's telemetry; returns the next rail voltage."""
@@ -101,12 +112,25 @@ class UndervoltController:
                 self.voltage, stats.corrected, stats.detected, stats.silent, action, self.codec
             )
         )
+        rec = self.recorder
+        if rec:
+            # The event carries the very counters that caused the decision.
+            rec.emit(
+                "rail_step", domain=self.domain, shard=self.shard,
+                action=action, voltage=float(self.voltage), codec=self.codec,
+                corrected=int(stats.corrected), detected=int(stats.detected),
+                silent=int(stats.silent), words=int(stats.words), divergence=0.0,
+            )
+            rec.metrics.counter(
+                "rail.actions", domain=self.domain or "", action=action, shard=self.shard,
+            ).inc()
         return self.voltage
 
 
 class MultiRailController:
     """One DED canary per memory domain: each domain's rail walks down and
-    locks independently; converged when every rail is locked."""
+    locks independently; converged when every rail is locked. A bound
+    flight recorder reaches every rail, late-bound ones too."""
 
     def __init__(
         self,
@@ -130,10 +154,20 @@ class MultiRailController:
             step_v=step_v, backoff_steps=backoff_steps, paranoid=paranoid,
             start_v=start_v, escalation=escalation, adaptive=adaptive,
         )
+        self.recorder = None
         self.rails = {
-            d: UndervoltController(profiles.get(d, platform), codec=codecs.get(d), **self._defaults)
+            d: UndervoltController(
+                profiles.get(d, platform), codec=codecs.get(d), domain=d, **self._defaults
+            )
             for d in self.domains
         }
+
+    def bind_recorder(self, recorder) -> None:
+        """Attach a flight recorder to every rail (late-bound rails added
+        through ``add_rail`` inherit it)."""
+        self.recorder = recorder
+        for c in self.rails.values():
+            c.bind_recorder(recorder)
 
     def add_rail(self, domain: str, profile: PlatformProfile | None = None,
                  codec: str | None = None) -> UndervoltController:
@@ -143,8 +177,10 @@ class MultiRailController:
         if domain not in self.rails:
             self.domains = self.domains + (domain,)
             self.rails[domain] = UndervoltController(
-                profile or self._platform, codec=codec, **self._defaults
+                profile or self._platform, codec=codec, domain=domain, **self._defaults
             )
+            if self.recorder is not None:
+                self.rails[domain].bind_recorder(self.recorder)
         return self.rails[domain]
 
     @property

@@ -32,7 +32,13 @@ Each interval's masks come from ``mask_fn(interval, n_words, rate,
 row_sigma, n_check) -> (lo, hi, check)`` (numpy uint32 and uint8/uint32,
 or tensors), by default ``faultsim.interval_masks`` on the arena's device.
 Not ported: codec escalation (``change_codec``, ``SharedPageDEDError``),
-environment bursts and mesh shards.
+environment bursts and mesh shards (an arena is shard 0, the reference's
+default).
+
+The interval draw, the token commit and the scrub go through the opt-in
+dispatch profiler (``obs.profile.call``) under the reference's names; a
+``PrefixTrie`` with a flight recorder emits ``trie_insert`` and
+``trie_evict`` events.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from repro_torch.core.telemetry import FaultStats
 from repro_torch.core.voltage import PlatformProfile
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.backend import resolve_device, to_device
+from repro_torch.obs import profile as obs_profile
 
 PAGE_TOKENS = 8  # default page size (tokens)
 
@@ -215,16 +222,20 @@ class PrefixTrie:
     ``OWNER``), so a prefix stays cached after its last reader retires;
     capacity pressure evicts sole-referenced leaves in LRU order. Only
     complete pages are registered: a request's partial tail page is private,
-    which makes divergence copy-on-write."""
+    which makes divergence copy-on-write. An optional flight recorder
+    (obs.TraceRecorder) records registrations and evictions."""
 
     OWNER = "<prefix-trie>"
 
-    def __init__(self, alloc: PageAllocator, page_tokens: int):
+    def __init__(self, alloc: PageAllocator, page_tokens: int, recorder=None,
+                 shard: int = -1):
         self.alloc = alloc
         self.page_tokens = int(page_tokens)
         self._root = _TrieNode(None, None, None)
         self._by_page: dict = {}
         self._clock = 0
+        self.recorder = recorder
+        self.shard = int(shard)
 
     def __len__(self) -> int:
         return len(self._by_page)
@@ -258,6 +269,7 @@ class PrefixTrie:
         assert len(pages) <= len(chunks), "pages beyond full-page prefix"
         node = self._root
         self._clock += 1
+        fresh = 0
         for key, page in zip(chunks, pages):
             child = node.children.get(key)
             if child is None:
@@ -265,8 +277,11 @@ class PrefixTrie:
                 child = _TrieNode(key, int(page), node)
                 node.children[key] = child
                 self._by_page[child.page] = child
+                fresh += 1
             child.stamp = self._clock
             node = child
+        if fresh and self.recorder:
+            self.recorder.emit("trie_insert", shard=self.shard, pages=fresh)
 
     def _drop(self, node: _TrieNode) -> None:
         del node.parent.children[node.key]
@@ -287,6 +302,8 @@ class PrefixTrie:
             victim = min(victims, key=lambda nd: nd.stamp)
             freed.append(victim.page)
             self._drop(victim)
+        if freed and self.recorder:
+            self.recorder.emit("trie_evict", shard=self.shard, pages=len(freed), reason="lru")
         return freed
 
     def pages(self) -> list:
@@ -365,6 +382,7 @@ class KVPageArena:
         self.codec = codes.get(self.codec_name)
         self.device = resolve_device(device)
         self.mask_fn = mask_fn
+        self.shard = 0  # the mesh shard the arena serves (the reference's default)
         w = geom.words_per_page
         self.n_words = self.n_pages * w  # real (non-scratch) words
         self._total_words = (self.n_pages + 1) * w
@@ -386,6 +404,9 @@ class KVPageArena:
         self.voltage = float(v)
 
     def _masks(self, rate: float):
+        return obs_profile.call("kv.inject_masks", self._draw_masks, rate)
+
+    def _draw_masks(self, rate: float):
         sigma, n_check = float(self.profile.row_sigma), self.codec.n_check
         if self.mask_fn is None:
             out = faultsim.interval_masks(
@@ -438,8 +459,8 @@ class KVPageArena:
         slots (N,) host ints (slot = position within the page). Rows steered
         to the scratch page are don't-cares."""
         base = to_device(row_bases(page_ids, slots, self.geom), self.device)
-        _commit_tokens(
-            self.lo, self.hi, self.parity, payload, base,
+        obs_profile.call(
+            "kv.commit_tokens", _commit_tokens, self.lo, self.hi, self.parity, payload, base,
             token_words=self.geom.token_words, codec=self.codec_name,
         )
 
@@ -449,8 +470,9 @@ class KVPageArena:
         counters (P, 8) int32 on the arena's device). The caller harvests
         the counters when it wants the host to wait for them."""
         ids = self._pages(page_ids)
-        payload, cnt = kops.gather_scrub_pages(
-            self.lo, self.hi, self.parity, ids, self.geom.words_per_page, codec=self.codec_name
+        payload, cnt = obs_profile.call(
+            "kv.paged_gather_scrub", kops.gather_scrub_pages,
+            self.lo, self.hi, self.parity, ids, self.geom.words_per_page, codec=self.codec_name,
         )
         return payload.reshape(ids.shape[0], self.geom.page_tokens, self.geom.token_f32), cnt
 

@@ -236,7 +236,10 @@ class ServingEngine:
     """Greedy-decoding engine over ECC-protected weights on one device.
 
     ``device=None`` runs on the card and raises without one; the tests pass
-    ``device="cpu"``, which runs every kernel's plain version."""
+    ``device="cpu"``, which runs every kernel's plain version. An optional
+    flight recorder (``recorder``, obs.TraceRecorder) gets every rail
+    decision and serve-loop event in one causally ordered, deterministic
+    trace; it only reads values the host already holds."""
 
     def __init__(
         self,
@@ -245,10 +248,12 @@ class ServingEngine:
         rel: ReliabilityConfig | None = None,
         max_len: int = 512,
         device=None,
+        recorder=None,
     ):
         self.cfg = cfg
         self.rel = rel
         self.max_len = max_len
+        self.recorder = recorder
         self.device = resolve_device(device)
         if rel is not None:
             rel.validate()
@@ -275,6 +280,8 @@ class ServingEngine:
         if rel is None:
             self.params = params
             return
+        if recorder is not None and self.controller is not None:
+            self.controller.bind_recorder(recorder)  # single-rail (multi-rail: where built)
         if rel.mode == "domain":
             self.domain = EccMemoryDomain(
                 self.platform, seed=rel.seed, ecc_enabled=rel.ecc,
@@ -325,6 +332,8 @@ class ServingEngine:
                 adaptive=rails.adaptive,
             )
             self.set_rails({d: self.voltage for d in self._store.domains})
+            if recorder is not None:
+                self.controller.bind_recorder(recorder)
         else:
             self.set_voltage(self.voltage)
 
@@ -507,7 +516,7 @@ class ServingEngine:
             max_block=max_block, kv_controller=kv_controller,
             init_cache_fn=lambda b: lm.init_cache(self.cfg, b, self.max_len, device=self.device),
             share_prefix=share_prefix, speculative=speculative,
-            draft_params=draft_params, draft_cfg=draft_cfg,
+            draft_params=draft_params, draft_cfg=draft_cfg, recorder=self.recorder,
         )
         # The kv domain now has real words (power weighting) and counters.
         self.stats.accumulate(report.kv_stats)
@@ -534,11 +543,14 @@ class ServingEngine:
 
         Single-rail: returns (locked voltage, history). Multi-rail: each
         domain walks its own rail; returns ({domain: voltage},
-        {domain: history})."""
+        {domain: history}). Each round advances the recorder's clock by
+        one."""
         assert self.rel is not None and self.controller is not None
         if self.rel.rails.multi_rail:
             return self._autotune_rails(max_rounds)
         for _ in range(max_rounds):
+            if self.recorder:
+                self.recorder.advance(1)
             v = self.controller.update(
                 self._last_scrub if self.rel.mode == "inline" else self._domain_scrub()
             )
@@ -553,6 +565,8 @@ class ServingEngine:
         # first interval reflects the voltages being judged.
         self.set_rails(self.controller.voltages)
         for _ in range(max_rounds):
+            if self.recorder:
+                self.recorder.advance(1)
             volts = self.controller.update(self._last_scrub)
             self.set_rails(volts)
             if self.controller.locked:

@@ -17,14 +17,19 @@ A fixed number of batch lanes decode in lock-step, each at its own position:
     counters can drive the `kv` rail of a MultiRailController.
 
 Scheduling is host logic; device work goes through the helpers of
-serving/steps.py and the arena's methods. Not ported: the mesh's
-``MeshServeReport``/``partition_requests``, the flight recorder and codec
-escalation (``helpers_factory``).
+serving/steps.py and the arena's methods. An optional flight recorder
+(obs.TraceRecorder) gets every admission, prefix hit, page growth,
+preemption, retirement, speculative block and interval scrub as an event on
+its step clock, which advances with decode progress, and the ``serve.*``,
+``request.*``, ``spec.*`` and ``kv.scrub.*`` metrics; it reads only values
+the host already holds. Not ported: the mesh's ``MeshServeReport`` /
+``partition_requests`` and codec escalation (``helpers_factory``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 
 import numpy as np
@@ -41,6 +46,7 @@ from repro_torch.core.kvpages import (
 )
 from repro_torch.core.telemetry import FaultStats
 from repro_torch.kernels.backend import to_device
+from repro_torch.obs import profile as obs_profile
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +72,10 @@ class RequestState:
     stats: FaultStats = dataclasses.field(default_factory=FaultStats)
     preemptions: int = 0
     shared_tokens: int = 0  # leading tokens served from trie-shared pages
+    # flight-recorder step-clock values (-1: never, or not traced)
+    admit_step: int = -1  # at the first admission (re-admissions keep it)
+    first_token_step: int = -1
+    finish_step: int = -1
 
     @property
     def rid(self) -> int:
@@ -119,13 +129,16 @@ class ContinuousBatchingScheduler:
     """Host-side lane + page bookkeeping (admit / grow / preempt / retire)."""
 
     def __init__(self, requests, n_lanes: int, alloc: PageAllocator, geom: KVGeometry,
-                 arena: KVPageArena | None = None, trie: PrefixTrie | None = None):
+                 arena: KVPageArena | None = None, trie: PrefixTrie | None = None,
+                 recorder=None):
         self.waiting = deque(RequestState(r) for r in requests)
         self.lanes: list = [None] * n_lanes
         self.alloc = alloc
         self.geom = geom
         self.arena = arena  # wipes recycled pages before reuse
         self.trie = trie  # prefix-sharing radix tree (None: private pages)
+        self.recorder = recorder  # optional obs.TraceRecorder
+        self.shard = arena.shard if arena is not None else -1
         self.finished: dict = {}
         self.preemptions = 0
         self._admit_counter = 0
@@ -196,6 +209,20 @@ class ContinuousBatchingScheduler:
             st.admit_seq = self._admit_counter
             self._admit_counter += 1
             self.lanes[lane] = st
+            rec = self.recorder
+            if rec:
+                if st.admit_step < 0:
+                    st.admit_step = rec.step
+                rec.emit(
+                    "admit", request_id=st.rid, shard=self.shard, lane=lane,
+                    prompt_len=len(seq), shared_tokens=st.shared_tokens,
+                )
+                rec.metrics.counter("serve.admissions").inc()
+                if shared:
+                    rec.emit(
+                        "prefix_hit", request_id=st.rid, shard=self.shard,
+                        tokens=st.shared_tokens, pages=len(shared),
+                    )
             yield lane, st, seq
 
     def ensure_pages(self, st: RequestState, until: int | None = None) -> bool:
@@ -203,19 +230,31 @@ class ContinuousBatchingScheduler:
         next decode step writes), preempting younger requests under
         pressure. False if ``st`` itself was preempted."""
         until = st.stored if until is None else until
+        added = 0
         while until // self.geom.page_tokens >= len(st.pages):
             page = self._alloc(st.rid)
             if page is not None:
                 st.pages.append(page)
+                added += 1
                 continue
             victim = max(self.running, key=lambda s: s.admit_seq)
             self.preempt(victim)
             if victim is st:
                 return False
+        if added and self.recorder:
+            self.recorder.emit(
+                "page_grow", request_id=st.rid, shard=self.shard,
+                pages_added=added, pages_total=len(st.pages),
+            )
         return True
 
     def preempt(self, st: RequestState) -> None:
         """Recompute-style preemption: drop pages, re-queue at the front."""
+        if self.recorder:
+            self.recorder.emit(
+                "preempt", request_id=st.rid, shard=self.shard, lane=st.lane,
+                pages_freed=len(st.pages), preemptions=st.preemptions + 1,
+            )
         self.alloc.free(st.pages, st.rid)
         self.lanes[st.lane] = None
         st.pages, st.lane, st.admit_seq = [], -1, -1
@@ -226,6 +265,20 @@ class ContinuousBatchingScheduler:
         self.waiting.appendleft(st)
 
     def retire(self, st: RequestState) -> None:
+        rec = self.recorder
+        if rec:
+            st.finish_step = rec.step
+            lat = rec.step - st.admit_step if st.admit_step >= 0 else 0
+            rec.emit(
+                "retire", request_id=st.rid, shard=self.shard,
+                tokens=len(st.tokens), latency_steps=lat,
+                first_token_step=st.first_token_step, preemptions=st.preemptions,
+            )
+            rec.metrics.histogram("request.latency_steps").observe(lat)
+            if st.first_token_step >= 0 and st.admit_step >= 0:
+                rec.metrics.histogram("request.first_token_steps").observe(
+                    st.first_token_step - st.admit_step
+                )
         self.alloc.free(st.pages, st.rid)
         self.lanes[st.lane] = None
         st.pages, st.lane = [], -1
@@ -237,7 +290,8 @@ class ContinuousBatchingScheduler:
 def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes: int,
                  max_len: int, scrub_interval: int = 1, max_block: int = 16,
                  kv_controller=None, init_cache_fn=None, share_prefix: bool = False,
-                 speculative: int = 0, draft_params=None, draft_cfg=None) -> ServeReport:
+                 speculative: int = 0, draft_params=None, draft_cfg=None,
+                 recorder=None) -> ServeReport:
     """Drive a request stream to completion over the paged cache.
 
     ``helpers`` comes from serving/steps.make_paged_helpers;
@@ -268,6 +322,12 @@ def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes:
     launches in the same order, so outputs, counters and rail walks equal
     the reference's serialized mode too. Each interval's counters are a
     tensor of their own, which no later launch writes.
+
+    ``recorder`` (optional obs.TraceRecorder) traces the stream: its clock
+    advances by each decode block's steps (a speculative block by its
+    furthest lane's emitted tokens, at least 1), never inside the scrub;
+    the interval's ``kv_scrub`` event and gauges are emitted at its harvest,
+    the gauges as of its dispatch.
     """
     geom = arena.geom
     dev = arena.device
@@ -285,8 +345,21 @@ def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes:
 
     init_cache_fn = init_cache_fn or (lambda b: lm.init_cache(cfg, b, max_len, device=dev))
     alloc = PageAllocator(arena.n_pages)
-    trie = PrefixTrie(alloc, geom.page_tokens) if share_prefix else None
-    sched = ContinuousBatchingScheduler(requests, n_lanes, alloc, geom, arena=arena, trie=trie)
+    rec = recorder
+    trie = (
+        PrefixTrie(alloc, geom.page_tokens, recorder=rec, shard=arena.shard)
+        if share_prefix else None
+    )
+    sched = ContinuousBatchingScheduler(
+        requests, n_lanes, alloc, geom, arena=arena, trie=trie, recorder=rec
+    )
+    if rec:
+        rec.emit(
+            "serve_begin", shard=arena.shard, n_requests=len(requests),
+            n_lanes=n_lanes, scrub_interval=scrub_interval,
+            share_prefix=bool(share_prefix), speculative=int(speculative),
+            voltage=float(arena.voltage), codec=arena.codec_name,
+        )
     spec_k = int(speculative)
     if spec_k >= 2:
         assert draft_params is not None and draft_cfg is not None, (
@@ -345,12 +418,23 @@ def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes:
             )
             cap = {"mode": "shared", "cnt": cnt, "rows": rows, "n_u": n_u}
         cap["lanes"] = lanes_cap
+        # The gauges describe the interval being scrubbed: at the harvest
+        # the scheduler has moved on.
+        cap["gauges"] = (sched.alloc.free_pages, len(sched.waiting), len(sched.running))
+        cap["t_dispatch"] = time.perf_counter()
         return cap
 
     def _harvest_scrub(cap):
-        """The deferred half: wait for the counters, then stats and the
-        controller's rail move."""
+        """The deferred half: wait for the counters, then stats, the
+        controller's rail move and the recorder's events."""
+        t0 = time.perf_counter()
         cnt = cap["cnt"].cpu().numpy()
+        if obs_profile.active():
+            # The share of the dispatch-to-counters window that the decode
+            # blocks covered; the rest the host waited on the scrub.
+            t1 = time.perf_counter()
+            span = max(t1 - cap["t_dispatch"], 1e-9)
+            obs_profile.gauge("serve.scrub_overlap_frac", (t0 - cap["t_dispatch"]) / span)
         interval = FaultStats()  # reader-weighted attribution
         if cap["mode"] == "private":
             cnt = cnt.reshape(n_lanes, cap["p_cols"], 8)
@@ -382,6 +466,20 @@ def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes:
             arena.stats.accumulate(physical)
         if kv_controller is not None and not kv_controller.locked:
             arena.set_voltage(kv_controller.update(reader_weighted_stats(interval, physical)))
+        if rec:
+            rec.emit(
+                "kv_scrub", shard=arena.shard, domain="kv",
+                interval=len(kv_voltages), voltage=float(arena.voltage),
+                codec=arena.codec_name, corrected=physical.corrected,
+                detected=physical.detected, silent=physical.silent, words=physical.words,
+            )
+            m = rec.metrics
+            lbl = {"shard": arena.shard} if arena.shard >= 0 else {}
+            m.observe_fault_stats("kv.scrub", physical, **lbl)
+            for gname, val in zip(("kv.pages_free", "sched.queue_depth", "sched.lanes_active"),
+                                  cap["gauges"]):
+                m.gauge(gname, **lbl).set(val)
+                rec.emit("gauge", shard=arena.shard, name=gname, value=val)
         kv_voltages.append(arena.voltage)
 
     while sched.unfinished:
@@ -449,6 +547,8 @@ def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes:
                     dcache = helpers["load_lane"](dcache, dcachem, row, lane)
                 if not st.tokens:  # fresh admission: keep the prefill's token
                     st.tokens = [int(tok_host[row])]
+                    if rec and st.first_token_step < 0:
+                        st.first_token_step = rec.step
                 if st.done:  # budget met by the prefill token alone
                     sched.retire(st)
                     continue
@@ -505,6 +605,16 @@ def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes:
             steps += 1
             spec_dispatches += 1
             adv = max((int(n_host[i]) for i in active), default=0)
+            if rec:
+                # clock first, so the block's retirements see the step after it
+                rec.advance(max(adv, 1))
+                emitted = sum(int(n_host[i]) for i in active)
+                rec.emit(
+                    "spec_block", shard=arena.shard, k=kk, lanes=len(active),
+                    emitted=emitted, slots=kk * len(active),
+                )
+                rec.metrics.counter("spec.slots").inc(kk * len(active))
+                rec.metrics.counter("spec.emitted").inc(emitted)
             for i in active:
                 st = sched.lanes[i]
                 n = int(n_host[i])
@@ -524,6 +634,8 @@ def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes:
             toks_host = toks.cpu().numpy()
             steps += k
             since_scrub += k
+            if rec:
+                rec.advance(k)  # the clock is decode progress
             for i in active:
                 st = sched.lanes[i]
                 st.tokens.extend(int(t) for t in toks_host[:, i])
@@ -554,8 +666,18 @@ def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes:
         # reference before the free-page accounting.
         trie.drain()
         sched.alloc.recycle()
+    outputs = {rid: np.asarray(st.tokens, np.int32) for rid, st in sched.finished.items()}
+    if rec:
+        rec.emit(
+            "serve_end", shard=arena.shard, steps=steps,
+            preemptions=sched.preemptions, finished=len(outputs),
+        )
+        lbl = {"shard": arena.shard} if arena.shard >= 0 else {}
+        rec.metrics.counter("serve.steps", **lbl).inc(steps)
+        rec.metrics.counter("serve.preemptions", **lbl).inc(sched.preemptions)
+        rec.metrics.counter("serve.prefix_hit_tokens", **lbl).inc(prefix_hit_tokens)
     return ServeReport(
-        outputs={rid: np.asarray(st.tokens, np.int32) for rid, st in sched.finished.items()},
+        outputs=outputs,
         request_stats={rid: st.stats for rid, st in sched.finished.items()},
         kv_stats=arena.stats,
         steps=steps,

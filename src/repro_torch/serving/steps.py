@@ -8,7 +8,9 @@ scrubbed page payloads, and the decode blocks. The payload layout (per
 token: for each attention period position, K then V, each (groups,
 kv_heads, head_dim) C-order) is defined only here; extract and refresh are
 exact inverses. Caches and arena planes are updated in place; the helpers
-return them all the same, so call sites read as the reference's.
+return them all the same, so call sites read as the reference's. The
+prefill, decode-block and chunk-prefill dispatches go through the opt-in
+dispatch profiler (``obs.profile.call``) under the reference's names.
 """
 
 from __future__ import annotations
@@ -22,6 +24,20 @@ import torch
 from repro_torch.core.kvpages import KVGeometry, _commit_tokens
 from repro_torch.models import lm
 from repro_torch.models.base import ModelConfig
+from repro_torch.obs import profile as obs_profile
+
+
+def _profiled(name: str, fn):
+    """Route a dispatch through the opt-in profiler (one ``is None`` check
+    on top of the call when no profiler is enabled)."""
+    if fn is None:
+        return None
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        return obs_profile.call(name, fn, *args, **kwargs)
+
+    return wrapped
 
 
 def make_prefill_step(cfg: ModelConfig):
@@ -217,15 +233,20 @@ def make_paged_helpers(cfg: ModelConfig, geom: KVGeometry, codec: str = "secded7
     ``draft_cfg`` enables ``spec_multistep``."""
     spec = None
     if draft_cfg is not None:
-        spec = functools.partial(_spec_multistep, cfg=cfg, dcfg=draft_cfg, geom=geom, codec=codec)
+        spec = _profiled(
+            "decode.spec_multistep",
+            functools.partial(_spec_multistep, cfg=cfg, dcfg=draft_cfg, geom=geom, codec=codec),
+        )
     return PagedHelpers(
         codec=codec,
-        prefill=make_prefill_step(cfg),
-        multistep=functools.partial(_multistep, cfg=cfg, geom=geom, codec=codec),
+        prefill=_profiled("decode.prefill", make_prefill_step(cfg)),
+        multistep=_profiled(
+            "decode.multistep", functools.partial(_multistep, cfg=cfg, geom=geom, codec=codec)
+        ),
         extract_range=functools.partial(_extract_range, geom=geom),
         extract_span=functools.partial(_extract_span, geom=geom),
         load_lane=_load_lane,
         refresh=functools.partial(_refresh_cache, geom=geom),
-        chunk=functools.partial(_chunk_prefill, cfg=cfg),
+        chunk=_profiled("decode.chunk_prefill", functools.partial(_chunk_prefill, cfg=cfg)),
         spec_multistep=spec,
     )

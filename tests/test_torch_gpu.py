@@ -655,3 +655,51 @@ def test_device_mask_store_launches_the_field_per_drawn_group(cuda):
     _, s = store.set_voltage(0.55)
     assert ops.launch_counts()["fault_field"] == 5 and s.faulty_bits > 0
     assert ops.launch_counts()["inject_scrub"] == 6  # 0.8 V and 0.55 V, three groups each
+
+
+@pytest.mark.gpu
+def test_traced_serve_on_the_card_equals_the_cpu(cuda, monkeypatch):
+    """A tiny-config serve with a flight recorder gives the same JSONL trace
+    on the card as on the CPU (the KV interval masks drawn from numpy for
+    both, since the row factor's torch generator differs by device), and
+    the profiler's rows on the card are CUDA-event rows tagged ``cuda``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import faultsim
+    from repro_torch.models import lm
+    from repro_torch.obs import KernelProfiler, TraceRecorder
+    from repro_torch.obs import profile as obs_profile
+    from repro_torch.serving.engine import RailsConfig, ReliabilityConfig, ServingEngine
+
+    def masks(seed, interval, n, rate, sigma, n_check=8, device=None):
+        g = np.random.default_rng((seed, interval))
+        bits = g.random((64 + n_check, n), dtype=np.float32) < np.float32(rate * 6)
+        w = (1 << np.arange(32, dtype=np.uint64))[:, None]
+        mant = np.uint32((1 << 23) - 1)  # data flips on mantissa bits only
+        lo = (bits[:32] * w).sum(0).astype(np.uint32) & mant
+        hi = (bits[32:64] * w).sum(0).astype(np.uint32) & mant
+        return lo, hi, (bits[64:] * w[:n_check]).sum(0).astype(np.uint8)
+
+    monkeypatch.setattr(faultsim, "interval_masks", masks)
+    cfg = get_smoke_config("qwen3-0.6b")
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    g = np.random.default_rng(0)
+    reqs = [(g.integers(0, cfg.vocab, 6 + 3 * i).astype(np.int32), 5 + i) for i in range(4)]
+    rel = ReliabilityConfig(mode="inline", voltage=1.0,
+                            rails=RailsConfig(multi_rail=True, start_v=0.57))
+    traces, prof = {}, KernelProfiler()
+    for d in ("cpu", "cuda"):
+        rec = TraceRecorder()
+        eng = ServingEngine(cfg, params, rel=rel, max_len=48, device=d, recorder=rec)
+        if d == "cuda":
+            obs_profile.enable(prof)
+        try:
+            rep = eng.serve(reqs, n_lanes=2, n_pages=8, scrub_interval=2, walk_kv=True,
+                            share_prefix=True)
+        finally:
+            obs_profile.disable()
+        assert rep.kv_stats.corrected > 0
+        traces[d] = rec.to_jsonl()
+    assert traces["cuda"] == traces["cpu"]
+    rows = {r["name"]: r for r in prof.to_rows()}
+    assert {"decode.prefill", "decode.multistep", "kv.inject_masks"} <= set(rows)
+    assert all(r["backend"] == "cuda" and r["calls"] > 0 for r in rows.values())

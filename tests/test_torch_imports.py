@@ -32,7 +32,10 @@ def test_port_modules_are_listed():
               "repro_torch.kernels.fault_inject", "repro_torch.core.memory",
               "repro_torch.core.nn_accel", "repro_torch.data.mnist",
               "repro_torch.configs.paper_nn", "repro_torch.codes.parity",
-              "repro_torch.codes.interleaved", "repro_torch.codes.dected"):
+              "repro_torch.codes.interleaved", "repro_torch.codes.dected",
+              "repro_torch.obs.events", "repro_torch.obs.metrics",
+              "repro_torch.obs.recorder", "repro_torch.obs.export",
+              "repro_torch.obs.report", "repro_torch.obs.profile"):
         assert m in mods
 
 
