@@ -117,7 +117,25 @@ them. Phases, each printed on its own line with its wall time:
      retirement per request, a ``kv_scrub`` and three gauges per interval);
      the profiler's rows (CUDA events, tagged ``cuda``) and the serve wall
      times with and without the recorder (printed, not gated);
-  4-11 each zero the kernel launch counts at the start of a path and read
+  12. codec escalation (ladder secded72 -> dected79) on a multi-rail engine
+     with device masks: the DED-canary autotune from 0.62 V (an arena rail
+     escalates at an unchanged voltage, each domain's store code equals its
+     rail's, the power report's check bits follow the codes), then phase
+     6's stream with ``walk_kv`` and the prefix trie on, whose kv rail
+     escalates mid-stream (every request completes at its length, a
+     ``kv_codec_change`` in the trace, the arena's code = the rail's, token
+     commits and interval scrubs under both codes and none under the new
+     code before the change, the kv power under the new code, and
+     ``scrub_overlap=None`` shown to run serialized: no overlap gauge under
+     the dispatch profiler); its launches per codec are path
+     ``escalation`` (E in ``PERF.md``); then ``KVPageArena.change_codec``
+     on the 64-page arena with committed payload, secded72 to each other
+     code: refused over a planted uncorrectable word on a shared page (the
+     page named, code and planes unchanged, the DED still counted), then
+     one encode under the new code, contents bit for bit and no DED; and
+     phase 6's stream on a ``walk_kv`` engine with ``scrub_overlap`` True
+     and False: equal tokens, counters, kv voltages, steps and launches;
+  4-12 each zero the kernel launch counts at the start of a path and read
      them at its end, and fail unless every voltage step launched its scrub
      kernel once (B1 single-rail, B2 and the embedding's B5 multi-rail,
      none of the other path's), every forward pass of the protected model
@@ -129,7 +147,7 @@ them. Phases, each printed on its own line with its wall time:
      once, every per-leaf step and every domain read launched the fault
      injection and the decode once per leaf, and the plain codec never ran
      on the card;
-  12. one prefill and one decode step of paths 4-5 under torch.profiler
+  13. one prefill and one decode step of paths 4-5 under torch.profiler
      (device busy time, idle share, fused-matmul time inside the step, which
      must come from the decode kernel in a decode step and the tiled kernel
      in a prefill), tokens/s, voltage-step times and one
@@ -2518,7 +2536,308 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 12
-    with Phase("12 traced steps, timings and the kernels line"):
+    # Codec escalation: the rail's ladder through the re-protected stores
+    # (path E: an escalating autotune with device masks, then a walk_kv
+    # stream whose kv rail escalates), change_codec at full size, and the
+    # scrub harvest's two orders.
+    esc_run = {}
+    with Phase("12 codec escalation, full width"):
+        from repro_torch.core.kvpages import SharedPageDEDError
+        from repro_torch.obs import KernelProfiler, TraceRecorder
+        from repro_torch.obs import profile as obs_profile
+
+        ladder = ("secded72", "dected79")
+        per_fwd = 7 * cfg.n_layers
+
+        def step_keys(eng_, volts):
+            """What one rail step of ``eng_`` launches, by codec: the domain
+            inject+scrub per codec group, the decode of the embedding and of
+            every other leaf under a code other than SECDED, and the SECDED
+            re-encode of those other leaves."""
+            keys = []
+            for g in eng_._store.groups:
+                keys.append(f"b2:{g.name}")
+                for si in g.slot_ids:
+                    if "embed" in eng_._store.slots[si].key:
+                        keys.append(f"b5:{g.name}")
+                    elif g.name != "secded72":
+                        keys += [f"b5:{g.name}", "refresh:secded72"]
+            return keys
+
+        def field_keys(store, v, *a, **kw):
+            """One field launch per codec group with a domain below V_min."""
+            volts = v if isinstance(v, dict) else dict.fromkeys(store.domains, v)
+            return [f"field:{g.name}" for g in store.groups if any(
+                store.domain_profile(store.slots[si].domain).fault_rate(
+                    float(volts[store.slots[si].domain])) > 0.0 for si in g.slot_ids)]
+
+        def rebuild_keys(store):
+            """A regrouping encodes each group's check plane under its code
+            (a lone SECDED group aliases the packed planes)."""
+            names = sorted({store.codec_of(s.domain) for s in store.slots})
+            return [] if names == ["secded72"] else [f"rebuild:{c}" for c in names]
+
+        changes_at = []  # the path's tally when the arena's code first changes
+        real_change = KVPageArena.change_codec
+
+        def change_codec(self_, codec, shared_pages=None):
+            if codec != self_.codec_name and not changes_at:
+                changes_at.append({k: v for k, v in tally.n.items() if ":" in k})
+            return real_change(self_, codec, shared_pages)
+
+        # a. the escalating autotune and the walk_kv stream (path E)
+        ops.reset_launch_count()
+        rec = TraceRecorder()
+        prof = KernelProfiler()
+        KVPageArena.change_codec = change_codec
+        try:
+            with Tally() as tally:
+                tally._wrap(ServingEngine, "set_rails", step_keys)
+                tally._wrap(PlaneStore, "group_masks", field_keys)
+                tally._wrap(PlaneStore, "_build_groups", rebuild_keys)
+                for name_ in ("kvpages", "steps"):
+                    tally._wrap(kvpages if name_ == "kvpages" else serve_steps, "_commit_tokens",
+                                lambda *a, codec, **kw: f"commit:{codec}")
+                tally._wrap(KVPageArena, "tick", lambda a_: f"interval:{a_.codec_name}")
+                tally._wrap(KVPageArena, "_masks", lambda a_, r_: f"draw:{a_.codec_name}")
+                tally._wrap(KVPageArena, "scrub_pages",
+                            lambda a_, ids_: f"scrub:{a_.codec_name}")
+                t = time.perf_counter()
+                rel = ReliabilityConfig(mode="inline", voltage=1.0,
+                                        fault_model=FaultModelConfig(mask_source="device"),
+                                        rails=RailsConfig(multi_rail=True, start_v=0.62),
+                                        protection=ProtectionConfig(escalation=ladder))
+                eng = ServingEngine(cfg, params, rel=rel, max_len=PAGED_MAX_LEN, recorder=rec)
+                torch.cuda.synchronize()
+                esc_run["build_s"] = time.perf_counter() - t
+                t = time.perf_counter()
+                lock, hist = eng.autotune_voltage()
+                torch.cuda.synchronize()
+                esc_run["autotune_s"] = time.perf_counter() - t
+                require(all(eng.controller.rails[d].locked for d in eng._store.domains),
+                        "the escalating walk did not lock")
+                esc_run["history"] = {d: [(r.voltage, r.detected, r.action, r.codec) for r in h]
+                                      for d, h in hist.items()}
+                escalated = {}
+                for d, h in hist.items():
+                    for i, r in enumerate(h):
+                        if r.action == "escalate":
+                            require(i > 0 and r.voltage == h[i - 1].voltage,
+                                    f"{d} escalated at {r.voltage} V: {esc_run['history'][d]}")
+                            escalated.setdefault(d, []).append((r.voltage, r.codec))
+                require(escalated, f"no arena rail escalated: {esc_run['history']}")
+                store_codecs = {d: eng._store.codec_of(d) for d in eng._store.domains}
+                rail_codecs = {d: eng.controller.rails[d].codec for d in eng._store.domains}
+                require(store_codecs == rail_codecs,
+                        f"store codecs {store_codecs} != rail codecs {rail_codecs}")
+                pr = esc_run["power_report"] = eng.power_report()
+                require(pr["check_bits"] == {d: codes.get(c).n_check
+                                             for d, c in pr["codecs"].items()}
+                        and {d: pr["codecs"][d] for d in rail_codecs} == rail_codecs,
+                        f"power_report {pr['codecs']} {pr['check_bits']}")
+                # a regrouped domain draws from its new group's field, so the
+                # final scrub at the lock is printed, not required clean
+                esc_run.update(lock=lock, escalated=escalated, codecs=rail_codecs,
+                               groups={g.name: len(g.slot_ids) for g in eng._store.groups},
+                               final_scrub={d: eng._last_scrub[d].to_dict()
+                                            for d in eng._store.domains})
+                print(f"  autotune (device masks, ladder {ladder}): lock {json.dumps(lock)} in "
+                      f"{esc_run['autotune_s']:.3f} s; escalations {json.dumps(escalated)}; "
+                      f"codecs {json.dumps(rail_codecs)} = the store's; groups "
+                      f"{json.dumps(esc_run['groups'])}; final scrub "
+                      f"{json.dumps(esc_run['final_scrub'])}")
+                print(f"  history (V, detected, action, codec) {json.dumps(esc_run['history'])}")
+                print(f"  power_report {json.dumps(pr)}")
+                # the stream, its kv rail walked from V_min under the ladder
+                obs_profile.enable(prof)
+                try:
+                    t = time.perf_counter()
+                    erep = eng.serve(stream, n_lanes=4, walk_kv=True, share_prefix=True,
+                                     n_pages=STREAM_PAGES)
+                    torch.cuda.synchronize()
+                    esc_run["stream_s"] = time.perf_counter() - t
+                finally:
+                    obs_profile.disable()
+        finally:
+            KVPageArena.change_codec = real_change
+        counts, by_codec, n_ = ops.launch_counts(), ops.launch_counts_by_codec(), tally.n
+        kv = eng.controller.rails["kv"]
+        events = [json.loads(line_) for line_ in rec.to_jsonl().splitlines()]
+        kinds = {}
+        for e in events:
+            kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+        kv_changes = [e["codec"] for e in events if e["kind"] == "kv_codec_change"]
+        require(sorted(erep.outputs) == list(range(len(stream))) and all(
+            len(erep.outputs[i]) == n for i, (_, n) in enumerate(stream)),
+            "the escalating stream did not finish every request at its length")
+        require(kv_changes and erep.arena.codec_name == kv.codec == kv_changes[-1] == "dected79",
+                f"kv codec changes {kv_changes}, arena {erep.arena.codec_name}, rail {kv.codec}")
+        # the None mode took the serialized path: the deferred harvest alone
+        # leaves the overlap gauge
+        require(not prof.gauge_rows(), f"scrub_overlap=None under a ladder deferred: "
+                f"{prof.gauge_rows()}")
+        old_, new_ = "secded72", "dected79"
+        require(len(changes_at) == 1 and not any(
+            changes_at[0].get(f"{k}:{new_}") for k in ("commit", "interval", "scrub")),
+            f"kv commits or scrubs under {new_} before the change: {changes_at}")
+        for key_ in ("commit", "interval"):
+            require(n_.get(f"{key_}:{old_}", 0) > 0 and n_.get(f"{key_}:{new_}", 0) > 0,
+                    f"{key_}s by code {json.dumps({k: v for k, v in n_.items() if ':' in k})}")
+        epr = eng.power_report()
+        require(epr["codecs"]["kv"] == new_ and epr["check_bits"]["kv"] == codes.get(new_).n_check,
+                f"kv power under {epr['codecs']['kv']} ({epr['check_bits']['kv']} check bits)")
+        # path E's launches, by codec, from its tally
+        cs = sorted(codes.names())
+        get = lambda k_: n_.get(k_, 0)
+        want_codec = {
+            "inject_scrub": {},
+            "inject_scrub_domains": {c: get(f"b2:{c}") for c in cs},
+            "decode": {c: get(f"b5:{c}") for c in cs},
+            "encode": {c: (n_["packs"] if c == "secded72" else 0) + get(f"refresh:{c}")
+                       + get(f"rebuild:{c}") + get(f"commit:{c}") + kv_changes.count(c)
+                       for c in cs},
+            "gather_scrub": {c: get(f"interval:{c}") + get(f"scrub:{c}") for c in cs},
+            "fault_field": {c: get(f"field:{c}") + get(f"draw:{c}") for c in cs},
+        }
+        want_total = {k: sum(v.values()) for k, v in want_codec.items()}
+        want_total.update(ecc_matmul=per_fwd * (n_["prefill"] + n_["decode"]), inject=0)
+        require(n_["packs"] == per_fwd + 1 and n_["plain_on_card"] == 0, f"escalation tally {n_}")
+        codec_launch_check("escalation", counts, by_codec, want_codec,
+                           {k: want_total[k] for k in counts})
+        commits_by_codec = {c: get(f"commit:{c}") for c in cs if get(f"commit:{c}")}
+        paths_extra["escalation"] = {
+            "launches": counts, "launches_by_codec": by_codec, "kv_codec": None,
+            "commits_by_codec": commits_by_codec, "matmuls_per_forward": per_fwd,
+            "forwards": {"prefill": n_["prefill"], "decode": n_["decode"],
+                         "decode_kernel": n_["decode_kernel"]},
+            "packs": n_["packs"], "commits": sum(commits_by_codec.values()),
+            "voltage_steps": sum(get(f"b2:{c}") for c in cs)}
+        n_tok = sum(len(v) for v in erep.outputs.values())
+        esc_run["stream"] = {
+            "wall_s": esc_run["stream_s"], "tokens": n_tok, "steps": erep.steps,
+            "preemptions": erep.preemptions, "kv_changes": kv_changes,
+            "kv_history": [(r.voltage, r.corrected, r.detected, r.action, r.codec)
+                           for r in kv.history],
+            "kv_stats": erep.kv_stats.to_dict(), "events": {k: kinds.get(k, 0) for k in (
+                "codec_escalate", "kv_codec_change", "shared_ded_recovery", "trie_evict",
+                "preempt")},
+            "by_code": {k: v for k, v in n_.items() if ":" in k}, "power_report": epr,
+            "tally_at_change": changes_at[0],
+            "profile": {r["name"]: (r["calls"], r["mean_ms"]) for r in prof.to_rows()}}
+        print(f"  stream of {len(stream)} requests (walk_kv, prefix trie on, {STREAM_PAGES} "
+              f"pages): {n_tok} tokens in {esc_run['stream_s']:.2f} s (profiled dispatches), "
+              f"{erep.steps} steps, {erep.preemptions} preemption(s); kv codec changes "
+              f"{kv_changes}; events {json.dumps(esc_run['stream']['events'])}")
+        print(f"  kv walk (V, corrected, detected, action, codec) "
+              f"{json.dumps(esc_run['stream']['kv_history'])}")
+        print(f"  by code: {json.dumps(esc_run['stream']['by_code'])}; at the kv change "
+              f"{json.dumps(changes_at[0])}; scrub_overlap=None ran serialized (no overlap "
+              f"gauge); kv power under {new_}: {json.dumps(epr)}")
+        del eng, erep
+        torch.cuda.empty_cache()
+
+        # b. change_codec at full size: the kernel checks' 64-page arena,
+        # committed payload, from secded72 to each other code
+        geom = KVGeometry.from_config(cfg)
+        wpp = geom.words_per_page
+        n_tok_kv = KV_PAGES * geom.page_tokens
+        gen = torch.Generator(device=dev).manual_seed(23)
+        payload = torch.randn(n_tok_kv, geom.token_f32, device=dev, generator=gen)
+        pages_kv = np.repeat(np.arange(KV_PAGES), geom.page_tokens)
+        slots_kv = np.tile(np.arange(geom.page_tokens), KV_PAGES)
+        word = 5 * wpp + wpp // 3  # on page 5
+        esc_run["change_codec"] = {}
+        for dst in ("parity65", "ileave88", "dected79"):
+            arena = KVPageArena(geom, platform, KV_PAGES, seed=0, device=dev)
+            arena.commit_tokens(payload, pages_kv, slots_kv)
+            arena.hi[word] ^= 0b11  # uncorrectable under secded72
+            saved = [p_.clone() for p_ in (arena.lo, arena.hi, arena.parity)]
+            try:
+                arena.change_codec(dst, shared_pages=[3, 5, 7])
+                raise AssertionError(f"change_codec to {dst} over a latched DED did not refuse")
+            except SharedPageDEDError as err:
+                require(err.pages == (5,) and err.codec == dst, f"refused with {err}")
+            require(arena.codec_name == "secded72" and all(
+                same_bits(a_, b_) for a_, b_ in zip((arena.lo, arena.hi, arena.parity), saved)),
+                f"a refused change to {dst} changed the arena")
+            _, cnt_ = arena.scrub_pages([5])
+            require(int(cnt_[0, 2]) == 1, f"the DED on page 5 is no longer latched: {cnt_[0]}")
+            arena.hi[word] ^= 0b11  # clean again
+            before = ops.launch_counts_by_codec()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            arena.change_codec(dst, shared_pages=[3, 5, 7])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            after = ops.launch_counts_by_codec()
+            delta = {k: {c: after[k].get(c, 0) - before[k].get(c, 0) for c in after[k]
+                         if after[k].get(c, 0) != before[k].get(c, 0)} for k in after}
+            require(delta["encode"] == {dst: 1} and delta["gather_scrub"] == {"secded72": 1}
+                    and not any(v for k, v in delta.items()
+                                if k not in ("encode", "gather_scrub")),
+                    f"change_codec to {dst} launched {delta}")
+            require(arena.codec_name == dst
+                    and arena.parity.dtype == codes.get(dst).check_torch_dtype,
+                    f"{arena.codec_name} {arena.parity.dtype}")
+            back, cnt_ = arena.scrub_pages(np.arange(KV_PAGES))
+            require(same_bits(back.reshape(n_tok_kv, -1), payload),
+                    f"contents under {dst} differ from the committed payload")
+            require(int(cnt_[:, 1].sum()) == 0 and int(cnt_[:, 2].sum()) == 0,
+                    f"scrub under {dst}: corrected {cnt_[:, 1].sum()}, DED {cnt_[:, 2].sum()}")
+            esc_run["change_codec"][dst] = {"wall_ms": wall * 1e3, "launches": delta,
+                                            "words": arena.n_words + wpp}
+            del arena, saved, back
+        del payload
+        torch.cuda.empty_cache()
+        print(f"  change_codec on the {KV_PAGES}-page arena ({(KV_PAGES + 1) * wpp} words, "
+              f"committed payload): refused over a latched DED on shared page 5 (code and "
+              f"planes unchanged, the DED still counted), then one encode under the new code "
+              f"(+ the flush scrub under secded72), contents bit for bit, no correction, no DED: "
+              f"{json.dumps(esc_run['change_codec'])}")
+
+        # c. the scrub harvest's two orders on phase 6's stream, a multi-rail
+        # engine walking its kv rail (one fresh engine each)
+        overlap_runs = {}
+        for mode in (True, False):
+            eng = ServingEngine(cfg, params, rel=ReliabilityConfig(
+                mode="inline", voltage=1.0, fault_model=FaultModelConfig(mask_source="device"),
+                rails=RailsConfig(multi_rail=True, start_v=0.62)), max_len=PAGED_MAX_LEN)
+            prof_ = KernelProfiler()
+            ops.reset_launch_count()
+            obs_profile.enable(prof_)
+            try:
+                t = time.perf_counter()
+                rep_ = eng.serve(stream, n_lanes=4, walk_kv=True, n_pages=STREAM_PAGES,
+                                 scrub_overlap=mode)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            finally:
+                obs_profile.disable()
+            kvr = eng.controller.rails["kv"]
+            overlap_runs[mode] = {
+                "outputs": {r: rep_.outputs[r].tolist() for r in sorted(rep_.outputs)},
+                "kv_counters": rep_.kv_stats.counters().tolist(),
+                "kv_voltages": rep_.kv_voltages, "steps": rep_.steps,
+                "preemptions": rep_.preemptions,
+                "kv_rail": [(r.voltage, r.detected, r.action) for r in kvr.history],
+                "launches": ops.launch_counts_by_codec()}
+            require(bool(prof_.gauge_rows()) == mode,
+                    f"scrub_overlap={mode}: overlap gauge rows {prof_.gauge_rows()}")
+            esc_run[f"overlap_{mode}_wall_s"] = wall
+            del eng, rep_
+            torch.cuda.empty_cache()
+        require(overlap_runs[True] == overlap_runs[False],
+                "scrub_overlap True and False differ")
+        print(f"  scrub_overlap True = False on phase 6's stream (walk_kv): equal tokens, kv "
+              f"counters, kv voltages ({len(overlap_runs[True]['kv_voltages'])} intervals), "
+              f"steps, kv walk and launches {json.dumps(overlap_runs[True]['launches'])}; the "
+              f"deferred harvest ran only under True (overlap gauge); walls (profiled, not "
+              f"gated) True {esc_run['overlap_True_wall_s']:.2f} s, False "
+              f"{esc_run['overlap_False_wall_s']:.2f} s | {gpu_line()}")
+        print(f"  escalation {json.dumps(esc_run)}")
+
+    # ---------------------------------------------------------------- 13
+    with Phase("13 traced steps, timings and the kernels line"):
         for name, run in runs.items():
             run["steps"] = step_breakdown(traced_params.pop(name), {"prefill": 0, "decode": 0},
                                           walls=run["steps"])
@@ -2576,7 +2895,9 @@ def main() -> int:
             for p, r in paths.items():
                 n = r["launches_by_codec"][kernel].get(codec, 0)
                 if kernel == "encode":
-                    commits = r["commits"] if r.get("kv_codec", "secded72") == codec else 0
+                    commits = (r["commits_by_codec"].get(codec, 0) if "commits_by_codec" in r
+                               else r["commits"] if r.get("kv_codec", "secded72") == codec
+                               else 0)
                     n = commits if kind == "commits" else n - commits
                 out[p] = n
             return out

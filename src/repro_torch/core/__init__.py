@@ -4,20 +4,27 @@ DED-canary controllers.
   * `voltage`    — calibrated fault-rate + power models (VC707/KC705-A/B)
   * `faultsim`   — per-bitcell failure-threshold field (FIP by construction)
   * `memory`     — EccMemoryDomain: ECC-protected array storage
-  * `controller` — DED-canary runtime undervolting controllers
+  * `controller` — DED-canary runtime undervolting controllers and their
+                   codec escalation ladder
   * `telemetry`  — CORRECTED / DETECTED / SILENT fault accounting
   * `quantize`   — int8 + 64-bit word packing (BRAM word geometry)
 """
 
 from repro_torch.core import controller, faultsim, memory, quantize, telemetry, voltage
-from repro_torch.core.controller import MultiRailController, UndervoltController
+from repro_torch.core.controller import (
+    EscalationPolicy,
+    MultiRailController,
+    UndervoltController,
+)
 from repro_torch.core.faultsim import FaultField, FlipMasks
+from repro_torch.core.kvpages import SharedPageDEDError
 from repro_torch.core.memory import EccMemoryDomain
 from repro_torch.core.telemetry import DomainFaultStats, FaultStats
 from repro_torch.core.voltage import PLATFORMS, PlatformProfile
 
 __all__ = [
     "controller", "faultsim", "memory", "quantize", "telemetry", "voltage",
-    "MultiRailController", "UndervoltController", "FaultField", "FlipMasks",
+    "EscalationPolicy", "MultiRailController", "UndervoltController", "FaultField",
+    "FlipMasks", "SharedPageDEDError",
     "EccMemoryDomain", "DomainFaultStats", "FaultStats", "PLATFORMS", "PlatformProfile",
 ]

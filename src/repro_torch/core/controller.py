@@ -6,6 +6,14 @@ detectable ones, which appear before undetectable ones. The DED
 canary: keep lowering the rail while reads are clean or corrected; on the
 first DED event back off one step and lock. With ``paranoid=True`` silent
 events (ground truth only, seen in simulation) trip too.
+
+Escalation: an ``EscalationPolicy`` gives a rail a second degree of freedom.
+On a DED trip with a stronger code left on its ladder, the rail steps up its
+ECC scheme (e.g. SECDED -> DEC-TED) and keeps descending from the same
+voltage: the DED events that tripped it are the double-bit class the
+stronger code corrects. Once the ladder is spent, the next trip backs off and
+locks as before. The caller applies a change (``pop_codec_change``) to the
+protected storage before the next interval.
 """
 
 from __future__ import annotations
@@ -15,6 +23,28 @@ import dataclasses
 from repro_torch.codes import DEFAULT_CODEC
 from repro_torch.core.telemetry import FaultStats
 from repro_torch.core.voltage import PlatformProfile
+
+
+@dataclasses.dataclass(frozen=True)
+class EscalationPolicy:
+    """Codec ladder of a DED-canary rail, weakest to strongest.
+
+    ``ded_rate``: the DED events per scrubbed word a trip must exceed to
+    escalate; a trip at or below it backs off instead. The default 0.0
+    escalates on any DED event while the ladder has a rung left. The kv rail
+    is judged on reader-weighted counters (``reader_weighted_stats``), so
+    shared pages cross the threshold sooner."""
+
+    ladder: tuple = (DEFAULT_CODEC, "dected79")
+    ded_rate: float = 0.0
+
+    def next_codec(self, current: str) -> str | None:
+        """The rung above ``current`` (None at or past the top, or off the
+        ladder)."""
+        if current not in self.ladder:
+            return None
+        i = self.ladder.index(current)
+        return self.ladder[i + 1] if i + 1 < len(self.ladder) else None
 
 
 def reader_weighted_stats(weighted: FaultStats, physical: FaultStats) -> FaultStats:
@@ -38,11 +68,12 @@ class ControllerRecord:
 
 
 class UndervoltController:
-    """DED-canary voltage search: V_nom -> first DED, then back off + lock.
+    """DED-canary voltage search: V_nom -> first DED, then back off + lock,
+    or step up the code where ``escalation`` has a rung left.
 
-    Codec escalation is not ported: ``escalation`` must be None. With a
-    flight recorder bound (``bind_recorder``), every ``update`` mirrors its
-    ControllerRecord as a ``rail_step`` event.
+    With a flight recorder bound (``bind_recorder``), every ``update``
+    mirrors its ControllerRecord as a ``rail_step`` event, and an escalation
+    adds a ``codec_escalate`` event.
     """
 
     def __init__(
@@ -52,14 +83,12 @@ class UndervoltController:
         backoff_steps: int = 1,
         paranoid: bool = False,
         start_v: float | None = None,
-        escalation=None,
+        escalation: EscalationPolicy | None = None,
         codec: str | None = None,
         adaptive: bool = False,
         shard: int = -1,
         domain: str | None = None,
     ):
-        if escalation is not None:
-            raise NotImplementedError("codec escalation is not ported")
         self.platform = platform
         self.step_v = step_v
         self.backoff_steps = backoff_steps
@@ -75,7 +104,17 @@ class UndervoltController:
         )
         self.locked = False
         self.history: list[ControllerRecord] = []
-        self.codec = codec or DEFAULT_CODEC
+        self.escalation = escalation
+        self.codec = codec or (escalation.ladder[0] if escalation else DEFAULT_CODEC)
+        self._pending_codec: str | None = None
+
+    def pop_codec_change(self) -> str | None:
+        """The codec escalated to since the last poll (None otherwise). The
+        caller applies it to the protected storage
+        (``PlaneStore.set_domain_codec``, ``KVPageArena.change_codec``)
+        before the next interval."""
+        change, self._pending_codec = self._pending_codec, None
+        return change
 
     def bind_recorder(self, recorder) -> None:
         """Attach a flight recorder (obs.TraceRecorder)."""
@@ -84,6 +123,9 @@ class UndervoltController:
     def update(self, stats: FaultStats) -> float:
         """Feed one read-interval's telemetry; returns the next rail voltage."""
         trip = stats.detected > 0 or (self.paranoid and stats.silent > 0)
+        stronger = self.escalation.next_codec(self.codec) if self.escalation else None
+        ded_rate = stats.detected / max(stats.words, 1)
+        codec_before = self.codec
         if self.locked:
             if self.adaptive and trip:
                 self.voltage = min(
@@ -92,6 +134,12 @@ class UndervoltController:
                 action = "drift+backoff"
             else:
                 action = "hold"
+        elif stronger is not None and stats.detected > 0 and ded_rate > self.escalation.ded_rate:
+            # Step the code up instead of retreating: the voltage holds and
+            # the walk resumes under the stronger code next interval.
+            self.codec = stronger
+            self._pending_codec = stronger
+            action = "escalate"
         elif trip:
             self.voltage = min(
                 self.platform.v_nom, self.voltage + self.backoff_steps * self.step_v
@@ -124,6 +172,13 @@ class UndervoltController:
             rec.metrics.counter(
                 "rail.actions", domain=self.domain or "", action=action, shard=self.shard,
             ).inc()
+            if action == "escalate":
+                # The accuracy canary is not ported: no trip comes from it.
+                rec.emit(
+                    "codec_escalate", domain=self.domain, shard=self.shard,
+                    codec_from=codec_before, codec_to=self.codec,
+                    ded_rate=ded_rate, acc_trip=False,
+                )
         return self.voltage
 
 
@@ -141,7 +196,7 @@ class MultiRailController:
         paranoid: bool = False,
         start_v: float | None = None,
         profiles: dict | None = None,
-        escalation=None,
+        escalation: EscalationPolicy | None = None,
         codecs: dict | None = None,
         adaptive: bool = False,
     ):
@@ -172,8 +227,8 @@ class MultiRailController:
     def add_rail(self, domain: str, profile: PlatformProfile | None = None,
                  codec: str | None = None) -> UndervoltController:
         """Attach a late-bound rail (the `kv` cache once it exists). Idempotent;
-        the new rail takes the controller's step, backoff and paranoia and
-        starts its own DED-canary walk. Returns the rail's controller."""
+        the new rail takes the controller's step, backoff, paranoia and
+        escalation ladder and starts its own DED-canary walk. Returns the rail's controller."""
         if domain not in self.rails:
             self.domains = self.domains + (domain,)
             self.rails[domain] = UndervoltController(
@@ -198,6 +253,16 @@ class MultiRailController:
     @property
     def codecs(self) -> dict:
         return {d: c.codec for d, c in self.rails.items()}
+
+    def pop_codec_changes(self) -> dict:
+        """{domain: codec} escalated since the last poll; the caller applies
+        them to the protected stores before the next interval."""
+        out = {}
+        for d, c in self.rails.items():
+            change = c.pop_codec_change()
+            if change:
+                out[d] = change
+        return out
 
     def update(self, stats) -> dict:
         """Feed one interval's per-domain telemetry (DomainFaultStats or

@@ -23,6 +23,12 @@ Layout
   * ``tick()`` injects one interval's undervolting faults at the `kv` rail
     voltage, XORed into the stored planes: the cache is mutable, so faults
     persist until a scrub corrects them or a write overwrites the cell.
+  * ``change_codec`` re-protects the live arena under another code (the
+    `kv` rail's escalation): shared pages are first scrubbed under the old
+    code, and a DED latched on one of them refuses the change
+    (``SharedPageDEDError``); otherwise the check plane is re-encoded from
+    the page contents in one launch. The check plane is then a new tensor,
+    of the new code's dtype: every user reads ``arena.parity`` afresh.
 
 The planes are updated in place (the reference's arrays are immutable and
 each method returns new ones): ``commit_tokens``, ``tick``, ``zero_pages``
@@ -31,9 +37,8 @@ and the scrub write-back all modify ``lo``/``hi``/``parity``.
 Each interval's masks come from ``mask_fn(interval, n_words, rate,
 row_sigma, n_check) -> (lo, hi, check)`` (numpy uint32 and uint8/uint32,
 or tensors), by default ``faultsim.interval_masks`` on the arena's device.
-Not ported: codec escalation (``change_codec``, ``SharedPageDEDError``),
-environment bursts and mesh shards (an arena is shard 0, the reference's
-default).
+Not ported: environment bursts and mesh shards (an arena is shard 0, the
+reference's default).
 
 The interval draw, the token commit and the scrub go through the opt-in
 dispatch profiler (``obs.profile.call``) under the reference's names; a
@@ -310,6 +315,28 @@ class PrefixTrie:
         """Every page the trie holds a reference on (sorted)."""
         return sorted(self._by_page)
 
+    def evict_pages(self, pages) -> list:
+        """Drop the trie's reference on ``pages`` and on every descendant
+        chunk (a child's prefix is unreachable without its parent): the
+        refusal path of a codec change. Readers keep a page live until they
+        are preempted. Returns the pages whose trie reference was dropped."""
+        dropped = []
+        for page in pages:
+            node = self._by_page.get(int(page))
+            if node is None:
+                continue
+            stack = [node]
+            while stack:
+                nd = stack.pop()
+                stack.extend(nd.children.values())
+                if nd.page in self._by_page:
+                    dropped.append(nd.page)
+                    self._drop(nd)
+        if dropped and self.recorder:
+            self.recorder.emit("trie_evict", shard=self.shard, pages=len(dropped),
+                               reason="forced")
+        return dropped
+
     def drain(self) -> list:
         """Release every trie reference (serve teardown)."""
         pages = list(self._by_page)
@@ -321,6 +348,21 @@ class PrefixTrie:
                 self.alloc.free([node.page], self.OWNER)
         self._root.children.clear()
         return pages
+
+
+class SharedPageDEDError(RuntimeError):
+    """``KVPageArena.change_codec`` found a latched detected-uncorrectable
+    word on a page with more than one reader: re-encoding would seal the
+    corruption as clean data for every reader at once. ``pages`` names the
+    offending pages, so the scheduler can evict and preempt, then retry."""
+
+    def __init__(self, pages, codec: str):
+        self.pages = tuple(int(p) for p in pages)
+        self.codec = str(codec)
+        super().__init__(
+            f"codec change to {self.codec!r} refused: latched DED on shared "
+            f"pages {list(self.pages)}"
+        )
 
 
 def _payload_to_planes(payload):
@@ -402,6 +444,35 @@ class KVPageArena:
 
     def set_voltage(self, v: float) -> None:
         self.voltage = float(v)
+
+    def change_codec(self, codec: str, shared_pages=None) -> None:
+        """Re-protect the live arena under another registered code: the
+        check plane is re-encoded from the current page contents (one
+        encode launch), so faults the old code had not corrected are sealed
+        as data. Call it right after an interval scrub; the scheduler does.
+
+        ``shared_pages`` (pages with more than one reader) are scrubbed
+        under the old code first, their counters joining ``stats``. If a DED
+        stays latched on one of them, the change is refused with
+        :class:`SharedPageDEDError`: the code and the check plane stay as
+        they were (the scrub's write-back of corrected words stays)."""
+        if codec == self.codec_name:
+            return
+        ids = np.asarray([] if shared_pages is None else list(shared_pages), np.int32)
+        if ids.size:
+            _, cnt = self.scrub_pages(ids)
+            self.stats.accumulate(
+                FaultStats.from_counters(
+                    cnt.sum(axis=0), words=int(ids.size) * self.geom.words_per_page,
+                    shard=self.shard,
+                )
+            )
+            detected = cnt[:, 2]  # the counters' "detected" lane
+            if detected.any():
+                raise SharedPageDEDError(ids[detected > 0].tolist(), codec)
+        self.codec_name = str(codec)
+        self.codec = codes.get(self.codec_name)
+        self.parity = kops.encode(self.lo, self.hi, codec=self.codec_name)
 
     def _masks(self, rate: float):
         return obs_profile.call("kv.inject_masks", self._draw_masks, rate)

@@ -1,5 +1,6 @@
 """The serving API: the engine and its grouped reliability configuration,
-the request/report types, the paged decode-block helpers and the flight
+the request/report types, the paged decode-block helpers with their
+contract (``DecodeBlockHelpers``, ``HelpersFactory``) and the flight
 recorder. Submodules stay importable directly::
 
     from repro_torch.serving import ServingEngine, ReliabilityConfig, TraceRecorder
@@ -16,7 +17,13 @@ from repro_torch.serving.scheduler import (
     normalize_requests,
     serve_stream,
 )
-from repro_torch.serving.steps import PagedHelpers, make_paged_helpers, make_prefill_step
+from repro_torch.serving.steps import (
+    DecodeBlockHelpers,
+    HelpersFactory,
+    PagedHelpers,
+    make_paged_helpers,
+    make_prefill_step,
+)
 from repro_torch.serving.engine import (
     CanaryConfig,
     FaultModelConfig,
@@ -30,7 +37,9 @@ from repro_torch.serving.engine import (
 __all__ = [
     "CanaryConfig",
     "ContinuousBatchingScheduler",
+    "DecodeBlockHelpers",
     "FaultModelConfig",
+    "HelpersFactory",
     "MetricsRegistry",
     "PagedHelpers",
     "ProtectionConfig",

@@ -34,7 +34,11 @@ import torch
 from repro_torch import codes
 from repro_torch.configs import shapes
 from repro_torch.core import voltage as vmod
-from repro_torch.core.controller import MultiRailController, UndervoltController
+from repro_torch.core.controller import (
+    EscalationPolicy,
+    MultiRailController,
+    UndervoltController,
+)
 from repro_torch.core.faultsim import FaultField, device_masks, gather_masks
 from repro_torch.core.kvpages import PAGE_TOKENS, KVGeometry, KVPageArena
 from repro_torch.core.memory import EccMemoryDomain
@@ -83,7 +87,9 @@ class ProtectionConfig:
     """Which memories are protected and under which ECC scheme."""
 
     codecs: Any = None  # None, a registered codec name, or {domain: name} (multi-rail)
-    escalation: Any = None  # not ported: must be None
+    # EscalationPolicy or a tuple of codec names, weakest -> strongest
+    # (multi-rail engines; a single-rail engine ignores it)
+    escalation: Any = None
     embed: bool | None = None  # None -> multi_rail
 
 
@@ -160,11 +166,6 @@ class ReliabilityConfig:
             multi or prot.codecs is None or isinstance(prot.codecs, str),
             "per-domain codec dicts need multi_rail=True",
         )
-        _require(
-            prot.escalation is None,
-            "codec escalation is not ported yet: it comes with KVPageArena.change_codec, "
-            "the controllers' next_codec and the serialized scrub harvest",
-        )
         _require(self.canary.prompts == 0, "the accuracy canary is not ported")
         return self
 
@@ -172,6 +173,13 @@ class ReliabilityConfig:
     def embed_protected(self) -> bool:
         embed = self.protection.embed
         return self.rails.multi_rail if embed is None else embed
+
+    @property
+    def escalation_policy(self) -> EscalationPolicy | None:
+        esc = self.protection.escalation
+        if esc is None or isinstance(esc, EscalationPolicy):
+            return esc
+        return EscalationPolicy(ladder=tuple(esc))
 
 
 def _decode_gather_table(ew: kops.EccWeight, codec: str = "secded72") -> torch.Tensor:
@@ -328,6 +336,7 @@ class ServingEngine:
                 paranoid=rel.canary.paranoid,
                 start_v=rails.start_v,
                 profiles={d: self._store.domain_profile(d) for d in self._store.domains},
+                escalation=rel.escalation_policy,
                 codecs={d: self._store.codec_of(d) for d in self._store.domains},
                 adaptive=rails.adaptive,
             )
@@ -449,6 +458,7 @@ class ServingEngine:
         speculative: int = 0,
         draft_params=None,
         draft_cfg: ModelConfig | None = None,
+        scrub_overlap: bool | None = None,
     ) -> sched.ServeReport:
         """Serve a stream of variable-length requests.
 
@@ -460,11 +470,14 @@ class ServingEngine:
         ``speculative=K`` (K >= 2, with ``draft_params``/``draft_cfg``)
         verifies K-1 drafted tokens per block; ``walk_kv`` (multi-rail
         engines) attaches a `kv` rail to the controller and walks it on the
-        interval scrubs' DED counters. Each interval's counter harvest is
-        deferred to the next interval (the reference's ``scrub_overlap``;
-        its serialized mode returns with codec escalation). The cache
-        arena stays on ``self.kv_arena``; its counters join ``stats`` and
-        ``rail_stats`` and its words the power accounting."""
+        interval scrubs' DED counters; under an escalation ladder the rail
+        may step up the arena's code mid-stream, and a later serve starts
+        under the code the rail reached. ``scrub_overlap`` (None: overlap
+        unless escalation is live; True: defer each interval's counter
+        harvest to the next interval; False: serialized) changes no result.
+        The cache arena stays on ``self.kv_arena``; its counters join
+        ``stats`` and ``rail_stats`` and its words, under the arena's final
+        code, the power accounting."""
         assert shapes.supports_paged_kv(self.cfg), (
             f"{self.cfg.name}: paged KV unsupported (see shapes.supports_paged_kv)"
         )
@@ -485,6 +498,12 @@ class ServingEngine:
             if self.rel is not None
             else shapes.DEFAULT_CODEC
         )
+        if walk_kv and self.controller is not None:
+            rail = getattr(self.controller, "rails", {}).get("kv")
+            if rail is not None:
+                # An earlier serve's escalation persists: the fresh arena is
+                # protected under the code the rail reached.
+                kv_codec = rail.codec
         arena = KVPageArena(
             geom, profile, n_pages,
             seed=self.rel.seed if self.rel else 0,
@@ -515,8 +534,11 @@ class ServingEngine:
             n_lanes=n_lanes, max_len=self.max_len, scrub_interval=scrub_interval,
             max_block=max_block, kv_controller=kv_controller,
             init_cache_fn=lambda b: lm.init_cache(self.cfg, b, self.max_len, device=self.device),
+            # an escalation rebuilds the speculative helpers too
+            helpers_factory=lambda cname: self._paged_helpers(geom, cname, draft_cfg=draft_cfg),
             share_prefix=share_prefix, speculative=speculative,
             draft_params=draft_params, draft_cfg=draft_cfg, recorder=self.recorder,
+            scrub_overlap=scrub_overlap,
         )
         # The kv domain now has real words (power weighting) and counters.
         self.stats.accumulate(report.kv_stats)
@@ -564,12 +586,22 @@ class ServingEngine:
         # Align the arena with the controller's starting schedule so the
         # first interval reflects the voltages being judged.
         self.set_rails(self.controller.voltages)
+        # Only the weight arena's rails are judged here: a late-bound `kv`
+        # rail is walked by the serving stream and must not hold this loop.
+        arena_rails = self._store.domains
         for _ in range(max_rounds):
             if self.recorder:
                 self.recorder.advance(1)
             volts = self.controller.update(self._last_scrub)
+            # A rail that escalated re-protects its domain before the next
+            # step, so the next interval is judged under the stronger code.
+            # A `kv` change stays pending for the serving loop.
+            for d in arena_rails:
+                cname = self.controller.rails[d].pop_codec_change()
+                if cname:
+                    self._store.set_domain_codec(d, cname)
             self.set_rails(volts)
-            if self.controller.locked:
+            if all(self.controller.rails[d].locked for d in arena_rails):
                 break
         return self.controller.voltages, self.controller.history
 

@@ -22,8 +22,10 @@ serving/steps.py and the arena's methods. An optional flight recorder
 preemption, retirement, speculative block and interval scrub as an event on
 its step clock, which advances with decode progress, and the ``serve.*``,
 ``request.*``, ``spec.*`` and ``kv.scrub.*`` metrics; it reads only values
-the host already holds. Not ported: the mesh's ``MeshServeReport`` /
-``partition_requests`` and codec escalation (``helpers_factory``).
+the host already holds. When the `kv` rail escalates its code, the arena is
+re-protected under it right after the scrub that flushed it, and a helpers
+factory rebuilds the commit path. Not ported: the mesh's
+``MeshServeReport`` / ``partition_requests``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from repro_torch.core.kvpages import (
     KVPageArena,
     PageAllocator,
     PrefixTrie,
+    SharedPageDEDError,
     dedup_page_table,
     row_bases,
 )
@@ -289,15 +292,22 @@ class ContinuousBatchingScheduler:
 
 def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes: int,
                  max_len: int, scrub_interval: int = 1, max_block: int = 16,
-                 kv_controller=None, init_cache_fn=None, share_prefix: bool = False,
-                 speculative: int = 0, draft_params=None, draft_cfg=None,
-                 recorder=None) -> ServeReport:
+                 kv_controller=None, init_cache_fn=None, helpers_factory=None,
+                 share_prefix: bool = False, speculative: int = 0, draft_params=None,
+                 draft_cfg=None, recorder=None,
+                 scrub_overlap: bool | None = None) -> ServeReport:
     """Drive a request stream to completion over the paged cache.
 
-    ``helpers`` comes from serving/steps.make_paged_helpers;
-    ``kv_controller`` (optional UndervoltController) is fed each interval's
-    scrub telemetry and its voltage is applied to the arena (the `kv` rail
-    walk).
+    ``helpers`` comes from serving/steps.make_paged_helpers (any
+    ``DecodeBlockHelpers``); ``kv_controller`` (optional
+    UndervoltController) is fed each interval's scrub telemetry and its
+    voltage is applied to the arena (the `kv` rail walk). When it escalates
+    its code, the arena is re-encoded under the new code and
+    ``helpers_factory`` (codec name -> helpers, ``steps.HelpersFactory``)
+    gives the commit path that matches it. Without a factory a stronger code
+    cannot be applied to the live arena, so escalation is suppressed around
+    each controller update (and the caller's policy restored after it): the
+    controller never runs ahead of the protection in force.
 
     Decode runs in blocks of up to ``max_block`` steps: the largest power of
     two that no active lane's remaining budget and no pending scrub deadline
@@ -313,15 +323,19 @@ def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes:
     tokens per block and verifies all K in one chunked target forward; only
     accepted tokens' pages are committed, so the output is greedy decode's.
 
-    An interval's counter harvest (the host's wait for the counters, and
-    all stats and controller work) is deferred to just before the next
-    interval's tick, so the decode blocks in between are queued behind the
-    scrub without waiting for it: the reference's ``scrub_overlap`` mode.
-    The controller's rail move still lands before the next injection,
-    attribution is captured at dispatch, and the device work is the same
-    launches in the same order, so outputs, counters and rail walks equal
-    the reference's serialized mode too. Each interval's counters are a
-    tensor of their own, which no later launch writes.
+    ``scrub_overlap=True`` defers an interval's counter harvest (the host's
+    wait for the counters, and all stats and controller work) to just
+    before the next interval's tick, so the decode blocks in between are
+    queued behind the scrub without waiting for it; ``False`` harvests right
+    after the dispatch (serialized). The controller's rail move lands before
+    the next injection either way, attribution is captured at dispatch, and
+    the device work is the same launches in the same order, so outputs,
+    counters and rail walks are equal in both modes. Each interval's
+    counters are a tensor of their own, which no later launch writes.
+    ``None`` overlaps unless escalation is live (a ``kv_controller`` with a
+    ladder and a ``helpers_factory``), and then runs serialized: a deferred
+    harvest would apply a code change after the next decode block had
+    committed under the old code, so such streams are demoted.
 
     ``recorder`` (optional obs.TraceRecorder) traces the stream: its clock
     advances by each decode block's steps (a speculative block by its
@@ -381,7 +395,15 @@ def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes:
     prefix_hit_tokens = 0
     spec_dispatches = 0
     spec_emitted = 0
-    pending_scrub = None  # the deferred harvest of the last interval
+    overlap = scrub_overlap
+    if overlap is None:
+        # Demotion (see the docstring): a code change rebinds the commit
+        # path, which must happen with the scrub that flushed the arena.
+        overlap = not (
+            kv_controller is not None and helpers_factory is not None
+            and kv_controller.escalation is not None
+        )
+    pending_scrub = None  # the deferred harvest of the last interval (overlap)
 
     def _dispatch_scrub():
         """Interval scrub device work (tick, scrub-on-read, cache refresh),
@@ -425,11 +447,12 @@ def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes:
         return cap
 
     def _harvest_scrub(cap):
-        """The deferred half: wait for the counters, then stats, the
-        controller's rail move and the recorder's events."""
+        """The harvest: wait for the counters, then stats, the controller's
+        rail move (and a code change) and the recorder's events."""
+        nonlocal helpers
         t0 = time.perf_counter()
         cnt = cap["cnt"].cpu().numpy()
-        if obs_profile.active():
+        if overlap and obs_profile.active():
             # The share of the dispatch-to-counters window that the decode
             # blocks covered; the rest the host waited on the scrub.
             t1 = time.perf_counter()
@@ -465,7 +488,41 @@ def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes:
             )
             arena.stats.accumulate(physical)
         if kv_controller is not None and not kv_controller.locked:
-            arena.set_voltage(kv_controller.update(reader_weighted_stats(interval, physical)))
+            saved_policy = kv_controller.escalation
+            if helpers_factory is None:
+                kv_controller.escalation = None
+            try:
+                arena.set_voltage(kv_controller.update(reader_weighted_stats(interval, physical)))
+            finally:
+                kv_controller.escalation = saved_policy
+            change = kv_controller.pop_codec_change()
+            if change:
+                if rec:
+                    rec.emit("kv_codec_change", shard=arena.shard, domain="kv", codec=change)
+                # Re-protect right after the scrub above flushed every
+                # correctable fault; the commit path switches with it.
+                shared_now = None
+                if trie is not None:
+                    shared_now = sorted(set(sched.alloc.shared_pages()) | set(trie.pages()))
+                try:
+                    arena.change_codec(change, shared_pages=shared_now)
+                except SharedPageDEDError as err:
+                    # Refuse-and-copy: a latched DED on a shared page is not
+                    # sealed for its readers. Drop the trie's claim, preempt
+                    # every running reader (recompute is the copy), then
+                    # re-protect.
+                    trie.evict_pages(err.pages)
+                    bad = set(err.pages)
+                    preempted = 0
+                    for st in list(sched.running):
+                        if bad & set(st.pages):
+                            sched.preempt(st)
+                            preempted += 1
+                    arena.change_codec(change)
+                    if rec:
+                        rec.emit("shared_ded_recovery", shard=arena.shard, domain="kv",
+                                 pages=len(err.pages), preempted=preempted)
+                helpers = helpers_factory(change)
         if rec:
             rec.emit(
                 "kv_scrub", shard=arena.shard, domain="kv",
@@ -656,7 +713,11 @@ def serve_stream(params, cfg, helpers, arena: KVPageArena, requests, *, n_lanes:
             _harvest_scrub(pending_scrub)
             pending_scrub = None
         if sched.running:
-            pending_scrub = _dispatch_scrub()
+            cap = _dispatch_scrub()
+            if overlap:
+                pending_scrub = cap
+            else:
+                _harvest_scrub(cap)
 
     if pending_scrub is not None:
         _harvest_scrub(pending_scrub)

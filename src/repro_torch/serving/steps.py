@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Protocol, runtime_checkable
 
 import torch
 
@@ -184,6 +184,15 @@ def _spec_multistep(params, dparams, tok, cache, dcache, lo, hi, par, pos0, row_
     return greedy, n_emit, cache, dcache, lo, hi, par
 
 
+@runtime_checkable
+class DecodeBlockHelpers(Protocol):
+    """The decode-block helper contract the continuous-batching scheduler
+    consumes. ``make_paged_helpers`` is the canonical producer; anything
+    item-accessible with these keys satisfies it."""
+
+    def __getitem__(self, name: str) -> Callable: ...
+
+
 @dataclasses.dataclass(frozen=True)
 class PagedHelpers:
     """Continuous-batching helpers sharing one payload layout; attribute and
@@ -225,6 +234,14 @@ class PagedHelpers:
 
     def get(self, name: str, default: Any = None) -> Any:
         return getattr(self, name, default) or default
+
+
+@runtime_checkable
+class HelpersFactory(Protocol):
+    """codec name -> decode-block helpers, called by the scheduler when the
+    kv rail's escalation changes the arena's codec mid-serve."""
+
+    def __call__(self, codec: str) -> DecodeBlockHelpers: ...
 
 
 def make_paged_helpers(cfg: ModelConfig, geom: KVGeometry, codec: str = "secded72",

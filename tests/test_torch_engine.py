@@ -163,8 +163,6 @@ def test_entry_points_default_to_the_card(models, monkeypatch):
     # codecs are ported on the batched inline arena; domain mode stays SECDED
     {"mode": "domain", "protection": teng.ProtectionConfig(codecs="dected79")},
     {"protection": teng.ProtectionConfig(codecs={"attention": "secded72"})},
-    {"rails": teng.RailsConfig(multi_rail=True),
-     "protection": teng.ProtectionConfig(escalation=("secded72", "dected79"))},
     {"fault_model": teng.FaultModelConfig(environment="space")},
     {"fault_model": teng.FaultModelConfig(drift=0.1)},
     {"canary": teng.CanaryConfig(prompts=2)},
@@ -172,13 +170,25 @@ def test_entry_points_default_to_the_card(models, monkeypatch):
     {"fault_model": teng.FaultModelConfig(batched=False),
      "protection": teng.ProtectionConfig(codecs="ileave88")},
     {"protection": teng.ProtectionConfig(codecs="hamming71")},
-    {"rails": teng.RailsConfig(multi_rail=True),
-     "protection": teng.ProtectionConfig(codecs={"mlp": "dected79"},
-                                         escalation=("dected79",))},
 ])
 def test_validate_rejects_unported(kw):
     with pytest.raises(teng.ReliabilityConfigError):
         teng.ReliabilityConfig(**{"mode": "inline", **kw}).validate()
+
+
+@pytest.mark.parametrize("multi,codecs,ladder", [
+    (True, None, ("secded72", "dected79")),
+    (True, {"mlp": "dected79"}, ("dected79",)),
+    (False, None, ("secded72", "ileave88", "dected79")),  # a single rail ignores it
+])
+def test_validate_accepts_escalation_as_the_reference_does(multi, codecs, ladder):
+    jrel = JRel(mode="inline", rails=JRails(multi_rail=multi),
+                protection=JProt(codecs=codecs, escalation=ladder))
+    rel = teng.ReliabilityConfig(mode="inline", rails=teng.RailsConfig(multi_rail=multi),
+                                 protection=teng.ProtectionConfig(codecs=codecs,
+                                                                  escalation=ladder))
+    assert jrel.validate() is jrel and rel.validate() is rel
+    assert rel.escalation_policy.ladder == jrel.escalation_policy.ladder == ladder
 
 
 def test_validate_rejects_a_mesh():

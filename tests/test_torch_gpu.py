@@ -703,3 +703,50 @@ def test_traced_serve_on_the_card_equals_the_cpu(cuda, monkeypatch):
     rows = {r["name"]: r for r in prof.to_rows()}
     assert {"decode.prefill", "decode.multistep", "kv.inject_masks"} <= set(rows)
     assert all(r["backend"] == "cuda" and r["calls"] > 0 for r in rows.values())
+
+
+@pytest.mark.gpu
+def test_escalating_serve_on_the_card_equals_the_cpu(cuda, monkeypatch):
+    """A tiny-config walk_kv serve whose kv rail steps up its code
+    mid-stream (secded72 -> dected79) gives the same tokens, counters, rail
+    history, final code and JSONL trace on the card as on the CPU, with the
+    KV interval masks drawn from numpy for both (their check plane follows
+    the code's width)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import faultsim
+    from repro_torch.models import lm
+    from repro_torch.obs import TraceRecorder
+    from repro_torch.serving.engine import (
+        ProtectionConfig, RailsConfig, ReliabilityConfig, ServingEngine,
+    )
+
+    def masks(seed, interval, n, rate, sigma, n_check=8, device=None):
+        g = np.random.default_rng((seed, interval))
+        bits = g.random((64 + n_check, n), dtype=np.float32) < np.float32(rate * 40)
+        w = (1 << np.arange(32, dtype=np.uint64))[:, None]
+        mant = np.uint32((1 << 23) - 1)  # data flips on mantissa bits only
+        lo = (bits[:32] * w).sum(0).astype(np.uint32) & mant
+        hi = (bits[32:64] * w).sum(0).astype(np.uint32) & mant
+        chk = (bits[64:] * w[:n_check]).sum(0)
+        return lo, hi, chk.astype(np.uint8 if n_check <= 8 else np.uint32)
+
+    monkeypatch.setattr(faultsim, "interval_masks", masks)
+    cfg = get_smoke_config("qwen3-0.6b")
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    g = np.random.default_rng(0)
+    reqs = [(g.integers(0, cfg.vocab, 6 + 3 * i).astype(np.int32), 8 + i) for i in range(4)]
+    rel = ReliabilityConfig(mode="inline", voltage=1.0,
+                            rails=RailsConfig(multi_rail=True, start_v=0.57),
+                            protection=ProtectionConfig(escalation=("secded72", "dected79")))
+    out = {}
+    for d in ("cpu", "cuda"):
+        rec = TraceRecorder()
+        eng = ServingEngine(cfg, params, rel=rel, max_len=48, device=d, recorder=rec)
+        rep = eng.serve(reqs, n_lanes=2, n_pages=10, scrub_interval=1, walk_kv=True,
+                        share_prefix=True)
+        kv = eng.controller.rails["kv"]
+        out[d] = ({r: v.tolist() for r, v in rep.outputs.items()}, rep.kv_stats.to_dict(),
+                  rep.kv_voltages, [(r.voltage, r.detected, r.action, r.codec) for r in kv.history],
+                  rep.arena.codec_name, eng.power_report(), rec.to_jsonl())
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][4] == "dected79" and '"kind":"kv_codec_change"' in out["cuda"][6]

@@ -177,11 +177,6 @@ def test_multirail_controller_records_identical():
     assert t.locked == j.locked and t.codecs == j.codecs
 
 
-def test_escalation_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tctl.UndervoltController(tv.PLATFORMS["vc707"], escalation=("secded72", "dected79"))
-
-
 CODEC_KEYS = KEYS + ("['blocks']['p0']['attn']['wo']", "['blocks']['p0']['mlp']['w2']")
 MIXED = {"attention": "parity65", "mlp": "dected79", "embedding": "ileave88"}
 

@@ -72,6 +72,9 @@ RELS = {
     "codecs": dict(rails=dict(multi_rail=True, start_v=0.57),
                    codecs={"attention": "parity65", "mlp": "dected79", "kv": "ileave88"}),
     "dected": dict(rails=dict(multi_rail=False), codecs="dected79"),
+    # a kv rail that may step up its code mid-stream
+    "escalate": dict(rails=dict(multi_rail=True, start_v=0.57),
+                     escalation=("secded72", "dected79")),
 }
 
 
@@ -82,12 +85,12 @@ def engines(models):
     for name, rel in RELS.items():
         jrel = trel = None
         if rel is not None:
-            codecs = rel.get("codecs")
+            prot = dict(codecs=rel.get("codecs"), escalation=rel.get("escalation"))
             jrel = JRel(platform="vc707", voltage=1.0, mode="inline", rails=JRails(**rel["rails"]),
-                        protection=JProt(codecs=codecs))
+                        protection=JProt(**prot))
             trel = teng.ReliabilityConfig(platform="vc707", voltage=1.0, mode="inline",
                                           rails=teng.RailsConfig(**rel["rails"]),
-                                          protection=teng.ProtectionConfig(codecs=codecs))
+                                          protection=teng.ProtectionConfig(**prot))
         out[name] = (
             JEngine(cfg, params, rel=jrel, max_len=MAX_LEN),
             teng.ServingEngine(tcfg, tparams, rel=trel, max_len=MAX_LEN, device="cpu"),
@@ -173,20 +176,24 @@ CASES = {
     "preempt": ("plain", MIXED, dict(n_lanes=2, n_pages=5, scrub_interval=2)),
     "share_prefix": ("plain", SHARED, dict(n_lanes=2, share_prefix=True, scrub_interval=2)),
     "speculative": ("plain", MIXED, dict(n_lanes=3, speculative=3, scrub_interval=4)),
-    # the reference's two harvest orders against the port's one (deferred)
+    # both harvest orders, each against the reference's same order
     "undervolt_overlap": ("single", MIXED, dict(n_lanes=3, kv_voltage=0.55, scrub_overlap=True)),
     "undervolt_serial": ("single", MIXED, dict(n_lanes=3, kv_voltage=0.55, scrub_overlap=False)),
     "undervolt_shared": ("single", SHARED, dict(n_lanes=2, kv_voltage=0.55, share_prefix=True)),
     "walk_kv": ("multi", SHARED, dict(n_lanes=2, walk_kv=True, scrub_interval=2)),
     "undervolt_ileave88": ("codecs", MIXED, dict(n_lanes=3, kv_voltage=0.55)),
     "walk_kv_ileave88": ("codecs", SHARED, dict(n_lanes=2, walk_kv=True, scrub_interval=2)),
+    # scrub_overlap=None under a ladder: both packages run serialized
+    "walk_kv_escalate": ("escalate", MIXED, dict(n_lanes=2, walk_kv=True, scrub_interval=2,
+                                                 scrub_overlap=None)),
     "undervolt_dected79": ("dected", MIXED, dict(n_lanes=3, kv_voltage=0.55, max_block=4)),
 }
 
 
 # denser faults where the kv canary must see a DED, and where a stronger code
 # than SECDED must meet uncorrectable words
-SCALES = {"walk_kv": 40.0, "walk_kv_ileave88": 150.0, "undervolt_dected79": 40.0}
+SCALES = {"walk_kv": 40.0, "walk_kv_ileave88": 150.0, "undervolt_dected79": 40.0,
+          "walk_kv_escalate": 40.0}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -201,7 +208,6 @@ def test_serve_matches_reference(models, engines, monkeypatch, finite_logits, ca
         tk = dict(kw, draft_params=tdparams, draft_cfg=tdcfg)
     else:
         jk = tk = kw
-    tk = {k: v for k, v in tk.items() if k != "scrub_overlap"}
     j = jeng.serve(reqs, **jk)
     t = teng_.serve(reqs, **tk)
     assert all(finite_logits)
@@ -220,8 +226,11 @@ def test_serve_matches_reference(models, engines, monkeypatch, finite_logits, ca
     if case.startswith("walk_kv"):
         jr, tr = jeng.controller.rails["kv"], teng_.controller.rails["kv"]
         assert [_record(r) for r in tr.history] == [_record(r) for r in jr.history]
-        assert tr.locked
+        assert tr.locked or case == "walk_kv_escalate"
         assert teng_.rails == jeng.rails
+        assert tr.codec == jr.codec == t.arena.codec_name == j.arena.codec_name
+    if case == "walk_kv_escalate":  # the kv rail stepped up its code mid-stream
+        assert t.arena.codec_name == "dected79"
 
 
 def test_paged_serve_equals_dense_generate(engines):
