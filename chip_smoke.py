@@ -135,7 +135,26 @@ them. Phases, each printed on its own line with its wall time:
      one encode under the new code, contents bit for bit and no DED; and
      phase 6's stream on a ``walk_kv`` engine with ``scrub_overlap`` True
      and False: equal tokens, counters, kv voltages, steps and launches;
-  4-12 each zero the kernel launch counts at the start of a path and read
+  13. environment scenarios (``repro_torch.core.scenario``; the fault-field
+     kernel's burst expansion): the burst kernel against its plain version
+     bit for bit for every check width, each single-class profile and each
+     environment's burst, scalar and per-word rates (every third word at
+     rate 0) at 0, 1, 3, 4,097 and 2^20 + 5 words; under the avionics burst
+     at its scenario voltage, at the single-rail arena's, a KV interval's and
+     the multi-rail store's word counts, timed beside the burst-free kernel
+     and its integer bound (the neighbour word's re-derivation counted),
+     a superset of the burst-free masks; the device burst field against the
+     host burst field over 4 M words at each environment's scenario voltage
+     (phase 10's bounds), FIP over the full arena; single-rail device-mask
+     engines under avionics at the scenario voltage (ileave88 corrects more
+     and detects less than secded72), the autotune from 0.62 V without an
+     environment, under consumer and under avionics (the avionics lock at or
+     above the lock without one); phase 6's stream under avionics at a kv
+     rail at the scenario voltage (every request at its length, each
+     interval's rate fault_rate x aging multiplier, one burst field and one
+     paged scrub per interval), then under a neutral environment with drift
+     0 and without one (equal tokens, counters and launches);
+  4-13 each zero the kernel launch counts at the start of a path and read
      them at its end, and fail unless every voltage step launched its scrub
      kernel once (B1 single-rail, B2 and the embedding's B5 multi-rail,
      none of the other path's), every forward pass of the protected model
@@ -147,7 +166,7 @@ them. Phases, each printed on its own line with its wall time:
      once, every per-leaf step and every domain read launched the fault
      injection and the decode once per leaf, and the plain codec never ran
      on the card;
-  13. one prefill and one decode step of paths 4-5 under torch.profiler
+  14. one prefill and one decode step of paths 4-5 under torch.profiler
      (device busy time, idle share, fused-matmul time inside the step, which
      must come from the decode kernel in a decode step and the tiled kernel
      in a prefill), tokens/s, voltage-step times and one
@@ -158,7 +177,7 @@ them. Phases, each printed on its own line with its wall time:
      count is split between them by the forward passes of at most
      ``DECODE_MAX_M`` rows and the others; the codec-generic kernels have one
      entry per (kernel, codec), their launches counted per codec (the fault
-     field's by check width). Phases 6 and 9 time the stream's interval
+     field's by check width, its burst launches in entries of their own). Phases 6 and 9 time the stream's interval
      scrub the same way as phase 2, and the interval's mask draw.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises.
@@ -258,7 +277,7 @@ def main() -> int:
     from repro_torch import codes
     from repro_torch.codes.base import Codec
     from repro_torch.configs import get_config, get_smoke_config, paper_nn, shapes
-    from repro_torch.core import faultsim, kvpages, memory, quantize
+    from repro_torch.core import faultsim, kvpages, memory, quantize, scenario
     from repro_torch.core.kvpages import KVGeometry, KVPageArena
     from repro_torch.core.nn_accel import EccMLP
     from repro_torch.core.planestore import PlaneStore
@@ -2100,15 +2119,6 @@ def main() -> int:
                         faultsim.P_MAX)
         return int(((p * 4294967296.0).to(torch.int64) > 0).sum())
 
-    def plain_chunked(f_row, rate, key, nc, chunk=1 << 22):
-        """The plain version over ``f_row`` (scalar or per-word ``rate``) on
-        the card, 2^22 words a call (its int64 transients)."""
-        per_word = isinstance(rate, torch.Tensor)
-        parts = [ref.fault_field_ref(f_row[s:s + chunk], rate[s:s + chunk] if per_word else rate,
-                                     key, nc, base=s)
-                 for s in range(0, f_row.numel(), chunk)]
-        return tuple(torch.cat(t) for t in zip(*parts))
-
     def mask_err(got, want) -> float:
         """Largest |kernel - plain| over the words of the three masks, as
         integers (0 iff every bit agrees); a dtype or shape mismatch fails."""
@@ -2120,8 +2130,9 @@ def main() -> int:
 
     def sass_sizes() -> dict:
         """Instructions of each fault-field kernel in the SASS (cuobjdump),
-        by (n_check, per-word rates): the kernels have no loop, so this is
-        what a drawn word's thread runs, its early exit aside."""
+        by (n_check, per-word rates, burst): the burst-free kernels have no
+        loop, so this is what a drawn word's thread runs, its early exit
+        aside; the burst kernels loop over the anchored groups."""
         cuobjdump = os.path.join(os.path.dirname(backend.nvcc_path()), "cuobjdump")
         if not os.path.exists(cuobjdump):
             return {}
@@ -2130,8 +2141,9 @@ def main() -> int:
         out, cur = {}, None
         for line in text.splitlines():
             if "Function :" in line:
-                m = re.search(r"ILi(\d+)ELb([01])E", line)
-                cur = f"{m.group(1)}{'/rates' if m.group(2) == '1' else ''}" if m else None
+                m = re.search(r"ILi(\d+)ELb([01])ELb([01])E", line)
+                cur = (f"{m.group(1)}{'/rates' if m.group(2) == '1' else ''}"
+                       f"{'/burst' if m.group(3) == '1' else ''}") if m else None
                 if cur:
                     out[cur] = {"instructions": 0, "integer_multiplies": 0}
             elif cur and re.match(r"\s+/\*[0-9a-f]{4}\*/\s+\S", line):
@@ -2326,7 +2338,8 @@ def main() -> int:
         def plain_kept(*args):
             """(the plain version's masks, its device time) from one call."""
             box = []
-            ms = sync_ms(lambda: box.append(plain_chunked(*args)), iters=1, warmup=0)
+            ms = sync_ms(lambda: box.append(ref.fault_field_plain(*args, chunk_words=1 << 22)),
+                         iters=1, warmup=0)
             return box[-1], ms
 
         for nc in FIELD_N_CHECKS:
@@ -2369,7 +2382,7 @@ def main() -> int:
         device_runs["interval_draw_wall_ms"] = draw_ms
         print(f"  interval_masks at 0.56 V, {interval_words} words (row factor + kernel), wall: "
               f"{json.dumps(draw_ms)} ms")
-        del f_row, rates, got, want, f_int, f_multi, rates_multi, store_draw
+        del f_row, rates, got, want, f_int, f_multi, rates_multi
         torch.cuda.empty_cache()
 
         # c. the device field against the host field (the model's oracle)
@@ -2837,7 +2850,354 @@ def main() -> int:
         print(f"  escalation {json.dumps(esc_run)}")
 
     # ---------------------------------------------------------------- 13
-    with Phase("13 traced steps, timings and the kernels line"):
+    # Environment scenarios: the fault-field kernel's burst expansion against
+    # its plain version, the device burst field against the host burst
+    # field, and the engines and phase 6's stream under an environment.
+    avionics = scenario.ENVIRONMENTS["avionics"]
+    scen_run: dict = {}
+
+    def anchored_groups(masks) -> int:
+        """Groups of four planes that hold a flip, over every word of the
+        (lo, hi, check) masks."""
+        total = 0
+        for m_ in masks:
+            x = m_.to(torch.int64) & 0xFFFFFFFF
+            total += sum(int(((x >> (4 * q)) & 0xF).ne(0).sum()) for q in range(8))
+        return total
+
+    def burst_bound(f_row, rate, nc, burst, anchors) -> dict:
+        """``field_bound``'s bytes (the neighbour's f_row and rate are the
+        same inputs, read once), and the integer operations this run's data
+        needs: the base Philox of every drawn word, again for the word before
+        it when the burst spills across words (every word w > 0 whose word
+        w - 1 is drawn), and one Philox per anchored group of four planes for
+        its class draw and, for the words before the last, its word draw
+        (``anchors`` the burst-free masks of the same key). The companion
+        draws, one per word with a random double, are left out: a bound may
+        count less."""
+        per_word = isinstance(rate, torch.Tensor)
+        th = ref.burst_thresholds(burst)
+        p = torch.clamp(torch.as_tensor(rate, dtype=torch.float32, device=dev) * f_row, 0.0,
+                        faultsim.P_MAX)
+        drawn_ = (p * 4294967296.0).to(torch.int64) > 0
+        drawn, prev = int(drawn_.sum()), int(drawn_[:-1].sum()) if th[3] else 0
+        cls = anchored_groups(anchors) if th[2] else 0
+        word = anchored_groups(tuple(m_[:-1] for m_ in anchors)) if th[3] else 0
+        calls = field_groups(nc) * (drawn + prev) + cls + word
+        out = field_bound(f_row.numel(), drawn, nc, per_word)
+        out["ops_ms"] = 1e3 * calls * max(FIELD_MULS_PER_GROUP, FIELD_ALU_OPS_PER_GROUP) / int_per_s
+        out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
+        out["bound_by"] = "bytes" if out["bytes_ms"] >= out["ops_ms"] else "operations"
+        out.update(philox_calls=calls, neighbour_words=prev, class_draws=cls, word_draws=word)
+        del out["ops_per_drawn_word"]
+        return out
+
+    with Phase("13 environment scenarios, full width"):
+        sv = scenario.scenario_voltage(platform, avionics)
+        aprof = avionics.scale_profile(platform)
+        r_sv = aprof.fault_rate(sv)
+        key = faultsim.philox_key(0xECC ^ 0xF00D)
+        profiles = {c: scenario.BurstProfile(**{c: 1.0}) for c in (
+            "double_adjacent", "triple_adjacent", "random_double", "word_adjacent")}
+        profiles.update({f"env_{e}": p_.burst for e, p_ in scenario.ENVIRONMENTS.items()})
+        scen_run.update(environment="avionics", scenario_voltage=sv, rate=r_sv)
+        print(f"  avionics: scenario voltage {sv} V (flux x{avionics.rate_multiplier}, rate "
+              f"{r_sv:.4e}), burst {json.dumps(dataclasses.asdict(avionics.burst))}")
+        # a. the burst kernel against its plain version, bit for bit: every
+        # width, each single-class profile and each environment's burst,
+        # scalar and per-word rates (every third word at rate 0, so spills
+        # run from and into words that draw nothing), several sizes
+        r054, r056 = platform.fault_rate(0.54), platform.fault_rate(0.56)
+        checked = 0
+        for n in FIELD_SIZES:
+            f_row = faultsim.row_factor(n, platform.row_sigma, 0xB0057 + n, dev)
+            rates = torch.full((n,), r054, device=dev)
+            rates[1::3] = 0.0
+            rates[2::3] = r056
+            for nc in FIELD_N_CHECKS:
+                for pname, burst in profiles.items():
+                    th = ref.burst_thresholds(burst)
+                    for rate in (r054, rates):
+                        got = ops.fault_field(f_row, rate, key, nc, burst=burst)
+                        want = ref.fault_field_plain(f_row, rate, key, nc, th, chunk_words=1 << 22)
+                        require(all(same_bits(a, b) for a, b in zip(got, want)),
+                                f"burst field n={n} n_check={nc} {pname} "
+                                f"{'per-word' if isinstance(rate, torch.Tensor) else 'scalar'}")
+                        if n > 4097:
+                            free = ops.fault_field(f_row, rate, key, nc)
+                            require(all(bool(((f_ & g_) == f_).all()) for f_, g_ in zip(free, got))
+                                    and not same(free, got), f"{pname}: not a strict superset")
+                        checked += 1
+        print(f"  burst field: kernel = plain version bit for bit in {checked} cases (n in "
+              f"{FIELD_SIZES}, n_check in {FIELD_N_CHECKS}, {len(profiles)} burst profiles "
+              f"{sorted(profiles)}, scalar rate and per-word rates with every third word at "
+              f"0); at 2^20 + 5 words a strict superset of the burst-free masks")
+        del f_row, rates, got, want, free
+        # b. at the main path's sizes under the avionics burst at its
+        # scenario voltage: the single-rail arena, a KV interval and the
+        # multi-rail store's field with its per-word rates (the embedding at
+        # rate 0); times beside the burst-free kernel's and the bounds
+        sass = sass_sizes()
+        print(f"  SASS instructions per kernel (n_check[/rates][/burst]): {json.dumps(sass)}")
+        f55 = faultsim.row_factor(n_arena, platform.row_sigma, 0xECC, dev)
+        f_int = f55[:interval_words]
+        f_multi, rates_multi, key_multi = store_draw
+        rates_sv = torch.where(rates_multi > 0, torch.full_like(rates_multi, r_sv),
+                               torch.zeros_like(rates_multi))
+        th = ref.burst_thresholds(avionics.burst)
+        for nc in FIELD_N_CHECKS:
+            codec = next(c for c in codes.names() if codes.get(c).n_check == nc)
+            name = "fault_field_burst" if codec == "secded72" else f"fault_field_burst_{codec}"
+            row = {"codec": codec, "library_ms": None,
+                   "scenario": {"environment": "avionics", "voltage": sv, "rate": r_sv},
+                   "sass_instructions": sass.get(f"{nc}/burst", {}).get("instructions")}
+            errs = {}
+            for size, f_, rate_, key_, iters in (("arena", f55, r_sv, key, 10),
+                                                 ("interval", f_int, r_sv, key, 20),
+                                                 ("multi_rail", f_multi, rates_sv, key_multi, 5)):
+                box = []
+                plain_ms = sync_ms(lambda: box.append(ref.fault_field_plain(
+                    f_, rate_, key_, nc, th, chunk_words=1 << 22)), iters=1, warmup=0)
+                got = ops.fault_field(f_, rate_, key_, nc, burst=avionics.burst)
+                errs[size] = mask_err(got, box[-1])
+                require(errs[size] == 0.0, f"{name} at the {size} size: kernel differs from its "
+                        f"plain version by {errs[size]}")
+                free = ops.fault_field(f_, rate_, key_, nc)
+                require(all(bool(((f2 & g2) == f2).all()) for f2, g2 in zip(free, got)),
+                        f"{name} at the {size} size: not a superset of the burst-free masks")
+                part = burst_bound(f_, rate_, nc, avionics.burst, free)
+                part["flips"] = int(faultsim.flip_counts(*got).sum())
+                part["flips_burst_free"] = int(faultsim.flip_counts(*free).sum())
+                del got, free, box
+                part["ms"] = sync_ms(lambda: ops.fault_field(f_, rate_, key_, nc,
+                                                             burst=avionics.burst), iters=iters)
+                part["ms_burst_free"] = sync_ms(lambda: ops.fault_field(f_, rate_, key_, nc),
+                                                iters=iters)
+                part["plain_ms"] = plain_ms
+                if size == "arena":
+                    row.update(part)
+                else:
+                    row[size] = part
+            row["max_abs_err"] = max(errs.values())
+            row["max_abs_err_by_size"] = errs
+            report[name] = row
+            ratio = lambda p_: p_["ms"] / p_["ms_burst_free"]
+            print(f"  {name} (avionics burst, {sv} V): kernel = plain version bit for bit, a "
+                  f"superset of the burst-free masks, at {n_arena}, {interval_words} and "
+                  f"{n_multi} words; {n_arena} words {row['ms']:.3f} ms (burst-free "
+                  f"{row['ms_burst_free']:.3f} ms, x{ratio(row):.2f}; bound {row['bound_ms']:.3f} "
+                  f"ms, {row['bound_by']}: {row['philox_calls']} Philox calls), plain "
+                  f"{row['plain_ms']:.1f} ms, flips {row['flips']} vs {row['flips_burst_free']}; "
+                  f"KV interval {row['interval']['ms']:.4f} ms (burst-free "
+                  f"{row['interval']['ms_burst_free']:.4f}, bound {row['interval']['bound_ms']:.4f}"
+                  f"); multi-rail {row['multi_rail']['ms']:.3f} ms (burst-free "
+                  f"{row['multi_rail']['ms_burst_free']:.3f}, bound "
+                  f"{row['multi_rail']['bound_ms']:.3f})")
+        del f55, f_int, f_multi, rates_multi, rates_sv, store_draw
+        torch.cuda.empty_cache()
+
+        # c. the device burst field against the host burst field (the
+        # reference's stream, bit for bit) at each environment's scenario
+        # voltage, phase 10's bounds; FIP and the superset over the arena
+        stats_rows = []
+        for ename, env in scenario.ENVIRONMENTS.items():
+            v_e, prof_e = scenario.scenario_voltage(platform, env), env.scale_profile(platform)
+            host = faultsim.FaultField(prof_e, FIELD_STATS_WORDS, seed=11, burst=env.burst)
+            dfield = faultsim.DeviceFaultField(prof_e, FIELD_STATS_WORDS, seed=11, burst=env.burst)
+            t = time.perf_counter()
+            hc = faultsim.gather_masks([(host, v_e)])[0].flip_counts()
+            host_s = time.perf_counter() - t
+            dc = faultsim.flip_counts(*dfield.masks(v_e))
+            frac = lambda ge2, ge1: float(ge2) / max(float(ge1), 1.0)
+            h_frac, d_frac = frac((hc >= 2).sum(), (hc >= 1).sum()), frac((dc >= 2).sum(),
+                                                                            (dc >= 1).sum())
+            ratio = float(dc.sum()) / float(hc.sum())
+            require(hc.sum() > 100 and 0.6 < ratio < 1.6,
+                    f"{ename}: device/host burst flips {int(dc.sum())} / {int(hc.sum())}")
+            require(abs(h_frac - d_frac) < 0.1, f"{ename}: multi-bit share {d_frac} vs {h_frac}")
+            stats_rows.append({"environment": ename, "voltage": v_e, "host_flips": int(hc.sum()),
+                               "device_flips": int(dc.sum()), "ratio": ratio,
+                               "host_multibit_share": h_frac, "device_multibit_share": d_frac,
+                               "host_draw_s": host_s})
+        scen_run["statistics"] = stats_rows
+        print(f"  burst statistics over {FIELD_STATS_WORDS} words at each environment's scenario "
+              f"voltage (device / host flips in 0.6-1.6, multi-bit share within 0.1): "
+              f"{json.dumps(stats_rows)}")
+        del host, dfield
+        field = faultsim.DeviceFaultField(aprof, n_arena, seed=0, burst=avionics.burst)
+        prev = None
+        for v in (sv + 0.02, sv + 0.01, sv, sv - 0.01, sv - 0.02):
+            cur = field.masks(v)
+            if prev is not None:
+                require(not any(bool((p_ & ~c_).any()) for p_, c_ in zip(prev, cur)),
+                        f"burst FIP broken at {v} V")
+            if v == sv:
+                free = faultsim.DeviceFaultField(aprof, n_arena, seed=0).masks(sv)
+                require(all(bool(((f_ & c_) == f_).all()) for f_, c_ in zip(free, cur)),
+                        "the burst field lost a burst-free flip")
+                sv_flips = (int(faultsim.flip_counts(*cur).sum()),
+                            int(faultsim.flip_counts(*free).sum()))
+                del free
+            prev = cur
+        print(f"  burst FIP holds {sv + 0.02:.4f} -> {sv - 0.02:.4f} V over {n_arena} words; at "
+              f"{sv} V {sv_flips[0]} flips, a superset of the burst-free field's {sv_flips[1]}")
+        del field, prev, cur
+        torch.cuda.empty_cache()
+
+        # d. full-width single-rail engines with device masks under avionics:
+        # secded72 and ileave88 at the scenario voltage, then the autotune
+        # from 0.62 V without an environment, under consumer and avionics
+        per_fwd = 7 * cfg.n_layers
+        rate_of = lambda store, v, si: store.domain_profile(store.slots[si].domain).fault_rate(
+            float((v if isinstance(v, dict) else dict.fromkeys(store.domains, v))
+                  [store.slots[si].domain]))
+        ops.reset_launch_count()
+        with Tally() as tally:
+            tally._wrap(ServingEngine, "set_voltage",
+                        lambda eng_, v: f"steps:{eng_._store.groups[0].name}")
+            tally._wrap(PlaneStore, "group_masks", lambda store, v, *a, **kw: [
+                k_ for g in store.groups if any(rate_of(store, v, si) > 0.0 for si in g.slot_ids)
+                for k_ in (f"draw:{g.name}",) + ((f"burst:{g.name}",) if store._burst else ())])
+            steps_ = {}
+            for codec in ("secded72", "ileave88"):
+                rel = ReliabilityConfig(
+                    mode="inline", voltage=1.0, protection=ProtectionConfig(codecs=codec),
+                    fault_model=FaultModelConfig(mask_source="device", environment="avionics"))
+                eng = ServingEngine(cfg, params, rel=rel, max_len=64)
+                steps_[codec] = wall_ms(lambda: eng.set_voltage(sv))
+                steps_[codec] = {"step_ms": steps_[codec], "scrub": eng._last_scrub.to_dict()}
+                del eng
+            sec, ilv = steps_["secded72"]["scrub"], steps_["ileave88"]["scrub"]
+            require(ilv["corrected"] > sec["corrected"] and ilv["detected"] < sec["detected"],
+                    f"ileave88 does not beat secded72 under avionics: {ilv} vs {sec}")
+            locks, hists = {}, {}
+            for env in (None, "consumer", "avionics"):
+                rel = ReliabilityConfig(
+                    mode="inline", voltage=1.0, rails=RailsConfig(start_v=0.62),
+                    fault_model=FaultModelConfig(mask_source="device", environment=env))
+                eng = ServingEngine(cfg, params, rel=rel, max_len=64)
+                eng.set_voltage(eng.controller.voltage)
+                lock, hist = eng.autotune_voltage()
+                require(eng.controller.locked, f"the {env} walk did not lock")
+                require(eng._last_scrub.detected == 0, f"{env}: DED in the final scrub")
+                locks[str(env)] = lock
+                hists[str(env)] = [(r.voltage, r.detected, r.action) for r in hist]
+                if env == "avionics":
+                    toks_ = eng.generate(prompts, NEW_TOKENS)
+                    require(toks_.shape == (BATCH, NEW_TOKENS)
+                            and bool(((toks_ >= 0) & (toks_ < cfg.vocab)).all()), "token range")
+                del eng
+            require(locks["avionics"] >= locks["None"],
+                    f"the avionics lock {locks['avionics']} is below the lock without an "
+                    f"environment {locks['None']}")
+        n_ = tally.n
+        g_ = lambda k_: n_.get(k_, 0)
+        counts, by_codec = ops.launch_counts(), ops.launch_counts_by_codec()
+        want_codec = {
+            "inject_scrub": {c: g_(f"steps:{c}") for c in ("secded72", "ileave88")},
+            "inject_scrub_domains": {}, "decode": {"ileave88": 7 * g_("steps:ileave88")},
+            "encode": {"secded72": n_["packs"] + 7 * g_("steps:ileave88"), "ileave88": 1},
+            "gather_scrub": {},
+            "fault_field": {c: g_(f"draw:{c}") for c in ("secded72", "ileave88")},
+        }
+        want_total = {k: sum(v.values()) for k, v in want_codec.items()}
+        want_total.update(ecc_matmul=per_fwd * (n_["prefill"] + n_["decode"]), inject=0)
+        require(n_["packs"] == 5 * per_fwd and n_["plain_on_card"] == 0, f"scenario tally {n_}")
+        codec_launch_check("scenario-engines", counts, by_codec, want_codec,
+                           {k: want_total[k] for k in counts})
+        bursts = ops.burst_launch_counts()
+        want_bursts = {c: g_(f"burst:{c}") for c in ("secded72", "ileave88") if g_(f"burst:{c}")}
+        require(bursts == want_bursts, f"burst launches {bursts}, expected {want_bursts}")
+        scen_run.update(steps=steps_, locks=locks, histories=hists, launches=counts,
+                        burst_launches=bursts)
+        paths_extra["scenario-engines"] = {
+            "launches": counts, "launches_by_codec": by_codec, "burst_by_codec": bursts,
+            "kv_codec": None, "matmuls_per_forward": per_fwd,
+            "forwards": {"prefill": n_["prefill"], "decode": n_["decode"],
+                         "decode_kernel": n_["decode_kernel"]},
+            "packs": n_["packs"], "commits": 0,
+            "voltage_steps": g_("steps:secded72") + g_("steps:ileave88")}
+        print(f"  avionics at {sv} V, one device-mask step each: secded72 {json.dumps(sec)} "
+              f"({steps_['secded72']['step_ms']:.2f} ms); ileave88 {json.dumps(ilv)} "
+              f"({steps_['ileave88']['step_ms']:.2f} ms): ileave88 corrects more and detects less")
+        print(f"  autotune from 0.62 V (device masks): locks {json.dumps(locks)}; histories "
+              f"{json.dumps(hists)}; burst launches {json.dumps(bursts)}")
+        torch.cuda.empty_cache()
+
+        # e. phase 6's stream under avionics at a kv rail at the scenario
+        # voltage (each interval's rate aged by the interval count), then
+        # under a neutral environment with drift 0 and without one at 0.56 V
+        seen = []
+        real_interval_masks = faultsim.interval_masks
+
+        def recording(seed, interval, n, rate, sigma, n_check=8, device=None, burst=None):
+            seen.append((interval, rate, burst))
+            return real_interval_masks(seed, interval, n, rate, sigma, n_check, device=device,
+                                       burst=burst)
+
+        faultsim.interval_masks = recording
+        streams = {}
+        try:
+            for label, fm, kv_v in (
+                    ("avionics", FaultModelConfig(mask_source="device", environment="avionics"),
+                     sv),
+                    ("neutral", FaultModelConfig(mask_source="device", drift=0.0), 0.56),
+                    ("none", FaultModelConfig(mask_source="device"), 0.56)):
+                seen.clear()
+                ops.reset_launch_count()
+                with Tally() as tally:
+                    eng = ServingEngine(cfg, params, max_len=PAGED_MAX_LEN,
+                                        rel=ReliabilityConfig(mode="inline", voltage=1.0,
+                                                              fault_model=fm))
+                    t = time.perf_counter()
+                    rep = eng.serve(stream, n_lanes=4, kv_voltage=kv_v, n_pages=STREAM_PAGES)
+                    torch.cuda.synchronize()
+                    wall_s = time.perf_counter() - t
+                name = f"scenario-stream-{label}"
+                check_paged_launches(name, tally, ops.launch_counts(), multi=False)
+                require(tally.n["draws"] == tally.n["intervals"] == len(seen) > 0,
+                        f"{name}: {tally.n['draws']} draws in {tally.n['intervals']} intervals")
+                require(all(len(rep.outputs[i]) == n_new for i, (_, n_new) in enumerate(stream)),
+                        f"{name}: a request did not complete at its length")
+                require(rep.kv_stats.corrected > 0, f"{name}: no corrected word {rep.kv_stats}")
+                paged[name]["burst_by_codec"] = ops.burst_launch_counts()
+                streams[label] = {"outputs": rep.outputs, "kv_stats": rep.kv_stats.to_dict(),
+                                  "kv_voltages": list(rep.kv_voltages), "steps": rep.steps,
+                                  "launches": ops.launch_counts(), "wall_s": wall_s,
+                                  "rates": [r_ for _, r_, _ in seen],
+                                  "bursts": ops.burst_launch_counts()}
+                if label == "avionics":
+                    want_r = [aprof.fault_rate(sv) * scenario.aging_multiplier(0, i_, avionics, 0)
+                              for i_, _, _ in seen]
+                    require([r_ for _, r_, _ in seen] == want_r,
+                            "avionics: an interval's rate is not fault_rate x aging_multiplier")
+                    require(all(b_ == avionics.burst for _, _, b_ in seen), "avionics: burst")
+                    require(streams[label]["bursts"] == {"secded72": len(seen)},
+                            f"avionics: burst launches {streams[label]['bursts']}")
+                else:
+                    require(all(b_ is None for _, _, b_ in seen), f"{label}: a burst was drawn")
+                del eng, rep
+        finally:
+            faultsim.interval_masks = real_interval_masks
+        a_, n_n, n_0 = streams["avionics"], streams["neutral"], streams["none"]
+        require(outputs_equal(n_n["outputs"], n_0["outputs"])
+                and all(n_n[k] == n_0[k] for k in ("kv_stats", "kv_voltages", "steps",
+                                                    "launches", "rates")),
+                "the neutral environment's stream differs from the one without an environment")
+        scen_run["streams"] = {k: {k2: v2 for k2, v2 in v.items() if k2 != "outputs"}
+                               for k, v in streams.items()}
+        print(f"  stream of {len(stream)} requests under avionics at a {sv} V kv rail: every "
+              f"request complete at its length; {len(a_['rates'])} intervals, each one field "
+              f"launch (burst) and one interval scrub, rate = fault_rate x aging multiplier "
+              f"({a_['rates'][0]:.4e} -> {a_['rates'][-1]:.4e}); kv {json.dumps(a_['kv_stats'])} "
+              f"in {a_['wall_s']:.2f} s")
+        print(f"  neutral environment (drift 0) = no environment at a 0.56 V kv rail: equal "
+              f"tokens, kv counters {json.dumps(n_0['kv_stats'])}, kv voltages, steps and "
+              f"launches {json.dumps(n_0['launches'])}")
+        print(f"  scenario {json.dumps(scen_run)}")
+
+    # ---------------------------------------------------------------- 14
+    with Phase("14 traced steps, timings and the kernels line"):
         for name, run in runs.items():
             run["steps"] = step_breakdown(traced_params.pop(name), {"prefill": 0, "decode": 0},
                                           walls=run["steps"])
@@ -2894,6 +3254,9 @@ def main() -> int:
             out = {}
             for p, r in paths.items():
                 n = r["launches_by_codec"][kernel].get(codec, 0)
+                if kernel == "fault_field":  # the burst kernel's launches, and the others'
+                    bursts = r.get("burst_by_codec", {}).get(codec, 0)
+                    n = bursts if kind == "burst" else n - bursts
                 if kernel == "encode":
                     commits = (r["commits_by_codec"].get(codec, 0) if "commits_by_codec" in r
                                else r["commits"] if r.get("kv_codec", "secded72") == codec
@@ -2917,6 +3280,10 @@ def main() -> int:
             # no pallas_call: the reference draws with jax.random
             "fault_field": ("fault_field.cu", "src/repro/core/faultsim.py:204",
                             "fault_field", None),
+            # the same launcher with a burst: the reference expands its
+            # jax.random draw with scenario.expand_bursts
+            "fault_field_burst": ("fault_field.cu", "src/repro/core/faultsim.py:204",
+                                  "fault_field", "burst"),
         }
         meta, kernel_of = {}, {}
         for entry, (source, replaces, kernel, kind) in generic.items():
@@ -2962,7 +3329,10 @@ def main() -> int:
                                       "changed_words", "bound_26_32_ms", "bound_26_32_by",
                                       "drawn_words", "ops_per_drawn_word", "bytes_per_word",
                                       "sass_instructions", "ms_interval", "plain_ms_interval",
-                                      "interval", "ms_multi_rail", "multi_rail")
+                                      "interval", "ms_multi_rail", "multi_rail",
+                                      "ms_burst_free", "scenario", "philox_calls",
+                                      "neighbour_words", "class_draws", "word_draws", "flips",
+                                      "flips_burst_free")
                     if k in r}),
                 **({k: r[k] for k in ("mlp", "verify") if k in r}),
             })

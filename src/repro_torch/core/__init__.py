@@ -3,6 +3,7 @@ DED-canary controllers.
 
   * `voltage`    — calibrated fault-rate + power models (VC707/KC705-A/B)
   * `faultsim`   — per-bitcell failure-threshold field (FIP by construction)
+  * `scenario`   — burst-fault shapes, environment matrix, aging drift
   * `memory`     — EccMemoryDomain: ECC-protected array storage
   * `controller` — DED-canary runtime undervolting controllers and their
                    codec escalation ladder
@@ -10,7 +11,9 @@ DED-canary controllers.
   * `quantize`   — int8 + 64-bit word packing (BRAM word geometry)
 """
 
-from repro_torch.core import controller, faultsim, memory, quantize, telemetry, voltage
+from repro_torch.core import (
+    controller, faultsim, memory, quantize, scenario, telemetry, voltage,
+)
 from repro_torch.core.controller import (
     EscalationPolicy,
     MultiRailController,
@@ -19,12 +22,14 @@ from repro_torch.core.controller import (
 from repro_torch.core.faultsim import FaultField, FlipMasks
 from repro_torch.core.kvpages import SharedPageDEDError
 from repro_torch.core.memory import EccMemoryDomain
+from repro_torch.core.scenario import ENVIRONMENTS, BurstProfile, EnvironmentProfile
 from repro_torch.core.telemetry import DomainFaultStats, FaultStats
 from repro_torch.core.voltage import PLATFORMS, PlatformProfile
 
 __all__ = [
-    "controller", "faultsim", "memory", "quantize", "telemetry", "voltage",
+    "controller", "faultsim", "memory", "quantize", "scenario", "telemetry", "voltage",
     "EscalationPolicy", "MultiRailController", "UndervoltController", "FaultField",
     "FlipMasks", "SharedPageDEDError",
     "EccMemoryDomain", "DomainFaultStats", "FaultStats", "PLATFORMS", "PlatformProfile",
+    "ENVIRONMENTS", "BurstProfile", "EnvironmentProfile",
 ]

@@ -19,7 +19,15 @@ fault-field kernel (kernels/csrc/fault_field.cu): a word's row weakness is
 drawn once per field by ``torch.randn`` and kept, and bit b of word w flips
 iff output b % 4 of Philox4x32-10 at counter (w, b // 4) is below
 ``uint32(clip(rate f_w, 0, P_MAX) 2^32)``. The masks never exist on the
-host. The reference draws its device field with JAX's threefry, which no
+host.
+
+Both fields take an optional ``burst`` (core/scenario.BurstProfile) that
+expands each faulty bit (an anchor) into a correlated multi-bit upset from
+draws that do not depend on the voltage, so FIP still holds. The host field
+draws them after its base uniforms from the same chunk generator, as the
+reference does; the device field's kernel draws them from Philox counters of
+their own in the same launch. A disabled profile is ``None``: the stream is
+the burst-free one bit for bit. The reference draws its device field with JAX's threefry, which no
 torch generator reproduces, so the device streams equal the reference's (and
 the host field's) in distribution only; the host field stays the default
 and the parity oracle. ``interval_masks``, the paged KV cache's
@@ -36,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.codes.base import as_words, check_dtypes, narrow, popcount32, widen
+from repro_torch.core.scenario import BurstProfile, expand_bursts
 from repro_torch.core.voltage import PlatformProfile
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.backend import resolve_device, to_device
@@ -105,9 +114,13 @@ class FaultField:
 
     Deterministic in (platform, seed): repeated calls, any voltage order and
     any chunking of the work give identical masks. The draw has 64 + n_check
-    bitplanes; its first 64 rows do not depend on ``n_check``, so the data
-    masks are the same under every code. The last voltage's masks are kept,
-    so a rail that did not move costs no draw.
+    bitplanes; without a burst its first 64 rows do not depend on
+    ``n_check``, so the data masks are the same under every code. Under a
+    ``burst`` they do: a plane shift carries bit 63 into the check bits and
+    truncates at the top check plane, and the burst draws follow the
+    (64 + n_check) x m base uniforms. A word-adjacent spill stops at a chunk
+    edge (``chunk_words`` is part of the stream's layout). The last
+    voltage's masks are kept, so a rail that did not move costs no draw.
     """
 
     def __init__(
@@ -117,12 +130,14 @@ class FaultField:
         seed: int = 0,
         chunk_words: int = 1 << 18,
         n_check: int = N_CHECK_DEFAULT,
+        burst: BurstProfile | None = None,
     ):
         self.platform = platform
         self.n_words = int(n_words)
         self.seed = int(seed)
         self.chunk_words = int(chunk_words)
         self.n_check = int(n_check)
+        self.burst = burst if (burst is not None and burst.enabled) else None
         self._last: tuple | None = None  # (voltage, FlipMasks)
 
     def _chunk_rng(self, chunk_idx: int) -> np.random.Generator:
@@ -141,6 +156,14 @@ class FaultField:
         u = rng.random((N_DATA_BITS + self.n_check, m), dtype=np.float32)
         p_word = np.clip(rate * f_row, 0.0, P_MAX)[None, :]
         bits = u < p_word
+        if self.burst is not None:
+            # the burst draws follow u from the same generator, each only if
+            # its probability is nonzero, in the reference's order
+            nb = N_DATA_BITS + self.n_check
+            cu = rng.random((nb, m), dtype=np.float32) if self.burst.needs_class_draw else None
+            wu = rng.random((nb, m), dtype=np.float32) if self.burst.word_adjacent > 0.0 else None
+            eb = rng.integers(0, nb, m) if self.burst.random_double > 0.0 else None
+            bits = expand_bursts(bits, self.burst, cu, wu, eb, xp=np)
         pdt = check_dtypes(self.n_check)[0]
         lo = np.zeros(m, np.uint32)
         hi = np.zeros(m, np.uint32)
@@ -163,10 +186,10 @@ class FaultField:
         return gather_masks([(self, v)], workers=1)[0]
 
     def device_field(self, device=None) -> "DeviceFaultField":
-        """The device field over the same geometry and seed (its own
+        """The device field over the same geometry, seed and burst (its own
         stream); ``device`` None is the card."""
         return DeviceFaultField(self.platform, self.n_words, seed=self.seed,
-                                n_check=self.n_check, device=device)
+                                n_check=self.n_check, burst=self.burst, device=device)
 
     def sweep_histogram(self, voltages) -> list[dict]:
         """Per-voltage fault statistics (paper Fig. 1 / Fig. 2b)."""
@@ -250,7 +273,10 @@ class DeviceFaultField:
     alone and FIP holds per word. ``chunk_words`` (None: the plain
     version's own ``FIELD_CPU_CHUNK``) is the words the plain version draws
     at a time on the CPU; the card draws the field in one launch, and the
-    masks do not depend on it. ``device`` None is the card.
+    masks do not depend on it. ``burst`` expands the anchors in the same
+    launch; a word-adjacent spill stops only at the field's ends (the
+    reference's device field stops at its 2^18-word chunk edges).
+    ``device`` None is the card.
     """
 
     def __init__(
@@ -260,16 +286,15 @@ class DeviceFaultField:
         seed: int = 0,
         chunk_words: int | None = None,
         n_check: int = N_CHECK_DEFAULT,
-        burst=None,
+        burst: BurstProfile | None = None,
         device=None,
     ):
-        if burst is not None:
-            raise NotImplementedError("burst fault shapes are not ported")
         self.platform = platform
         self.n_words = int(n_words)
         self.seed = int(seed)
         self.chunk_words = kops.FIELD_CPU_CHUNK if chunk_words is None else int(chunk_words)
         self.n_check = int(n_check)
+        self.burst = burst if (burst is not None and burst.enabled) else None
         self.device = resolve_device(device)
         self.key = philox_key(self.seed ^ 0xECC)
         self.f_row = row_factor(self.n_words, float(platform.row_sigma), self.seed ^ 0xECC,
@@ -295,7 +320,7 @@ class DeviceFaultField:
             rate = torch.as_tensor(rates).to(self.device, torch.float32)
             if rate.shape != (self.n_words,):
                 raise ValueError(f"expected ({self.n_words},) rates, got {tuple(rate.shape)}")
-        return kops.fault_field(self.f_row, rate, self.key, self.n_check,
+        return kops.fault_field(self.f_row, rate, self.key, self.n_check, burst=self.burst,
                                 chunk_words=self.chunk_words)
 
 
@@ -306,14 +331,16 @@ def zero_masks(n_words: int, n_check: int, device):
 
 
 def interval_masks(seed: int, interval: int, n_words: int, rate: float, row_sigma: float,
-                   n_check: int = N_CHECK_DEFAULT, device=None):
+                   n_check: int = N_CHECK_DEFAULT, device=None, burst=None):
     """One fault interval's (lo int32, hi int32, check) flip masks for
     ``n_words`` words (check uint8, or int32 beyond 8 check bits) on
     ``device``: a fault field keyed by (seed ^ 0xCACE, interval), its row
-    weakness drawn anew for the interval by one ``torch.randn``, its bits by
-    one launch of the fault-field kernel (the plain version off the card).
-    ``device`` None is the card."""
+    weakness drawn anew for the interval by one ``torch.randn``, its bits
+    (and the expansion of ``burst``, a BurstProfile) by one launch of the
+    fault-field kernel (the plain version off the card). ``device`` None is
+    the card."""
     dev = resolve_device(device)
     key = (((int(seed) ^ 0xCACE) << 32) | (int(interval) & 0xFFFFFFFF)) & ((1 << 63) - 1)
     f_row = row_factor(n_words, float(row_sigma), key, dev)
-    return kops.fault_field(f_row, float(np.float32(rate)), philox_key(key), n_check)
+    return kops.fault_field(f_row, float(np.float32(rate)), philox_key(key), n_check,
+                            burst=burst)

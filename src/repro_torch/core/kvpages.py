@@ -36,9 +36,13 @@ and the scrub write-back all modify ``lo``/``hi``/``parity``.
 
 Each interval's masks come from ``mask_fn(interval, n_words, rate,
 row_sigma, n_check) -> (lo, hi, check)`` (numpy uint32 and uint8/uint32,
-or tensors), by default ``faultsim.interval_masks`` on the arena's device.
-Not ported: environment bursts and mesh shards (an arena is shard 0, the
-reference's default).
+or tensors; an arena with a burst shape also passes ``burst=``), by default
+``faultsim.interval_masks`` on the arena's device. An environment scenario
+(``env=``) brings its burst shape to every interval's draw and its aging
+drift to the interval's rate (the interval counter is the aging clock); its
+flux is expected in the profile the caller passes, so it is never applied
+twice. Not ported: mesh shards (an arena is shard 0, the reference's
+default).
 
 The interval draw, the token commit and the scrub go through the opt-in
 dispatch profiler (``obs.profile.call``) under the reference's names; a
@@ -55,7 +59,7 @@ import torch
 
 from repro_torch import codes
 from repro_torch.codes.base import as_words
-from repro_torch.core import faultsim
+from repro_torch.core import faultsim, scenario
 from repro_torch.core.telemetry import FaultStats
 from repro_torch.core.voltage import PlatformProfile
 from repro_torch.kernels import ops as kops
@@ -402,7 +406,9 @@ class KVPageArena:
 
     ``n_pages`` real pages plus one scratch row (index ``n_pages``) that
     masked or inactive writes are steered to; the scratch row is never read
-    for a request. ``device=None`` is the card."""
+    for a request. ``device=None`` is the card. ``env`` is an environment
+    scenario (a name or an ``EnvironmentProfile``, as ``scenario.resolve``
+    takes); its flux belongs in ``profile``."""
 
     def __init__(
         self,
@@ -414,8 +420,12 @@ class KVPageArena:
         codec: str = codes.DEFAULT_CODEC,
         device=None,
         mask_fn=None,
+        env=None,
     ):
         self.geom = geom
+        self.env = scenario.resolve(env)
+        burst = self.env.burst if self.env else None
+        self._burst = burst if (burst is not None and burst.enabled) else None
         self.profile = profile
         self.n_pages = int(n_pages)
         self.ecc = bool(ecc)
@@ -479,13 +489,14 @@ class KVPageArena:
 
     def _draw_masks(self, rate: float):
         sigma, n_check = float(self.profile.row_sigma), self.codec.n_check
+        kw = {"burst": self._burst} if self._burst is not None else {}
         if self.mask_fn is None:
             out = faultsim.interval_masks(
                 self.seed, self._interval, self._total_words, rate, sigma, n_check,
-                device=self.device,
+                device=self.device, **kw,
             )
         else:
-            out = self.mask_fn(self._interval, self._total_words, rate, sigma, n_check)
+            out = self.mask_fn(self._interval, self._total_words, rate, sigma, n_check, **kw)
         as_t = lambda a: torch.as_tensor(
             as_words(a) if isinstance(a, np.ndarray) else a, device=self.device
         )
@@ -493,11 +504,14 @@ class KVPageArena:
 
     def tick(self) -> None:
         """Inject one interval's faults at the current rail voltage (a fresh
-        draw per interval; no-op inside the guardband)."""
+        draw per interval; no-op inside the guardband). Under an
+        environment the rate takes this chip's aging multiplier at the
+        interval count, and the masks its burst shape."""
         self._interval += 1
         rate = self.profile.fault_rate(self.voltage)
         if rate <= 0.0:
             return
+        rate *= scenario.aging_multiplier(self.shard, self._interval, self.env, self.seed)
         self.faulted = True
         mlo, mhi, mpar = self._masks(rate)
         self.lo ^= mlo

@@ -42,6 +42,7 @@ import torch
 from repro_torch import codes
 from repro_torch.codes import DEFAULT_CODEC
 from repro_torch.codes.base import as_words
+from repro_torch.core import scenario
 from repro_torch.core.faultsim import (
     DeviceFaultField, FaultField, flip_counts, gather_masks, zero_masks,
 )
@@ -121,7 +122,11 @@ class PlaneStore:
     returns one counter row per domain. ``profiles`` optionally gives a
     domain its own PlatformProfile; ``codecs`` (a name, or {domain: name})
     its ECC scheme; ``mask_source`` where the masks come from ("host" or
-    "device").
+    "device"); ``env`` an environment scenario (a name of
+    ``scenario.ENVIRONMENTS`` or an ``EnvironmentProfile``): its flux scales
+    every domain's fault curve (``domain_profile``) and its burst shape goes
+    to every fault field. ``env=None`` is the store without a scenario, bit
+    for bit.
     """
 
     def __init__(
@@ -135,6 +140,7 @@ class PlaneStore:
         profiles=None,
         codecs=None,
         device=None,
+        env=None,
     ):
         if mask_source not in ("host", "device"):
             raise ValueError(f"mask_source must be 'host' or 'device', got {mask_source!r}")
@@ -142,6 +148,9 @@ class PlaneStore:
         self.platform = platform
         self.seed = int(seed)
         self.mask_source = mask_source
+        self.env = scenario.resolve(env)
+        burst = self.env.burst if self.env else None
+        self._burst = burst if (burst is not None and burst.enabled) else None
         self._profiles = dict(profiles or {})
         classify = domain_key if domain_key is not None else (lambda _k: "all")
         slots, off = [], 0
@@ -198,8 +207,10 @@ class PlaneStore:
         the per-leaf host fields with each group's check bits (device
         stores: one device field per group, seeded ``seed`` for a single
         group, else from the seed and the codec's name, so regrouping keeps
-        the streams of unchanged groups). One codec: one group aliasing the
-        master planes (and SECDED's check plane)."""
+        the streams of unchanged groups). Every field gets the
+        environment's burst; a host field the domain's scaled curve, a
+        device field the scaled platform curve. One codec: one group
+        aliasing the master planes (and SECDED's check plane)."""
         by_codec: dict = {}
         for si, s in enumerate(self.slots):
             by_codec.setdefault(self.codec_of(s.domain), []).append(si)
@@ -226,8 +237,9 @@ class PlaneStore:
             field = None
             if self.mask_source == "device":
                 dseed = self.seed if single else (self.seed ^ zlib.crc32(name.encode())) & 0x7FFFFFFF
-                field = DeviceFaultField(self.platform, off, seed=dseed, n_check=codec.n_check,
-                                         device=self.device)
+                prof = self.env.scale_profile(self.platform) if self.env else self.platform
+                field = DeviceFaultField(prof, off, seed=dseed, n_check=codec.n_check,
+                                         burst=self._burst, device=self.device)
             groups.append(CodecGroup(name, codec, tuple(slot_ids), tuple(offsets), off,
                                      lo, hi, check, dom, field))
         self.groups = tuple(groups)
@@ -235,6 +247,7 @@ class PlaneStore:
             self.slots[si].key: FaultField(
                 self.domain_profile(self.slots[si].domain), self.slots[si].size,
                 seed=leaf_seed(self.seed, self.slots[si].key), n_check=g.codec.n_check,
+                burst=self._burst,
             )
             for g in self.groups for si in g.slot_ids
         }
@@ -262,7 +275,11 @@ class PlaneStore:
 
     # -- domains -------------------------------------------------------------
     def domain_profile(self, domain: str) -> PlatformProfile:
-        return self._profiles.get(domain, self.platform)
+        """The domain's fault curve, scaled by the environment's flux: every
+        rate consumer (host fields, device rate vectors, the controllers)
+        sees this one curve."""
+        prof = self._profiles.get(domain, self.platform)
+        return self.env.scale_profile(prof) if self.env else prof
 
     def register_domain_words(self, domain: str, words: int, codec: str = DEFAULT_CODEC) -> None:
         """Account storage that lives outside the arena (the paged KV cache)

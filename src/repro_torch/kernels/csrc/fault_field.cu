@@ -11,9 +11,9 @@
 // truncates), and bit b of the codeword (b in 0 .. 64 + n_check) flips iff
 // its uniform uint32 r_b < thresh. r_{4g+j} is output j of Philox4x32-10 at
 // counter (w low 32 bits, w high 32 bits, g, 0) under the field's 64-bit
-// key, so the bits depend only on (key, w): the 64 data planes are the same
-// under every n_check, the stream does not depend on how a caller cuts the
-// words, and voltage enters through thresh alone (lower voltage, larger
+// key, so the bits depend only on (key, w): without a burst the 64 data
+// planes are the same under every n_check, the stream does not depend on
+// how a caller cuts the words, and voltage enters through thresh alone (lower voltage, larger
 // thresh, a superset of flips: the Fault Inclusion Property). The Philox is
 // written out here, not taken from cuRAND, so the plain version
 // (kernels/ref.py fault_field_ref) reproduces it bit for bit.
@@ -33,6 +33,38 @@
 // constant bank. A word whose thresh is 0 (rate 0, or at or above V_min in
 // a multi-rail group) skips its Philox calls and writes zeros. Neighbouring
 // threads store neighbouring words.
+//
+// Bursts (core/scenario.py BurstProfile; the reference's expand_bursts):
+// the faulty bits above are the anchors, and the same launch expands them
+// into correlated multi-bit upsets, in a kernel of its own (kBurst) so the
+// burst-free field is unchanged. Without a burst the data masks are the same
+// under every n_check; with one they are not, since a plane shift carries
+// bit 31 of lo into hi, bit 31 of hi into check bit 0 and truncates at the
+// top check plane 63 + n_check. The stream, all from Philox counters that
+// do not depend on the voltage (so FIP holds and the burst masks are a
+// superset of the burst-free masks of the same key):
+//   class draw of plane 4g+j:  output j of Philox at (w lo, w hi, g, 1);
+//   word draw of plane 4g+j:   output j of Philox at (w lo, w hi, g, 2);
+//   companion bit:             (uint64(x) * (64 + n_check)) >> 32, x output
+//                              0 of Philox at (w lo, w hi, 0, 3).
+// An anchor whose class draw is below t2 extends one plane up, below t3 two
+// planes up; one in [t2, trd) (a random double) adds the word's companion
+// bit (once a word). An anchor of word w - 1 whose word draw is below twa
+// repeats at the same plane of word w: thread w re-derives the anchors of
+// word w - 1 at that word's own threshold (its own f_row and rate), so a
+// spill from a word of another rail keeps that rail's rate. The spill stops
+// at the field's ends: word 0 gets none, the last word's is dropped. The
+// thresholds are floor(p 2^32) of the cumulative class probabilities and of
+// word_adjacent, 64-bit so that p = 1 (2^32) always fires. The class and
+// word draws are made only for groups that hold an anchor and the companion
+// only for a word with a random double: the anchors are sparse, and the
+// draws are fixed by position, so drawing lazily does not change the stream.
+//
+// Bound with bursts: the neighbour's re-derivation doubles the base Philox
+// of every drawn word (when twa > 0), so the integer bound doubles; the
+// lazy class, word and companion draws add one Philox per anchored group,
+// a few per thousand words at the scenario voltages. cuobjdump counts 2,624
+// instructions in the secded72 burst kernel (64-70 registers against 32).
 #include <climits>
 #include <type_traits>
 
@@ -66,52 +98,172 @@ __device__ __forceinline__ uint4 philox4x32_10(uint32_t c0, uint32_t c1, uint32_
 template <int NC>
 using check_t = typename std::conditional<(NC <= 8), uint8_t, uint32_t>::type;
 
-template <int NC, bool kPerWord>
-__global__ void __launch_bounds__(kThreads)
-    field_kernel(const float* __restrict__ f_row, const float* __restrict__ rates, float rate,
-                 const RoundKeys keys, uint32_t* __restrict__ lo, uint32_t* __restrict__ hi,
-                 check_t<NC>* __restrict__ chk, long long n) {
+// Burst thresholds on uint32 draws (2^32: always); all 0 is no burst.
+struct Burst {
+  unsigned long long t3, t2, trd, twa;
+};
+
+// A codeword's 64 + NC planes as three 32-bit words: lo (planes 0-31), hi
+// (32-63) and the check planes (64 on).
+struct Bits {
+  uint32_t w[3];
+};
+
+__device__ __forceinline__ uint32_t threshold(float r, float f) {
+  const float p = fminf(fmaxf(r * f, 0.0f), 0.5f);
+  return __float2uint_rz(p * 4294967296.0f);
+}
+
+// The base draw of word (w0, w1) at threshold t: its faulty planes.
+template <int NC>
+__device__ __forceinline__ Bits anchors(uint32_t w0, uint32_t w1, uint32_t t, const RoundKeys& keys) {
   constexpr int kGroups = (64 + NC + 3) / 4;
-  const long long w = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (w >= n) return;
-  const float r = kPerWord ? rates[w] : rate;
-  const float p = fminf(fmaxf(r * f_row[w], 0.0f), 0.5f);
-  const uint32_t t = __float2uint_rz(p * 4294967296.0f);
-  uint32_t mlo = 0, mhi = 0, mchk = 0;
-  if (t != 0) {
-    const uint32_t w0 = uint32_t(w), w1 = uint32_t((unsigned long long)w >> 32);
+  Bits a{{0u, 0u, 0u}};
 #pragma unroll
-    for (int g = 0; g < kGroups; ++g) {
-      const uint4 x = philox4x32_10(w0, w1, uint32_t(g), 0u, keys);
-      const uint32_t b = uint32_t(x.x < t) | (uint32_t(x.y < t) << 1) |
-                         (uint32_t(x.z < t) << 2) | (uint32_t(x.w < t) << 3);
-      if (g < 8) {
-        mlo |= b << (4 * g);
-      } else if (g < 16) {
-        mhi |= b << (4 * g - 32);
-      } else {
-        mchk |= b << (4 * g - 64);
+  for (int g = 0; g < kGroups; ++g) {
+    const uint4 x = philox4x32_10(w0, w1, uint32_t(g), 0u, keys);
+    const uint32_t b = uint32_t(x.x < t) | (uint32_t(x.y < t) << 1) |
+                       (uint32_t(x.z < t) << 2) | (uint32_t(x.w < t) << 3);
+    a.w[g >> 3] |= b << (4 * (g & 7));
+  }
+  a.w[2] &= (1u << NC) - 1u;
+  return a;
+}
+
+// ``a`` moved k planes up (k = 1 or 2), the planes past the word cut later.
+__device__ __forceinline__ Bits shift_up(const Bits& a, int k) {
+  return Bits{{a.w[0] << k, (a.w[1] << k) | (a.w[0] >> (32 - k)),
+               (a.w[2] << k) | (a.w[1] >> (32 - k))}};
+}
+
+// The class expansion of word (w0, w1)'s anchors ``a``: the adjacent planes
+// of double and triple anchors, and the companion bit of a random double.
+// The loops visit only the groups that hold an anchor (word i of ``a`` is a
+// compile-time index, so the bit sets stay in registers).
+template <int NC>
+__device__ __forceinline__ Bits expand(const Bits& a, uint32_t w0, uint32_t w1, const RoundKeys& keys,
+                                       const Burst& burst) {
+  Bits out = a;
+  if (burst.trd == 0 || (a.w[0] | a.w[1] | a.w[2]) == 0) return out;
+  Bits e1{{0u, 0u, 0u}}, e2{{0u, 0u, 0u}};
+  bool rd = false;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    uint32_t rest = a.w[i];
+    while (rest != 0) {
+      const int q = (__ffs(rest) - 1) >> 2;  // the group's nibble in word i
+      const uint32_t m = (rest >> (4 * q)) & 0xFu;
+      rest &= ~(0xFu << (4 * q));
+      const uint4 c = philox4x32_10(w0, w1, uint32_t(8 * i + q), 1u, keys);
+      const uint32_t cs[4] = {c.x, c.y, c.z, c.w};
+      uint32_t m1 = 0, m2 = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if ((m >> j) & 1u) {
+          const unsigned long long u = cs[j];
+          m1 |= uint32_t(u < burst.t2) << j;
+          m2 |= uint32_t(u < burst.t3) << j;
+          rd |= (u >= burst.t2) && (u < burst.trd);
+        }
       }
+      e1.w[i] |= m1 << (4 * q);
+      e2.w[i] |= m2 << (4 * q);
     }
   }
-  lo[w] = mlo;
-  hi[w] = mhi;
-  chk[w] = check_t<NC>(mchk & ((1u << NC) - 1u));
+  const Bits s1 = shift_up(e1, 1), s2 = shift_up(e2, 2);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) out.w[i] |= s1.w[i] | s2.w[i];
+  if (rd) {
+    const uint32_t x = philox4x32_10(w0, w1, 0u, 3u, keys).x;
+    const uint32_t eb = uint32_t((static_cast<unsigned long long>(x) * (64u + NC)) >> 32);
+    const uint32_t bit = 1u << (eb & 31u);
+    if (eb < 32) {
+      out.w[0] |= bit;
+    } else if (eb < 64) {
+      out.w[1] |= bit;
+    } else {
+      out.w[2] |= bit;
+    }
+  }
+  return out;
+}
+
+// The anchors ``a`` of word (w0, w1) that repeat in the next word.
+__device__ __forceinline__ Bits spill(const Bits& a, uint32_t w0, uint32_t w1, const RoundKeys& keys,
+                                      unsigned long long twa) {
+  Bits col{{0u, 0u, 0u}};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    uint32_t rest = a.w[i];
+    while (rest != 0) {
+      const int q = (__ffs(rest) - 1) >> 2;
+      const uint32_t m = (rest >> (4 * q)) & 0xFu;
+      rest &= ~(0xFu << (4 * q));
+      const uint4 d = philox4x32_10(w0, w1, uint32_t(8 * i + q), 2u, keys);
+      const uint32_t b = uint32_t((unsigned long long)d.x < twa) |
+                         (uint32_t((unsigned long long)d.y < twa) << 1) |
+                         (uint32_t((unsigned long long)d.z < twa) << 2) |
+                         (uint32_t((unsigned long long)d.w < twa) << 3);
+      col.w[i] |= (b & m) << (4 * q);
+    }
+  }
+  return col;
+}
+
+template <int NC, bool kPerWord, bool kBurst>
+__global__ void __launch_bounds__(kThreads)
+    field_kernel(const float* __restrict__ f_row, const float* __restrict__ rates, float rate,
+                 const RoundKeys keys, const Burst burst, uint32_t* __restrict__ lo,
+                 uint32_t* __restrict__ hi, check_t<NC>* __restrict__ chk, long long n) {
+  const long long w = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (w >= n) return;
+  const uint32_t t = threshold(kPerWord ? rates[w] : rate, f_row[w]);
+  const uint32_t w0 = uint32_t(w), w1 = uint32_t((unsigned long long)w >> 32);
+  Bits out{{0u, 0u, 0u}};
+  if (t != 0) {
+    out = anchors<NC>(w0, w1, t, keys);
+    if (kBurst) out = expand<NC>(out, w0, w1, keys, burst);
+  }
+  if (kBurst && burst.twa != 0 && w > 0) {
+    const long long p = w - 1;
+    const uint32_t tp = threshold(kPerWord ? rates[p] : rate, f_row[p]);
+    if (tp != 0) {
+      const uint32_t p0 = uint32_t(p), p1 = uint32_t((unsigned long long)p >> 32);
+      const Bits col = spill(anchors<NC>(p0, p1, tp, keys), p0, p1, keys, burst.twa);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) out.w[i] |= col.w[i];
+    }
+  }
+  lo[w] = out.w[0];
+  hi[w] = out.w[1];
+  chk[w] = check_t<NC>(out.w[2] & ((1u << NC) - 1u));
+}
+
+template <int NC, bool kBurst>
+void launch_kernel(int blocks, const float* f_row, const float* rates, float rate,
+                   const RoundKeys& keys, const Burst& burst, uint32_t* l, uint32_t* h,
+                   check_t<NC>* c, long long n, cudaStream_t stream) {
+  if (rates != nullptr) {
+    field_kernel<NC, true, kBurst><<<blocks, kThreads, 0, stream>>>(f_row, rates, rate, keys, burst,
+                                                                    l, h, c, n);
+  } else {
+    field_kernel<NC, false, kBurst><<<blocks, kThreads, 0, stream>>>(f_row, rates, rate, keys, burst,
+                                                                     l, h, c, n);
+  }
 }
 
 template <int NC>
-int launch(const float* f_row, const float* rates, float rate, const RoundKeys& keys, void* lo,
-           void* hi, void* chk, long long n, cudaStream_t stream) {
+int launch(const float* f_row, const float* rates, float rate, const RoundKeys& keys,
+           const Burst& burst, void* lo, void* hi, void* chk, long long n, cudaStream_t stream) {
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > INT_MAX) return int(cudaErrorInvalidValue);
   auto* l = static_cast<uint32_t*>(lo);
   auto* h = static_cast<uint32_t*>(hi);
   auto* c = static_cast<check_t<NC>*>(chk);
-  if (rates != nullptr) {
-    field_kernel<NC, true><<<int(blocks), kThreads, 0, stream>>>(f_row, rates, rate, keys, l, h, c, n);
+  if (burst.trd != 0 || burst.twa != 0) {
+    launch_kernel<NC, true>(int(blocks), f_row, rates, rate, keys, burst, l, h, c, n, stream);
   } else {
-    field_kernel<NC, false><<<int(blocks), kThreads, 0, stream>>>(f_row, rates, rate, keys, l, h, c,
-                                                                  n);
+    launch_kernel<NC, false>(int(blocks), f_row, rates, rate, keys, burst, l, h, c, n, stream);
   }
   return int(cudaGetLastError());
 }
@@ -120,26 +272,31 @@ int launch(const float* f_row, const float* rates, float rate, const RoundKeys& 
 
 // Flip masks of n words: f_row (n,) float32 row weakness; per-word rates
 // (n,) float32, or null and the scalar rate; key the field's 64-bit Philox
-// key; n_check in {1, 8, 15, 24}. Writes lo, hi (n,) uint32 and chk (n,)
-// uint8 up to 8 check bits, else uint32.
+// key; the burst thresholds t3 <= t2 <= trd and twa (floor(p 2^32) each, in
+// [0, 2^32]; all 0: no burst); n_check in {1, 8, 15, 24}. Writes lo, hi (n,)
+// uint32 and chk (n,) uint8 up to 8 check bits, else uint32.
 extern "C" int fault_field(int n_check, const void* f_row, const void* rates, float rate,
-                           unsigned long long key, void* lo, void* hi, void* chk, long long n,
-                           void* stream) {
+                           unsigned long long key, unsigned long long t3, unsigned long long t2,
+                           unsigned long long trd, unsigned long long twa, void* lo, void* hi,
+                           void* chk, long long n, void* stream) {
   if (n <= 0) return 0;
+  constexpr unsigned long long kAlways = 1ull << 32;
+  if (t3 > t2 || t2 > trd || trd > kAlways || twa > kAlways) return int(cudaErrorInvalidValue);
   RoundKeys keys;
   uint32_t k0 = uint32_t(key), k1 = uint32_t(key >> 32);
   for (int r = 0; r < 10; ++r, k0 += kW0, k1 += kW1) {
     keys.k0[r] = k0;
     keys.k1[r] = k1;
   }
+  const Burst burst{t3, t2, trd, twa};
   const auto* f = static_cast<const float*>(f_row);
   const auto* rt = static_cast<const float*>(rates);
   const auto s = cudaStream_t(stream);
   switch (n_check) {
-    case 1: return launch<1>(f, rt, rate, keys, lo, hi, chk, n, s);
-    case 8: return launch<8>(f, rt, rate, keys, lo, hi, chk, n, s);
-    case 15: return launch<15>(f, rt, rate, keys, lo, hi, chk, n, s);
-    case 24: return launch<24>(f, rt, rate, keys, lo, hi, chk, n, s);
+    case 1: return launch<1>(f, rt, rate, keys, burst, lo, hi, chk, n, s);
+    case 8: return launch<8>(f, rt, rate, keys, burst, lo, hi, chk, n, s);
+    case 15: return launch<15>(f, rt, rate, keys, burst, lo, hi, chk, n, s);
+    case 24: return launch<24>(f, rt, rate, keys, burst, lo, hi, chk, n, s);
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -38,6 +38,7 @@ KERNELS = {
 def reset_launch_count() -> None:
     for k in KERNELS.values():
         k.reset()
+    _ff.BURST_LAUNCHES.clear()
 
 
 def launch_counts() -> dict:
@@ -55,6 +56,13 @@ def launch_counts_by_codec() -> dict:
             by_id = {getattr(codes.get(c), k.codec_key): c for c in codes.names()}
             out[name] = {by_id[i]: n for i, n in sorted(k.launches_by_codec.items())}
     return out
+
+
+def burst_launch_counts() -> dict:
+    """{codec name: launches} of the fault field's burst kernel since the
+    last reset (they are also counted in ``launch_counts()["fault_field"]``)."""
+    by_nc = {codes.get(c).n_check: c for c in codes.names()}
+    return {by_nc[nc]: n for nc, n in sorted(_ff.BURST_LAUNCHES.items())}
 
 
 def _flat(*planes):
@@ -120,22 +128,20 @@ def inject(lo, hi, parity, mlo, mhi, mparity):
 FIELD_CPU_CHUNK = 1 << 15
 
 
-def fault_field(f_row, rate, key: int, n_check: int, *, chunk_words: int = FIELD_CPU_CHUNK):
+def fault_field(f_row, rate, key: int, n_check: int, *, burst=None,
+                chunk_words: int = FIELD_CPU_CHUNK):
     """Flip masks (lo int32, hi int32, check) of a fault field's words:
     ``f_row`` (n,) float32 row weakness, ``rate`` a float or an (n,) float32
-    tensor of per-word rates, ``key`` the field's 64-bit Philox key. One
-    launch on the card; the plain version draws ``chunk_words`` words at a
-    time, and the masks do not depend on the chunking."""
+    tensor of per-word rates, ``key`` the field's 64-bit Philox key,
+    ``burst`` a ``scenario.BurstProfile`` (None: i.i.d. flips) whose
+    expansion runs in the same launch. One launch on the card; the plain
+    version draws ``chunk_words`` words at a time, and the masks do not
+    depend on the chunking."""
     per_word = isinstance(rate, torch.Tensor)
+    thresholds = _ref.burst_thresholds(burst)
     if backend.dispatch(f_row, *((rate,) if per_word else ())) == "cuda":
-        return _ff.fault_field(f_row, rate, key, n_check)
-    n = f_row.numel()
-    parts = [
-        _ref.fault_field_ref(f_row[s:s + chunk_words], rate[s:s + chunk_words] if per_word
-                             else rate, key, n_check, base=s)
-        for s in range(0, n, chunk_words)
-    ] or [_ref.fault_field_ref(f_row, 0.0, key, n_check)]
-    return tuple(torch.cat(ts) for ts in zip(*parts))
+        return _ff.fault_field(f_row, rate, key, n_check, thresholds)
+    return _ref.fault_field_plain(f_row, rate, key, n_check, thresholds, chunk_words)
 
 
 def inject_scrub(lo, hi, parity, mlo, mhi, mparity, *,

@@ -4,6 +4,8 @@ yardstick). Word planes are int32 bit patterns, check planes the codec's
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch import codes
@@ -157,24 +159,105 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def fault_field_ref(f_row, rate, key: int, n_check: int, base: int = 0):
-    """Flip masks of the words ``base .. base + n`` of a fault field (the
-    fault-field kernel's arithmetic): ``f_row`` (n,) float32 row weakness,
-    ``rate`` a float or an (n,) float32 tensor, ``key`` the field's 64-bit
-    Philox key. Word w's bit b flips iff output b % 4 of Philox4x32-10 at
-    counter (w low 32 bits, w high 32 bits, b // 4, 0) is below
-    uint32(clip(rate f, 0, P_MAX) 2^32). Returns (lo int32, hi int32, check
-    uint8 or int32) bit patterns."""
+NO_BURST = (0, 0, 0, 0)
+ALWAYS = 1 << 32  # a burst threshold that every uint32 draw is below
+
+
+def burst_thresholds(burst) -> tuple:
+    """The fault-field kernel's burst thresholds (t3, t2, trd, twa) of a
+    ``scenario.BurstProfile``: floor(p 2^32) of its cumulative class
+    thresholds (triple, + double, + random double) and of ``word_adjacent``,
+    each in [0, 2^32] (2^32: always). ``None`` is ``NO_BURST``."""
+    if burst is None:
+        return NO_BURST
+    ps = (*burst.class_thresholds(), burst.word_adjacent)
+    return tuple(min(int(math.floor(p * 4294967296.0)), ALWAYS) for p in ps)
+
+
+def _philox_at(w, g, lane: int, key: int):
+    """Philox4x32-10 at counters (w low, w high, g, lane) for 1-D int64 word
+    indices ``w`` and groups ``g`` -> (K, 4) int64 outputs."""
+    zero = torch.zeros((), dtype=torch.int64, device=w.device)
+    out = philox4x32_10(w & WORD_MASK, w >> 32, g, zero + lane, key & WORD_MASK, key >> 32)
+    return torch.stack(out, dim=-1)
+
+
+def _lazy_draws(anchors, w, lane: int, key: int, groups: int):
+    """The (nb, n) draws at Philox counter lane ``lane`` of the planes of
+    every group that holds an anchor (ALWAYS elsewhere): the kernel draws
+    these groups only, and the stream is fixed by position."""
+    nb, n = anchors.shape
+    held = torch.nn.functional.pad(anchors, (0, 0, 0, 4 * groups - nb))
+    held = held.reshape(groups, 4, n).any(dim=1)
+    gi, wi = torch.nonzero(held, as_tuple=True)
+    out = torch.full((groups, 4, n), ALWAYS, dtype=torch.int64, device=anchors.device)
+    out[gi, :, wi] = _philox_at(w[wi], gi, lane, key)
+    return out.reshape(4 * groups, n)[:nb]
+
+
+def _shift_up(bits, k: int):
+    """(nb, n) planes moved ``k`` planes up, cut at the top plane."""
+    return torch.cat([torch.zeros_like(bits[:k]), bits[:-k]])
+
+
+def fault_field_ref(f_row, rate, key: int, n_check: int, base: int = 0, burst=NO_BURST,
+                    lead: int = 0):
+    """Flip masks of the words ``base + lead .. base + n`` of a fault field
+    (the fault-field kernel's arithmetic): ``f_row`` (n,) float32 row
+    weakness of the words ``base .. base + n``, ``rate`` a float or an (n,)
+    float32 tensor, ``key`` the field's 64-bit Philox key, ``burst`` the
+    kernel's burst thresholds (``burst_thresholds``). Word w's bit b is an
+    anchor iff output b % 4 of Philox4x32-10 at counter (w low 32 bits, w
+    high 32 bits, b // 4, 0) is below uint32(clip(rate f, 0, P_MAX) 2^32);
+    without a burst the anchors are the flips. With one they expand as
+    csrc/fault_field.cu describes; the first ``lead`` words (0 or 1) are
+    drawn only for their word-adjacent spill into word ``base + lead`` and
+    are not returned. A field's word 0 gets no spill. Returns (lo int32, hi
+    int32, check uint8 or int32) bit patterns."""
     dev, n = f_row.device, f_row.numel()
     rate = torch.as_tensor(rate, dtype=torch.float32, device=dev)
     thresh = (torch.clamp(rate * f_row, 0.0, faultsim.P_MAX) * 4294967296.0).to(torch.int64)
-    w = torch.arange(base, base + n, dtype=torch.int64, device=dev)[None, :]
-    groups = (64 + n_check + 3) // 4
+    w = torch.arange(base, base + n, dtype=torch.int64, device=dev)
+    nb, groups = 64 + n_check, (64 + n_check + 3) // 4
     g = torch.arange(groups, dtype=torch.int64, device=dev)[:, None]
     zero = torch.zeros((), dtype=torch.int64, device=dev)
-    out = philox4x32_10(w & WORD_MASK, w >> 32, g, zero, key & WORD_MASK, key >> 32)
-    bits = torch.stack(out, dim=1).reshape(4 * groups, n)[: 64 + n_check]
+    out = philox4x32_10(w[None, :] & WORD_MASK, w[None, :] >> 32, g, zero, key & WORD_MASK,
+                        key >> 32)
+    bits = torch.stack(out, dim=1).reshape(4 * groups, n)[:nb] < thresh
+    t3, t2, trd, twa = burst
+    if trd or twa:
+        anchors, bits = bits, bits.clone()
+        if trd:
+            cls = _lazy_draws(anchors, w, 1, key, groups)
+            bits |= _shift_up(anchors & (cls < t2), 1) | _shift_up(anchors & (cls < t3), 2)
+            rd = (anchors & (cls >= t2) & (cls < trd)).any(dim=0)
+            if rd.any():
+                x = _philox_at(w[rd], zero, 3, key)[:, 0]
+                bits[(x * nb) >> 32, torch.nonzero(rd)[:, 0]] = True
+        if twa:
+            col = anchors & (_lazy_draws(anchors, w, 2, key, groups) < twa)
+            bits[:, 1:] |= col[:, :-1]
+    bits = bits[:, lead:].to(torch.int64)
     shifts = torch.arange(32, dtype=torch.int64, device=dev)[:, None]
-    pack = lambda rows: ((rows < thresh).to(torch.int64) << shifts[: rows.shape[0]]).sum(dim=0)
+    pack = lambda rows: (rows << shifts[: rows.shape[0]]).sum(dim=0)
     return (narrow(pack(bits[:32])), narrow(pack(bits[32:64])),
             pack(bits[64:]).to(check_dtypes(n_check)[1]))
+
+
+def fault_field_plain(f_row, rate, key: int, n_check: int, burst=NO_BURST,
+                      chunk_words: int = 1 << 15):
+    """``fault_field_ref`` over a whole field, ``chunk_words`` words a call
+    (its int64 transients): a chunk after the first also draws the word
+    before it when the burst spills across words, so the masks do not
+    depend on the chunking."""
+    per_word = isinstance(rate, torch.Tensor)
+    n = f_row.numel()
+    parts = []
+    for s in range(0, n, chunk_words):
+        a = s - 1 if s and burst[3] else s
+        parts.append(fault_field_ref(f_row[a:s + chunk_words],
+                                     rate[a:s + chunk_words] if per_word else rate,
+                                     key, n_check, base=a, burst=burst, lead=s - a))
+    if not parts:
+        parts = [fault_field_ref(f_row, 0.0, key, n_check)]
+    return tuple(torch.cat(ts) for ts in zip(*parts))

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch import codes
 from repro_torch.configs import shapes
+from repro_torch.core import scenario
 from repro_torch.core import voltage as vmod
 from repro_torch.core.controller import (
     EscalationPolicy,
@@ -59,11 +60,14 @@ class ReliabilityConfigError(ValueError, AssertionError):
 
 @dataclasses.dataclass(frozen=True)
 class FaultModelConfig:
-    """How faults are generated and applied. ``validate()`` rejects what is
-    not ported: environments and drift. ``mask_source="device"`` draws the
-    inline batched arena's masks on the device (``DeviceFaultField``);
+    """How faults are generated and applied. ``mask_source="device"`` draws
+    the inline batched arena's masks on the device (``DeviceFaultField``);
     domain mode and the per-leaf path keep host fields, as in the
-    reference."""
+    reference. ``environment`` (None, a name of ``scenario.ENVIRONMENTS`` or
+    an ``EnvironmentProfile``) and ``drift`` (its aging sigma; alone, a
+    neutral environment) reach the batched arena and the paged KV cache; as
+    in the reference, the per-leaf path, domain mode and the single-rail
+    controller ignore them."""
 
     mask_source: str = "host"  # "host": NumPy FaultField masks; "device"
     batched: bool = True  # one fused launch over the whole arena; False: per leaf
@@ -151,8 +155,9 @@ class ReliabilityConfig:
             f"mask_source must be 'host' or 'device', got {fm.mask_source!r}",
         )
         _require(
-            fm.environment is None and fm.drift is None,
-            "environment scenarios and drift are not ported",
+            fm.environment is None or isinstance(fm.environment, scenario.EnvironmentProfile)
+            or (isinstance(fm.environment, str) and fm.environment in scenario.ENVIRONMENTS),
+            f"unknown environment {fm.environment!r}; known: {sorted(scenario.ENVIRONMENTS)}",
         )
         codecs = (
             [prot.codecs] if isinstance(prot.codecs, str)
@@ -173,6 +178,10 @@ class ReliabilityConfig:
     def embed_protected(self) -> bool:
         embed = self.protection.embed
         return self.rails.multi_rail if embed is None else embed
+
+    @property
+    def environment_profile(self) -> scenario.EnvironmentProfile | None:
+        return scenario.resolve(self.fault_model.environment, drift=self.fault_model.drift)
 
     @property
     def escalation_policy(self) -> EscalationPolicy | None:
@@ -326,6 +335,7 @@ class ServingEngine:
             profiles=rail_profiles,
             codecs=shapes.domain_codecs(codecs) if rails.multi_rail else codecs,
             device=self.device,
+            env=rel.environment_profile,
         )
         self.voltage = rel.voltage or self.platform.v_nom
         if rails.multi_rail:
@@ -488,8 +498,11 @@ class ServingEngine:
         else:
             draft_params = draft_cfg = None
         profile = self.platform or vmod.PLATFORMS["vc707"]
+        envp = self.rel.environment_profile if self.rel is not None else None
         if self.rel is not None and self.rel.rails.multi_rail:
-            profile = self._store.domain_profile("kv")
+            profile = self._store.domain_profile("kv")  # the flux is in it
+        elif envp is not None:
+            profile = envp.scale_profile(profile)
         geom = KVGeometry.from_config(self.cfg, page_tokens)
         if n_pages is None:
             n_pages = n_lanes * geom.pages_for(self.max_len)
@@ -510,6 +523,7 @@ class ServingEngine:
             ecc=self.rel.ecc if self.rel else True,
             codec=kv_codec,
             device=self.device,
+            env=envp,
         )
         if kv_voltage is None:
             if self.rails is not None and "kv" in self.rails:

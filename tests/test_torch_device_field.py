@@ -231,11 +231,6 @@ def test_field_is_deterministic_per_seed_and_keeps_its_row_factor():
     assert not torch.equal(a.masks(0.54)[0], c.masks(0.54)[0])
 
 
-def test_burst_shapes_are_not_ported():
-    with pytest.raises(NotImplementedError, match="burst"):
-        tfs.DeviceFaultField(PLATFORMS["vc707"], 10, burst=object(), device=CPU)
-
-
 def test_device_field_and_interval_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -163,8 +163,7 @@ def test_entry_points_default_to_the_card(models, monkeypatch):
     # codecs are ported on the batched inline arena; domain mode stays SECDED
     {"mode": "domain", "protection": teng.ProtectionConfig(codecs="dected79")},
     {"protection": teng.ProtectionConfig(codecs={"attention": "secded72"})},
-    {"fault_model": teng.FaultModelConfig(environment="space")},
-    {"fault_model": teng.FaultModelConfig(drift=0.1)},
+    {"fault_model": teng.FaultModelConfig(environment="mars")},
     {"canary": teng.CanaryConfig(prompts=2)},
     {"platform": "nope"},
     {"fault_model": teng.FaultModelConfig(batched=False),

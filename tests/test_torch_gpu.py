@@ -629,6 +629,50 @@ def test_fault_field_kernel_bit_identical(cuda, n_check, n):
         assert not any(m[n // 3: 2 * n // 3].any() for m in k)
 
 
+def _burst_profiles():
+    from repro_torch.core import scenario
+
+    out = {c: scenario.BurstProfile(**{c: 1.0}) for c in (
+        "double_adjacent", "triple_adjacent", "random_double", "word_adjacent")}
+    out.update({e: p.burst for e, p in scenario.ENVIRONMENTS.items()})
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_check", FIELD_N_CHECKS)
+def test_fault_field_burst_kernel_bit_identical(cuda, n_check):
+    """The burst kernel against its plain version for each single-class
+    profile and each environment's burst: a scalar rate and per-word rates
+    with every third word at rate 0 (spills from and into words that draw
+    nothing), a superset of the burst-free kernel's masks, one launch each,
+    counted as a burst launch."""
+    from repro_torch.core import faultsim
+    from repro_torch.core.voltage import PLATFORMS
+
+    plat = PLATFORMS["vc707"]
+    n = 300_007
+    f_row = faultsim.row_factor(n, plat.row_sigma, 91, cuda)
+    rates = torch.full((n,), plat.fault_rate(0.54), device=cuda)
+    rates[1::3] = 0.0
+    rates[2::3] = plat.fault_rate(0.56)
+    key = faultsim.philox_key(0xABCD_0123_4567)
+    ops.reset_launch_count()
+    drawn = 0
+    for name, burst in _burst_profiles().items():
+        for rate in (plat.fault_rate(0.54), rates):
+            k = ops.fault_field(f_row, rate, key, n_check, burst=burst)
+            p = ref.fault_field_plain(f_row, rate, key, n_check, ref.burst_thresholds(burst))
+            free = ops.fault_field(f_row, rate, key, n_check)
+            torch.cuda.synchronize()
+            assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(k, p)), name
+            assert all(torch.equal(a & b, a) for a, b in zip(free, k)), name
+            assert not all(torch.equal(a, b) for a, b in zip(free, k)), name
+            drawn += 1
+    codec = {1: "parity65", 8: "secded72", 15: "dected79", 24: "ileave88"}[n_check]
+    assert ops.burst_launch_counts() == {codec: drawn}
+    assert ops.launch_counts()["fault_field"] == 2 * drawn
+
+
 @pytest.mark.gpu
 def test_device_mask_store_launches_the_field_per_drawn_group(cuda):
     """A device-mask plane store draws with the kernel once per codec group

@@ -35,7 +35,8 @@ def test_port_modules_are_listed():
               "repro_torch.codes.interleaved", "repro_torch.codes.dected",
               "repro_torch.obs.events", "repro_torch.obs.metrics",
               "repro_torch.obs.recorder", "repro_torch.obs.export",
-              "repro_torch.obs.report", "repro_torch.obs.profile"):
+              "repro_torch.obs.report", "repro_torch.obs.profile",
+              "repro_torch.core.scenario"):
         assert m in mods
 
 
