@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.codes.base import as_words, check_dtypes, narrow, popcount32, widen
-from repro_torch.core.scenario import BurstProfile, expand_bursts
+from repro_torch.core.scenario import BurstProfile, active_burst, expand_bursts
 from repro_torch.core.voltage import PlatformProfile
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.backend import resolve_device, to_device
@@ -137,7 +137,7 @@ class FaultField:
         self.seed = int(seed)
         self.chunk_words = int(chunk_words)
         self.n_check = int(n_check)
-        self.burst = burst if (burst is not None and burst.enabled) else None
+        self.burst = active_burst(burst)
         self._last: tuple | None = None  # (voltage, FlipMasks)
 
     def _chunk_rng(self, chunk_idx: int) -> np.random.Generator:
@@ -294,7 +294,7 @@ class DeviceFaultField:
         self.seed = int(seed)
         self.chunk_words = kops.FIELD_CPU_CHUNK if chunk_words is None else int(chunk_words)
         self.n_check = int(n_check)
-        self.burst = burst if (burst is not None and burst.enabled) else None
+        self.burst = active_burst(burst)
         self.device = resolve_device(device)
         self.key = philox_key(self.seed ^ 0xECC)
         self.f_row = row_factor(self.n_words, float(platform.row_sigma), self.seed ^ 0xECC,

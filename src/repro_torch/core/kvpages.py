@@ -424,8 +424,7 @@ class KVPageArena:
     ):
         self.geom = geom
         self.env = scenario.resolve(env)
-        burst = self.env.burst if self.env else None
-        self._burst = burst if (burst is not None and burst.enabled) else None
+        self._burst = scenario.active_burst(self.env)
         self.profile = profile
         self.n_pages = int(n_pages)
         self.ecc = bool(ecc)

@@ -149,8 +149,7 @@ class PlaneStore:
         self.seed = int(seed)
         self.mask_source = mask_source
         self.env = scenario.resolve(env)
-        burst = self.env.burst if self.env else None
-        self._burst = burst if (burst is not None and burst.enabled) else None
+        self._burst = scenario.active_burst(self.env)
         self._profiles = dict(profiles or {})
         classify = domain_key if domain_key is not None else (lambda _k: "all")
         slots, off = [], 0

@@ -50,6 +50,7 @@ __all__ = [
     "MBU_DISTRIBUTION",
     "BurstProfile",
     "EnvironmentProfile",
+    "active_burst",
     "aging_multiplier",
     "expand_bursts",
     "resolve",
@@ -245,6 +246,13 @@ def resolve(env, drift: float | None = None) -> EnvironmentProfile | None:
     if drift is not None:
         env = dataclasses.replace(env, drift_sigma=float(drift))
     return env
+
+
+def active_burst(x) -> BurstProfile | None:
+    """The burst a fault stream expands: ``x`` an ``EnvironmentProfile``, a
+    ``BurstProfile`` or None; a disabled profile (i.i.d. flips) is None."""
+    burst = x.burst if isinstance(x, EnvironmentProfile) else x
+    return burst if (burst is not None and burst.enabled) else None
 
 
 # ---------------------------------------------------------------------------

@@ -60,10 +60,11 @@
 // only for a word with a random double: the anchors are sparse, and the
 // draws are fixed by position, so drawing lazily does not change the stream.
 //
-// Bound with bursts: the neighbour's re-derivation doubles the base Philox
-// of every drawn word (when twa > 0), so the integer bound doubles; the
-// lazy class, word and companion draws add one Philox per anchored group,
-// a few per thousand words at the scenario voltages. cuobjdump counts 2,624
+// Work with bursts: the neighbour's re-derivation doubles the base Philox
+// of every drawn word (when twa > 0). The function needs one base Philox a
+// drawn word, so the integer bound stays the burst-free one; the lazy
+// class, word and companion draws add one Philox per anchored group, a few
+// per thousand words at the scenario voltages. cuobjdump counts 2,624
 // instructions in the secded72 burst kernel (64-70 registers against 32).
 #include <climits>
 #include <type_traits>

@@ -141,7 +141,8 @@ def fault_field(f_row, rate, key: int, n_check: int, *, burst=None,
     thresholds = _ref.burst_thresholds(burst)
     if backend.dispatch(f_row, *((rate,) if per_word else ())) == "cuda":
         return _ff.fault_field(f_row, rate, key, n_check, thresholds)
-    return _ref.fault_field_plain(f_row, rate, key, n_check, thresholds, chunk_words)
+    return _ref.fault_field_plain(f_row, rate, key, n_check, thresholds,
+                                  chunk_words=chunk_words)
 
 
 def inject_scrub(lo, hi, parity, mlo, mhi, mparity, *,

@@ -244,8 +244,8 @@ def fault_field_ref(f_row, rate, key: int, n_check: int, base: int = 0, burst=NO
             pack(bits[64:]).to(check_dtypes(n_check)[1]))
 
 
-def fault_field_plain(f_row, rate, key: int, n_check: int, burst=NO_BURST,
-                      chunk_words: int = 1 << 15):
+def fault_field_plain(f_row, rate, key: int, n_check: int, burst=NO_BURST, *,
+                      chunk_words: int):
     """``fault_field_ref`` over a whole field, ``chunk_words`` words a call
     (its int64 transients): a chunk after the first also draws the word
     before it when the burst spills across words, so the masks do not

@@ -17,6 +17,19 @@ from repro_torch.kernels import ops, ref
 
 M32 = 0xFFFFFFFF
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain fault field is many small int64 torch ops: under
+    pytest-xdist, workers that each run a thread per core contend for the
+    cores (30x slower); one intra-op thread a worker avoids that."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N_CHECKS = (1, 8, 15, 24)  # parity65, secded72, dected79, ileave88
 
 

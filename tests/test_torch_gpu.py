@@ -661,7 +661,8 @@ def test_fault_field_burst_kernel_bit_identical(cuda, n_check):
     for name, burst in _burst_profiles().items():
         for rate in (plat.fault_rate(0.54), rates):
             k = ops.fault_field(f_row, rate, key, n_check, burst=burst)
-            p = ref.fault_field_plain(f_row, rate, key, n_check, ref.burst_thresholds(burst))
+            p = ref.fault_field_plain(f_row, rate, key, n_check, ref.burst_thresholds(burst),
+                                     chunk_words=ops.FIELD_CPU_CHUNK)
             free = ops.fault_field(f_row, rate, key, n_check)
             torch.cuda.synchronize()
             assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(k, p)), name

@@ -58,6 +58,17 @@ BURSTS = {
 PROF = tv.PLATFORMS["vc707"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain fault field is many small int64 torch ops: under
+    pytest-xdist, workers that each run a thread per core contend for the
+    cores (30x slower); one intra-op thread a worker avoids that."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _env(mod, env):
     """The same environment argument in either package."""
     if isinstance(env, tuple):  # a custom profile: (name, multiplier, burst kwargs, sigma, tau)
@@ -330,13 +341,14 @@ def test_device_burst_field_equal_across_chunk_words(n_check):
     for cw in (4097, tops.FIELD_CPU_CHUNK):
         got = _field(n, n_check=n_check, burst=burst, chunk_words=cw).masks_for_rates(rates)
         assert all(torch.equal(a, b) for a, b in zip(got, want)), cw
-    for cw in (1, 3):  # small chunks: the first 600 words
-        short = _field(600, n_check=n_check, burst=burst, chunk_words=cw)
-        short.f_row = want_f = _field(n, n_check=n_check, burst=burst).f_row[:600]
-        got = short.masks_for_rates(rates[:600])
-        ref = tops.fault_field(want_f, rates[:600], short.key, n_check, burst=burst)
+    for cw in (1, 3):  # small chunks: the first 200 words
+        short = _field(200, n_check=n_check, burst=burst, chunk_words=cw)
+        short.f_row = want_f = _field(n, n_check=n_check, burst=burst).f_row[:200]
+        got = short.masks_for_rates(rates[:200])
+        ref = tops.fault_field(want_f, rates[:200], short.key, n_check, burst=burst)
         assert all(torch.equal(a, b) for a, b in zip(got, ref)), cw
-        assert all(torch.equal(a, b[:600]) for a, b in zip(got, want)), cw
+        assert all(torch.equal(a, b[:200]) for a, b in zip(got, want)), cw
+        assert _flips(got).sum() > 50
     # the zero-rate words drew nothing of their own, but took spills
     zero = (rates == 0).numpy()
     spilled = _flips(want)[zero]
@@ -744,7 +756,7 @@ def test_per_leaf_and_domain_mode_ignore_the_environment(models, rel_kw):
 
 
 PROMPTS = np.random.default_rng(0).integers(0, 128, (4, 8)).astype(np.int32)
-STREAM = [(PROMPTS[i][: 3 + i], 3 + (2 * i) % 5) for i in range(4)]
+STREAM = [(PROMPTS[i][:4], 4) for i in range(4)]
 
 
 @pytest.mark.parametrize("multi", [False, True], ids=["single_rail", "multi_rail"])
