@@ -287,6 +287,7 @@ def main() -> int:
     from repro_torch.data import mnist
     from repro_torch.kernels import backend, ops, ref
     from repro_torch.kernels import ecc_matmul as b3_kernel
+    from repro_torch.kernels import fault_field as field_kernel
     from repro_torch.kernels import secded as b5_kernel
     from repro_torch.models import base, lm
     from repro_torch.serving import steps as serve_steps
@@ -2129,11 +2130,19 @@ def main() -> int:
         return max(float((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel()
                    else 0.0 for a, b in zip(got, want))
 
+    def kernel_key(name: str):
+        """'n_check[/rates][/burst]' of a fault-field kernel's mangled name,
+        else None."""
+        m = re.search(r"(field|burst)_kernelILi(\d+)ELb([01])E", name)
+        return (f"{m.group(2)}{'/rates' if m.group(3) == '1' else ''}"
+                f"{'/burst' if m.group(1) == 'burst' else ''}") if m else None
+
     def sass_sizes() -> dict:
         """Instructions of each fault-field kernel in the SASS (cuobjdump),
         by (n_check, per-word rates, burst): the burst-free kernels have no
         loop, so this is what a drawn word's thread runs, its early exit
-        aside; the burst kernels loop over the anchored groups."""
+        aside; the burst kernels loop over a run's iterations and, inside
+        them, over the anchored groups."""
         cuobjdump = os.path.join(os.path.dirname(backend.nvcc_path()), "cuobjdump")
         if not os.path.exists(cuobjdump):
             return {}
@@ -2142,9 +2151,7 @@ def main() -> int:
         out, cur = {}, None
         for line in text.splitlines():
             if "Function :" in line:
-                m = re.search(r"ILi(\d+)ELb([01])ELb([01])E", line)
-                cur = (f"{m.group(1)}{'/rates' if m.group(2) == '1' else ''}"
-                       f"{'/burst' if m.group(3) == '1' else ''}") if m else None
+                cur = kernel_key(line)
                 if cur:
                     out[cur] = {"instructions": 0, "integer_multiplies": 0}
             elif cur and re.match(r"\s+/\*[0-9a-f]{4}\*/\s+\S", line):
@@ -2155,6 +2162,18 @@ def main() -> int:
                     continue
                 out[cur]["instructions"] += 1
                 out[cur]["integer_multiplies"] += op.startswith("IMAD")
+        return out
+
+    def ptxas_registers() -> dict:
+        """Registers per thread of each fault-field kernel, by kernel_key,
+        from the build's ptxas report (phase 1)."""
+        out, cur = {}, None
+        for line in backend.BUILD_LOG.get("fault_field", "").splitlines():
+            if "Compiling entry function" in line:
+                cur = kernel_key(line)
+            elif cur and "Used" in line and "registers" in line:
+                out[cur] = int(re.search(r"Used (\d+) registers", line).group(1))
+                cur = None
         return out
 
     class HostToDevice(TorchDispatchMode):
@@ -2856,6 +2875,7 @@ def main() -> int:
     # field, and the engines and phase 6's stream under an environment.
     avionics = scenario.ENVIRONMENTS["avionics"]
     scen_run: dict = {}
+    run_words = field_kernel.RUN_WORDS  # the words a run of the burst kernel stores
 
     def anchored_groups(masks) -> int:
         """Groups of four planes that hold a flip, over every word of the
@@ -2867,22 +2887,25 @@ def main() -> int:
         return total
 
     def burst_bound(f_row, rate, nc, burst, anchors) -> dict:
-        """``field_bound``'s bytes (the neighbour's f_row and rate are the
+        """``field_bound``'s bytes (a halo word's f_row and rate are the
         same inputs, read once), and the integer operations the function
         needs on this run's data: one base Philox per group of every drawn
         word, and one Philox per anchored group of four planes for its class
         draw and, for the words before the last, its word draw (``anchors``
         the burst-free masks of the same key). The companion draws, one per
         word with a random double, are left out: a bound may count less. The
-        kernel's re-derivation of word w - 1's base anchors in thread w is
-        this design's choice, not the function's: it is reported apart
-        (``redundant_philox_calls``) and not counted."""
+        kernel draws the base anchors of each run's halo word (the word
+        before the run, ``RUN_WORDS`` words a run) a second time when the
+        burst spills across words: this design's choice, not the function's,
+        reported apart (``redundant_philox_calls``, ``neighbour_words`` the
+        halo words that draw) and not counted."""
         per_word = isinstance(rate, torch.Tensor)
         th = ref.burst_thresholds(burst)
         p = torch.clamp(torch.as_tensor(rate, dtype=torch.float32, device=dev) * f_row, 0.0,
                         faultsim.P_MAX)
         drawn_ = (p * 4294967296.0).to(torch.int64) > 0
-        drawn, prev = int(drawn_.sum()), int(drawn_[:-1].sum()) if th[3] else 0
+        drawn = int(drawn_.sum())
+        prev = int(drawn_[run_words - 1:f_row.numel() - 1:run_words].sum()) if th[3] else 0
         cls = anchored_groups(anchors) if th[2] else 0
         word = anchored_groups(tuple(m_[:-1] for m_ in anchors)) if th[3] else 0
         calls = field_groups(nc) * drawn + cls + word
@@ -2909,18 +2932,28 @@ def main() -> int:
         # a. the burst kernel against its plain version, bit for bit: every
         # width, each single-class profile and each environment's burst,
         # scalar and per-word rates (every third word at rate 0, so spills
-        # run from and into words that draw nothing), several sizes
+        # run from and into words that draw nothing), several sizes; around
+        # the kernel's run length, dense anchors (rate 0.1) with each run's
+        # halo word, then its first stored word, at rate 0 and at 0.02
         r054, r056 = platform.fault_rate(0.54), platform.fault_rate(0.56)
+        edge_sizes = (31, 32, 33, run_words - 1, run_words, run_words + 1,
+                      3 * run_words + 5)
         checked = 0
-        for n in FIELD_SIZES:
+        for n in FIELD_SIZES + edge_sizes:
             f_row = faultsim.row_factor(n, platform.row_sigma, 0xB0057 + n, dev)
             rates = torch.full((n,), r054, device=dev)
             rates[1::3] = 0.0
             rates[2::3] = r056
+            cases = [r054, rates]
+            if n in edge_sizes:
+                for where in (-1, 0):
+                    for value in (0.0, 0.02):
+                        cases.append(torch.full((n,), 0.1, device=dev))
+                        cases[-1][run_words + where::run_words] = value
             for nc in FIELD_N_CHECKS:
                 for pname, burst in profiles.items():
                     th = ref.burst_thresholds(burst)
-                    for rate in (r054, rates):
+                    for rate in cases:
                         got = ops.fault_field(f_row, rate, key, nc, burst=burst)
                         want = ref.fault_field_plain(f_row, rate, key, nc, th, chunk_words=1 << 22)
                         require(all(same_bits(a, b) for a, b in zip(got, want)),
@@ -2932,16 +2965,19 @@ def main() -> int:
                                     and not same(free, got), f"{pname}: not a strict superset")
                         checked += 1
         print(f"  burst field: kernel = plain version bit for bit in {checked} cases (n in "
-              f"{FIELD_SIZES}, n_check in {FIELD_N_CHECKS}, {len(profiles)} burst profiles "
-              f"{sorted(profiles)}, scalar rate and per-word rates with every third word at "
-              f"0); at 2^20 + 5 words a strict superset of the burst-free masks")
-        del f_row, rates, got, want, free
+              f"{FIELD_SIZES + edge_sizes}, n_check in {FIELD_N_CHECKS}, {len(profiles)} burst "
+              f"profiles {sorted(profiles)}, scalar rate and per-word rates with every third "
+              f"word at 0; at the run edges (run {run_words} words) also rate 0.1 with each run's "
+              f"halo word, then its first word, at 0 and at 0.02); at 2^20 + 5 words a strict "
+              f"superset of the burst-free masks")
+        del f_row, rates, cases, got, want, free
         # b. at the main path's sizes under the avionics burst at its
         # scenario voltage: the single-rail arena, a KV interval and the
         # multi-rail store's field with its per-word rates (the embedding at
         # rate 0); times beside the burst-free kernel's and the bounds
-        sass = sass_sizes()
+        sass, regs = sass_sizes(), ptxas_registers()
         print(f"  SASS instructions per kernel (n_check[/rates][/burst]): {json.dumps(sass)}")
+        print(f"  registers per thread (ptxas): {json.dumps(regs)}")
         f55 = faultsim.row_factor(n_arena, platform.row_sigma, 0xECC, dev)
         f_int = f55[:interval_words]
         f_multi, rates_multi, key_multi = store_draw
@@ -2953,7 +2989,9 @@ def main() -> int:
             name = "fault_field_burst" if codec == "secded72" else f"fault_field_burst_{codec}"
             row = {"codec": codec, "library_ms": None,
                    "scenario": {"environment": "avionics", "voltage": sv, "rate": r_sv},
-                   "sass_instructions": sass.get(f"{nc}/burst", {}).get("instructions")}
+                   "sass_instructions": sass.get(f"{nc}/burst", {}).get("instructions"),
+                   "registers": {"scalar_rate": regs.get(f"{nc}/burst"),
+                                 "per_word_rates": regs.get(f"{nc}/rates/burst")}}
             errs = {}
             for size, f_, rate_, key_, iters in (("arena", f55, r_sv, key, 10),
                                                  ("interval", f_int, r_sv, key, 20),
@@ -2969,6 +3007,9 @@ def main() -> int:
                 require(all(bool(((f2 & g2) == f2).all()) for f2, g2 in zip(free, got)),
                         f"{name} at the {size} size: not a superset of the burst-free masks")
                 part = burst_bound(f_, rate_, nc, avionics.burst, free)
+                require(part["redundant_philox_calls"] < 0.01 * part["philox_calls"],
+                        f"{name} at the {size} size: the halos re-draw "
+                        f"{part['redundant_philox_calls']} of {part['philox_calls']} Philox calls")
                 part["flips"] = int(faultsim.flip_counts(*got).sum())
                 part["flips_burst_free"] = int(faultsim.flip_counts(*free).sum())
                 del got, free, box
@@ -2990,8 +3031,10 @@ def main() -> int:
                   f"{n_multi} words; {n_arena} words {row['ms']:.3f} ms (burst-free "
                   f"{row['ms_burst_free']:.3f} ms, x{ratio(row):.2f}; bound {row['bound_ms']:.3f} "
                   f"ms, {row['bound_by']}: {row['philox_calls']} Philox calls, "
-                  f"the kernel at {row['bound_ms'] / row['ms']:.0%} of it; the neighbour's "
-                  f"re-derivation, not counted: {row['redundant_philox_calls']}), plain "
+                  f"the kernel at {row['bound_ms'] / row['ms']:.1%} of it; the halos' "
+                  f"re-draws, not counted: {row['redundant_philox_calls']} "
+                  f"({row['redundant_philox_calls'] / row['philox_calls']:.2%}), "
+                  f"{row['neighbour_words']} halo words), {row['registers']} registers, plain "
                   f"{row['plain_ms']:.1f} ms, flips {row['flips']} vs {row['flips_burst_free']}; "
                   f"KV interval {row['interval']['ms']:.4f} ms (burst-free "
                   f"{row['interval']['ms_burst_free']:.4f}, bound {row['interval']['bound_ms']:.4f}"
@@ -3336,8 +3379,8 @@ def main() -> int:
                                       "sass_instructions", "ms_interval", "plain_ms_interval",
                                       "interval", "ms_multi_rail", "multi_rail",
                                       "ms_burst_free", "scenario", "philox_calls",
-                                      "redundant_philox_calls", "neighbour_words", "class_draws", "word_draws", "flips",
-                                      "flips_burst_free")
+                                      "redundant_philox_calls", "neighbour_words", "class_draws",
+                                      "word_draws", "flips", "flips_burst_free", "registers")
                     if k in r}),
                 **({k: r[k] for k in ("mlp", "verify") if k in r}),
             })

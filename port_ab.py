@@ -67,8 +67,12 @@ events with the L2 filled with clean lines before it, as ``--b6`` does.
 arena and its scratch page, 3,440,640 words, under secded72 and ileave88):
 device ms by CUDA events and wall ms (synchronised, min of 5), whatever the
 checkout draws it with; where the checkout has ``DeviceFaultField``, also
-a 0.56 V draw of the 55,050,240-word single-rail arena's field. None of
-these builds a model; ``--b4``, ``--b2``, ``--b5``, ``--b6``, ``--b7`` and
+a 0.56 V draw of the 55,050,240-word single-rail arena's field, and
+where it also has bursts, the avionics environment's burst field at its
+scenario voltage (0.5924 V) over the arena (``DeviceFaultField(...,
+burst=)``, secded72 and ileave88, beside the burst-free field at the same
+voltage) and over the KV interval (``interval_masks(..., burst=)``). None
+of these builds a model; ``--b4``, ``--b2``, ``--b5``, ``--b6``, ``--b7`` and
 ``--field`` may be given together and replace the model's timings.
 
 ``--stream`` also serves the 8-request stream of ``chip_smoke.py`` phase 6
@@ -454,6 +458,29 @@ def _time_field(dev, iters: int = 20) -> dict:
         print(json.dumps({"device_field_secded72": res["device_field_secded72"]}), flush=True)
         del field
         torch.cuda.empty_cache()
+    if hasattr(faultsim, "DeviceFaultField") and hasattr(faultsim, "BurstProfile"):
+        from repro_torch.core import scenario
+
+        avionics = scenario.ENVIRONMENTS["avionics"]
+        prof = avionics.scale_profile(platform)
+        sv = scenario.scenario_voltage(platform, avionics)
+        for codec, n_check in (("secded72", 8), ("ileave88", 24)):
+            for burst, key in ((avionics.burst, f"burst_field_{codec}"),
+                               (None, f"burst_free_field_{codec}")):
+                field = faultsim.DeviceFaultField(prof, 55_050_240, seed=0, n_check=n_check,
+                                                  burst=burst)
+                fn = lambda: field.masks(sv)
+                res[key] = {"n_words": field.n_words, "voltage": sv,
+                            "ms": _window_ms(queue, fn, iters)}
+                print(json.dumps({key: res[key]}), flush=True)
+                del field
+                torch.cuda.empty_cache()
+            n = 15 * 229_376
+            fn = lambda: faultsim.interval_masks(0, 1, n, prof.fault_rate(sv), sigma, n_check,
+                                                 device=dev, burst=avionics.burst)
+            key = f"burst_interval_masks_{codec}"
+            res[key] = {"n_words": n, "voltage": sv, "ms": _window_ms(queue, fn, iters)}
+            print(json.dumps({key: res[key]}), flush=True)
     return res
 
 

@@ -36,12 +36,12 @@
 //
 // Bursts (core/scenario.py BurstProfile; the reference's expand_bursts):
 // the faulty bits above are the anchors, and the same launch expands them
-// into correlated multi-bit upsets, in a kernel of its own (kBurst) so the
-// burst-free field is unchanged. Without a burst the data masks are the same
-// under every n_check; with one they are not, since a plane shift carries
-// bit 31 of lo into hi, bit 31 of hi into check bit 0 and truncates at the
-// top check plane 63 + n_check. The stream, all from Philox counters that
-// do not depend on the voltage (so FIP holds and the burst masks are a
+// into correlated multi-bit upsets, in a kernel of its own (burst_kernel) so
+// the burst-free field is unchanged. Without a burst the data masks are the
+// same under every n_check; with one they are not, since a plane shift
+// carries bit 31 of lo into hi, bit 31 of hi into check bit 0 and truncates
+// at the top check plane 63 + n_check. The stream, all from Philox counters
+// that do not depend on the voltage (so FIP holds and the burst masks are a
 // superset of the burst-free masks of the same key):
 //   class draw of plane 4g+j:  output j of Philox at (w lo, w hi, g, 1);
 //   word draw of plane 4g+j:   output j of Philox at (w lo, w hi, g, 2);
@@ -50,22 +50,49 @@
 // An anchor whose class draw is below t2 extends one plane up, below t3 two
 // planes up; one in [t2, trd) (a random double) adds the word's companion
 // bit (once a word). An anchor of word w - 1 whose word draw is below twa
-// repeats at the same plane of word w: thread w re-derives the anchors of
-// word w - 1 at that word's own threshold (its own f_row and rate), so a
-// spill from a word of another rail keeps that rail's rate. The spill stops
-// at the field's ends: word 0 gets none, the last word's is dropped. The
-// thresholds are floor(p 2^32) of the cumulative class probabilities and of
-// word_adjacent, 64-bit so that p = 1 (2^32) always fires. The class and
-// word draws are made only for groups that hold an anchor and the companion
-// only for a word with a random double: the anchors are sparse, and the
-// draws are fixed by position, so drawing lazily does not change the stream.
+// repeats at the same plane of word w; the anchors of w - 1 are drawn at
+// that word's own threshold (its own f_row and rate), so a spill from a word
+// of another rail keeps that rail's rate. The spill stops at the field's
+// ends: word 0 gets none, the last word's is dropped. The thresholds are
+// floor(p 2^32) of the cumulative class probabilities and of word_adjacent,
+// 64-bit so that p = 1 (2^32) always fires. The class and word draws are
+// made only for groups that hold an anchor and the companion only for a
+// word with a random double: the anchors are sparse, and the draws are fixed
+// by position, so drawing lazily, in whichever thread, does not change the
+// stream.
 //
-// Work with bursts: the neighbour's re-derivation doubles the base Philox
-// of every drawn word (when twa > 0). The function needs one base Philox a
-// drawn word, so the integer bound stays the burst-free one; the lazy
-// class, word and companion draws add one Philox per anchored group, a few
-// per thousand words at the scenario voltages. cuobjdump counts 2,624
-// instructions in the secded72 burst kernel (64-70 registers against 32).
+// Burst design: a warp walks a run of kRunIters x 32 consecutive words.
+// Lane L of iteration k takes word h + 32k + L, h the run's halo word, so
+// each iteration's loads and stores are coalesced. The thread that owns a
+// word draws its anchors once, expands them and computes its spill column
+// (the anchors that repeat in the next word, from the lazy word draws); the
+// column reaches word w + 1's thread in registers: __shfl_up_sync from lane
+// L - 1, and for lane 0 lane 31's column of the iteration before, kept by
+// __shfl_sync. Only the halo is drawn twice: lane 0 of iteration 0 draws
+// word h (the last word of the run before) for its column and stores
+// nothing, so a run stores kRunWords = 32 kRunIters - 1 words and the run's
+// last word passes no column (the next run's halo draws it again). The run
+// r's halo is word r kRunWords - 1; run 0's is word -1, which draws nothing,
+// so word 0 gets no spill. kernels/ref.py fault_field_plain draws a chunk's
+// word before it in the same way, and kernels/fault_field.py RUN_WORDS
+// equals kRunWords (the card tests cut the field at its run edges). Lanes
+// past n draw at threshold 0, join the shuffles and store nothing; the
+// shuffles run after the divergent lazy loops. Without a word-adjacent
+// burst (twa = 0) the halo draws nothing and no column moves.
+// kRunIters = 8: R = 4, 8 and 16 timed alike on the H100 at 55 M words
+// (4 was ~5% faster on a 3.4 M-word KV interval, with a shorter tail), and
+// 8 keeps the redundant base draws at one per 255 words (0.4%).
+//
+// Work with bursts: one base Philox per group of a drawn word, as without
+// a burst, so the integer bound stays the burst-free one, plus one per
+// group of each run's halo word; the lazy class, word and companion draws
+// add one Philox per anchored group, a few per thousand words at the
+// scenario voltages. cuobjdump counts 1,872 instructions in the secded72
+// burst kernel; ptxas gives it 80 registers (the loop's pointers, n, the
+// halo index and the carried column stay live across the unrolled
+// Philox). Capping it at 64 or 40 registers (__launch_bounds__ minimum
+// blocks 4 or 6) timed the same, so no cap is set: the Philox instruction rate,
+// not occupancy, bounds it.
 #include <climits>
 #include <type_traits>
 
@@ -74,6 +101,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRunIters = 8;                   // a burst run's iterations of 32 words
+constexpr int kRunWords = 32 * kRunIters - 1;  // the words a run stores: fault_field.py RUN_WORDS
+constexpr unsigned kWarp = 0xFFFFFFFFu;
 constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;  // Philox4x32 multipliers
 constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;  // Weyl key increments
 
@@ -211,60 +241,91 @@ __device__ __forceinline__ Bits spill(const Bits& a, uint32_t w0, uint32_t w1, c
   return col;
 }
 
-template <int NC, bool kPerWord, bool kBurst>
+template <int NC, bool kPerWord>
 __global__ void __launch_bounds__(kThreads)
     field_kernel(const float* __restrict__ f_row, const float* __restrict__ rates, float rate,
-                 const RoundKeys keys, const Burst burst, uint32_t* __restrict__ lo,
-                 uint32_t* __restrict__ hi, check_t<NC>* __restrict__ chk, long long n) {
+                 const RoundKeys keys, uint32_t* __restrict__ lo, uint32_t* __restrict__ hi,
+                 check_t<NC>* __restrict__ chk, long long n) {
   const long long w = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (w >= n) return;
   const uint32_t t = threshold(kPerWord ? rates[w] : rate, f_row[w]);
   const uint32_t w0 = uint32_t(w), w1 = uint32_t((unsigned long long)w >> 32);
   Bits out{{0u, 0u, 0u}};
-  if (t != 0) {
-    out = anchors<NC>(w0, w1, t, keys);
-    if (kBurst) out = expand<NC>(out, w0, w1, keys, burst);
-  }
-  if (kBurst && burst.twa != 0 && w > 0) {
-    const long long p = w - 1;
-    const uint32_t tp = threshold(kPerWord ? rates[p] : rate, f_row[p]);
-    if (tp != 0) {
-      const uint32_t p0 = uint32_t(p), p1 = uint32_t((unsigned long long)p >> 32);
-      const Bits col = spill(anchors<NC>(p0, p1, tp, keys), p0, p1, keys, burst.twa);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) out.w[i] |= col.w[i];
-    }
-  }
+  if (t != 0) out = anchors<NC>(w0, w1, t, keys);
   lo[w] = out.w[0];
   hi[w] = out.w[1];
   chk[w] = check_t<NC>(out.w[2] & ((1u << NC) - 1u));
 }
 
-template <int NC, bool kBurst>
-void launch_kernel(int blocks, const float* f_row, const float* rates, float rate,
-                   const RoundKeys& keys, const Burst& burst, uint32_t* l, uint32_t* h,
-                   check_t<NC>* c, long long n, cudaStream_t stream) {
-  if (rates != nullptr) {
-    field_kernel<NC, true, kBurst><<<blocks, kThreads, 0, stream>>>(f_row, rates, rate, keys, burst,
-                                                                    l, h, c, n);
-  } else {
-    field_kernel<NC, false, kBurst><<<blocks, kThreads, 0, stream>>>(f_row, rates, rate, keys, burst,
-                                                                     l, h, c, n);
+template <int NC, bool kPerWord>
+__global__ void __launch_bounds__(kThreads)
+    burst_kernel(const float* __restrict__ f_row, const float* __restrict__ rates, float rate,
+                 const RoundKeys keys, const Burst burst, uint32_t* __restrict__ lo,
+                 uint32_t* __restrict__ hi, check_t<NC>* __restrict__ chk, long long n) {
+  const int lane = threadIdx.x & 31;
+  const long long h = (((long long)blockIdx.x * kThreads + threadIdx.x) >> 5) * kRunWords - 1;
+  if (h + 1 >= n) return;  // the whole warp: its run stores no word
+  const bool spills = burst.twa != 0;
+  Bits carry{{0u, 0u, 0u}};  // lane 31's column of the iteration before
+#pragma unroll 1
+  for (int k = 0; k < kRunIters && h + 32 * k < n; ++k) {
+    const long long w = h + 32 * k + lane;
+    const bool halo = k == 0 && lane == 0;
+    uint32_t t = 0;
+    if (w >= 0 && w < n && (spills || !halo)) t = threshold(kPerWord ? rates[w] : rate, f_row[w]);
+    const uint32_t w0 = uint32_t(w), w1 = uint32_t((unsigned long long)w >> 32);
+    Bits a{{0u, 0u, 0u}}, out{{0u, 0u, 0u}};
+    if (t != 0) {
+      a = anchors<NC>(w0, w1, t, keys);
+      if (!halo) out = expand<NC>(a, w0, w1, keys, burst);
+    }
+    if (spills) {
+      // the field's last word and the run's last word pass no column
+      const bool ends = w + 1 >= n || (k == kRunIters - 1 && lane == 31);
+      const Bits col = ends ? Bits{{0u, 0u, 0u}} : spill(a, w0, w1, keys, burst.twa);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const uint32_t up = __shfl_up_sync(kWarp, col.w[i], 1);
+        out.w[i] |= lane == 0 ? carry.w[i] : up;
+        carry.w[i] = __shfl_sync(kWarp, col.w[i], 31);
+      }
+    }
+    if (!halo && w < n) {
+      lo[w] = out.w[0];
+      hi[w] = out.w[1];
+      chk[w] = check_t<NC>(out.w[2] & ((1u << NC) - 1u));
+    }
   }
 }
 
 template <int NC>
 int launch(const float* f_row, const float* rates, float rate, const RoundKeys& keys,
            const Burst& burst, void* lo, void* hi, void* chk, long long n, cudaStream_t stream) {
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > INT_MAX) return int(cudaErrorInvalidValue);
   auto* l = static_cast<uint32_t*>(lo);
   auto* h = static_cast<uint32_t*>(hi);
   auto* c = static_cast<check_t<NC>*>(chk);
+  constexpr int kWarps = kThreads / 32;
   if (burst.trd != 0 || burst.twa != 0) {
-    launch_kernel<NC, true>(int(blocks), f_row, rates, rate, keys, burst, l, h, c, n, stream);
+    const long long runs = (n + kRunWords - 1) / kRunWords;
+    const long long blocks = (runs + kWarps - 1) / kWarps;
+    if (blocks > INT_MAX) return int(cudaErrorInvalidValue);
+    if (rates != nullptr) {
+      burst_kernel<NC, true><<<int(blocks), kThreads, 0, stream>>>(f_row, rates, rate, keys,
+                                                                   burst, l, h, c, n);
+    } else {
+      burst_kernel<NC, false><<<int(blocks), kThreads, 0, stream>>>(f_row, rates, rate, keys,
+                                                                    burst, l, h, c, n);
+    }
   } else {
-    launch_kernel<NC, false>(int(blocks), f_row, rates, rate, keys, burst, l, h, c, n, stream);
+    const long long blocks = (n + kThreads - 1) / kThreads;
+    if (blocks > INT_MAX) return int(cudaErrorInvalidValue);
+    if (rates != nullptr) {
+      field_kernel<NC, true><<<int(blocks), kThreads, 0, stream>>>(f_row, rates, rate, keys, l,
+                                                                   h, c, n);
+    } else {
+      field_kernel<NC, false><<<int(blocks), kThreads, 0, stream>>>(f_row, rates, rate, keys, l,
+                                                                    h, c, n);
+    }
   }
   return int(cudaGetLastError());
 }

@@ -14,6 +14,10 @@ FAULT_FIELD = B.Kernel(
 )
 N_CHECKS = (1, 8, 15, 24)  # the widths the kernel is built for
 BURST_LAUNCHES: dict = {}  # n_check -> launches of the burst kernel
+# The words one warp's run of the burst kernel stores (its halo word, the one
+# before, is drawn again for its spill): kRunWords = 32 * kRunIters - 1 in
+# csrc/fault_field.cu, which must equal it; the tests cut fields at its edges.
+RUN_WORDS = 255
 
 
 def fault_field(f_row, rate, key: int, n_check: int, thresholds=(0, 0, 0, 0)):

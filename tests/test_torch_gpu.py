@@ -12,6 +12,7 @@ import torch
 
 from repro_torch import codes
 from repro_torch.kernels import ecc_matmul as mm
+from repro_torch.kernels import fault_field as fault_field_kernel
 from repro_torch.kernels import ops, ref
 
 # the tensor cores sum in another order than the plain version's matmul
@@ -672,6 +673,39 @@ def test_fault_field_burst_kernel_bit_identical(cuda, n_check):
     codec = {1: "parity65", 8: "secded72", 15: "dected79", 24: "ileave88"}[n_check]
     assert ops.burst_launch_counts() == {codec: drawn}
     assert ops.launch_counts()["fault_field"] == 2 * drawn
+
+
+RUN = fault_field_kernel.RUN_WORDS
+# around the burst kernel's runs: one warp, its edges, one run, three and a part
+RUN_EDGE_SIZES = (1, 31, 32, 33, RUN - 1, RUN, RUN + 1, 3 * RUN + 5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", RUN_EDGE_SIZES)
+@pytest.mark.parametrize("n_check", FIELD_N_CHECKS)
+def test_fault_field_burst_kernel_run_edges(cuda, n_check, n):
+    """The burst kernel against its plain version at sizes around its run
+    length, under word_adjacent = 1 and each environment's burst: a scalar
+    rate, and per-word rates with each run's halo word and first stored
+    word in turn at rate 0 and at another rail's rate."""
+    from repro_torch.core import faultsim, scenario
+
+    f_row = faultsim.row_factor(n, 0.9, 17 + n, cuda)
+    key = faultsim.philox_key(0x5EED_0000 + n)
+    bursts = {"word_adjacent": scenario.BurstProfile(word_adjacent=1.0)}
+    bursts.update({e: p.burst for e, p in scenario.ENVIRONMENTS.items()})
+    rates = [0.1]
+    for where in (-1, 0):  # word k RUN - 1 (the halo), then k RUN (the first), k >= 1
+        for value in (0.0, 0.02):
+            rates.append(torch.full((n,), 0.1, device=cuda))
+            rates[-1][RUN + where::RUN] = value
+    for name, burst in bursts.items():
+        for i, rate in enumerate(rates):
+            k = ops.fault_field(f_row, rate, key, n_check, burst=burst)
+            p = ref.fault_field_plain(f_row, rate, key, n_check, ref.burst_thresholds(burst),
+                                     chunk_words=ops.FIELD_CPU_CHUNK)
+            torch.cuda.synchronize()
+            assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(k, p)), (name, i)
 
 
 @pytest.mark.gpu

@@ -8,6 +8,8 @@ on Python integers, its stream properties and its statistics against the
 host burst field."""
 
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -41,6 +43,7 @@ from repro_torch.core import scenario as tsc
 from repro_torch.core import telemetry as ttel
 from repro_torch.core import voltage as tv
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import fault_field as tff
 from repro_torch.kernels import ref as tref
 from repro_torch.models import base as tbase
 from repro_torch.serving import engine as teng
@@ -368,6 +371,53 @@ def test_word_adjacent_spill_and_its_truncation_at_the_field_ends():
         assert torch.equal(got[0], anc[0])
         assert torch.equal(got[1:], anc[1:] | anc[:-1])
     assert any(bool(a[-1]) for a in base)
+
+
+RUN = tff.RUN_WORDS
+RUN_EDGE_SIZES = (1, 31, 32, 33, RUN - 1, RUN, RUN + 1, 3 * RUN + 5)
+
+
+def test_run_words_equals_the_burst_kernels_run():
+    """kernels/fault_field.py RUN_WORDS is the burst kernel's kRunWords =
+    32 kRunIters - 1, read from the CUDA source."""
+    src = (Path(tff.__file__).parent / "csrc" / "fault_field.cu").read_text()
+    iters = int(re.search(r"constexpr int kRunIters = (\d+);", src).group(1))
+    assert "constexpr int kRunWords = 32 * kRunIters - 1;" in src
+    assert RUN == 32 * iters - 1
+
+
+@pytest.mark.parametrize("n", RUN_EDGE_SIZES)
+@pytest.mark.parametrize("n_check", N_CHECKS)
+def test_plain_field_in_runs_draws_each_runs_halo(n_check, n):
+    """The plain field drawn in chunks of the burst kernel's run equals the
+    whole field's single draw under word_adjacent = 1, with the word before
+    each run boundary (the kernel's halo) and the run's first word in turn
+    at rate 0 and at another rail's rate: the spill into a run's first word
+    is the halo word's anchors at the halo's own rate, and nothing else."""
+    rng = np.random.default_rng(n)
+    f = torch.from_numpy(rng.lognormal(0.0, 0.9, n).astype(np.float32))
+    key = 0x0DDC0FFEE0 + n
+    th = tref.burst_thresholds(tsc.BurstProfile(word_adjacent=1.0))
+    anchored = 0
+    for where, value in ((None, None), (-1, 0.0), (-1, 0.03), (0, 0.0), (0, 0.03)):
+        rates = torch.full((n,), 0.1)
+        if where is not None:
+            rates[RUN + where::RUN] = value
+        whole = tref.fault_field_ref(f, rates, key, n_check, burst=th)
+        runs = tref.fault_field_plain(f, rates, key, n_check, th, chunk_words=RUN)
+        assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(runs, whole))
+        own = [tref.fault_field_ref(f[s:s + RUN], rates[s:s + RUN], key, n_check, base=s,
+                                    burst=th) for s in range(0, n, RUN)]
+        free = tref.fault_field_ref(f, rates, key, n_check)
+        for s, chunk in zip(range(0, n, RUN), own):
+            # inside a run the spills are the run's own; into its first word
+            # the halo's anchors (word 0 of the field has no halo)
+            halo = [m[s - 1] if s else torch.zeros_like(m[0]) for m in free]
+            for m, c, h in zip(whole, chunk, halo):
+                assert torch.equal(m[s + 1:s + RUN], c[1:]), (s, where, value)
+                assert int(m[s]) == int(c[0] | h), (s, where, value)
+            anchored += s > 0 and any(int(h) != 0 for h in halo)
+    assert anchored > 0 or n <= RUN
 
 
 def test_device_burst_histogram_matches_the_configured_distribution():
