@@ -155,7 +155,27 @@ them. Phases, each printed on its own line with its wall time:
      interval's rate fault_rate x aging multiplier, one burst field and one
      paged scrub per interval), then under a neutral environment with drift
      0 and without one (equal tokens, counters and launches);
-  4-13 each zero the kernel launch counts at the start of a path and read
+  14. the accuracy canary, the campaign and the sweeps. Q: qwen2-7b at full
+     width (28 layers, d 3584, 28/4 heads, d_ff 18944, vocab 152064, bf16,
+     untied, seeded nonzero QKV biases; 815,661,056 protected words, device
+     masks): the fused matmul at its four (K, N) at M = batch, 20 and batch
+     x prompt against the plain version (w2's K = 18,944 takes the tiled
+     kernel at every M) beside torch.matmul and its bound, the M = batch
+     rows equal to the same rows at M = batch x prompt, the encode over the
+     whole arena bit for bit; then generate, ``sequence_logits`` (its last
+     position equal to prefill's logits bit for bit), the canary at nominal
+     (exactly 0.0) and three autotune walks from V_min: with ECC and the
+     canary, without ECC (the DED counters are blind: the walk must reach
+     the floor with no DED) and without ECC with the canary (it must back
+     off on divergence alone, above the blind lock). CA: ``run_campaign``
+     at qwen3-0.6b's width (parity65, secded72, ileave88 at 1.0, 0.57 and
+     0.55 V; host masks): nominal rows clean, faulty words growing down the
+     rail. SW: the sweep CLI over the paper grid at 512 Ki words (every
+     point equal to the per-point device field + inject+scrub loop), rail
+     schedules on the multi-rail store's geometry (equal to the store's own
+     device-path telemetry) and the codec schemes at V_crash (the stronger
+     codes correct more);
+  4-14 each zero the kernel launch counts at the start of a path and read
      them at its end, and fail unless every voltage step launched its scrub
      kernel once (B1 single-rail, B2 and the embedding's B5 multi-rail,
      none of the other path's), every forward pass of the protected model
@@ -167,7 +187,7 @@ them. Phases, each printed on its own line with its wall time:
      once, every per-leaf step and every domain read launched the fault
      injection and the decode once per leaf, and the plain codec never ran
      on the card;
-  14. one prefill and one decode step of paths 4-5 under torch.profiler
+  15. one prefill and one decode step of paths 4-5 under torch.profiler
      (device busy time, idle share, fused-matmul time inside the step, which
      must come from the decode kernel in a decode step and the tiled kernel
      in a prefill), tokens/s, voltage-step times and one
@@ -175,8 +195,9 @@ them. Phases, each printed on its own line with its wall time:
      counts. The fused matmul has two entries, one per kernel behind its
      one launcher: decode (``ecc_matmul_decode_kernel``, timed at M = batch)
      and prefill (``ecc_matmul_kernel``, timed at M = batch x prompt); its
-     count is split between them by the forward passes of at most
-     ``DECODE_MAX_M`` rows and the others; the codec-generic kernels have one
+     count is split between them by the kernel each call took
+     (``ecc_matmul.kernel_for``: at most ``DECODE_MAX_M`` rows and K up to
+     8,832 take the decode kernel); the codec-generic kernels have one
      entry per (kernel, codec), their launches counted per codec (the fault
      field's by check width, its burst launches in entries of their own). Phases 6 and 9 time the stream's interval
      scrub the same way as phase 2, and the interval's mask draw.
@@ -187,6 +208,7 @@ The last line is ``{"ok": true, "device": {...}}``; any failed check raises.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import re
@@ -299,9 +321,6 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    # B3's two kernels: decode forwards (M = BATCH) run the decode kernel,
-    # prefill forwards (M = BATCH x PROMPT_LEN) the tiled one.
-    require(BATCH <= b3_kernel.DECODE_MAX_M < BATCH * PROMPT_LEN, "B3 threshold vs shapes")
     b3_names = b3_kernel.GLOBAL_KERNELS
     print(f"device: {torch.cuda.get_device_name(0)} | {gpu_line()}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -595,10 +614,443 @@ def main() -> int:
             for line in backend.BUILD_LOG.get(name, "").splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"    ptxas {line.strip()}")
+        # B3's two kernels: at qwen3-0.6b's widths decode forwards (M = BATCH)
+        # run the decode kernel, prefill forwards (M = BATCH x PROMPT_LEN) the
+        # tiled one.
+        require(all(b3_kernel.kernel_for(BATCH, k_) == "decode"
+                    and b3_kernel.kernel_for(BATCH * PROMPT_LEN, k_) == "tiled"
+                    for k_ in (1024, 2048, 3072)), "B3 kernel choice vs shapes")
 
     cfg = get_config("qwen3-0.6b")
     platform = PLATFORMS["vc707"]
     report: dict = {}
+
+    # ---------------------------------------------------------------- 14
+    # The accuracy canary on qwen2-7b at full width (path Q), the accuracy
+    # campaign at qwen3-0.6b's (path CA) and the sweeps (path SW).
+    def accuracy_phase(report: dict, paths_extra: dict) -> dict:
+        from repro_torch.core import campaign, sweep
+        from repro_torch.serving.engine import CanaryConfig
+
+        acc: dict = {}
+        qcfg = get_config("qwen2-7b")
+        v_min = platform.v_min
+        torch.cuda.reset_peak_memory_stats()
+
+        def q_params():
+            """Random qwen2-7b weights from seed 0 with seeded nonzero biases
+            (``init_params`` draws them as zeros)."""
+            p = lm.init_params(qcfg, seed=0, device=dev)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            for b in ("bq", "bk", "bv"):
+                t_ = p["blocks"]["p0"]["attn"][b]
+                t_.copy_(0.5 * torch.randn(t_.shape, generator=gen, device=dev))
+            return p
+
+        def q_engine(**kw):
+            rel = ReliabilityConfig(mode="inline", voltage=1.0,
+                                    fault_model=FaultModelConfig(mask_source="device"),
+                                    rails=RailsConfig(start_v=v_min), **kw)
+            t_ = time.perf_counter()
+            eng_ = ServingEngine(qcfg, q_params(), rel=rel, max_len=64)
+            torch.cuda.synchronize()
+            return eng_, time.perf_counter() - t_
+
+        def protected(c):
+            """(K, N) of every protected matrix of a layer (K % 8 == 0 and
+            both at least 64, as ``protect_params_inline`` takes them)."""
+            d_, hq, hkv = c.d_model, c.n_heads * c.hd, c.n_kv_heads * c.hd
+            mats = [(d_, hq), (d_, hkv), (d_, hkv), (hq, d_), (d_, c.d_ff), (d_, c.d_ff),
+                    (c.d_ff, d_)]
+            return [(k_, n_) for k_, n_ in mats if k_ % 8 == 0 and min(k_, n_) >= 64]
+
+        def peak_gb() -> float:
+            return torch.cuda.max_memory_allocated() / 1e9
+
+        def b3_by_kernel_check(name, tally, counts, n_small):
+            """The fused matmul's launches by the kernel each took, as the
+            wrapper counted them: ``n_small`` of each forward's matmuls of at
+            most DECODE_MAX_M rows on the decode kernel, the rest tiled."""
+            got = ops.ecc_matmul_launches_by_kernel()
+            want = n_small * tally.n.get("decode_kernel", 0)
+            require(sum(got.values()) == counts["ecc_matmul"] and got["decode"] == want,
+                    f"{name}: B3 launches by kernel {got}, expected {want} on the decode "
+                    f"kernel of {counts['ecc_matmul']}")
+            return got
+
+        # a. qwen2-7b: B3 at its four (K, N) and B4's pack of the whole arena
+        # against the plain versions, on an engine of its own (these launches
+        # are no part of path Q)
+        eng, build_s = q_engine()
+        n_q = eng._store.n_words
+        require(n_q == qcfg.n_layers * sum(k_ * n_ for k_, n_ in protected(qcfg)) // 8,
+                f"qwen2-7b arena of {n_q} words")
+        print(f"  qwen2-7b ({qcfg.n_layers} layers, d {qcfg.d_model}, {qcfg.n_heads}/"
+              f"{qcfg.n_kv_heads} heads, d_ff {qcfg.d_ff}, vocab {qcfg.vocab}, bf16, untied, "
+              f"biases N(0, 0.5^2) from seed 1): {n_q} protected words, engine built in "
+              f"{build_s:.1f} s, peak {peak_gb():.1f} GB")
+        store = eng._store
+        k_chk = ops.encode(store.lo, store.hi)
+        require(torch.equal(k_chk, store.parity), "B4 over the arena differs from the packs")
+        chunk = 1 << 27
+        t = time.perf_counter()
+        for a in range(0, n_q, chunk):
+            p_chk = ref.encode_ref(store.lo[a:a + chunk], store.hi[a:a + chunk])
+            require(torch.equal(k_chk[a:a + chunk], p_chk), f"B4 differs at words {a}+")
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+        del k_chk, p_chk
+        acc["encode_arena"] = {"n_words": n_q, "ms": sync_ms(lambda: ops.encode(store.lo, store.hi),
+                                                              10),
+                               "plain_ms": 1e3 * plain_s, "bound_ms": 1e3 * 9 * n_q / HBM_BYTES_PER_S}
+        print(f"  B4 over the qwen2-7b arena ({n_q} words): bit-identical to the plain version "
+              f"and to the packed check planes, {acc['encode_arena']['ms']:.3f} ms, bound "
+              f"{acc['encode_arena']['bound_ms']:.3f} ms (bytes), plain "
+              f"{acc['encode_arena']['plain_ms']:.1f} ms ({-(-n_q // chunk)} pieces)")
+        eng.set_voltage(0.56)
+        require(eng._last_scrub.corrected > 0, f"qwen2-7b 0.56 V scrub {eng._last_scrub}")
+        leaves = {k.split("[")[-1].strip("']"): w for k, w in base.flatten(eng.params)
+                  if isinstance(w, ops.EccWeight)}
+        gen = torch.Generator(device=dev).manual_seed(2)
+        b3_rows = []
+        for wname in (w_ for w_ in ("wq", "wk", "w1", "w2") if w_ in leaves):
+            ew = leaves[wname]
+            layers_ = [ew.layer(g) for g in range(qcfg.n_groups)]
+            w_deq = []
+            for lw in layers_[:2]:
+                dlo, dhi, _ = ref.decode_ref(lw.lo, lw.hi, lw.parity)
+                w_deq.append(ref.unpack_ecc_weights(dlo, dhi).to(torch.float32) * lw.scale)
+            x_all = torch.randn(BATCH * PROMPT_LEN, ew.k, generator=gen, device=dev)
+            for lw in layers_[:2]:
+                require(torch.equal(ops.ecc_matmul(x_all[:BATCH], lw),
+                                    ops.ecc_matmul(x_all, lw)[:BATCH]),
+                        f"qwen2-7b {wname}: the M={BATCH} rows differ from the same rows at "
+                        f"M={BATCH * PROMPT_LEN}")
+            for m in (BATCH, VERIFY_M, BATCH * PROMPT_LEN):
+                x = x_all[:m]
+                worst, rel_ = 0.0, 0.0
+                for lw in layers_[:2]:
+                    k_o = ops.ecc_matmul(x, lw)
+                    p_o = ref.ecc_matmul_ref(x, lw.lo, lw.hi, lw.parity, lw.scale)
+                    err, scale = float((k_o - p_o).abs().max()), float(p_o.abs().max())
+                    require(bool(torch.isfinite(k_o).all()), f"qwen2-7b {wname} non-finite")
+                    require(err <= MATMUL_RTOL * scale,
+                            f"qwen2-7b {wname} M={m}: err {err} > {MATMUL_RTOL} * {scale}")
+                    worst, rel_ = max(worst, err), max(rel_, err / scale)
+                ms = sync_ms(lambda: [ops.ecc_matmul(x, lw) for lw in layers_], 5) / len(layers_)
+                pms = sync_ms(lambda: [ref.ecc_matmul_ref(x, lw.lo, lw.hi, lw.parity, lw.scale)
+                                       for lw in layers_[:2]], 2) / 2
+                lib = sync_ms(lambda: [torch.matmul(x, w) for w in w_deq], 20) / len(w_deq)
+                k, nn = ew.k, ew.n
+                nbytes = 4 * m * k + 9 * k * nn // 8 + 4 * nn + 4 * m * nn
+                bt, ot = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * 3 * 2 * m * k * nn / BF16_TC_FLOPS
+                row = {"key": wname, "M": m, "K": k, "N": nn,
+                       "function": b3_names[b3_kernel.kernel_for(m, k)], "ms": ms,
+                       "plain_ms": pms, "library_ms": lib, "bound_ms": max(bt, ot),
+                       "bound_by": "bytes" if bt >= ot else "operations", "bytes_ms": bt,
+                       "ops_ms": ot, "max_abs_err": worst, "max_rel_err": rel_}
+                b3_rows.append(row)
+                print(f"  qwen2-7b ecc_matmul {wname} M={m} K={k} N={nn} ({row['function']}): "
+                      f"max err {worst:.3e} (rel {rel_:.2e}), {ms:.4f} ms, bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {pms:.4f} ms, "
+                      f"torch.matmul {lib:.4f} ms")
+            del w_deq, x_all, layers_
+        require(sum(r["function"] == b3_names["tiled"] for r in b3_rows if r["M"] == BATCH) == 1,
+                "qwen2-7b at M = batch: only w2 (K = 18,944) takes the tiled kernel")
+        print(f"  qwen2-7b ecc_matmul rows: the M={BATCH} rows equal the same rows at "
+              f"M={BATCH * PROMPT_LEN}, every (K, N)")
+        # which B3 kernel each matmul of a forward ran, as the profiler saw
+        # it: a prefill's 196 all tiled, a decode step's w2 (28) tiled and
+        # its other 168 on the decode kernel; the wrapper counts the same.
+        # torch.profiler can drop a device record from a window, so a window
+        # that saw fewer launches than the wrapper counted is traced again
+        # (up to 5 windows); one that saw more, or the other kernel, fails.
+        rng_ = np.random.default_rng(0)
+        q_prompts = rng_.integers(0, qcfg.vocab, (BATCH, PROMPT_LEN)).astype(np.int32)
+        toks_ = torch.as_tensor(q_prompts, device=dev)
+        cache_ = lm.init_cache(qcfg, BATCH, 64)
+        logits_, _ = lm.prefill(eng.params, toks_, qcfg, cache_)
+        tok_ = torch.argmax(logits_, dim=-1)[:, None]
+        per_fwd = len(protected(qcfg)) * qcfg.n_layers
+        traced = {}
+        for kind_, f_, want in (
+                ("prefill", lambda: lm.prefill(eng.params, toks_, qcfg, cache_),
+                 {"decode": 0, "tiled": per_fwd}),
+                ("decode", lambda: lm.decode_step(eng.params, tok_, qcfg, cache_, PROMPT_LEN),
+                 {"decode": per_fwd - qcfg.n_layers, "tiled": qcfg.n_layers})):
+            for _ in range(5):
+                ops.reset_launch_count()
+                evs = device_events(f_)
+                ran = {k_: sum(v in e[0] for e in evs) for k_, v in b3_names.items()}
+                counted = ops.ecc_matmul_launches_by_kernel()
+                require(counted == want and all(ran[k_] <= want[k_] for k_ in want),
+                        f"qwen2-7b traced {kind_}: B3 kernels {ran}, counted {counted}, "
+                        f"expected {want}")
+                traced.setdefault(kind_, []).append(ran)
+                if ran == want:
+                    break
+            require(ran == want, f"qwen2-7b traced {kind_}: no window saw every B3 launch "
+                    f"{traced[kind_]}, expected {want}")
+        acc["b3_traced"] = traced
+        print(f"  qwen2-7b traced forwards, B3 launches by kernel in each window "
+              f"(the last = the wrapper's count): {json.dumps(traced)}")
+        del cache_, logits_
+        acc["b3"] = b3_rows
+        report["ecc_matmul_decode"]["qwen2_7b"] = [
+            r for r in b3_rows if r["function"] == b3_names["decode"]]
+        report["ecc_matmul_prefill"]["qwen2_7b"] = [
+            r for r in b3_rows if r["function"] == b3_names["tiled"]]
+        del eng, store, leaves
+        torch.cuda.empty_cache()
+
+        # path Q: every engine build, voltage step, rollout and walk counts
+        q = acc["Q"] = {}
+        ops.reset_launch_count()
+        torch.cuda.reset_peak_memory_stats()
+        below = lambda eng_, v, *a, **kw: ("steps", "steps_below") if \
+            platform.fault_rate(float(v)) > 0.0 else "steps"
+        with Tally() as tally:
+            tally._wrap(ServingEngine, "set_voltage", below)
+            canary = CanaryConfig(prompts=2, tokens=12, divergence_slo=0.05)
+            eng, q["build_s"] = q_engine(canary=canary)
+            t = time.perf_counter()
+            toks = eng.generate(q_prompts, NEW_TOKENS)
+            q["generate_s"] = time.perf_counter() - t
+            q["tokens_per_s"] = BATCH * NEW_TOKENS / q["generate_s"]
+            require(toks.shape == (BATCH, NEW_TOKENS)
+                    and bool(((toks >= 0) & (toks < qcfg.vocab)).all()), "qwen2-7b tokens")
+            seq = torch.as_tensor(np.concatenate([q_prompts, toks], axis=1), device=dev)
+            sl = lm.sequence_logits(eng.params, seq, qcfg)
+            pl, _ = lm.prefill(eng.params, seq, qcfg, lm.init_cache(qcfg, BATCH, 64))
+            require(tuple(sl.shape) == (BATCH, PROMPT_LEN + NEW_TOKENS, qcfg.vocab)
+                    and bool(torch.isfinite(sl).all()), "sequence_logits shape or values")
+            require(torch.equal(sl[:, -1], pl), "sequence_logits' last position differs "
+                    "from prefill's logits")
+            del sl, pl
+            t = time.perf_counter()
+            d0 = eng.canary_divergence()
+            q["canary_nominal_s"] = time.perf_counter() - t
+            require(d0 == 0.0, f"canary divergence at nominal {d0}")
+            print(f"  Q: generate {BATCH} x {PROMPT_LEN} -> {NEW_TOKENS} tokens in "
+                  f"{q['generate_s']:.2f} s = {q['tokens_per_s']:.1f} tokens/s; "
+                  f"sequence_logits ({BATCH} x {PROMPT_LEN + NEW_TOKENS}): last position = "
+                  f"prefill's logits bit for bit; canary divergence at nominal 0.0 "
+                  f"(clean rollout + probe {q['canary_nominal_s']:.2f} s)")
+            walks = q["walks"] = {}
+
+            def walk(name, eng_, build_s_):
+                t_ = time.perf_counter()
+                lock_, hist_ = eng_.autotune_voltage(max_rounds=16)
+                torch.cuda.synchronize()
+                walks[name] = {
+                    "build_s": build_s_, "walk_s": time.perf_counter() - t_, "lock": lock_,
+                    "locked": eng_.controller.locked, "power_w": eng_.power_w(),
+                    "saving_vs_nominal": eng_.power_report()["saving_vs_nominal"],
+                    "history": [(r.voltage, r.corrected, r.detected, r.action,
+                                 round(r.divergence, 6)) for r in hist_]}
+                print(f"  Q walk {name}: lock {lock_:.2f} V in {len(hist_)} rounds, "
+                      f"{walks[name]['walk_s']:.1f} s, {walks[name]['power_w']:.4f} W; "
+                      f"history {json.dumps(walks[name]['history'])}")
+                return hist_
+
+            hist_ecc = walk("ecc+canary", eng, q["build_s"])
+            q["ecc_lock_signal"] = hist_ecc[-1].action
+            print(f"  Q: with ECC and the canary the walk locked on {hist_ecc[-1].action} "
+                  f"(detected {hist_ecc[-1].detected}, divergence {hist_ecc[-1].divergence})")
+            del eng
+            torch.cuda.empty_cache()
+            eng, b_s = q_engine(ecc=False)
+            hist_ctl = walk("blind", eng, b_s)
+            del eng
+            torch.cuda.empty_cache()
+            eng, b_s = q_engine(ecc=False, canary=canary)
+            hist_can = walk("blind+canary", eng, b_s)
+            del eng
+            torch.cuda.empty_cache()
+        require(all(h.detected == 0 for h in hist_ctl) and hist_ctl[-1].action == "floor"
+                and not any("backoff" in h.action for h in hist_ctl),
+                "the blind walk without a canary must descend to the floor with no DED")
+        require(all(h.detected == 0 for h in hist_can)
+                and any(h.action == "acc+backoff" for h in hist_can),
+                "the blind walk with the canary must back off on divergence alone")
+        require(walks["blind+canary"]["locked"]
+                and walks["blind+canary"]["lock"] > walks["blind"]["lock"] + 1e-9,
+                f"canary lock {walks['blind+canary']['lock']} not above the blind lock "
+                f"{walks['blind']['lock']}")
+        q["peak_gb"] = peak_gb()
+        counts, n_ = ops.launch_counts(), tally.n
+        per_fwd = len(protected(qcfg)) * qcfg.n_layers
+        require(per_fwd == 7 * qcfg.n_layers, f"{per_fwd} protected matmuls per forward")
+        want = {"inject_scrub": n_["steps"], "inject_scrub_domains": 0, "decode": 0,
+                "ecc_matmul": per_fwd * (n_["prefill"] + n_["decode"]),
+                "encode": n_["packs"], "gather_scrub": 0, "inject": 0,
+                "fault_field": n_.get("steps_below", 0)}
+        require(counts == want, f"Q launches {counts}, expected {want}")
+        require(n_["packs"] == 3 * per_fwd, f"Q: {n_['packs']} weight packs")
+        require(n_["plain_on_card"] == 0, "the plain codec ran on the card")
+        # w2's K = 18,944 takes the tiled kernel at every M
+        by_k = b3_by_kernel_check("Q", tally, counts, per_fwd - qcfg.n_layers)
+        paths_extra["Q"] = {
+            "launches": counts, "launches_by_codec": ops.launch_counts_by_codec(),
+            "kv_codec": None, "matmuls_per_forward": per_fwd, "b3_by_kernel": by_k,
+            "forwards": {"prefill": n_["prefill"], "decode": n_["decode"],
+                         "decode_kernel": n_.get("decode_kernel", 0)},
+            "packs": n_["packs"], "commits": 0, "voltage_steps": n_["steps"]}
+        q["launches"], q["b3_by_kernel"] = counts, by_k
+        print(f"  Q launches: {json.dumps(counts)} = {n_['steps']} voltage steps "
+              f"({n_.get('steps_below', 0)} below V_min, one field launch each), {per_fwd} fused "
+              f"matmuls x ({n_['prefill']} prefill + {n_['decode']} decode forwards), by kernel "
+              f"{json.dumps(by_k)}, {n_['packs']} weight packs; peak {q['peak_gb']:.1f} GB")
+
+        # b. the campaign at qwen3-0.6b's full width (host masks)
+        spec = campaign.CampaignSpec(model="qwen3-0.6b", codecs=("parity65", "secded72",
+                                                                "ileave88"),
+                                     voltages=(1.0, 0.57, 0.55), n_prompts=4, prompt_len=8,
+                                     n_tokens=24, proxy_words=1 << 16)
+        ops.reset_launch_count()
+        sweep.reset_dispatch_count()
+        with Tally() as tally:
+            tally._wrap(ServingEngine, "set_voltage", below)
+            tally._wrap(sweep, "_classify", "classify")
+            t = time.perf_counter()
+            rows = campaign.run_campaign(spec)
+            torch.cuda.synchronize()
+            ca_s = time.perf_counter() - t
+        contract = ("model", "arch", "platform", "codec", "voltage", "nominal", "divergence",
+                    "match_len", "kl", "ppl_delta", "scorer_version", "detected", "faulty_words",
+                    "bram_saving_vs_nominal", "seed", "proxy_words", "proxy_faulty_words")
+        require(len(rows) == 9 and all(all(c in r for c in contract) for r in rows),
+                "campaign rows or their columns")
+        for codec in spec.codecs:
+            by_v = [r for r in rows if r["codec"] == codec]
+            nom = by_v[0]
+            require(nom["nominal"] and nom["divergence"] == 0.0 and nom["kl"] == 0.0
+                    and nom["ppl_delta"] == 0.0 and nom["faulty_words"] == 0,
+                    f"campaign {codec}: the nominal row is not clean {nom}")
+            fw = [r["faulty_words"] for r in by_v]
+            require(fw[0] < fw[1] < fw[2], f"campaign {codec}: faulty words {fw}")
+        for r in rows:
+            print(f"  CA {r['codec']} {r['voltage']:.2f} V: divergence {r['divergence']:.4f}, "
+                  f"match {r['match_len']:.2f}/{r['n_tokens']}, kl {r['kl']:.4e}, ppl "
+                  f"{r['ppl_clean']:.2f} -> {r['ppl_faulty']:.2f}, corrected {r['corrected']}, "
+                  f"detected {r['detected']}, silent {r['silent']}, faulty words "
+                  f"{r['faulty_words']} (proxy {r['proxy_faulty_words']} of "
+                  f"{r['proxy_words']}), BRAM saving {r['bram_saving_vs_nominal']:.4f}, "
+                  f"{r['us'] / 1e6:.2f} s")
+        counts, n_ = ops.launch_counts(), tally.n
+        per_fwd = len(protected(cfg)) * cfg.n_layers
+        require(counts["inject_scrub"] == n_["steps"] + n_["classify"]
+                and counts["fault_field"] == sweep.dispatch_count()
+                and counts["ecc_matmul"] == per_fwd * (n_["prefill"] + n_["decode"])
+                and counts["encode"] >= n_["packs"] and counts["gather_scrub"] == 0
+                and counts["inject"] == 0 and counts["inject_scrub_domains"] == 0,
+                f"CA launches {counts}: {n_['steps']} steps, {n_['classify']} proxy points, "
+                f"{sweep.dispatch_count()} proxy draws, {n_['prefill']} + {n_['decode']} forwards")
+        require(n_["plain_on_card"] == 0, "the plain codec ran on the card")
+        by_k = b3_by_kernel_check("CA", tally, counts, per_fwd)
+        paths_extra["CA"] = {
+            "launches": counts, "launches_by_codec": ops.launch_counts_by_codec(),
+            "kv_codec": None, "matmuls_per_forward": per_fwd, "b3_by_kernel": by_k,
+            "forwards": {"prefill": n_["prefill"], "decode": n_["decode"],
+                         "decode_kernel": n_.get("decode_kernel", 0)},
+            "packs": n_["packs"], "commits": 0, "voltage_steps": n_["steps"]}
+        acc["CA"] = {"wall_s": ca_s, "rows": rows, "launches": counts}
+        print(f"  CA: {len(rows)} rows in {ca_s:.1f} s; launches {json.dumps(counts)} = "
+              f"{n_['steps']} engine steps + {n_['classify']} proxy points "
+              f"({sweep.dispatch_count()} field draws), {n_['prefill']} + {n_['decode']} "
+              f"forwards, by kernel {json.dumps(by_k)}")
+
+        # c. the sweeps, then the same points by the per-point loop and the
+        # schedules by a device-mask store (comparisons, not path SW)
+        params_ = lm.init_params(cfg, seed=0, device=dev)
+        clean_, _ = protect_params_inline(params_, cfg, include_embed=True)
+        eccs_ = [(k, w) for k, w in base.flatten(clean_) if isinstance(w, ops.EccWeight)]
+        mstore = PlaneStore([w for _, w in eccs_], [k for k, _ in eccs_], platform,
+                            mask_source="device", domain_key=shapes.domain_of, device=dev)
+        del params_, clean_, eccs_
+        schedules = [dict(MIXED_RAILS), {d: 0.55 for d in mstore.domains}]
+        profiles = {d: mstore.domain_profile(d) for d in mstore.domains}
+        main_out = io.StringIO()  # the CLI's JSON rows, written to stdout
+        crash = [(platform, platform.v_crash)]
+        ops.reset_launch_count()
+        sweep.reset_dispatch_count()
+        with Tally() as tally:
+            tally._wrap(sweep, "_classify", lambda masks, codec, dom_ids=None, n_domains=1:
+                        "classify" if dom_ids is None else "classify_domains")
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(main_out):
+                sweep.main([])
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t
+            t = time.perf_counter()
+            sched = sweep.sweep_rail_schedules(schedules, mstore.domains, mstore.dom_ids,
+                                               profiles, seed=mstore.seed)
+            torch.cuda.synchronize()
+            sched_s = time.perf_counter() - t
+            t = time.perf_counter()
+            schemes = sweep.sweep_codec_schemes(codes.names(), crash, 1 << 19)
+            torch.cuda.synchronize()
+            schemes_s = time.perf_counter() - t
+        counts, n_ = ops.launch_counts(), tally.n
+        draws = sweep.dispatch_count()
+        grid = sweep.paper_grid()
+        main_rows = json.loads(main_out.getvalue())
+        require(len(main_rows) == len(grid) and all(r["words"] == 512 * 1024 for r in main_rows),
+                "sweep main rows")
+        want = {"inject_scrub": n_["classify"],
+                "inject_scrub_domains": n_["classify_domains"]
+                * -(-mstore.n_words // sweep.CLASSIFY_WORDS),
+                "decode": 0, "ecc_matmul": 0, "encode": 0, "gather_scrub": 0, "inject": 0,
+                "fault_field": draws}
+        require(counts == want, f"SW launches {counts}, expected {want}")
+        require(n_["classify"] == len(grid) + len(codes.names())
+                and n_["classify_domains"] == len(schedules), f"SW classify calls {n_}")
+        paths_extra["SW"] = {
+            "launches": counts, "launches_by_codec": ops.launch_counts_by_codec(),
+            "kv_codec": None, "matmuls_per_forward": 0, "b3_by_kernel": {"decode": 0, "tiled": 0},
+            "forwards": {"prefill": 0, "decode": 0, "decode_kernel": 0},
+            "packs": 0, "commits": 0, "voltage_steps": 0}
+        # every main row equals the per-point loop on the device field and B1
+        fields_, loop_rows = {}, []
+        zeros = faultsim.zero_masks(512 * 1024, 8, dev)
+        for p_, v_ in grid:
+            f_ = fields_.setdefault(p_.name, faultsim.DeviceFaultField(p_, 512 * 1024, seed=0))
+            c_ = ops.inject_scrub(*zeros, *f_.masks(v_))[3].cpu().numpy()
+            loop_rows.append(FaultStats.from_counters(c_, 512 * 1024).coverage_row())
+        require([{k: r[k] for k in lr} for r, lr in zip(main_rows, loop_rows)] == loop_rows,
+                "a sweep point differs from the per-point device field + inject_scrub loop")
+        # the schedules equal the store's own device-path telemetry
+        for s_, got in zip(schedules, sched):
+            _, want_st = mstore.set_rails(s_)
+            require({d: st.to_dict() for d, st in got.by_domain.items()}
+                    == {d: st.to_dict() for d, st in want_st.by_domain.items()},
+                    f"sweep_rail_schedules differs from the store at {s_}")
+        cov = {r["codec"]: r["coverage_correctable"] for r in schemes}
+        require(cov["parity65"] < cov["secded72"] < min(cov["ileave88"], cov["dected79"]),
+                f"coverage at V_crash {cov}")
+        deepest = {p_.name: max((r for r in main_rows if r["platform"] == p_.name),
+                                key=lambda r: r["faulty_bits"]) for p_, _ in grid}
+        acc["SW"] = {"main_s": main_s, "schedules_s": sched_s, "schemes_s": schemes_s,
+                     "points": len(grid), "draws": draws, "launches": counts,
+                     "schedules": [{d: st.to_dict() for d, st in g.by_domain.items()}
+                                   for g in sched],
+                     "schemes": schemes,
+                     "deepest": {k: {c: r[c] for c in ("voltage", "faulty_bits", "corrected",
+                                                       "detected", "silent")}
+                                 for k, r in deepest.items()}}
+        print(f"  SW main: {len(grid)} points of the paper grid over 512 Ki words in "
+              f"{main_s:.2f} s ({draws} field draws in all), each equal to the per-point "
+              f"device field + inject_scrub loop; deepest per platform "
+              f"{json.dumps(acc['SW']['deepest'])}")
+        print(f"  SW schedules on the multi-rail store ({mstore.n_words} words) in "
+              f"{sched_s:.3f} s: equal to the store's device-path telemetry; "
+              f"{json.dumps(acc['SW']['schedules'][0])}")
+        print(f"  SW codec schemes at V_crash {platform.v_crash} V over 512 Ki words in "
+              f"{schemes_s:.3f} s: correctable coverage {json.dumps(cov)}")
+        print(f"  SW launches: {json.dumps(counts)}")
+        del mstore, zeros, fields_
+        torch.cuda.empty_cache()
+        return acc
 
     # ---------------------------------------------------------------- 2
     with Phase("2 kernels vs plain versions at main-path shapes"):
@@ -685,7 +1137,7 @@ def main() -> int:
         b3 = {m: {"M": m, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                   "ffma_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0,
                   "shapes": [],
-                  "function": b3_names["decode" if m <= b3_kernel.DECODE_MAX_M else "tiled"]}
+                  "function": b3_names[b3_kernel.kernel_for(m, cfg.d_ff)]}
               for m in (BATCH, VERIFY_M, BATCH * PROMPT_LEN)}
         gen = torch.Generator(device=dev).manual_seed(1)
         for key in (k for k in mm_keys if k in by_key):
@@ -3244,8 +3696,11 @@ def main() -> int:
               f"launches {json.dumps(n_0['launches'])}")
         print(f"  scenario {json.dumps(scen_run)}")
 
-    # ---------------------------------------------------------------- 14
-    with Phase("14 traced steps, timings and the kernels line"):
+    with Phase("14 accuracy canary (qwen2-7b), campaign and sweeps"):
+        accuracy_run = accuracy_phase(report, paths_extra)
+
+    # ---------------------------------------------------------------- 15
+    with Phase("15 traced steps, timings and the kernels line"):
         for name, run in runs.items():
             run["steps"] = step_breakdown(traced_params.pop(name), {"prefill": 0, "decode": 0},
                                           walls=run["steps"])
@@ -3281,6 +3736,7 @@ def main() -> int:
         print(f"  per_leaf {json.dumps(per_leaf_run)}")
         print(f"  domain {json.dumps(domain_run)}")
         print(f"  device {json.dumps(device_runs)}")
+        print(f"  accuracy {json.dumps(accuracy_run)}")
         paths = {**runs, **{k: v for k, v in paged.items() if "launches" in v}, **paths_extra}
 
         print(f"  codec {json.dumps(codec_run)}")
@@ -3293,10 +3749,13 @@ def main() -> int:
             launches under ``codec``, the encode's split into its plain form
             and its token-commit form (the commits of a path's kv codec)."""
             if kind in ("decode", "tiled"):
+                # the launches by the kernel each took where the path counted
+                # them (its forwards mix the kernels), else by forward kind
                 fwd_ = {p: r["forwards"]["decode_kernel"] if kind == "decode" else
                         r["forwards"]["prefill"] + r["forwards"]["decode"]
                         - r["forwards"]["decode_kernel"] for p, r in paths.items()}
-                return {p: paths[p]["matmuls_per_forward"] * f for p, f in fwd_.items()}
+                return {p: paths[p]["b3_by_kernel"][kind] if "b3_by_kernel" in paths[p]
+                        else paths[p]["matmuls_per_forward"] * f for p, f in fwd_.items()}
             if kernel not in ops.launch_counts_by_codec():
                 return {p: r["launches"][kernel] for p, r in paths.items()}
             out = {}
@@ -3382,7 +3841,7 @@ def main() -> int:
                                       "redundant_philox_calls", "neighbour_words", "class_draws",
                                       "word_draws", "flips", "flips_burst_free", "registers")
                     if k in r}),
-                **({k: r[k] for k in ("mlp", "verify") if k in r}),
+                **({k: r[k] for k in ("mlp", "verify", "qwen2_7b") if k in r}),
             })
         kernels[[k["name"] for k in kernels].index("encode")]["kv_arena"] = report["encode_kv_arena"]
     print(json.dumps({"kernels": kernels}))

@@ -109,6 +109,11 @@ class Codec:
         return check_dtypes(self.n_check)[1]
 
     @property
+    def overhead(self) -> float:
+        """Redundancy: check bits per data bit."""
+        return self.n_check / 64
+
+    @property
     def exact_tallies(self) -> bool:
         """Whether the counters compare the correction with the injected data
         mask to count genuine corrections (codecs that correct more than one

@@ -8,6 +8,7 @@ from repro_torch.configs import shapes
 
 ARCHS = {
     "qwen3-0.6b": "qwen3_0_6b",
+    "qwen2-7b": "qwen2_7b",
     # the paper's own accelerator workload (MLP on MNIST-class tasks)
     "paper-nn": "paper_nn",
 }

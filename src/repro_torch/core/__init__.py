@@ -9,11 +9,14 @@ DED-canary controllers.
                    codec escalation ladder
   * `telemetry`  — CORRECTED / DETECTED / SILENT fault accounting
   * `quantize`   — int8 + 64-bit word packing (BRAM word geometry)
+  * `campaign`   — accuracy under undervolting: divergence scorers and harness
+  * `sweep`      — platform x voltage, rail-schedule and codec-scheme sweeps
 """
 
 from repro_torch.core import (
-    controller, faultsim, memory, quantize, scenario, telemetry, voltage,
+    campaign, controller, faultsim, memory, quantize, scenario, sweep, telemetry, voltage,
 )
+from repro_torch.core.campaign import CampaignSpec, DivergenceReport, run_campaign
 from repro_torch.core.controller import (
     EscalationPolicy,
     MultiRailController,
@@ -27,7 +30,8 @@ from repro_torch.core.telemetry import DomainFaultStats, FaultStats
 from repro_torch.core.voltage import PLATFORMS, PlatformProfile
 
 __all__ = [
-    "controller", "faultsim", "memory", "quantize", "scenario", "telemetry", "voltage",
+    "campaign", "controller", "faultsim", "memory", "quantize", "scenario", "sweep",
+    "telemetry", "voltage", "CampaignSpec", "DivergenceReport", "run_campaign",
     "EscalationPolicy", "MultiRailController", "UndervoltController", "FaultField",
     "FlipMasks", "SharedPageDEDError",
     "EccMemoryDomain", "DomainFaultStats", "FaultStats", "PLATFORMS", "PlatformProfile",

@@ -14,6 +14,13 @@ voltage: the DED events that tripped it are the double-bit class the
 stronger code corrects. Once the ladder is spent, the next trip backs off and
 locks as before. The caller applies a change (``pop_codec_change``) to the
 protected storage before the next interval.
+
+Accuracy canary: the DED counters see detectable corruption, not output
+quality. A controller with a ``divergence_slo`` also takes each interval's
+canary divergence (the canary prompts' greedy output against the clean
+nominal rollout, in [0, 1]); a score above the SLO trips the rail as a DED
+event does (escalate where the ladder has a rung left, else back off and
+lock), even with every counter at zero.
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ class ControllerRecord:
     silent: int
     action: str
     codec: str = DEFAULT_CODEC
+    divergence: float = 0.0  # the interval's canary divergence (0.0 without one)
 
 
 class UndervoltController:
@@ -72,8 +80,9 @@ class UndervoltController:
     or step up the code where ``escalation`` has a rung left.
 
     With a flight recorder bound (``bind_recorder``), every ``update``
-    mirrors its ControllerRecord as a ``rail_step`` event, and an escalation
-    adds a ``codec_escalate`` event.
+    mirrors its ControllerRecord as a ``rail_step`` event, an escalation
+    adds a ``codec_escalate`` event and a divergence above the SLO a
+    ``canary_trip`` event.
     """
 
     def __init__(
@@ -88,8 +97,10 @@ class UndervoltController:
         adaptive: bool = False,
         shard: int = -1,
         domain: str | None = None,
+        divergence_slo: float | None = None,
     ):
         self.platform = platform
+        self.divergence_slo = divergence_slo
         self.step_v = step_v
         self.backoff_steps = backoff_steps
         self.paranoid = paranoid
@@ -120,9 +131,14 @@ class UndervoltController:
         """Attach a flight recorder (obs.TraceRecorder)."""
         self.recorder = recorder
 
-    def update(self, stats: FaultStats) -> float:
-        """Feed one read-interval's telemetry; returns the next rail voltage."""
-        trip = stats.detected > 0 or (self.paranoid and stats.silent > 0)
+    def update(self, stats: FaultStats, divergence: float | None = None) -> float:
+        """Feed one read-interval's telemetry and, optionally, its canary
+        ``divergence`` (a score above ``divergence_slo`` trips the rail);
+        returns the next rail voltage."""
+        acc_trip = (divergence is not None and self.divergence_slo is not None
+                    and divergence > self.divergence_slo)
+        ded_trip = stats.detected > 0 or (self.paranoid and stats.silent > 0)
+        trip = ded_trip or acc_trip
         stronger = self.escalation.next_codec(self.codec) if self.escalation else None
         ded_rate = stats.detected / max(stats.words, 1)
         codec_before = self.codec
@@ -134,9 +150,11 @@ class UndervoltController:
                 action = "drift+backoff"
             else:
                 action = "hold"
-        elif stronger is not None and stats.detected > 0 and ded_rate > self.escalation.ded_rate:
+        elif trip and stronger is not None and (
+                acc_trip or (stats.detected > 0 and ded_rate > self.escalation.ded_rate)):
             # Step the code up instead of retreating: the voltage holds and
-            # the walk resumes under the stronger code next interval.
+            # the walk resumes under the stronger code next interval. A
+            # divergence above the SLO escalates whatever the DED rate.
             self.codec = stronger
             self._pending_codec = stronger
             action = "escalate"
@@ -145,7 +163,7 @@ class UndervoltController:
                 self.platform.v_nom, self.voltage + self.backoff_steps * self.step_v
             )
             self.locked = True
-            action = "trip+backoff"
+            action = "acc+backoff" if acc_trip and not ded_trip else "trip+backoff"
         else:
             nxt = self.voltage - self.step_v
             if nxt < self.platform.v_crash:
@@ -155,9 +173,11 @@ class UndervoltController:
             else:
                 self.voltage = nxt
                 action = "lower"
+        div = 0.0 if divergence is None else float(divergence)
         self.history.append(
             ControllerRecord(
-                self.voltage, stats.corrected, stats.detected, stats.silent, action, self.codec
+                self.voltage, stats.corrected, stats.detected, stats.silent, action, self.codec,
+                div,
             )
         )
         rec = self.recorder
@@ -167,17 +187,21 @@ class UndervoltController:
                 "rail_step", domain=self.domain, shard=self.shard,
                 action=action, voltage=float(self.voltage), codec=self.codec,
                 corrected=int(stats.corrected), detected=int(stats.detected),
-                silent=int(stats.silent), words=int(stats.words), divergence=0.0,
+                silent=int(stats.silent), words=int(stats.words), divergence=div,
             )
             rec.metrics.counter(
                 "rail.actions", domain=self.domain or "", action=action, shard=self.shard,
             ).inc()
             if action == "escalate":
-                # The accuracy canary is not ported: no trip comes from it.
                 rec.emit(
                     "codec_escalate", domain=self.domain, shard=self.shard,
                     codec_from=codec_before, codec_to=self.codec,
-                    ded_rate=ded_rate, acc_trip=False,
+                    ded_rate=ded_rate, acc_trip=bool(acc_trip),
+                )
+            if acc_trip:
+                rec.emit(
+                    "canary_trip", domain=self.domain, shard=self.shard,
+                    divergence=div, slo=float(self.divergence_slo),
                 )
         return self.voltage
 
@@ -199,6 +223,7 @@ class MultiRailController:
         escalation: EscalationPolicy | None = None,
         codecs: dict | None = None,
         adaptive: bool = False,
+        divergence_slo: float | None = None,
     ):
         profiles = profiles or {}
         codecs = codecs or {}
@@ -208,6 +233,7 @@ class MultiRailController:
         self._defaults = dict(
             step_v=step_v, backoff_steps=backoff_steps, paranoid=paranoid,
             start_v=start_v, escalation=escalation, adaptive=adaptive,
+            divergence_slo=divergence_slo,
         )
         self.recorder = None
         self.rails = {
@@ -264,12 +290,15 @@ class MultiRailController:
                 out[d] = change
         return out
 
-    def update(self, stats) -> dict:
+    def update(self, stats, divergence=None) -> dict:
         """Feed one interval's per-domain telemetry (DomainFaultStats or
-        {domain: FaultStats}; domains without telemetry hold). Returns the
-        next {domain: voltage} schedule."""
+        {domain: FaultStats}; domains without telemetry hold) and its canary
+        ``divergence``: a scalar goes to every rail (the canary runs the
+        whole model, so no one domain can be blamed), a {domain: score} dict
+        to the rails it names. Returns the next {domain: voltage} schedule."""
         by_domain = getattr(stats, "by_domain", stats)
+        div_of = divergence.get if isinstance(divergence, dict) else lambda _d: divergence
         for d, ctrl in self.rails.items():
             if d in by_domain:
-                ctrl.update(by_domain[d])
+                ctrl.update(by_domain[d], divergence=div_of(d))
         return self.voltages

@@ -557,9 +557,15 @@ void launch_decode(const float* x, const uint32_t* lo, const uint32_t* hi, const
 
 }  // namespace
 
-// One launch per call: the decode kernel for M <= kDecodeMaxM (when its
-// shared memory fits), the tiled kernel otherwise. Both run the one chunk
-// chain, so the choice (and the tile) never changes a row's floats.
+// The kernel an (M, K8) call launches: 0 the decode kernel (M <= kDecodeMaxM
+// while its shared memory fits, K up to 8,832), 1 the tiled kernel.
+extern "C" int ecc_matmul_kernel_for(int M, int K8) {
+  return M <= kDecodeMaxM && decode_smem_bytes(K8) <= kDecodeMaxSmem ? 0 : 1;
+}
+
+// One launch per call, of the kernel ecc_matmul_kernel_for names. Both run
+// the one chunk chain, so the choice (and the tile) never changes a row's
+// floats.
 extern "C" int ecc_matmul(const void* x, const void* lo, const void* hi, const void* chk,
                           const void* scale, void* out, const void* tables, int M, int K8,
                           int N, void* stream) {
@@ -573,8 +579,8 @@ extern "C" int ecc_matmul(const void* x, const void* lo, const void* hi, const v
   const auto tab = static_cast<const SecdedTables*>(tables);
   const cudaStream_t s = cudaStream_t(stream);
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
-  const size_t smem = decode_smem_bytes(K8);
-  if (M <= kDecodeMaxM && smem <= kDecodeMaxSmem) {
+  if (ecc_matmul_kernel_for(M, K8) == 0) {
+    const size_t smem = decode_smem_bytes(K8);
     if (K8 % 4 == 0 && xa % 16 == 0)
       launch_decode<true>(xf, lo_, hi_, chk_, scale_, out_, tab, M, K8, N, smem, s);
     else

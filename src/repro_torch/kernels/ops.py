@@ -39,6 +39,7 @@ def reset_launch_count() -> None:
     for k in KERNELS.values():
         k.reset()
     _ff.BURST_LAUNCHES.clear()
+    _mm.LAUNCHES_BY_KERNEL.update(decode=0, tiled=0)
 
 
 def launch_counts() -> dict:
@@ -63,6 +64,13 @@ def burst_launch_counts() -> dict:
     last reset (they are also counted in ``launch_counts()["fault_field"]``)."""
     by_nc = {codes.get(c).n_check: c for c in codes.names()}
     return {by_nc[nc]: n for nc, n in sorted(_ff.BURST_LAUNCHES.items())}
+
+
+def ecc_matmul_launches_by_kernel() -> dict:
+    """{"decode": n, "tiled": n}: the fused matmul's launches since the last
+    reset by the kernel each took (they sum to
+    ``launch_counts()["ecc_matmul"]``)."""
+    return dict(_mm.LAUNCHES_BY_KERNEL)
 
 
 def _flat(*planes):

@@ -28,6 +28,7 @@ class ModelConfig:
     d_ff: int
     vocab: int
     head_dim: int = 0  # 0 -> d_model // n_heads
+    qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 1e4
     tie_embeddings: bool = False

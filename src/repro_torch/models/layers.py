@@ -193,13 +193,18 @@ def decode_attention(q, k_cache, v_cache, cur_len):
 
 def qkv_proj(x, p, cfg, rope=None):
     """x: (B, S, D) -> q (B,S,H,Dh), k/v (B,S,Hkv,Dh); q and k rotated by
-    ``rope`` = (cos, sin) where given. q and k are normed and rotated as one
-    tensor of H + Hkv heads (the same floats, half the operations)."""
+    ``rope`` = (cos, sin) where given. With ``cfg.qkv_bias`` the three
+    biases are added before the reshape, the norm and the rotation. q and k
+    are normed and rotated as one tensor of H + Hkv heads (the same floats,
+    half the operations)."""
     b, s, _ = x.shape
     h = cfg.n_heads
-    q = _linear(x, p["wq"]).reshape(b, s, h, cfg.hd)
-    k = _linear(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = _linear(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    q, k, v = (_linear(x, p[w]) for w in ("wq", "wk", "wv"))
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, h, cfg.hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.hd)
     qk = torch.cat([q, k], dim=2)
     if cfg.qk_norm:
         gamma = torch.cat([p["q_norm"].expand(h, -1), p["k_norm"].expand(cfg.n_kv_heads, -1)])

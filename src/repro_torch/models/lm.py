@@ -44,6 +44,10 @@ def _attn_spec(cfg):
         "wv": Spec((d, cfg.n_kv_heads * hd)),
         "wo": Spec((cfg.n_heads * hd, d)),
     }
+    if cfg.qkv_bias:
+        p["bq"] = Spec((cfg.n_heads * hd,), "zeros")
+        p["bk"] = Spec((cfg.n_kv_heads * hd,), "zeros")
+        p["bv"] = Spec((cfg.n_kv_heads * hd,), "zeros")
     if cfg.qk_norm:
         p["q_norm"] = Spec((hd,), "ones")
         p["k_norm"] = Spec((hd,), "ones")
@@ -224,6 +228,20 @@ def chunk_logits(params, tokens, cfg: ModelConfig, cache, pos0, kv_len: int | No
     speculative verify block)."""
     hidden = forward(params, tokens, cfg, cache, pos0, kv_len)
     return _logits(params, hidden, cfg), cache
+
+
+@torch.no_grad()
+def sequence_logits(params, tokens, cfg: ModelConfig):
+    """Teacher-forced (B, S, V) float32 logits of a fixed token sequence
+    (B, S): the paired clean-against-faulty evaluation of core/campaign.py,
+    which feeds the same tokens through both parameter sets. The forward is
+    the one of every other entry point, on a fresh cache of S positions, so
+    protected leaves read through the fused ECC matmul as in serving and the
+    last position's logits equal ``prefill``'s on the same tokens bit for
+    bit."""
+    cache = init_cache(cfg, tokens.shape[0], tokens.shape[1], device=tokens.device)
+    hidden = forward(params, tokens, cfg, cache, 0)
+    return _logits(params, hidden, cfg)
 
 
 @torch.no_grad()

@@ -33,7 +33,7 @@ import torch
 
 from repro_torch import codes
 from repro_torch.configs import shapes
-from repro_torch.core import scenario
+from repro_torch.core import campaign, scenario
 from repro_torch.core import voltage as vmod
 from repro_torch.core.controller import (
     EscalationPolicy,
@@ -99,9 +99,13 @@ class ProtectionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class CanaryConfig:
-    """DED canary behaviour."""
+    """DED and accuracy canary behaviour."""
 
-    prompts: int = 0  # accuracy canary, not ported: must be 0
+    prompts: int = 0  # > 0: this many fixed canary prompts per autotune round
+    tokens: int = 12  # greedy tokens decoded per canary prompt
+    # a canary divergence above this trips the rail with clean DED counters;
+    # None records the score and never trips
+    divergence_slo: float | None = None
     paranoid: bool = False  # silent (ground-truth) events trip too
 
 
@@ -171,7 +175,11 @@ class ReliabilityConfig:
             multi or prot.codecs is None or isinstance(prot.codecs, str),
             "per-domain codec dicts need multi_rail=True",
         )
-        _require(self.canary.prompts == 0, "the accuracy canary is not ported")
+        _require(
+            self.canary.prompts == 0 or self.mode == "inline",
+            "the accuracy canary decodes against the clean inline plane templates; "
+            "it needs mode='inline'",
+        )
         return self
 
     @property
@@ -283,6 +291,7 @@ class ServingEngine:
                 step_v=rails.step_v,
                 paranoid=rel.canary.paranoid,
                 start_v=rails.start_v,
+                divergence_slo=rel.canary.divergence_slo,
             )
             if rel and not rails.multi_rail
             else None
@@ -291,6 +300,7 @@ class ServingEngine:
         self.rail_stats = DomainFaultStats()
         self.stats = FaultStats()
         self._last_scrub = None
+        self._canary_ref = None  # the clean canary rollout, made on first use
         self.kv_arena = None
         self._paged_helper_cache: dict = {}
         self.domain = None
@@ -349,6 +359,7 @@ class ServingEngine:
                 escalation=rel.escalation_policy,
                 codecs={d: self._store.codec_of(d) for d in self._store.domains},
                 adaptive=rails.adaptive,
+                divergence_slo=rel.canary.divergence_slo,
             )
             self.set_rails({d: self.voltage for d in self._store.domains})
             if recorder is not None:
@@ -450,6 +461,29 @@ class ServingEngine:
         tok = torch.argmax(logits, dim=-1)[:, None]
         rest, _ = lm.greedy_decode_loop(p, tok, self.cfg, cache, s0, n_tokens - 1)
         return torch.cat([tok, rest], dim=1).cpu().numpy().astype(np.int32)
+
+    # -- accuracy canary ----------------------------------------------------------
+    def canary_divergence(self) -> float | None:
+        """Greedy-decode the canary prompts at the current rails and score
+        them against the clean rollout: ``1 - mean(matched prefix
+        fraction)`` in [0, 1], exactly 0.0 when every continuation equals
+        the clean one; None when the canary is off (``canary.prompts`` 0).
+        The clean rollout is decoded once, on first use, from the clean
+        plane templates through the same quantized read path, so
+        quantization cancels and only injected faults score."""
+        if self.rel is None or not self.rel.canary.prompts:
+            return None
+        prompts = campaign.eval_prompts(self.cfg.vocab, self.rel.canary.prompts,
+                                        campaign.CANARY_PROMPT_LEN, seed=self.rel.seed ^ 0xACC)
+        if self._canary_ref is None:
+            clean = self._reassemble_params(
+                [self._inline_template[i] for i, _ in self._ecc_slots])
+            self._canary_ref = self.generate(prompts, self.rel.canary.tokens, params=clean)
+        div = campaign.token_divergence(self._canary_ref,
+                                        self.generate(prompts, self.rel.canary.tokens))
+        if self.recorder:
+            self.recorder.emit("canary_probe", divergence=float(div))
+        return div
 
     # -- continuous batching over the paged ECC KV cache ------------------------
     @torch.no_grad()
@@ -588,7 +622,8 @@ class ServingEngine:
             if self.recorder:
                 self.recorder.advance(1)
             v = self.controller.update(
-                self._last_scrub if self.rel.mode == "inline" else self._domain_scrub()
+                self._last_scrub if self.rel.mode == "inline" else self._domain_scrub(),
+                divergence=self.canary_divergence(),
             )
             if self.controller.locked:
                 self.set_voltage(self.controller.voltage)
@@ -606,7 +641,9 @@ class ServingEngine:
         for _ in range(max_rounds):
             if self.recorder:
                 self.recorder.advance(1)
-            volts = self.controller.update(self._last_scrub)
+            # One canary score for every rail: the canary runs the whole model.
+            volts = self.controller.update(self._last_scrub,
+                                           divergence=self.canary_divergence())
             # A rail that escalated re-protects its domain before the next
             # step, so the next interval is judged under the stronger code.
             # A `kv` change stays pending for the serving loop.

@@ -164,7 +164,8 @@ def test_entry_points_default_to_the_card(models, monkeypatch):
     {"mode": "domain", "protection": teng.ProtectionConfig(codecs="dected79")},
     {"protection": teng.ProtectionConfig(codecs={"attention": "secded72"})},
     {"fault_model": teng.FaultModelConfig(environment="mars")},
-    {"canary": teng.CanaryConfig(prompts=2)},
+    # the accuracy canary diffs the inline arena's clean templates
+    {"mode": "domain", "canary": teng.CanaryConfig(prompts=2)},
     {"platform": "nope"},
     {"fault_model": teng.FaultModelConfig(batched=False),
      "protection": teng.ProtectionConfig(codecs="ileave88")},

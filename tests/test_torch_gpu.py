@@ -89,6 +89,36 @@ def test_ecc_matmul_kernel_within_tolerance(cuda, m, k, n):
     assert float((out - plain).abs().max()) <= MATMUL_RTOL * float(plain.abs().max())
 
 
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,want", [(4, 3584, "decode"), (16, 8832, "decode"),
+                                      (4, 8840, "tiled"), (4, 18944, "tiled"),
+                                      (17, 3584, "tiled")])
+def test_ecc_matmul_launches_the_kernel_it_names(cuda, m, k, want):
+    """``kernel_for`` names the kernel the launcher runs (the profiler's
+    event), and the wrapper counts the launch under it: qwen2-7b's w2
+    (K = 18,944) takes the tiled kernel even at M = 4."""
+    assert mm.kernel_for(m, k) == want
+    w = ops.pack_ecc_weights(torch.randn(k, 64, device=cuda))
+    x = torch.randn(m, k, device=cuda)
+    ops.ecc_matmul(x, w)  # first launch outside the trace
+    torch.cuda.synchronize()
+    expect = {"decode": int(want == "decode"), "tiled": int(want == "tiled")}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(5):  # the profiler can drop a record: a window that saw none is redone
+        ops.reset_launch_count()
+        with torch.profiler.profile(activities=acts) as prof:
+            ops.ecc_matmul(x, w)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        ran = {kind: sum(g in e for e in names) for kind, g in mm.GLOBAL_KERNELS.items()}
+        assert ops.ecc_matmul_launches_by_kernel() == expect
+        assert all(ran[kind] <= expect[kind] for kind in ran), names
+        if ran == expect:
+            break
+    assert ran == expect, names
+
 # qwen3-0.6b's seven (K, N) per layer, two with K8 % 8 != 0 and an N tail,
 # and a K whose decode-kernel shared memory does not fit (the tiled kernel
 # takes every M there)
