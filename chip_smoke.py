@@ -175,19 +175,46 @@ them. Phases, each printed on its own line with its wall time:
      schedules on the multi-rail store's geometry (equal to the store's own
      device-path telemetry) and the codec schemes at V_crash (the stronger
      codes correct more);
-  4-14 each zero the kernel launch counts at the start of a path and read
+  15. the rest of the dense family. MN: minitron-8b at full width (32
+     layers, d 4096, 32/8 heads, d_ff 16384 non-gated relu^2, vocab 256000,
+     bf16, untied; 704,643,072 protected words, device masks): the fused
+     matmul at its four (K, N) at M = batch, 20 and batch x prompt against
+     the plain version (w2's K = 16,384 takes the tiled kernel at every M),
+     a traced prefill (192 tiled events) and decode step (160 decode-kernel
+     and 32 tiled events, each the wrapper's count), generate,
+     ``sequence_logits`` (its last position = prefill's bit for bit), an
+     ECC walk from V_min, then an engine with the int8 KV cache
+     (``kv_quant``): its prefill logits equal the bf16 cache's bit for bit
+     (prefill attends unquantised K/V), its cache bytes, first-step logit
+     difference and token agreement printed. QP: qwen1.5-4b at full width
+     (40 layers, d 2560, 20/20 heads, seeded QKV biases; 396,492,800 words,
+     device masks) through ``serve`` on phase 6's stream at a nominal kv
+     rail (every request equal to dense ``generate``) and at a 0.56 V kv
+     rail (token agreement printed, not required: SECDED leaves DED words
+     as they are), B4's commit and
+     B6's interval scrub at its 819,200-word pages, and ``serve`` refusing
+     a ``sliding_window`` and a ``kv_quant`` config before any page. W:
+     qwen3-0.6b with a 4,096-token sliding window (mixtral-8x22b's): a
+     4,608-token prompt and 16 decode steps through the 4,096-slot ring
+     against a position-indexed cache with the window as a mask: prefill
+     and every step's logits and the ring's slots (slot j = position p,
+     p % 4,096 = j) bit for bit, the decode loop from the ring's prefill
+     state = the ring's tokens;
+  4-15 each zero the kernel launch counts at the start of a path and read
      them at its end, and fail unless every voltage step launched its scrub
      kernel once (B1 single-rail, B2 and the embedding's B5 multi-rail,
      none of the other path's), every forward pass of the protected model
      launched the fused matmul once per protected matrix of each layer
-     (7 x 28 = 196), every weight pack and token commit launched the
+     (7 x 28 = 196 at qwen3-0.6b; the matrices a layer protects and the
+     kernel each takes come from ``protected`` and ``b3_split``), every
+     weight pack and token commit launched the
      encode once, every fault interval and prefix-hit admission launched
      the paged scrub once, every KV fault interval below V_min and every
      device-mask step of a codec group below V_min launched the fault field
      once, every per-leaf step and every domain read launched the fault
      injection and the decode once per leaf, and the plain codec never ran
      on the card;
-  15. one prefill and one decode step of paths 4-5 under torch.profiler
+  16. one prefill and one decode step of paths 4-5 under torch.profiler
      (device busy time, idle share, fused-matmul time inside the step, which
      must come from the decode kernel in a decode step and the tiled kernel
      in a prefill), tokens/s, voltage-step times and one
@@ -244,6 +271,11 @@ FIELD_STATS_WORDS = 1 << 22
 # phase 10's multi-rail rails for the per-word-rate check: two domains below
 # V_min, the embedding above it (rate 0, a run of words that draw nothing)
 MIXED_RAILS = {"attention": 0.56, "mlp": 0.55, "embedding": 1.0}
+# phase 15: the published full-width arenas (32 x (2 x 4096^2 + 2 x 4096 x
+# 1024 + 2 x 4096 x 16384) / 8 and 40 x (4 x 2560^2 + 3 x 2560 x 6912) / 8
+# words), and the ring at mixtral-8x22b's window
+MN_WORDS, QP_WORDS = 704_643_072, 396_492_800
+W_WINDOW, W_DECODE = 4096, 16
 
 T0 = time.perf_counter()
 
@@ -473,12 +505,18 @@ def main() -> int:
         out.update(interval_scrub_kernel_ms=row["ms"], interval_scrub_kernel=row)
         return out
 
-    def device_events(fn) -> list:
+    def device_events(fn, lead: int = 0) -> list:
         """(name, start_us, end_us) of every device event (kernels, copies)
-        that ``fn`` causes, from torch.profiler's CUDA activity trace."""
+        that ``fn`` causes, from torch.profiler's CUDA activity trace, after
+        ``lead`` one-element kernels that open the window (their events
+        are in the list)."""
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        one = torch.zeros(1, device=dev)
         with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(lead):
+                one.add_(1)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
         cuda = torch.autograd.DeviceType.CUDA
@@ -605,6 +643,37 @@ def main() -> int:
             yield
             self.n = saved
 
+    def protected(c):
+        """(K, N) of every protected matrix of a layer (K % 8 == 0 and both
+        at least 64, as ``protect_params_inline`` takes them): wq, wk, wv,
+        wo, w1, w3 where the MLP is gated, w2."""
+        d_, hq, hkv = c.d_model, c.n_heads * c.hd, c.n_kv_heads * c.hd
+        mats = [(d_, hq), (d_, hkv), (d_, hkv), (hq, d_), (d_, c.d_ff)]
+        mats += [(d_, c.d_ff)] * c.gated_mlp + [(c.d_ff, d_)]
+        return [(k_, n_) for k_, n_ in mats if k_ % 8 == 0 and min(k_, n_) >= 64]
+
+    def b3_split(c, m: int) -> dict:
+        """A forward's protected matmuls at ``m`` rows by the B3 kernel each
+        takes (``ecc_matmul_kernel_for``: the decode kernel for at most
+        DECODE_MAX_M rows and K within its shared memory)."""
+        kinds = [b3_kernel.kernel_for(m, k_) for k_, _ in protected(c)]
+        return {k_: kinds.count(k_) * c.n_layers for k_ in ("decode", "tiled")}
+
+    def b3_by_kernel_check(name, tally, counts, c):
+        """The fused matmul's launches by the kernel each took, as the
+        wrapper counted them: each forward of at most DECODE_MAX_M rows puts
+        ``b3_split(c, 1)["decode"]`` matmuls on the decode kernel, the rest
+        go tiled."""
+        got = ops.ecc_matmul_launches_by_kernel()
+        want = b3_split(c, 1)["decode"] * tally.n.get("decode_kernel", 0)
+        require(sum(got.values()) == counts["ecc_matmul"] and got["decode"] == want,
+                f"{name}: B3 launches by kernel {got}, expected {want} on the decode "
+                f"kernel of {counts['ecc_matmul']}")
+        return got
+
+    def peak_gb() -> float:
+        return torch.cuda.max_memory_allocated() / 1e9
+
     # ---------------------------------------------------------------- 1
     with Phase("1 build kernels"):
         built = backend.build()
@@ -624,6 +693,102 @@ def main() -> int:
     cfg = get_config("qwen3-0.6b")
     platform = PLATFORMS["vc707"]
     report: dict = {}
+
+    def b3_shape_rows(label, leaves, n_groups) -> list:
+        """B3 at a model's four (K, N) (wq, wk, w1, w2 of ``leaves``, the
+        protected leaves by name; the engine at 0.56 V, so the planes carry
+        faults) at M = batch, 20 and batch x prompt against the plain
+        version on two layers, timed beside the plain version and
+        torch.matmul on the dequantised weights, with its bound; the M =
+        batch rows equal to the same rows at M = batch x prompt. Only w2
+        takes the tiled kernel at M = batch."""
+        gen = torch.Generator(device=dev).manual_seed(2)
+        b3_rows = []
+        for wname in (w_ for w_ in ("wq", "wk", "w1", "w2") if w_ in leaves):
+            ew = leaves[wname]
+            layers_ = [ew.layer(g) for g in range(n_groups)]
+            w_deq = []
+            for lw in layers_[:2]:
+                dlo, dhi, _ = ref.decode_ref(lw.lo, lw.hi, lw.parity)
+                w_deq.append(ref.unpack_ecc_weights(dlo, dhi).to(torch.float32) * lw.scale)
+            x_all = torch.randn(BATCH * PROMPT_LEN, ew.k, generator=gen, device=dev)
+            for lw in layers_[:2]:
+                require(torch.equal(ops.ecc_matmul(x_all[:BATCH], lw),
+                                    ops.ecc_matmul(x_all, lw)[:BATCH]),
+                        f"{label} {wname}: the M={BATCH} rows differ from the same rows at "
+                        f"M={BATCH * PROMPT_LEN}")
+            for m in (BATCH, VERIFY_M, BATCH * PROMPT_LEN):
+                x = x_all[:m]
+                worst, rel_ = 0.0, 0.0
+                for lw in layers_[:2]:
+                    k_o = ops.ecc_matmul(x, lw)
+                    p_o = ref.ecc_matmul_ref(x, lw.lo, lw.hi, lw.parity, lw.scale)
+                    err, scale = float((k_o - p_o).abs().max()), float(p_o.abs().max())
+                    require(bool(torch.isfinite(k_o).all()), f"{label} {wname} non-finite")
+                    require(err <= MATMUL_RTOL * scale,
+                            f"{label} {wname} M={m}: err {err} > {MATMUL_RTOL} * {scale}")
+                    worst, rel_ = max(worst, err), max(rel_, err / scale)
+                ms = sync_ms(lambda: [ops.ecc_matmul(x, lw) for lw in layers_], 5) / len(layers_)
+                pms = sync_ms(lambda: [ref.ecc_matmul_ref(x, lw.lo, lw.hi, lw.parity, lw.scale)
+                                       for lw in layers_[:2]], 2) / 2
+                lib = sync_ms(lambda: [torch.matmul(x, w) for w in w_deq], 20) / len(w_deq)
+                k, nn = ew.k, ew.n
+                nbytes = 4 * m * k + 9 * k * nn // 8 + 4 * nn + 4 * m * nn
+                bt, ot = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * 3 * 2 * m * k * nn / BF16_TC_FLOPS
+                row = {"key": wname, "M": m, "K": k, "N": nn,
+                       "function": b3_names[b3_kernel.kernel_for(m, k)], "ms": ms,
+                       "plain_ms": pms, "library_ms": lib, "bound_ms": max(bt, ot),
+                       "bound_by": "bytes" if bt >= ot else "operations", "bytes_ms": bt,
+                       "ops_ms": ot, "max_abs_err": worst, "max_rel_err": rel_}
+                b3_rows.append(row)
+                print(f"  {label} ecc_matmul {wname} M={m} K={k} N={nn} ({row['function']}): "
+                      f"max err {worst:.3e} (rel {rel_:.2e}), {ms:.4f} ms, bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {pms:.4f} ms, "
+                      f"torch.matmul {lib:.4f} ms")
+            del w_deq, x_all, layers_
+        require(sum(r["function"] == b3_names["tiled"] for r in b3_rows if r["M"] == BATCH) == 1,
+                f"{label} at M = batch: only w2 takes the tiled kernel")
+        print(f"  {label} ecc_matmul rows: the M={BATCH} rows equal the same rows at "
+              f"M={BATCH * PROMPT_LEN}, every (K, N)")
+        return b3_rows
+
+    def b3_traced(label, params_, c, prompts_) -> dict:
+        """Which B3 kernel each matmul of a forward ran, as the profiler saw
+        it: a prefill's all tiled, a decode step's by ``b3_split`` (w2 tiled
+        where its K is past the decode kernel's shared memory); the wrapper
+        counts the same. torch.profiler can lose a device record from a
+        window: late in this process it loses one at the same place of
+        every window of a step (minitron-8b's decode step: layer 0's w1
+        launch, in every window). So a window that saw fewer launches than
+        the wrapper counted is traced again (up to 5 windows), each opened
+        by one more one-element kernel, which moves that place; a window
+        that saw more, or the other kernel, fails."""
+        toks_ = torch.as_tensor(prompts_, device=dev)
+        cache_ = lm.init_cache(c, BATCH, 64)
+        logits_, _ = lm.prefill(params_, toks_, c, cache_)
+        tok_ = torch.argmax(logits_, dim=-1)[:, None]
+        traced = {}
+        for kind_, f_, want in (
+                ("prefill", lambda: lm.prefill(params_, toks_, c, cache_),
+                 b3_split(c, BATCH * PROMPT_LEN)),
+                ("decode", lambda: lm.decode_step(params_, tok_, c, cache_, PROMPT_LEN),
+                 b3_split(c, BATCH))):
+            for lead in range(5):
+                ops.reset_launch_count()
+                evs = device_events(f_, lead)
+                ran = {k_: sum(v in e[0] for e in evs) for k_, v in b3_names.items()}
+                counted = ops.ecc_matmul_launches_by_kernel()
+                require(counted == want and all(ran[k_] <= want[k_] for k_ in want),
+                        f"{label} traced {kind_}: B3 kernels {ran}, counted {counted}, "
+                        f"expected {want}")
+                traced.setdefault(kind_, []).append(ran)
+                if ran == want:
+                    break
+            require(ran == want, f"{label} traced {kind_}: no window saw every B3 launch "
+                    f"{traced[kind_]}, expected {want}")
+        print(f"  {label} traced forwards, B3 launches by kernel in each window "
+              f"(the last = the wrapper's count): {json.dumps(traced)}")
+        return traced
 
     # ---------------------------------------------------------------- 14
     # The accuracy canary on qwen2-7b at full width (path Q), the accuracy
@@ -655,28 +820,6 @@ def main() -> int:
             eng_ = ServingEngine(qcfg, q_params(), rel=rel, max_len=64)
             torch.cuda.synchronize()
             return eng_, time.perf_counter() - t_
-
-        def protected(c):
-            """(K, N) of every protected matrix of a layer (K % 8 == 0 and
-            both at least 64, as ``protect_params_inline`` takes them)."""
-            d_, hq, hkv = c.d_model, c.n_heads * c.hd, c.n_kv_heads * c.hd
-            mats = [(d_, hq), (d_, hkv), (d_, hkv), (hq, d_), (d_, c.d_ff), (d_, c.d_ff),
-                    (c.d_ff, d_)]
-            return [(k_, n_) for k_, n_ in mats if k_ % 8 == 0 and min(k_, n_) >= 64]
-
-        def peak_gb() -> float:
-            return torch.cuda.max_memory_allocated() / 1e9
-
-        def b3_by_kernel_check(name, tally, counts, n_small):
-            """The fused matmul's launches by the kernel each took, as the
-            wrapper counted them: ``n_small`` of each forward's matmuls of at
-            most DECODE_MAX_M rows on the decode kernel, the rest tiled."""
-            got = ops.ecc_matmul_launches_by_kernel()
-            want = n_small * tally.n.get("decode_kernel", 0)
-            require(sum(got.values()) == counts["ecc_matmul"] and got["decode"] == want,
-                    f"{name}: B3 launches by kernel {got}, expected {want} on the decode "
-                    f"kernel of {counts['ecc_matmul']}")
-            return got
 
         # a. qwen2-7b: B3 at its four (K, N) and B4's pack of the whole arena
         # against the plain versions, on an engine of its own (these launches
@@ -711,90 +854,11 @@ def main() -> int:
         require(eng._last_scrub.corrected > 0, f"qwen2-7b 0.56 V scrub {eng._last_scrub}")
         leaves = {k.split("[")[-1].strip("']"): w for k, w in base.flatten(eng.params)
                   if isinstance(w, ops.EccWeight)}
-        gen = torch.Generator(device=dev).manual_seed(2)
-        b3_rows = []
-        for wname in (w_ for w_ in ("wq", "wk", "w1", "w2") if w_ in leaves):
-            ew = leaves[wname]
-            layers_ = [ew.layer(g) for g in range(qcfg.n_groups)]
-            w_deq = []
-            for lw in layers_[:2]:
-                dlo, dhi, _ = ref.decode_ref(lw.lo, lw.hi, lw.parity)
-                w_deq.append(ref.unpack_ecc_weights(dlo, dhi).to(torch.float32) * lw.scale)
-            x_all = torch.randn(BATCH * PROMPT_LEN, ew.k, generator=gen, device=dev)
-            for lw in layers_[:2]:
-                require(torch.equal(ops.ecc_matmul(x_all[:BATCH], lw),
-                                    ops.ecc_matmul(x_all, lw)[:BATCH]),
-                        f"qwen2-7b {wname}: the M={BATCH} rows differ from the same rows at "
-                        f"M={BATCH * PROMPT_LEN}")
-            for m in (BATCH, VERIFY_M, BATCH * PROMPT_LEN):
-                x = x_all[:m]
-                worst, rel_ = 0.0, 0.0
-                for lw in layers_[:2]:
-                    k_o = ops.ecc_matmul(x, lw)
-                    p_o = ref.ecc_matmul_ref(x, lw.lo, lw.hi, lw.parity, lw.scale)
-                    err, scale = float((k_o - p_o).abs().max()), float(p_o.abs().max())
-                    require(bool(torch.isfinite(k_o).all()), f"qwen2-7b {wname} non-finite")
-                    require(err <= MATMUL_RTOL * scale,
-                            f"qwen2-7b {wname} M={m}: err {err} > {MATMUL_RTOL} * {scale}")
-                    worst, rel_ = max(worst, err), max(rel_, err / scale)
-                ms = sync_ms(lambda: [ops.ecc_matmul(x, lw) for lw in layers_], 5) / len(layers_)
-                pms = sync_ms(lambda: [ref.ecc_matmul_ref(x, lw.lo, lw.hi, lw.parity, lw.scale)
-                                       for lw in layers_[:2]], 2) / 2
-                lib = sync_ms(lambda: [torch.matmul(x, w) for w in w_deq], 20) / len(w_deq)
-                k, nn = ew.k, ew.n
-                nbytes = 4 * m * k + 9 * k * nn // 8 + 4 * nn + 4 * m * nn
-                bt, ot = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * 3 * 2 * m * k * nn / BF16_TC_FLOPS
-                row = {"key": wname, "M": m, "K": k, "N": nn,
-                       "function": b3_names[b3_kernel.kernel_for(m, k)], "ms": ms,
-                       "plain_ms": pms, "library_ms": lib, "bound_ms": max(bt, ot),
-                       "bound_by": "bytes" if bt >= ot else "operations", "bytes_ms": bt,
-                       "ops_ms": ot, "max_abs_err": worst, "max_rel_err": rel_}
-                b3_rows.append(row)
-                print(f"  qwen2-7b ecc_matmul {wname} M={m} K={k} N={nn} ({row['function']}): "
-                      f"max err {worst:.3e} (rel {rel_:.2e}), {ms:.4f} ms, bound "
-                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {pms:.4f} ms, "
-                      f"torch.matmul {lib:.4f} ms")
-            del w_deq, x_all, layers_
-        require(sum(r["function"] == b3_names["tiled"] for r in b3_rows if r["M"] == BATCH) == 1,
-                "qwen2-7b at M = batch: only w2 (K = 18,944) takes the tiled kernel")
-        print(f"  qwen2-7b ecc_matmul rows: the M={BATCH} rows equal the same rows at "
-              f"M={BATCH * PROMPT_LEN}, every (K, N)")
-        # which B3 kernel each matmul of a forward ran, as the profiler saw
-        # it: a prefill's 196 all tiled, a decode step's w2 (28) tiled and
-        # its other 168 on the decode kernel; the wrapper counts the same.
-        # torch.profiler can drop a device record from a window, so a window
-        # that saw fewer launches than the wrapper counted is traced again
-        # (up to 5 windows); one that saw more, or the other kernel, fails.
+        n_leaves = len(leaves)
+        b3_rows = b3_shape_rows("qwen2-7b", leaves, qcfg.n_groups)
         rng_ = np.random.default_rng(0)
         q_prompts = rng_.integers(0, qcfg.vocab, (BATCH, PROMPT_LEN)).astype(np.int32)
-        toks_ = torch.as_tensor(q_prompts, device=dev)
-        cache_ = lm.init_cache(qcfg, BATCH, 64)
-        logits_, _ = lm.prefill(eng.params, toks_, qcfg, cache_)
-        tok_ = torch.argmax(logits_, dim=-1)[:, None]
-        per_fwd = len(protected(qcfg)) * qcfg.n_layers
-        traced = {}
-        for kind_, f_, want in (
-                ("prefill", lambda: lm.prefill(eng.params, toks_, qcfg, cache_),
-                 {"decode": 0, "tiled": per_fwd}),
-                ("decode", lambda: lm.decode_step(eng.params, tok_, qcfg, cache_, PROMPT_LEN),
-                 {"decode": per_fwd - qcfg.n_layers, "tiled": qcfg.n_layers})):
-            for _ in range(5):
-                ops.reset_launch_count()
-                evs = device_events(f_)
-                ran = {k_: sum(v in e[0] for e in evs) for k_, v in b3_names.items()}
-                counted = ops.ecc_matmul_launches_by_kernel()
-                require(counted == want and all(ran[k_] <= want[k_] for k_ in want),
-                        f"qwen2-7b traced {kind_}: B3 kernels {ran}, counted {counted}, "
-                        f"expected {want}")
-                traced.setdefault(kind_, []).append(ran)
-                if ran == want:
-                    break
-            require(ran == want, f"qwen2-7b traced {kind_}: no window saw every B3 launch "
-                    f"{traced[kind_]}, expected {want}")
-        acc["b3_traced"] = traced
-        print(f"  qwen2-7b traced forwards, B3 launches by kernel in each window "
-              f"(the last = the wrapper's count): {json.dumps(traced)}")
-        del cache_, logits_
+        acc["b3_traced"] = b3_traced("qwen2-7b", eng.params, qcfg, q_prompts)
         acc["b3"] = b3_rows
         report["ecc_matmul_decode"]["qwen2_7b"] = [
             r for r in b3_rows if r["function"] == b3_names["decode"]]
@@ -880,7 +944,8 @@ def main() -> int:
         q["peak_gb"] = peak_gb()
         counts, n_ = ops.launch_counts(), tally.n
         per_fwd = len(protected(qcfg)) * qcfg.n_layers
-        require(per_fwd == 7 * qcfg.n_layers, f"{per_fwd} protected matmuls per forward")
+        require(per_fwd == n_leaves * qcfg.n_layers,
+                f"{per_fwd} protected matmuls per forward, {n_leaves} protected leaves")
         want = {"inject_scrub": n_["steps"], "inject_scrub_domains": 0, "decode": 0,
                 "ecc_matmul": per_fwd * (n_["prefill"] + n_["decode"]),
                 "encode": n_["packs"], "gather_scrub": 0, "inject": 0,
@@ -889,7 +954,7 @@ def main() -> int:
         require(n_["packs"] == 3 * per_fwd, f"Q: {n_['packs']} weight packs")
         require(n_["plain_on_card"] == 0, "the plain codec ran on the card")
         # w2's K = 18,944 takes the tiled kernel at every M
-        by_k = b3_by_kernel_check("Q", tally, counts, per_fwd - qcfg.n_layers)
+        by_k = b3_by_kernel_check("Q", tally, counts, qcfg)
         paths_extra["Q"] = {
             "launches": counts, "launches_by_codec": ops.launch_counts_by_codec(),
             "kv_codec": None, "matmuls_per_forward": per_fwd, "b3_by_kernel": by_k,
@@ -947,7 +1012,7 @@ def main() -> int:
                 f"CA launches {counts}: {n_['steps']} steps, {n_['classify']} proxy points, "
                 f"{sweep.dispatch_count()} proxy draws, {n_['prefill']} + {n_['decode']} forwards")
         require(n_["plain_on_card"] == 0, "the plain codec ran on the card")
-        by_k = b3_by_kernel_check("CA", tally, counts, per_fwd)
+        by_k = b3_by_kernel_check("CA", tally, counts, cfg)
         paths_extra["CA"] = {
             "launches": counts, "launches_by_codec": ops.launch_counts_by_codec(),
             "kv_codec": None, "matmuls_per_forward": per_fwd, "b3_by_kernel": by_k,
@@ -1864,10 +1929,13 @@ def main() -> int:
                     .astype(np.int32), int(rng.integers(8, 17))) for _ in range(8)]
     paged = {}
 
-    def check_paged_launches(name, tally, counts, multi):
-        """The paged path's launch formulas, from the path's own tally."""
+    def check_paged_launches(name, tally, counts, multi, c=None, into=None):
+        """The paged path's launch formulas, from the path's own tally, for
+        the model ``c`` (qwen3-0.6b); its record goes into ``into``
+        (``paged``)."""
         n = tally.n
-        per_fwd = 7 * cfg.n_layers
+        c = c or cfg
+        per_fwd = len(protected(c)) * c.n_layers
         want = {"inject_scrub": 0 if multi else 1, "inject_scrub_domains": int(multi),
                 "decode": int(multi), "ecc_matmul": per_fwd * (n["prefill"] + n["decode"]),
                 "encode": n["packs"] + n["commits"],
@@ -1881,7 +1949,8 @@ def main() -> int:
               f"{n['packs']} packs + {n['commits']} commits, {n['intervals']} fault intervals "
               f"({n['draws']} field draws) + "
               f"{n['prefix_scrubs']} prefix-hit admission scrubs")
-        paged[name] = {"launches": counts, "launches_by_codec": ops.launch_counts_by_codec(),
+        (paged if into is None else into)[name] = {
+                       "launches": counts, "launches_by_codec": ops.launch_counts_by_codec(),
                        "kv_codec": "secded72", "matmuls_per_forward": per_fwd,
                        "forwards": {"prefill": n["prefill"], "decode": n["decode"],
                                     "decode_kernel": n["decode_kernel"]},
@@ -3696,11 +3765,353 @@ def main() -> int:
               f"launches {json.dumps(n_0['launches'])}")
         print(f"  scenario {json.dumps(scen_run)}")
 
+    # ---------------------------------------------------------------- 15
+    # The rest of the dense family at full width: minitron-8b's non-gated
+    # relu^2 MLP and its int8 KV cache (path MN), qwen1.5-4b's 20/20-head KV
+    # pages through serve (path QP) and the sliding-window ring at
+    # qwen3-0.6b's width (W).
+    def dense_family_phase(report: dict, paths_extra: dict) -> dict:
+        out: dict = {}
+        v_min = platform.v_min
+        below = lambda eng_, v, *a, **kw: ("steps", "steps_below") if \
+            platform.fault_rate(float(v)) > 0.0 else "steps"
+        rng_ = np.random.default_rng(3)
+
+        def seeded(c):
+            """Random weights from seed 0, QKV biases N(0, 0.5^2) from seed 1
+            (``init_params`` draws them as zeros)."""
+            p = lm.init_params(c, seed=0, device=dev)
+            if c.qkv_bias:
+                gen = torch.Generator(device=dev).manual_seed(1)
+                for b in ("bq", "bk", "bv"):
+                    t_ = p["blocks"]["p0"]["attn"][b]
+                    t_.copy_(0.5 * torch.randn(t_.shape, generator=gen, device=dev))
+            return p
+
+        def engine(c, max_len):
+            """An inline single-rail engine at nominal, device masks, its
+            walk starting at V_min."""
+            rel = ReliabilityConfig(mode="inline", voltage=1.0,
+                                    fault_model=FaultModelConfig(mask_source="device"),
+                                    rails=RailsConfig(start_v=v_min))
+            t_ = time.perf_counter()
+            eng_ = ServingEngine(c, seeded(c), rel=rel, max_len=max_len)
+            torch.cuda.synchronize()
+            return eng_, time.perf_counter() - t_
+
+        def ecc_leaves(eng_) -> dict:
+            return {k.split("[")[-1].strip("']"): w for k, w in base.flatten(eng_.params)
+                    if isinstance(w, ops.EccWeight)}
+
+        # a. minitron-8b: the arena, B3 at its four (K, N) against the plain
+        # version and the traced kernel split, on an engine of its own
+        mcfg = get_config("minitron-8b")
+        require(not mcfg.gated_mlp and mcfg.mlp_act == "relu2" and not mcfg.tie_embeddings,
+                f"minitron-8b config {mcfg}")
+        torch.cuda.empty_cache()
+        out["allocated_gb_at_start"] = torch.cuda.memory_allocated() / 1e9
+        print(f"  allocated at the start: {out['allocated_gb_at_start']:.1f} GB (earlier "
+              f"phases' engines freed)")
+        torch.cuda.reset_peak_memory_stats()
+        eng, build_s = engine(mcfg, 64)
+        n_m = eng._store.n_words
+        require(n_m == MN_WORDS == mcfg.n_layers * sum(k_ * n_ for k_, n_ in protected(mcfg)) // 8,
+                f"minitron-8b arena of {n_m} words")
+        leaves = ecc_leaves(eng)
+        n_leaves = len(leaves)
+        require(sorted(leaves) == ["w1", "w2", "wk", "wo", "wq", "wv"],
+                f"minitron-8b protected leaves {sorted(leaves)}")
+        print(f"  minitron-8b ({mcfg.n_layers} layers, d {mcfg.d_model}, {mcfg.n_heads}/"
+              f"{mcfg.n_kv_heads} heads, d_ff {mcfg.d_ff} non-gated relu^2, vocab {mcfg.vocab}, "
+              f"bf16, untied): {n_m} protected words in {len(leaves)} leaves (no w3), engine "
+              f"built in {build_s:.1f} s, peak {peak_gb():.1f} GB")
+        require(b3_split(mcfg, BATCH) == {"decode": 160, "tiled": 32}
+                and b3_split(mcfg, BATCH * PROMPT_LEN) == {"decode": 0, "tiled": 192},
+                f"minitron-8b B3 split {b3_split(mcfg, BATCH)}")
+        eng.set_voltage(0.56)
+        require(eng._last_scrub.corrected > 0, f"minitron-8b 0.56 V scrub {eng._last_scrub}")
+        b3_rows = b3_shape_rows("minitron-8b", leaves, mcfg.n_groups)
+        m_prompts = rng_.integers(0, mcfg.vocab, (BATCH, PROMPT_LEN)).astype(np.int32)
+        mn = out["MN"] = {"n_words": n_m, "b3": b3_rows,
+                          "b3_traced": b3_traced("minitron-8b", eng.params, mcfg, m_prompts)}
+        report["ecc_matmul_decode"]["minitron_8b"] = [
+            r for r in b3_rows if r["function"] == b3_names["decode"]]
+        report["ecc_matmul_prefill"]["minitron_8b"] = [
+            r for r in b3_rows if r["function"] == b3_names["tiled"]]
+        del eng, leaves
+        torch.cuda.empty_cache()
+
+        # path MN: generate, sequence_logits, a walk, then the int8 KV cache
+        ops.reset_launch_count()
+        torch.cuda.reset_peak_memory_stats()
+        toks_d = torch.as_tensor(m_prompts, device=dev)
+        with Tally() as tally:
+            tally._wrap(ServingEngine, "set_voltage", below)
+            eng, mn["build_s"] = engine(mcfg, 64)
+            t = time.perf_counter()
+            toks = eng.generate(m_prompts, NEW_TOKENS)
+            mn["generate_s"] = time.perf_counter() - t
+            mn["tokens_per_s"] = BATCH * NEW_TOKENS / mn["generate_s"]
+            require(toks.shape == (BATCH, NEW_TOKENS)
+                    and bool(((toks >= 0) & (toks < mcfg.vocab)).all()), "minitron-8b tokens")
+            seq = torch.as_tensor(np.concatenate([m_prompts, toks], axis=1), device=dev)
+            sl = lm.sequence_logits(eng.params, seq, mcfg)
+            pl, _ = lm.prefill(eng.params, seq, mcfg, lm.init_cache(mcfg, BATCH, 64))
+            require(tuple(sl.shape) == (BATCH, PROMPT_LEN + NEW_TOKENS, mcfg.vocab)
+                    and bool(torch.isfinite(sl).all()), "sequence_logits shape or values")
+            require(torch.equal(sl[:, -1], pl), "minitron-8b: sequence_logits' last position "
+                    "differs from prefill's logits")
+            del sl, pl
+            # the bf16 cache's prefill and first decode step, for the int8 cache
+            cache16 = lm.init_cache(mcfg, BATCH, 64)
+            pre16, _ = lm.prefill(eng.params, toks_d, mcfg, cache16)
+            tok0 = torch.argmax(pre16, dim=-1)[:, None]
+            dec16, _ = lm.decode_step(eng.params, tok0, mcfg, cache16, PROMPT_LEN)
+            bytes16 = sum(t_.nbytes for t_ in cache16["p0"].values())
+            del cache16
+            print(f"  MN: generate {BATCH} x {PROMPT_LEN} -> {NEW_TOKENS} tokens in "
+                  f"{mn['generate_s']:.2f} s = {mn['tokens_per_s']:.1f} tokens/s; "
+                  f"sequence_logits ({BATCH} x {PROMPT_LEN + NEW_TOKENS}): last position = "
+                  f"prefill's logits bit for bit")
+            t = time.perf_counter()
+            lock, hist = eng.autotune_voltage(max_rounds=16)
+            torch.cuda.synchronize()
+            mn["walk"] = {
+                "walk_s": time.perf_counter() - t, "lock": lock, "locked": eng.controller.locked,
+                "rounds": len(hist), "power_w": eng.power_w(),
+                "saving_vs_nominal": eng.power_report()["saving_vs_nominal"],
+                "history": [(r.voltage, r.corrected, r.detected, r.action) for r in hist]}
+            require(eng.controller.locked, f"minitron-8b walk did not lock: {mn['walk']}")
+            print(f"  MN walk (ECC, from V_min {v_min} V): lock {lock:.2f} V in {len(hist)} "
+                  f"rounds, {mn['walk']['walk_s']:.1f} s, {mn['walk']['power_w']:.4f} W "
+                  f"(saving {mn['walk']['saving_vs_nominal']:.4f}); history "
+                  f"{json.dumps(mn['walk']['history'])}")
+            del eng
+            torch.cuda.empty_cache()
+            qmcfg = dataclasses.replace(mcfg, kv_quant=True)
+            eng, mn["kv_quant_build_s"] = engine(qmcfg, 64)
+            toks8 = eng.generate(m_prompts, NEW_TOKENS)
+            cache8 = lm.init_cache(qmcfg, BATCH, 64)
+            pre8, _ = lm.prefill(eng.params, toks_d, qmcfg, cache8)
+            require(torch.equal(pre8, pre16), "minitron-8b: the int8-cache prefill logits differ "
+                    "from the bf16 cache's (prefill attends unquantised K/V)")
+            dec8, _ = lm.decode_step(eng.params, tok0, qmcfg, cache8, PROMPT_LEN)
+            require(cache8["p0"]["k"].dtype == torch.int8 and bool(torch.isfinite(dec8).all()),
+                    "int8 cache")
+            bytes8 = sum(t_.nbytes for t_ in cache8["p0"].values())
+            mn["kv_quant"] = {
+                "cache_bytes_bf16": bytes16, "cache_bytes_int8": bytes8,
+                "first_decode_max_abs_dlogits": float((dec8 - dec16).abs().max()),
+                "first_decode_max_abs_logits": float(dec16.abs().max()),
+                "token_agreement": float((toks8 == toks).mean()),
+                "tokens_equal": bool(np.array_equal(toks8, toks))}
+            print(f"  MN kv_quant: prefill logits = the bf16 cache's bit for bit; cache bytes "
+                  f"(batch {BATCH}, 64 positions) {bytes16} bf16 -> {bytes8} int8 + scales; first "
+                  f"decode step max |dlogits| {mn['kv_quant']['first_decode_max_abs_dlogits']:.4e}"
+                  f" (max |logits| {mn['kv_quant']['first_decode_max_abs_logits']:.4e}); token "
+                  f"agreement {mn['kv_quant']['token_agreement']:.4f}")
+            del eng, cache8, pre8, dec8, pre16, dec16
+            torch.cuda.empty_cache()
+        mn["peak_gb"] = peak_gb()
+        counts, n_ = ops.launch_counts(), tally.n
+        per_fwd = len(protected(mcfg)) * mcfg.n_layers
+        require(per_fwd == n_leaves * mcfg.n_layers,
+                f"{per_fwd} protected matmuls per forward, {n_leaves} protected leaves")
+        want = {"inject_scrub": n_["steps"], "inject_scrub_domains": 0, "decode": 0,
+                "ecc_matmul": per_fwd * (n_["prefill"] + n_["decode"]),
+                "encode": n_["packs"], "gather_scrub": 0, "inject": 0,
+                "fault_field": n_.get("steps_below", 0)}
+        require(counts == want, f"MN launches {counts}, expected {want}")
+        require(n_["packs"] == 2 * per_fwd, f"MN: {n_['packs']} weight packs")
+        require(n_["plain_on_card"] == 0, "the plain codec ran on the card")
+        by_k = b3_by_kernel_check("MN", tally, counts, mcfg)
+        paths_extra["MN"] = {
+            "launches": counts, "launches_by_codec": ops.launch_counts_by_codec(),
+            "kv_codec": None, "matmuls_per_forward": per_fwd, "b3_by_kernel": by_k,
+            "forwards": {"prefill": n_["prefill"], "decode": n_["decode"],
+                         "decode_kernel": n_.get("decode_kernel", 0)},
+            "packs": n_["packs"], "commits": 0, "voltage_steps": n_["steps"]}
+        mn["launches"], mn["b3_by_kernel"] = counts, by_k
+        print(f"  MN launches: {json.dumps(counts)} = {n_['steps']} voltage steps "
+              f"({n_.get('steps_below', 0)} below V_min, one field launch each), {per_fwd} fused "
+              f"matmuls x ({n_['prefill']} prefill + {n_['decode']} decode forwards), by kernel "
+              f"{json.dumps(by_k)}, {n_['packs']} weight packs; peak {mn['peak_gb']:.1f} GB")
+
+        # path QP: qwen1.5-4b through serve, paged = dense, at nominal and
+        # at a 0.56 V kv rail
+        qpcfg = get_config("qwen1.5-4b")
+        require(qpcfg.n_kv_heads == qpcfg.n_heads == 20 and qpcfg.qkv_bias, f"{qpcfg}")
+        qp = out["QP"] = {}
+        ops.reset_launch_count()
+        torch.cuda.reset_peak_memory_stats()
+        with Tally() as tally:
+            tally._wrap(ServingEngine, "set_voltage", below)
+            eng, qp["build_s"] = engine(qpcfg, PAGED_MAX_LEN)
+            n_qp = eng._store.n_words
+            require(n_qp == QP_WORDS
+                    == qpcfg.n_layers * sum(k_ * n_ for k_, n_ in protected(qpcfg)) // 8,
+                    f"qwen1.5-4b arena of {n_qp} words")
+            geom = KVGeometry.from_config(qpcfg)
+            qp.update(n_words=n_qp, words_per_page=geom.words_per_page,
+                      token_words=geom.token_words)
+            print(f"  qwen1.5-4b ({qpcfg.n_layers} layers, d {qpcfg.d_model}, {qpcfg.n_heads}/"
+                  f"{qpcfg.n_kv_heads} heads, d_ff {qpcfg.d_ff}, vocab {qpcfg.vocab}, bf16, "
+                  f"untied, biases N(0, 0.5^2) from seed 1): {n_qp} protected words, engine "
+                  f"built in {qp['build_s']:.1f} s; KV pages of {geom.words_per_page} words "
+                  f"({geom.page_tokens} tokens x {geom.token_words})")
+            dense = {i: eng.generate(p_[None], n)[0] for i, (p_, n) in enumerate(stream)}
+            reps = {}
+            for label, kv_v in (("nominal", None), ("0.56V", 0.56)):
+                t = time.perf_counter()
+                rep = eng.serve(stream, n_lanes=4, kv_voltage=kv_v, n_pages=STREAM_PAGES)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                require(len(rep.outputs) == len(stream) and rep.preemptions >= 1,
+                        f"QP {label}: {len(rep.outputs)} requests, {rep.preemptions} preemptions")
+                eq = [bool(np.array_equal(np.asarray(rep.outputs[i]), dense[i]))
+                      for i in range(len(stream))]
+                n_tok = sum(len(v) for v in rep.outputs.values())
+                reps[label] = rep
+                qp[label] = {"wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+                             "steps": rep.steps, "preemptions": rep.preemptions,
+                             "scrub_intervals": len(rep.kv_voltages),
+                             "kv_stats": rep.kv_stats.to_dict(), "equal_to_dense": eq}
+                print(f"  QP stream of {len(stream)} requests, {label} kv rail, {STREAM_PAGES} "
+                      f"pages: {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s, "
+                      f"{rep.steps} steps, {rep.preemptions} preemptions, kv "
+                      f"{rep.kv_stats.to_dict()}; requests equal to dense generate: "
+                      f"{sum(eq)} of {len(eq)}")
+            require(all(qp["nominal"]["equal_to_dense"]),
+                    "QP: paged serve differs from dense generate at a nominal kv rail")
+            require(reps["0.56V"].kv_stats.corrected > 0, "QP: no corrected word at 0.56 V")
+            arena = reps["0.56V"].arena
+        counts = ops.launch_counts()
+        check_paged_launches("QP", tally, counts, multi=False, c=qpcfg, into=paths_extra)
+        paths_extra["QP"]["b3_by_kernel"] = b3_by_kernel_check("QP", tally, counts, qpcfg)
+        qp["launches"] = counts
+        # B4's commit and B6's interval scrub at this page width
+        wpp = geom.words_per_page
+        live = np.arange(STREAM_PAGES, dtype=np.int32)
+        table = np.full((4, 4), arena.scratch_page, np.int32)
+        table.reshape(-1)[: len(live)] = live
+        table_d = torch.as_tensor(table.reshape(-1), device=dev)
+        scrub = interval_scrub_times(arena, table, table_d, "qwen1.5-4b interval_scrub")
+        g = torch.Generator(device=dev).manual_seed(4)
+        payload = torch.randn(BATCH, geom.token_f32, generator=g, device=dev)
+        commit_base = torch.as_tensor(
+            kvpages.row_bases(np.arange(BATCH) * 3, np.arange(BATCH) % geom.page_tokens, geom),
+            device=dev)
+        k_pl = [t_.clone() for t_ in (arena.lo, arena.hi, arena.parity)]
+        p_pl = [t_.clone() for t_ in (arena.lo, arena.hi, arena.parity)]
+        ops.encode_commit(payload, commit_base, geom.token_words, *k_pl)
+        ref.encode_commit_ref(payload, commit_base, geom.token_words, *p_pl)
+        torch.cuda.synchronize()
+        require(same(k_pl, p_pl), "encode_commit differs at qwen1.5-4b's page width")
+        commit = {"rows": BATCH, **bounds(BATCH * geom.token_words, "secded72", 17, 20,
+                                          extra_bytes=8 * BATCH),
+                  "ms": sync_ms(lambda: ops.encode_commit(payload, commit_base, geom.token_words,
+                                                          *k_pl), 50),
+                  "plain_ms": sync_ms(lambda: ref.encode_commit_ref(
+                      payload, commit_base, geom.token_words, *p_pl), 5),
+                  "commit_wall_ms": min(wall_ms(lambda: arena.commit_tokens(
+                      payload, np.arange(BATCH) * 3, np.arange(BATCH) % geom.page_tokens))
+                      for _ in range(3))}
+        report["encode_commit"]["qwen1_5_4b"] = commit
+        report["gather_scrub"]["qwen1_5_4b"] = scrub["interval_scrub_kernel"]
+        qp["commit"], qp["interval_scrub"] = commit, scrub
+        print(f"  QP page width {wpp} words: B4 commit of {BATCH} tokens ({commit['n_words']} "
+              f"words) bit-identical, {commit['ms']:.4f} ms, bound {commit['bound_ms']:.4f} ms "
+              f"(bytes), plain {commit['plain_ms']:.3f} ms, commit_tokens wall "
+              f"{commit['commit_wall_ms']:.3f} ms; interval scrub of {table.size} page ids "
+              f"{scrub['interval_scrub_ms']:.2f} ms wall (B6 {scrub['interval_scrub_kernel_ms']:.4f}"
+              f" ms)")
+        del eng, reps, arena, k_pl, p_pl
+        torch.cuda.empty_cache()
+        # paged serving refuses a ring or an int8 cache before any page exists
+        for opts in ({"sliding_window": W_WINDOW}, {"kv_quant": True}):
+            refusing = ServingEngine(dataclasses.replace(qpcfg, **opts), {}, rel=None,
+                                     max_len=PAGED_MAX_LEN)
+            before = torch.cuda.memory_allocated()
+            try:
+                refusing.serve(stream, n_lanes=4)
+                raise AssertionError(f"serve accepted {opts}")
+            except ValueError as e:
+                require("paged KV" in str(e) and torch.cuda.memory_allocated() == before,
+                        f"serve with {opts}: {e}")
+        print(f"  QP: serve refuses sliding_window={W_WINDOW} and kv_quant before any page; "
+              f"launches {json.dumps(counts)}; peak {peak_gb():.1f} GB")
+
+        # W: the sliding-window ring at qwen3-0.6b's width against a
+        # position-indexed cache with the window as a mask (a cache of
+        # max_len > window slots, built for the config without its window).
+        # The window is a power of two, so the key sums' tree levels above
+        # it fold position p onto slot p % window by adding exact zeros: the
+        # two give the same floats.
+        wcfg = dataclasses.replace(cfg, sliding_window=W_WINDOW)
+        w_len, max_len = W_WINDOW + W_WINDOW // 8, W_WINDOW + W_WINDOW // 8 + W_DECODE
+        t0 = time.perf_counter()
+        eng, _ = engine(wcfg, max_len)
+        w_prompt = rng_.integers(0, wcfg.vocab, (1, w_len)).astype(np.int32)
+        toks_w = torch.as_tensor(w_prompt, device=dev)
+        ring = lm.init_cache(wcfg, 1, max_len)
+        full = lm.init_cache(dataclasses.replace(wcfg, sliding_window=0), 1, max_len)
+        require(ring["p0"]["k"].shape[2] == W_WINDOW and full["p0"]["k"].shape[2] == max_len,
+                "ring and full cache slots")
+        t = time.perf_counter()
+        rl, _ = lm.prefill(eng.params, toks_w, wcfg, ring)
+        torch.cuda.synchronize()
+        ring_prefill_s = time.perf_counter() - t
+        fl, _ = lm.prefill(eng.params, toks_w, wcfg, full)
+        require(torch.equal(rl, fl), "W: the ring's prefill logits differ from the full cache's")
+
+        def layout(layers_, n):
+            pos = torch.arange(n - W_WINDOW, n, device=dev)
+            return all(torch.equal(ring["p0"][k_][layers_, :, pos % W_WINDOW],
+                                   full["p0"][k_][layers_, :, pos]) for k_ in ("k", "v"))
+
+        require(layout(slice(None), w_len), "W: after prefill, slot j does not hold the "
+                "position p with p % window = j")
+        # the decode loop (generate's, after its prefill) from the ring's
+        # prefill state
+        after_prefill = {k_: v_.clone() for k_, v_ in ring["p0"].items()}
+        w_toks = [int(torch.argmax(rl[0]))]
+        t = time.perf_counter()
+        for i in range(W_DECODE):
+            tok = torch.tensor([[w_toks[-1]]], device=dev)
+            rl, _ = lm.decode_step(eng.params, tok, wcfg, ring, w_len + i)
+            fl, _ = lm.decode_step(eng.params, tok, wcfg, full, w_len + i)
+            require(bool(torch.isfinite(rl).all()) and torch.equal(rl, fl),
+                    f"W decode {i}: the ring's logits differ from the full cache's by "
+                    f"{float((rl - fl).abs().max())}")
+            w_toks.append(int(torch.argmax(rl[0])))
+        decode_s = time.perf_counter() - t
+        require(layout(slice(None), w_len + W_DECODE), "W: after decode, slot j does not hold "
+                "the position p with p % window = j")
+        loop_toks, _ = lm.greedy_decode_loop(eng.params, torch.tensor([[w_toks[0]]], device=dev),
+                                             wcfg, {"p0": after_prefill}, w_len, W_DECODE)
+        require(loop_toks[0].tolist() == w_toks[1:],
+                "W: the decode loop's tokens differ from the ring's decode steps")
+        del eng, ring, full, rl, fl, after_prefill
+        torch.cuda.empty_cache()
+        out["W"] = {"window": W_WINDOW, "prompt": w_len, "decode_steps": W_DECODE,
+                    "ring_prefill_s": ring_prefill_s, "decode_pair_s": decode_s,
+                    "wall_s": time.perf_counter() - t0}
+        print(f"  W (qwen3-0.6b, sliding_window {W_WINDOW}): prompt {w_len} tokens, ring of "
+              f"{W_WINDOW} slots against a {max_len}-slot position-indexed cache with the window "
+              f"mask: prefill and {W_DECODE} decode steps' logits and every layer's slots (slot "
+              f"j = position p, p % {W_WINDOW} = j) bit for bit, the decode loop from the ring's "
+              f"prefill state = the ring's tokens; ring prefill {ring_prefill_s:.2f} s, W in "
+              f"{out['W']['wall_s']:.1f} s")
+        return out
+
     with Phase("14 accuracy canary (qwen2-7b), campaign and sweeps"):
         accuracy_run = accuracy_phase(report, paths_extra)
 
-    # ---------------------------------------------------------------- 15
-    with Phase("15 traced steps, timings and the kernels line"):
+    with Phase("15 dense family: minitron-8b, qwen1.5-4b, the sliding-window ring"):
+        dense_run = dense_family_phase(report, paths_extra)
+
+    # ---------------------------------------------------------------- 16
+    with Phase("16 traced steps, timings and the kernels line"):
         for name, run in runs.items():
             run["steps"] = step_breakdown(traced_params.pop(name), {"prefill": 0, "decode": 0},
                                           walls=run["steps"])
@@ -3737,6 +4148,7 @@ def main() -> int:
         print(f"  domain {json.dumps(domain_run)}")
         print(f"  device {json.dumps(device_runs)}")
         print(f"  accuracy {json.dumps(accuracy_run)}")
+        print(f"  dense {json.dumps(dense_run)}")
         paths = {**runs, **{k: v for k, v in paged.items() if "launches" in v}, **paths_extra}
 
         print(f"  codec {json.dumps(codec_run)}")
@@ -3841,7 +4253,8 @@ def main() -> int:
                                       "redundant_philox_calls", "neighbour_words", "class_draws",
                                       "word_draws", "flips", "flips_burst_free", "registers")
                     if k in r}),
-                **({k: r[k] for k in ("mlp", "verify", "qwen2_7b") if k in r}),
+                **({k: r[k] for k in ("mlp", "verify", "qwen2_7b", "minitron_8b", "qwen1_5_4b")
+                    if k in r}),
             })
         kernels[[k["name"] for k in kernels].index("encode")]["kv_arena"] = report["encode_kv_arena"]
     print(json.dumps({"kernels": kernels}))

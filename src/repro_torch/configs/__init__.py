@@ -9,6 +9,8 @@ from repro_torch.configs import shapes
 ARCHS = {
     "qwen3-0.6b": "qwen3_0_6b",
     "qwen2-7b": "qwen2_7b",
+    "qwen1.5-4b": "qwen1_5_4b",
+    "minitron-8b": "minitron_8b",
     # the paper's own accelerator workload (MLP on MNIST-class tasks)
     "paper-nn": "paper_nn",
 }

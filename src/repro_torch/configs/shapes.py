@@ -47,6 +47,6 @@ def domain_codecs(overrides=None) -> dict:
 
 def supports_paged_kv(cfg) -> bool:
     """Whether the paged SECDED KV cache (core/kvpages.py) covers this arch:
-    every mixer full-context attention with a position-indexed cache. The
-    ported family (dense, full causal attention, float cache) always does."""
-    return cfg.family == "dense"
+    every mixer full-context attention with a position-indexed cache. SWA
+    ring buffers and quantized caches keep their own layouts."""
+    return cfg.family == "dense" and not cfg.sliding_window and not cfg.kv_quant

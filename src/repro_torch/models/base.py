@@ -20,7 +20,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # only "dense" (RMSNorm, SwiGLU, full causal GQA) is ported
+    family: str  # only "dense" is ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -30,10 +30,15 @@ class ModelConfig:
     head_dim: int = 0  # 0 -> d_model // n_heads
     qkv_bias: bool = False
     qk_norm: bool = False
+    norm_type: str = "rmsnorm"  # rmsnorm | layernorm
+    gated_mlp: bool = True  # SwiGLU vs plain MLP
+    mlp_act: str = "gelu"  # non-gated MLP activation: gelu | relu2
     rope_theta: float = 1e4
+    sliding_window: int = 0  # 0 -> full attention
     tie_embeddings: bool = False
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.float32
+    kv_quant: bool = False  # int8 KV cache (+per-token scales) for decode
 
     @property
     def hd(self) -> int:

@@ -1,4 +1,4 @@
-"""Transformer layers: norms, RoPE, GQA attention, projections, MLP.
+"""Transformer layers: norms, RoPE, GQA attention, projections, MLPs.
 
 Attention stays plain PyTorch, as the reference computes it outside its
 kernels. Protected weights (``EccWeight``) go through the fused ECC read
@@ -65,6 +65,21 @@ def rms_norm(x, gamma, eps=1e-6):
     return (x32 * inv).to(dt) * gamma
 
 
+def layer_norm(x, gamma, beta, eps=1e-5):
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    d = x32.shape[-1]
+    xc = x32 - tree_sum(x32, -1)[..., None] / d
+    var = tree_sum(xc * xc, -1)[..., None] / d
+    return (xc * torch.rsqrt(var + eps)).to(dt) * gamma + beta
+
+
+def apply_norm(x, p, norm_type):
+    if norm_type == "layernorm":
+        return layer_norm(x, p["gamma"], p["beta"])
+    return rms_norm(x, p["gamma"])
+
+
 def rope_freqs(hd, theta, device):
     # A Python-scalar base: a tensor built from ``theta`` on the card would
     # be a host-to-device copy that synchronises the stream every layer.
@@ -122,19 +137,24 @@ def softmax(s):
     return e / tree_sum(e, -1)[..., None]
 
 
-def _attend(qg, k_cache, v_cache, qpos, n_keys: int, dtype):
+def _attend(qg, k_cache, v_cache, qpos, n_keys: int, dtype, window: int = 0):
     """One block of query rows against the cache's first keys.
 
     qg: (B, Hkv, R, Q, Dh) float32; caches (B, S, Hkv, Dh) with S <= n_keys,
-    a power of two; qpos: (B, Q) cache positions of the rows. The key axis
-    is zero-padded to n_keys for the softmax denominator and the PV sum."""
+    a power of two; qpos: (B, Q) cache positions of the rows, each attending
+    keys qpos - window < kpos <= qpos (``window`` 0: every earlier key). The
+    key axis is zero-padded to n_keys for the softmax denominator and the PV
+    sum."""
     s_len, dh = k_cache.shape[1], qg.shape[-1]
     exact = dtype.itemsize <= 2
     kt = k_cache.permute(0, 2, 1, 3).to(torch.float32)[:, :, None, None]  # (B, Hkv, 1, 1, S, Dh)
     s = tree_sum_products(qg[..., None, :], kt, -1, exact)  # (B, Hkv, R, Q, S)
     s = s.to(dtype).to(torch.float32) / math.sqrt(dh)
     kpos = torch.arange(s_len, device=qg.device)
-    valid = (kpos <= qpos[..., None])[:, None, None]  # (B, 1, 1, Q, S)
+    valid = kpos <= qpos[..., None]
+    if window:
+        valid = valid & (kpos > qpos[..., None] - window)
+    valid = valid[:, None, None]  # (B, 1, 1, Q, S)
     s = torch.where(valid, s, NEG_INF)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     vt = v_cache.permute(0, 2, 1, 3).to(torch.float32)  # (B, Hkv, S, Dh)
@@ -146,16 +166,17 @@ def _attend(qg, k_cache, v_cache, qpos, n_keys: int, dtype):
     return out.to(dtype)
 
 
-def chunk_attention(q, k_cache, v_cache, pos0, kv_len: int | None = None):
+def chunk_attention(q, k_cache, v_cache, pos0, kv_len: int | None = None, window: int = 0):
     """Multi-token attention against a KV cache: the one attention path of
     prefill (``pos0`` = 0), chunked prefill, speculative verification and
     decode (one token).
 
     q: (B, Sq, H, Dh), Sq new tokens whose K/V are already in the cache;
     caches (B, S_max, Hkv, Dh); pos0: (B,) cache position of each lane's
-    first new token. Token i attends cache positions <= pos0 + i.
-    ``kv_len``, a host-side bound on max(pos0) + Sq (None: S_max + Sq),
-    limits the keys read.
+    first new token. Token i attends cache positions <= pos0 + i, and with
+    a sliding ``window`` only those above pos0 + i - window (masked keys
+    enter the sums as exact zeros). ``kv_len``, a host-side bound on
+    max(pos0) + Sq (None: S_max + Sq), limits the keys read.
 
     Products are formed in float32 (exact for bf16 inputs) and tree-summed;
     scores and outputs are rounded to q's dtype where the reference's
@@ -163,7 +184,9 @@ def chunk_attention(q, k_cache, v_cache, pos0, kv_len: int | None = None):
     of keys, zero beyond the row's last position. Such a tree gives the same
     float for any power-of-two length at or above the row's valid keys, so a
     row's output does not depend on ``kv_len``, on Sq, or on the other lanes.
-    Query rows are walked in blocks of at most ``ATTN_BLOCK_ELEMS`` product
+    Under a power-of-two window, the tree's levels above the window's length
+    add each position's key to exact zeros, folding position p onto p %
+    window: a ring of ``window`` slots gives the same floats. Query rows are walked in blocks of at most ``ATTN_BLOCK_ELEMS`` product
     elements, each block reading only the keys its last row attends."""
     b, sq, h, dh = q.shape
     smax, hkv = k_cache.shape[1], k_cache.shape[2]
@@ -179,7 +202,7 @@ def chunk_attention(q, k_cache, v_cache, pos0, kv_len: int | None = None):
         n_keys = pow2_ceil(max(min(bound - sq + i1, smax), 1))
         s_len = min(n_keys, smax)
         outs.append(_attend(qg[:, :, :, i0:i1], k_cache[:, :s_len], v_cache[:, :s_len],
-                            qpos[:, i0:i1], n_keys, q.dtype))
+                            qpos[:, i0:i1], n_keys, q.dtype, window))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=3)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
 
@@ -219,8 +242,19 @@ def out_proj(attn_out, p):
     return _linear(attn_out.reshape(b, s, -1), p["wo"])
 
 
-def mlp(x, p):
-    """SwiGLU: w2(silu(x w1) * x w3)."""
-    gate = F.silu(_linear(x, p["w1"]))
-    up = _linear(x, p["w3"])
-    return _linear(gate * up, p["w2"])
+# jax.nn.gelu's default is the tanh form; F.gelu's is the exact erf form.
+_ACTS = {
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "silu": F.silu,
+    "relu2": lambda x: torch.square(F.relu(x)),  # nemotron/minitron MLP
+}
+
+
+def mlp(x, p, cfg):
+    """SwiGLU, w2(silu(x w1) * x w3), or with ``cfg.gated_mlp`` False the
+    plain w2(act(x w1))."""
+    if cfg.gated_mlp:
+        gate = F.silu(_linear(x, p["w1"]))
+        up = _linear(x, p["w3"])
+        return _linear(gate * up, p["w2"])
+    return _linear(_ACTS[cfg.mlp_act](_linear(x, p["w1"])), p["w2"])

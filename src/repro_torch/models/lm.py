@@ -5,15 +5,23 @@ The layer stack is a Python loop over the stacked ``n_groups`` axis (the
 reference's ``lax.scan``); protected matrices are ``EccWeight`` leaves whose
 layer ``g`` is sliced per step. The cache is updated in place.
 
-Every forward is one path: the new tokens of lane b sit at cache positions
-pos0[b], pos0[b] + 1, ...; their K/V are written into the cache and they
-attend the cache (``layers.chunk_attention``). A prefill is a chunk at
-position 0, a decode step a chunk of one token, and a scalar position a
-vector of equal positions. Logits go through one product shape (rows
-zero-padded to ``LOGIT_ROWS``), so a row's logits do not depend on how many
-rows the call holds (see models/layers.py). Callers that know the positions
-on the host pass ``kv_len``, a bound on the cache length attended, so the
-attention reads no keys past it.
+Every forward on a position-indexed float cache is one path: the new tokens
+of lane b sit at cache positions pos0[b], pos0[b] + 1, ...; their K/V are
+written into the cache and they attend the cache
+(``layers.chunk_attention``, with the sliding window as a mask). A prefill
+is a chunk at position 0, a decode step a chunk of one token, and a scalar
+position a vector of equal positions. The reference's own cache layouts
+take its own cases: a sliding-window config's cache is a ring of
+``sliding_window`` slots (position p in slot p % slots), a ``kv_quant``
+config's holds int8 K/V with per-(token, head) scales. There a prefill
+attends its fresh, unquantised K/V and then stores them (the last slots'
+worth, rolled into ring order, quantised), a decode step writes its token's
+slot and attends the (dequantised) cache, and chunks are refused. Logits
+go through one product shape (rows zero-padded to ``LOGIT_ROWS``), so a
+row's logits do not depend on how many rows the call holds (see
+models/layers.py). Callers that know the positions on the host pass
+``kv_len``, a bound on the cache length attended, so the attention reads
+no keys past it.
 """
 
 from __future__ import annotations
@@ -33,7 +41,10 @@ def _check_dense(cfg: ModelConfig) -> None:
 
 
 def _norm_spec(cfg):
-    return {"gamma": Spec((cfg.d_model,), "ones")}
+    p = {"gamma": Spec((cfg.d_model,), "ones")}
+    if cfg.norm_type == "layernorm":
+        p["beta"] = Spec((cfg.d_model,), "zeros")
+    return p
 
 
 def _attn_spec(cfg):
@@ -56,7 +67,10 @@ def _attn_spec(cfg):
 
 def _mlp_spec(cfg):
     d, f = cfg.d_model, cfg.d_ff
-    return {"w1": Spec((d, f)), "w2": Spec((f, d)), "w3": Spec((d, f))}
+    p = {"w1": Spec((d, f)), "w2": Spec((f, d))}
+    if cfg.gated_mlp:
+        p["w3"] = Spec((d, f))
+    return p
 
 
 def _stack(spec, g):
@@ -91,12 +105,37 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """Zero decode cache: {"p0": {"k", "v"}} of (G, B, S, Hkv, Dh)."""
+    """Zero decode cache: {"p0": {"k", "v"}} of (G, B, S, Hkv, Dh), S =
+    max_len, or min(max_len, sliding_window) slots of a ring; with
+    ``kv_quant`` int8 K/V and a float32 "kv_scale" (G, B, S, Hkv, 2)."""
     _check_dense(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_groups, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    z = lambda: torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)
-    return {"p0": {"k": z(), "v": z()}}
+    s = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    shape = (cfg.n_groups, batch, s, cfg.n_kv_heads, cfg.hd)
+    kv_dt = torch.int8 if cfg.kv_quant else cfg.compute_dtype
+    c = {"k": torch.zeros(shape, dtype=kv_dt, device=dev),
+         "v": torch.zeros(shape, dtype=kv_dt, device=dev)}
+    if cfg.kv_quant:
+        c["kv_scale"] = torch.zeros(shape[:-1] + (2,), dtype=torch.float32, device=dev)
+    return {"p0": c}
+
+
+def _quant_kv(k, v):
+    """(B, S, H, hd) -> int8 planes + per-(token, head) scales (B, S, H, 2):
+    max|x| / 127 floored at 1e-9, rounded half to even, clipped to 127."""
+    def q(x):
+        x32 = x.to(torch.float32)
+        sc = torch.clamp_min(x32.abs().amax(-1, keepdim=True) / 127.0, 1e-9)
+        return torch.clamp(torch.round(x32 / sc), -127, 127).to(torch.int8), sc
+
+    (kq, ks), (vq, vs) = q(k), q(v)
+    return kq, vq, torch.cat([ks, vs], dim=-1)
+
+
+def _dequant_kv(kq, vq, scale, dtype):
+    k = kq.to(dtype) * scale[..., 0:1].to(dtype)
+    v = vq.to(dtype) * scale[..., 1:2].to(dtype)
+    return k, v
 
 
 def _layer(tree, g: int):
@@ -114,21 +153,61 @@ LOGIT_ROWS = 16  # rows of every logits product
 _UNEMBED_F32 = WeakIdKeyDictionary()
 
 
-def _attn_block(x, p, cfg, *, cache, g, pos0, kv_len, rope):
-    b, s, _ = x.shape
-    h = layers.rms_norm(x, p["ln1"]["gamma"])
-    q, k, v = layers.qkv_proj(h, p["attn"], cfg, rope)
+def _attention(q, k, v, cfg, *, cache, g, pos0, kv_len, prefill):
+    b, s = q.shape[:2]
+    w = cfg.sliding_window
     ck, cv = cache["k"][g], cache["v"][g]
-    # As the reference's cache writes, a chunk running past the cache's end
-    # lands on its last rows.
-    rows = torch.clamp(pos0, max=ck.shape[1] - s)[:, None] + torch.arange(s, device=x.device)
-    lanes = torch.arange(b, device=x.device)[:, None]
-    ck[lanes, rows] = k.to(ck.dtype)
-    cv[lanes, rows] = v.to(cv.dtype)
-    out = layers.chunk_attention(q, ck, cv, pos0, kv_len)
+    smax = ck.shape[1]
+    # a windowed config's cache of at most w slots is a ring
+    ring, quant = bool(w) and smax <= w, "kv_scale" in cache
+    lanes = torch.arange(b, device=q.device)[:, None]
+    if not (ring or quant):
+        # As the reference's cache writes, a chunk running past the cache's
+        # end lands on its last rows.
+        rows = torch.clamp(pos0, max=smax - s)[:, None] + torch.arange(s, device=q.device)
+        ck[lanes, rows] = k.to(ck.dtype)
+        cv[lanes, rows] = v.to(cv.dtype)
+        return layers.chunk_attention(q, ck, cv, pos0, kv_len, window=w)
+    if prefill:
+        # the fresh, unquantised K/V; then the last smax positions are
+        # stored, under a ring position p in slot p % smax
+        out = layers.chunk_attention(q, k, v, pos0, s, window=w)
+        ks, vs = k[:, -smax:], v[:, -smax:]
+        if ring and s >= smax:
+            ks, vs = torch.roll(ks, s % smax, 1), torch.roll(vs, s % smax, 1)
+        n = ks.shape[1]
+        if quant:
+            kq, vq, sc = _quant_kv(ks, vs)
+            ck[:, :n], cv[:, :n], cache["kv_scale"][g][:, :n] = kq, vq, sc
+        else:
+            ck[:, :n], cv[:, :n] = ks.to(ck.dtype), vs.to(cv.dtype)
+        return out
+    if s != 1:
+        raise ValueError(f"{cfg.name}: a ring or int8 KV cache takes prefills and one-token "
+                         "decode steps, not chunks")
+    slot = (pos0 % smax if ring else torch.clamp(pos0, max=smax - 1))[:, None]
+    if quant:
+        kq, vq, sc = _quant_kv(k, v)
+        ck[lanes, slot], cv[lanes, slot], cache["kv_scale"][g][lanes, slot] = kq, vq, sc
+    else:
+        ck[lanes, slot], cv[lanes, slot] = k.to(ck.dtype), v.to(cv.dtype)
+    if ring:  # the ring's first min(pos + 1, smax) slots, all inside the window
+        pos0, w = torch.clamp(pos0, max=smax - 1), 0
+        kv_len = None if kv_len is None else min(kv_len, smax)
+    if quant:  # dequantise the slots the attention reads
+        n = smax if kv_len is None else min(smax, layers.pow2_ceil(kv_len))
+        ck, cv = _dequant_kv(ck[:, :n], cv[:, :n], cache["kv_scale"][g][:, :n],
+                             cfg.compute_dtype)
+    return layers.chunk_attention(q, ck, cv, pos0, kv_len, window=w)
+
+
+def _attn_block(x, p, cfg, *, cache, g, pos0, kv_len, rope, prefill):
+    h = layers.apply_norm(x, p["ln1"], cfg.norm_type)
+    q, k, v = layers.qkv_proj(h, p["attn"], cfg, rope)
+    out = _attention(q, k, v, cfg, cache=cache, g=g, pos0=pos0, kv_len=kv_len, prefill=prefill)
     x = x + layers.out_proj(out, p["attn"])
-    h2 = layers.rms_norm(x, p["ln2"]["gamma"])
-    return x + layers.mlp(h2, p["mlp"])
+    h2 = layers.apply_norm(x, p["ln2"], cfg.norm_type)
+    return x + layers.mlp(h2, p["mlp"], cfg)
 
 
 def _embed(params, tokens, cfg):
@@ -166,11 +245,14 @@ def _kv_bound(pos0, s: int) -> int | None:
     return int(torch.as_tensor(pos0).max()) + s
 
 
-def forward(params, tokens, cfg: ModelConfig, cache, pos0, kv_len: int | None = None):
+def forward(params, tokens, cfg: ModelConfig, cache, pos0, kv_len: int | None = None,
+            prefill: bool = False):
     """Backbone: (B, S) tokens at cache positions pos0 .. pos0 + S - 1 (pos0
     a scalar or (B,)) -> final-norm hidden (B, S, D); writes their K/V into
     the cache in place. ``kv_len`` bounds max(pos0) + S from the host
-    (derived when the positions are on the host; else the cache length)."""
+    (derived when the positions are on the host; else the cache length).
+    ``prefill`` (pos0 0) marks a prompt, which a ring or int8 cache stores
+    after attending it."""
     _check_dense(cfg)
     if kv_len is None:
         kv_len = _kv_bound(pos0, tokens.shape[1])
@@ -181,8 +263,8 @@ def forward(params, tokens, cfg: ModelConfig, cache, pos0, kv_len: int | None = 
     blocks = params["blocks"]["p0"]
     for g in range(cfg.n_groups):
         x = _attn_block(x, _layer(blocks, g), cfg, cache=cache["p0"], g=g, pos0=pos0,
-                        kv_len=kv_len, rope=rope)
-    return layers.rms_norm(x, params["final_norm"]["gamma"])
+                        kv_len=kv_len, rope=rope, prefill=prefill)
+    return layers.apply_norm(x, params["final_norm"], cfg.norm_type)
 
 
 def _logits(params, hidden, cfg):
@@ -200,7 +282,7 @@ def _logits(params, hidden, cfg):
 @torch.no_grad()
 def prefill(params, tokens, cfg: ModelConfig, cache):
     """Process a prompt, fill the cache. Returns (last-token logits, cache)."""
-    hidden = forward(params, tokens, cfg, cache, 0)
+    hidden = forward(params, tokens, cfg, cache, 0, prefill=True)
     return _logits(params, hidden[:, -1], cfg), cache
 
 
@@ -213,11 +295,18 @@ def decode_step(params, tokens, cfg: ModelConfig, cache, pos, kv_len: int | None
     return _logits(params, hidden[:, -1], cfg), cache
 
 
+def _check_chunkable(cfg: ModelConfig) -> None:
+    if cfg.sliding_window or cfg.kv_quant:
+        raise ValueError(f"{cfg.name}: chunks need a position-indexed float cache "
+                         "(no sliding_window, no kv_quant)")
+
+
 @torch.no_grad()
 def chunk_step(params, tokens, cfg: ModelConfig, cache, pos0, kv_len: int | None = None):
     """Chunked prefill: process ``tokens`` (B, S) whose cache positions start
     at per-lane ``pos0`` ((B,) or scalar), writing their K/V into the cache.
     Returns (last-token logits (B, V), cache)."""
+    _check_chunkable(cfg)
     hidden = forward(params, tokens, cfg, cache, pos0, kv_len)
     return _logits(params, hidden[:, -1], cfg), cache
 
@@ -226,6 +315,7 @@ def chunk_step(params, tokens, cfg: ModelConfig, cache, pos0, kv_len: int | None
 def chunk_logits(params, tokens, cfg: ModelConfig, cache, pos0, kv_len: int | None = None):
     """Like ``chunk_step`` but returning the full (B, S, V) logits (the
     speculative verify block)."""
+    _check_chunkable(cfg)
     hidden = forward(params, tokens, cfg, cache, pos0, kv_len)
     return _logits(params, hidden, cfg), cache
 
@@ -238,9 +328,10 @@ def sequence_logits(params, tokens, cfg: ModelConfig):
     the one of every other entry point, on a fresh cache of S positions, so
     protected leaves read through the fused ECC matmul as in serving and the
     last position's logits equal ``prefill``'s on the same tokens bit for
-    bit."""
+    bit. As the reference's train-mode forward, it is windowed and
+    unquantised: a prefill attends its fresh K/V."""
     cache = init_cache(cfg, tokens.shape[0], tokens.shape[1], device=tokens.device)
-    hidden = forward(params, tokens, cfg, cache, 0)
+    hidden = forward(params, tokens, cfg, cache, 0, prefill=True)
     return _logits(params, hidden, cfg)
 
 

@@ -522,9 +522,9 @@ class ServingEngine:
         The cache arena stays on ``self.kv_arena``; its counters join
         ``stats`` and ``rail_stats`` and its words, under the arena's final
         code, the power accounting."""
-        assert shapes.supports_paged_kv(self.cfg), (
-            f"{self.cfg.name}: paged KV unsupported (see shapes.supports_paged_kv)"
-        )
+        if not shapes.supports_paged_kv(self.cfg):
+            raise ValueError(f"{self.cfg.name}: paged KV unsupported (see "
+                             "shapes.supports_paged_kv)")
         if int(speculative) >= 2:
             assert draft_params is not None and draft_cfg is not None, (
                 "speculative decode needs draft_params + draft_cfg"

@@ -119,6 +119,85 @@ def test_ecc_matmul_launches_the_kernel_it_names(cuda, m, k, want):
             break
     assert ran == expect, names
 
+# minitron-8b's four (K, N): wq / wo, wk / wv, w1 and w2 (K = 16,384 takes
+# the tiled kernel at every M)
+MINITRON_SHAPES = {"wq": (4096, 4096), "wk": (4096, 1024), "w1": (4096, 16384),
+                   "w2": (16384, 4096)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 20, 128])
+@pytest.mark.parametrize("k,n", MINITRON_SHAPES.values(), ids=MINITRON_SHAPES.keys())
+def test_ecc_matmul_at_minitron_shapes(cuda, k, n, m):
+    """B3 against its plain version at minitron-8b's shapes, each call
+    counted under the kernel ``kernel_for`` names."""
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    w = ops.pack_ecc_weights(torch.randn(k, n, generator=g, device=cuda))
+    x = torch.randn(m, k, generator=g, device=cuda)
+    ops.reset_launch_count()
+    out = ops.ecc_matmul(x, w)
+    want = mm.kernel_for(m, k)
+    assert ops.ecc_matmul_launches_by_kernel() == {"decode": int(want == "decode"),
+                                                   "tiled": int(want == "tiled")}
+    assert want == ("tiled" if m > 16 or k == 16384 else "decode")
+    plain = ref.ecc_matmul_ref(x, w.lo, w.hi, w.parity, w.scale)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert float((out - plain).abs().max()) <= MATMUL_RTOL * float(plain.abs().max())
+
+
+@pytest.mark.gpu
+def test_layer_norm_rows_do_not_depend_on_the_batch_on_the_card(cuda):
+    from repro_torch.models import layers
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for dt in (torch.float32, torch.bfloat16):
+        x = (3.0 * torch.randn(16, 5, 4096, generator=g, device=cuda) + 1.0).to(dt)
+        gamma = (1.0 + 0.2 * torch.randn(4096, generator=g, device=cuda)).to(dt)
+        beta = (0.2 * torch.randn(4096, generator=g, device=cuda)).to(dt)
+        full = layers.layer_norm(x, gamma, beta)
+        for i in range(16):
+            assert torch.equal(layers.layer_norm(x[i:i + 1], gamma, beta), full[i:i + 1])
+        assert torch.equal(layers.layer_norm(x[3, 2], gamma, beta), full[3, 2])
+
+
+@pytest.mark.gpu
+def test_ring_decode_equals_the_full_cache_windowed_decode_on_the_card(cuda):
+    """A sliding-window ring against a position-indexed cache with the window
+    as a mask, on the same tokens, on a small bf16 config: prefill and every
+    decode step's logits and the ring's slots (slot j = position p with p %
+    window = j) bit for bit, the key sums' upper tree levels folding
+    positions onto slots by adding exact zeros."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"), sliding_window=16,
+                              param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    params = lm.init_params(cfg, seed=0, device=cuda)
+    s0, n_new, max_len = 40, 12, 64
+    toks = torch.randint(0, cfg.vocab, (3, s0 + n_new), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    ring = lm.init_cache(cfg, 3, max_len, device=cuda)
+    full = lm.init_cache(dataclasses.replace(cfg, sliding_window=0), 3, max_len, device=cuda)
+    assert ring["p0"]["k"].shape[2] == 16 and full["p0"]["k"].shape[2] == max_len
+    rl, _ = lm.prefill(params, toks[:, :s0], cfg, ring)
+    fl, _ = lm.prefill(params, toks[:, :s0], cfg, full)
+    assert torch.equal(rl, fl)
+    for pos in range(s0 - 16, s0):
+        for name in ("k", "v"):
+            assert torch.equal(ring["p0"][name][:, :, pos % 16], full["p0"][name][:, :, pos])
+    for i in range(n_new):
+        pos = s0 + i
+        rl, _ = lm.decode_step(params, toks[:, pos:pos + 1], cfg, ring, pos)
+        fl, _ = lm.decode_step(params, toks[:, pos:pos + 1], cfg, full, pos)
+        assert bool(torch.isfinite(rl).all()) and torch.equal(rl, fl), i
+    for name in ("k", "v"):
+        for pos in range(s0 + n_new - 16, s0 + n_new):
+            assert torch.equal(ring["p0"][name][:, :, pos % 16], full["p0"][name][:, :, pos])
+
+
 # qwen3-0.6b's seven (K, N) per layer, two with K8 % 8 != 0 and an N tail,
 # and a K whose decode-kernel shared memory does not fit (the tiled kernel
 # takes every M there)
