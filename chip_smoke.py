@@ -200,7 +200,33 @@ them. Phases, each printed on its own line with its wall time:
      and every step's logits and the ring's slots (slot j = position p,
      p % 4,096 = j) bit for bit, the decode loop from the ring's prefill
      state = the ring's tokens;
-  4-15 each zero the kernel launch counts at the start of a path and read
+  16. the MoE family at full width, 8 layers each (``MOE_LAYERS``; device
+     masks; an MoE layer's experts, router and shared expert stay plain, so
+     B3 runs on the four attention matrices of a layer). MX: mixtral-8x22b
+     (d 6144, 48/8 heads, d_ff 16384, 8 experts top-2, window 4096, vocab
+     32768, bf16; 2,415,919,104 expert weights a layer): the fused matmul at
+     its (K, N) at M = batch, 20 and batch x prompt against the plain version,
+     a traced prefill (32 tiled events) and decode step (32 decode-kernel
+     events, each the wrapper's count) and the decode step's device time
+     split into B3, the cuBLAS GEMMs and the rest; the card's top-k and sort
+     dispatch over every layer's router logits of a prefill and a decode
+     step equal to the CPU's over the same logits (the dropped share at the
+     published capacity factor printed); layer 0's MoE at cf = E / k: each
+     row alone = the batch bit for bit, and = a plain per-token mixture
+     (each token through its top-k experts, the same expert products, the
+     bf16 combine in expert order) bit for bit, the float32 mixture's
+     difference printed; generate, ``sequence_logits`` (its last position =
+     prefill's), an ECC walk; domain mode on one layer (every leaf, the 4-D
+     bf16 experts included, written and read at nominal; tokens = the
+     unprotected engine's). LS: llama4-scout-17b-a16e (d 5120, 40/8 heads,
+     d_ff 8192, 16 experts top-1 + a shared expert, vocab 202048) through the
+     same checks, then phase 6's stream through ``serve`` at a nominal kv
+     rail: at cf 16 (nothing drops) every request = dense ``generate``; at
+     the published cf 1.25 the agreement printed and two runs equal. EX: the
+     port's ``examples/torch_quickstart.py`` (its numbers = a CPU run's) and
+     ``torch_serve_lm_ecc.py`` (``main`` and ``--share-demo``) on the card,
+     their lines printed;
+  4-16 each zero the kernel launch counts at the start of a path and read
      them at its end, and fail unless every voltage step launched its scrub
      kernel once (B1 single-rail, B2 and the embedding's B5 multi-rail,
      none of the other path's), every forward pass of the protected model
@@ -214,7 +240,7 @@ them. Phases, each printed on its own line with its wall time:
      once, every per-leaf step and every domain read launched the fault
      injection and the decode once per leaf, and the plain codec never ran
      on the card;
-  16. one prefill and one decode step of paths 4-5 under torch.profiler
+  17. one prefill and one decode step of paths 4-5 under torch.profiler
      (device busy time, idle share, fused-matmul time inside the step, which
      must come from the decode kernel in a decode step and the tiled kernel
      in a prefill), tokens/s, voltage-step times and one
@@ -276,6 +302,9 @@ MIXED_RAILS = {"attention": 0.56, "mlp": 0.55, "embedding": 1.0}
 # words), and the ring at mixtral-8x22b's window
 MN_WORDS, QP_WORDS = 704_643_072, 396_492_800
 W_WINDOW, W_DECODE = 4096, 16
+# phase 16: the MoE models' depth cut, and mixtral-8x22b's expert weights a
+# layer (8 experts x 3 x 6144 x 16384)
+MOE_LAYERS, MX_EXPERT_WEIGHTS = 8, 2_415_919_104
 
 T0 = time.perf_counter()
 
@@ -646,10 +675,12 @@ def main() -> int:
     def protected(c):
         """(K, N) of every protected matrix of a layer (K % 8 == 0 and both
         at least 64, as ``protect_params_inline`` takes them): wq, wk, wv,
-        wo, w1, w3 where the MLP is gated, w2."""
+        wo, and of a dense layer w1, w3 where the MLP is gated, w2 (an MoE
+        layer's experts, router and shared expert stay plain)."""
         d_, hq, hkv = c.d_model, c.n_heads * c.hd, c.n_kv_heads * c.hd
-        mats = [(d_, hq), (d_, hkv), (d_, hkv), (hq, d_), (d_, c.d_ff)]
-        mats += [(d_, c.d_ff)] * c.gated_mlp + [(c.d_ff, d_)]
+        mats = [(d_, hq), (d_, hkv), (d_, hkv), (hq, d_)]
+        if c.family != "moe":
+            mats += [(d_, c.d_ff)] + [(d_, c.d_ff)] * c.gated_mlp + [(c.d_ff, d_)]
         return [(k_, n_) for k_, n_ in mats if k_ % 8 == 0 and min(k_, n_) >= 64]
 
     def b3_split(c, m: int) -> dict:
@@ -746,8 +777,11 @@ def main() -> int:
                       f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {pms:.4f} ms, "
                       f"torch.matmul {lib:.4f} ms")
             del w_deq, x_all, layers_
-        require(sum(r["function"] == b3_names["tiled"] for r in b3_rows if r["M"] == BATCH) == 1,
-                f"{label} at M = batch: only w2 takes the tiled kernel")
+        tiled_at_batch = sum(b3_kernel.kernel_for(BATCH, leaves[w_].k) == "tiled"
+                             for w_ in ("wq", "wk", "w1", "w2") if w_ in leaves)
+        require(sum(r["function"] == b3_names["tiled"] for r in b3_rows if r["M"] == BATCH)
+                == tiled_at_batch, f"{label} at M = batch: only the leaves of K past the "
+                "decode kernel's shared memory (w2) take the tiled kernel")
         print(f"  {label} ecc_matmul rows: the M={BATCH} rows equal the same rows at "
               f"M={BATCH * PROMPT_LEN}, every (K, N)")
         return b3_rows
@@ -4104,14 +4138,510 @@ def main() -> int:
               f"{out['W']['wall_s']:.1f} s")
         return out
 
+    # ---------------------------------------------------------------- 16
+    # The MoE family at full width, depth cut: mixtral-8x22b (path MX,
+    # domain mode on one layer included), llama4-scout through serve (LS),
+    # and the port's examples on the card (EX).
+    def moe_phase(report: dict, paths_extra: dict) -> dict:
+        import importlib.util
+
+        from repro_torch.models import moe
+
+        out: dict = {}
+        v_min = platform.v_min
+        below = lambda eng_, v, *a, **kw: ("steps", "steps_below") if \
+            platform.fault_rate(float(v)) > 0.0 else "steps"
+        rng_ = np.random.default_rng(6)
+
+        def engine(c, params_, max_len, **rel_kw):
+            """An inline single-rail engine at nominal, device masks, its walk
+            starting at V_min."""
+            rel = ReliabilityConfig(mode="inline", voltage=1.0,
+                                    fault_model=FaultModelConfig(mask_source="device"),
+                                    rails=RailsConfig(start_v=v_min), **rel_kw)
+            t_ = time.perf_counter()
+            eng_ = ServingEngine(c, params_, rel=rel, max_len=max_len)
+            torch.cuda.synchronize()
+            return eng_, time.perf_counter() - t_
+
+        def ecc_leaves(eng_) -> dict:
+            return {k.split("[")[-1].strip("']"): w for k, w in base.flatten(eng_.params)
+                    if isinstance(w, ops.EccWeight)}
+
+        @contextlib.contextmanager
+        def routes():
+            """Record every ``moe.route_topk`` call of the MoE layers (router
+            logits, experts, probabilities, the group's capacity)."""
+            seen, real = [], moe.route_topk
+
+            def spy(x, router_w, e, k):
+                idx, probs, logits = real(x, router_w, e, k)
+                seen.append({"x": x, "logits": logits, "idx": idx, "probs": probs})
+                return idx, probs, logits
+
+            moe.route_topk = spy
+            try:
+                yield seen
+            finally:
+                moe.route_topk = real
+
+        def routing_check(label, c, seen, kind) -> dict:
+            """Every recorded call: the CPU's top-k and dispatch over the card's
+            router logits equal the card's; the share of dropped assignments
+            at the config's capacity factor."""
+            kept = total = 0
+            for r_ in seen:
+                g_, t_ = r_["idx"].shape[:2]
+                cap = moe.capacity(t_, c.top_k, c.n_experts, c.capacity_factor)
+                card = moe.sort_dispatch(r_["idx"], c.n_experts, cap)
+                idx_c, probs_c = moe.topk_from_logits(r_["logits"].cpu(), c.top_k,
+                                                      r_["probs"].dtype)
+                cpu = moe.sort_dispatch(idx_c, c.n_experts, cap)
+                require(torch.equal(r_["idx"].cpu(), idx_c)
+                        and all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)),
+                        f"{label} {kind}: routing on the card differs from the CPU's")
+                kept += int(card[2].sum())
+                total += card[2].numel()
+            return {"calls": len(seen), "assignments": total, "dropped": total - kept,
+                    "dropped_share": (total - kept) / max(total, 1)}
+
+        def plain_mixture(x, p, c):
+            """Each token alone through its top-k experts (no capacity, no slot
+            grid): the same row-invariant expert products, each output times
+            its probability in the compute dtype, added in expert order; the
+            shared expert after. And the same mixture in float32."""
+            d_ = x.shape[-1]
+            rows = x.reshape(-1, d_)
+            idx, probs, _ = moe.route_topk(rows, p["router"], c.n_experts, c.top_k)
+            mix, f32 = [], []
+            for r in range(rows.shape[0]):
+                acc, acc32 = rows.new_zeros(d_), torch.zeros(d_, device=dev)
+                for j in torch.argsort(idx[r]).tolist():
+                    e_ = int(idx[r, j])
+                    pe = {k_: v_[e_][None] for k_, v_ in p.items() if k_ in ("w1", "w2", "w3")}
+                    acc = acc + moe._expert_ffn(rows[r].reshape(1, 1, 1, d_), pe,
+                                                c).reshape(d_) * probs[r, j]
+                    x32 = rows[r].float()
+                    h = x32 @ p["w1"][e_].float()
+                    h = (torch.nn.functional.silu(h) * (x32 @ p["w3"][e_].float()) if c.gated_mlp
+                         else torch.nn.functional.gelu(h, approximate="tanh"))
+                    acc32 = acc32 + (h @ p["w2"][e_].float()) * probs[r, j].float()
+                if c.shared_expert:
+                    h = torch.nn.functional.silu(moe._rows(rows[r:r + 1], p["shared_w1"]))
+                    acc = acc + moe._rows(h * moe._rows(rows[r:r + 1], p["shared_w3"]),
+                                          p["shared_w2"])[0]
+                    x32 = rows[r].float()
+                    h = torch.nn.functional.silu(x32 @ p["shared_w1"].float())
+                    acc32 = acc32 + (h * (x32 @ p["shared_w3"].float())) @ p["shared_w2"].float()
+                mix.append(acc)
+                f32.append(acc32)
+            return torch.stack(mix).reshape(x.shape), torch.stack(f32).reshape(x.shape)
+
+        def moe_checks(label, c, params_, seen_pre, seen_dec) -> dict:
+            """Layer 0's MoE at the recorded prefill and decode inputs, at a
+            no-drop capacity (cf = E / k): each row alone = the batch bit for
+            bit, and the output = the plain per-token mixture bit for bit
+            (the decode batch and the prefill's first row); the largest
+            difference from the float32 mixture, printed."""
+            p = {k_: v_[0] for k_, v_ in params_["blocks"]["p0"]["moe"].items()}
+            nd = dataclasses.replace(c, capacity_factor=c.n_experts / c.top_k)
+            x_dec = seen_dec[0]["x"].reshape(BATCH, 1, c.d_model)
+            x_pre = seen_pre[0]["x"]
+            res = {}
+            for kind, xs in (("decode", x_dec), ("prefill", x_pre)):
+                full = moe.moe_ffn(xs, p, nd)
+                require(bool(torch.isfinite(full).all()), f"{label} {kind} moe_ffn non-finite")
+                for r in range(BATCH):
+                    require(torch.equal(moe.moe_ffn(xs[r:r + 1], p, nd)[0], full[r]),
+                            f"{label} {kind}: row {r} alone differs from the batch of {BATCH}")
+                xs1 = xs if kind == "decode" else xs[:1]
+                mix, f32 = plain_mixture(xs1, p, nd)
+                got = full if kind == "decode" else full[:1]
+                require(torch.equal(got, mix), f"{label} {kind}: moe_ffn differs from the plain "
+                        f"per-token mixture by {float((got.float() - mix.float()).abs().max())}")
+                res[kind] = {"rows": xs.shape[0] * xs.shape[1], "mixture_rows": xs1.shape[0]
+                             * xs1.shape[1], "max_abs_diff_f32": float((got.float() - f32)
+                                                                        .abs().max()),
+                             "max_abs_f32": float(f32.abs().max())}
+            print(f"  {label} moe_ffn at cf = E / k: each row alone = the batch of {BATCH} "
+                  f"(decode group and per-row groups) and = the plain per-token mixture bit for "
+                  f"bit; against the float32 mixture: decode max |diff| "
+                  f"{res['decode']['max_abs_diff_f32']:.4e} (max |out| "
+                  f"{res['decode']['max_abs_f32']:.4e}), prefill row 0 "
+                  f"{res['prefill']['max_abs_diff_f32']:.4e} ("
+                  f"{res['prefill']['max_abs_f32']:.4e})")
+            return res
+
+        def decode_split(label, params_, c, prompts_) -> dict:
+            """One traced decode step of batch 4: device busy time split into
+            B3 (the attention), the expert and other dense products (cuBLAS
+            GEMMs) and the rest, beside its wall time and the bound of reading
+            every expert once."""
+            toks_ = torch.as_tensor(prompts_, device=dev)
+            cache_ = lm.init_cache(c, BATCH, 64)
+            logits_, _ = lm.prefill(params_, toks_, c, cache_)
+            tok_ = torch.argmax(logits_, dim=-1)[:, None]
+            f_ = lambda: lm.decode_step(params_, tok_, c, cache_, PROMPT_LEN)
+            wall = min(wall_ms(f_) for _ in range(3))
+            evs = device_events(f_)
+            b3 = [e for e in evs if "ecc_matmul" in e[0]]
+            gemm = [e for e in evs if "ecc_matmul" not in e[0] and any(
+                t_ in e[0].lower() for t_ in ("gemm", "xmma", "cutlass", "sm90", "nvjet"))]
+            ms = lambda es: sum(e_ - s_ for _, s_, e_ in es) / 1e3
+            by_name: dict = {}
+            for n_, s_, e_ in evs:
+                if "ecc_matmul" not in n_:
+                    t_, k_ = by_name.get(n_, (0.0, 0))
+                    by_name[n_] = (t_ + (e_ - s_) / 1e3, k_ + 1)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+            expert_bytes = sum(v_.nbytes for k_, v_ in base.flatten(params_)
+                               if "['moe']" in k_ and "router" not in k_)
+            row = {"wall_ms": wall, "traced_device_events": len(evs),
+                   "device_busy_ms": busy_us(evs) / 1e3 if evs else None,
+                   "b3_ms": ms(b3), "b3_events": len(b3), "gemm_ms": ms(gemm),
+                   "gemm_events": len(gemm), "other_ms": ms(evs) - ms(b3) - ms(gemm),
+                   "expert_bytes": expert_bytes,
+                   "expert_bytes_bound_ms": 1e3 * expert_bytes / HBM_BYTES_PER_S,
+                   "top_other_kernels": [(n_[:80], t_, k_) for n_, (t_, k_) in top]}
+            if evs:
+                row["device_idle_share"] = 1.0 - row["device_busy_ms"] / wall
+            print(f"  {label} decode step (batch {BATCH}): wall {wall:.2f} ms; traced device "
+                  f"busy {row['device_busy_ms'] or 0.0:.2f} ms (idle share "
+                  f"{row.get('device_idle_share', float('nan')):.3f}): B3 {row['b3_ms']:.2f} ms "
+                  f"({len(b3)} launches), cuBLAS GEMMs (experts, router, shared expert) "
+                  f"{row['gemm_ms']:.2f} ms ({len(gemm)} launches), other {row['other_ms']:.2f} "
+                  f"ms; every expert read once: {expert_bytes / 1e9:.2f} GB, bound "
+                  f"{row['expert_bytes_bound_ms']:.2f} ms; the longest kernels outside B3 (name, "
+                  f"ms, launches): {json.dumps(row['top_other_kernels'])}")
+            return row
+
+        def model_path(label, c, params_, prompts_, extra=None) -> dict:
+            """B3 rows, the traced kernel split, routing, the MoE checks, a
+            generate, ``sequence_logits``, the decode-step split and an ECC
+            walk, on one inline engine; the path's launches."""
+            res: dict = {}
+            eng, res["build_s"] = engine(c, params_, 64)
+            leaves = ecc_leaves(eng)
+            require(sorted(leaves) == ["wk", "wo", "wq", "wv"],
+                    f"{label}: protected leaves {sorted(leaves)} (the experts stay plain)")
+            n_w = eng._store.n_words
+            require(n_w == c.n_layers * sum(k_ * n_ for k_, n_ in protected(c)) // 8,
+                    f"{label} arena of {n_w} words")
+            require(b3_split(c, BATCH) == {"decode": 4 * c.n_layers, "tiled": 0}
+                    and b3_split(c, BATCH * PROMPT_LEN) == {"decode": 0,
+                                                            "tiled": 4 * c.n_layers},
+                    f"{label} B3 split {b3_split(c, BATCH)}")
+            res["n_words"] = n_w
+            eng.set_voltage(0.56)
+            require(eng._last_scrub.corrected > 0, f"{label} 0.56 V scrub {eng._last_scrub}")
+            res["b3"] = b3_shape_rows(label, leaves, c.n_groups)
+            res["b3_traced"] = b3_traced(label, eng.params, c, prompts_)
+            res["decode_split"] = decode_split(label, eng.params, c, prompts_)
+            del eng, leaves
+            torch.cuda.empty_cache()
+            ops.reset_launch_count()
+            with Tally() as tally:
+                tally._wrap(ServingEngine, "set_voltage", below)
+                eng, res["path_build_s"] = engine(c, params_, 64)
+                toks_d = torch.as_tensor(prompts_, device=dev)
+                with routes() as seen_pre:
+                    pre_l, _ = lm.prefill(eng.params, toks_d, c, lm.init_cache(c, BATCH, 64))
+                tok0 = torch.argmax(pre_l, dim=-1)[:, None]
+                with routes() as seen_dec:
+                    lm.decode_step(eng.params, tok0, c, lm.init_cache(c, BATCH, 64), 0)
+                with tally.outside():
+                    res["routing"] = {"prefill": routing_check(label, c, seen_pre, "prefill"),
+                                      "decode": routing_check(label, c, seen_dec, "decode")}
+                    require(len(seen_pre) == len(seen_dec) == c.n_layers,
+                            f"{label}: {len(seen_pre)} / {len(seen_dec)} routed layers")
+                    print(f"  {label} routing: the card's top-k and sort dispatch = the CPU's "
+                          f"over the same router logits, every layer of a prefill and a decode "
+                          f"step; dropped assignments at cf {c.capacity_factor}: prefill "
+                          f"{res['routing']['prefill']['dropped']} of "
+                          f"{res['routing']['prefill']['assignments']} "
+                          f"({res['routing']['prefill']['dropped_share']:.4f}), decode "
+                          f"{res['routing']['decode']['dropped']} of "
+                          f"{res['routing']['decode']['assignments']} "
+                          f"({res['routing']['decode']['dropped_share']:.4f})")
+                    res["moe"] = moe_checks(label, c, eng.params, seen_pre, seen_dec)
+                del seen_pre, seen_dec
+                t_ = time.perf_counter()
+                toks = eng.generate(prompts_, NEW_TOKENS)
+                res["generate_s"] = time.perf_counter() - t_
+                res["tokens_per_s"] = BATCH * NEW_TOKENS / res["generate_s"]
+                require(toks.shape == (BATCH, NEW_TOKENS)
+                        and bool(((toks >= 0) & (toks < c.vocab)).all()), f"{label} tokens")
+                seq = torch.as_tensor(np.concatenate([prompts_, toks], axis=1), device=dev)
+                sl = lm.sequence_logits(eng.params, seq, c)
+                pl, _ = lm.prefill(eng.params, seq, c, lm.init_cache(c, BATCH, 64))
+                require(tuple(sl.shape) == (BATCH, PROMPT_LEN + NEW_TOKENS, c.vocab)
+                        and bool(torch.isfinite(sl).all()), f"{label} sequence_logits")
+                require(torch.equal(sl[:, -1], pl), f"{label}: sequence_logits' last position "
+                        "differs from prefill's logits")
+                del sl, pl
+                print(f"  {label}: generate {BATCH} x {PROMPT_LEN} -> {NEW_TOKENS} tokens in "
+                      f"{res['generate_s']:.2f} s = {res['tokens_per_s']:.1f} tokens/s; "
+                      f"sequence_logits' last position = prefill's logits bit for bit")
+                t_ = time.perf_counter()
+                lock, hist = eng.autotune_voltage(max_rounds=16)
+                torch.cuda.synchronize()
+                res["walk"] = {
+                    "walk_s": time.perf_counter() - t_, "lock": lock,
+                    "locked": eng.controller.locked, "rounds": len(hist),
+                    "power_w": eng.power_w(),
+                    "saving_vs_nominal": eng.power_report()["saving_vs_nominal"],
+                    "history": [(r.voltage, r.corrected, r.detected, r.action) for r in hist]}
+                require(eng.controller.locked, f"{label} walk did not lock: {res['walk']}")
+                print(f"  {label} walk (ECC, from V_min {v_min} V): lock {lock:.2f} V in "
+                      f"{len(hist)} rounds, {res['walk']['walk_s']:.1f} s, "
+                      f"{res['walk']['power_w']:.4f} W; history "
+                      f"{json.dumps(res['walk']['history'])}")
+                del eng
+                torch.cuda.empty_cache()
+                if extra is not None:
+                    extra(res, tally)
+            counts, n_ = ops.launch_counts(), tally.n
+            per_fwd = len(protected(c)) * c.n_layers
+            want = {"inject_scrub": n_["steps"], "inject_scrub_domains": 0, "decode": 0,
+                    "ecc_matmul": per_fwd * (n_["prefill"] + n_["decode"]),
+                    "encode": n_["packs"] + n_["commits"],
+                    "gather_scrub": n_["intervals"] + n_["prefix_scrubs"], "inject": 0,
+                    "fault_field": n_.get("steps_below", 0) + n_["draws"]}
+            require(counts == want, f"{label} launches {counts}, expected {want}")
+            require(n_["packs"] == per_fwd * (1 + res.get("serve_engines", 0)),
+                    f"{label}: {n_['packs']} weight packs")
+            require(n_["plain_on_card"] == 0, "the plain codec ran on the card")
+            by_k = b3_by_kernel_check(label, tally, counts, c)
+            paths_extra[label] = {
+                "launches": counts, "launches_by_codec": ops.launch_counts_by_codec(),
+                "kv_codec": "secded72" if n_["commits"] else None,
+                "matmuls_per_forward": per_fwd, "b3_by_kernel": by_k,
+                "forwards": {"prefill": n_["prefill"], "decode": n_["decode"],
+                             "decode_kernel": n_.get("decode_kernel", 0)},
+                "packs": n_["packs"], "commits": n_["commits"], "voltage_steps": n_["steps"]}
+            res["launches"], res["b3_by_kernel"] = counts, by_k
+            print(f"  {label} launches: {json.dumps(counts)} = {n_['steps']} voltage steps "
+                  f"({n_.get('steps_below', 0)} below V_min), {per_fwd} fused matmuls x "
+                  f"({n_['prefill']} prefill + {n_['decode']} decode forwards), by kernel "
+                  f"{json.dumps(by_k)}, {n_['packs']} weight packs")
+            return res
+
+        torch.cuda.empty_cache()
+        out["allocated_gb_at_start"] = torch.cuda.memory_allocated() / 1e9
+        print(f"  allocated at the start: {out['allocated_gb_at_start']:.1f} GB")
+
+        # MX: mixtral-8x22b, 8 of its 56 layers; domain mode on one layer
+        full_mx = get_config("mixtral-8x22b")
+        xcfg = dataclasses.replace(full_mx, n_layers=MOE_LAYERS)
+        require(xcfg.n_experts == 8 and xcfg.top_k == 2 and xcfg.sliding_window == 4096
+                and xcfg.gated_mlp and xcfg.capacity_factor == 1.25, f"{xcfg}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        xparams = lm.init_params(xcfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        expert_w = sum(v_.numel() for k_, v_ in base.flatten(xparams)
+                       if "['moe']['w" in k_) // MOE_LAYERS
+        require(expert_w == MX_EXPERT_WEIGHTS, f"mixtral expert weights a layer {expert_w}")
+        print(f"  MX mixtral-8x22b at full width (d {xcfg.d_model}, {xcfg.n_heads}/"
+              f"{xcfg.n_kv_heads} heads, d_ff {xcfg.d_ff}, {xcfg.n_experts} experts top-"
+              f"{xcfg.top_k}, window {xcfg.sliding_window}, vocab {xcfg.vocab}, bf16), depth cut "
+              f"to {MOE_LAYERS} of {full_mx.n_layers} layers: {expert_w} expert weights a layer "
+              f"({MOE_LAYERS * expert_w * 2 / 1e9:.2f} GB bf16), drawn in "
+              f"{time.perf_counter() - t0:.1f} s")
+        x_prompts = rng_.integers(0, xcfg.vocab, (BATCH, PROMPT_LEN)).astype(np.int32)
+
+        mx = out["MX"] = model_path("MX", xcfg, xparams, x_prompts)
+        mx["peak_gb"] = peak_gb()
+        report["ecc_matmul_decode"]["mixtral_8x22b"] = [
+            r for r in mx["b3"] if r["function"] == b3_names["decode"]]
+        report["ecc_matmul_prefill"]["mixtral_8x22b"] = [
+            r for r in mx["b3"] if r["function"] == b3_names["tiled"]]
+        print(f"  MX peak {mx['peak_gb']:.1f} GB")
+        del xparams
+        torch.cuda.empty_cache()
+
+        # MX, domain mode on one layer (its launches join path MX's): the
+        # whole tree, the 4-D experts included, written into the memory
+        # domain and read back at nominal; its tokens = the unprotected
+        # engine's
+        c1 = dataclasses.replace(xcfg, n_layers=1)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_count()
+        with Tally() as tally:
+            tally._wrap(ServingEngine, "set_voltage", below)
+            p1 = lm.init_params(c1, seed=1, device=dev)
+            plain = ServingEngine(c1, p1, rel=None, max_len=64).generate(x_prompts, NEW_TOKENS)
+            t_ = time.perf_counter()
+            deng = ServingEngine(c1, p1, rel=ReliabilityConfig(mode="domain", voltage=1.0),
+                                 max_len=64)
+            torch.cuda.synchronize()
+            build = time.perf_counter() - t_
+            names = deng.domain.names()
+            experts = [k_ for k_ in names if "['moe']['w" in k_]
+            words = sum(deng.domain.entry(k_).n_words for k_ in names)
+            ex_words = sum(deng.domain.entry(k_).n_words for k_ in experts)
+            require(8 * ex_words == 2 * MX_EXPERT_WEIGHTS and all(
+                len(deng.domain.entry(k_).shape) == 4
+                and deng.domain.entry(k_).dtype == torch.bfloat16 for k_ in experts),
+                    f"domain mode expert words {ex_words}")
+            toks_ = deng.generate(x_prompts, NEW_TOKENS)
+            require(np.array_equal(toks_, plain), "MX domain mode at nominal: tokens differ "
+                    "from the unprotected engine's")
+            require(deng.stats.words == words and deng.stats.faulty_words == 0,
+                    f"domain read {deng.stats}")
+            del deng, p1
+            torch.cuda.empty_cache()
+        counts = ops.launch_counts()
+        want = {k_: 0 for k_ in counts}
+        want.update(encode=len(names), inject=len(names), decode=len(names))
+        require(counts == want and tally.n["steps"] == 1 and tally.n["plain_on_card"] == 0,
+                f"MX domain mode launches {counts}, expected {want} (one write and one read "
+                f"of every leaf)")
+        mx["domain"] = {"layers": 1, "leaves": len(names), "reads": 1, "words": words,
+                        "expert_words": ex_words, "build_and_read_s": build,
+                        "launches": counts, "peak_gb": peak_gb()}
+        rec = paths_extra["MX"]
+        for k_, n_ in counts.items():
+            rec["launches"][k_] += n_
+        for k_, by_c in ops.launch_counts_by_codec().items():
+            for c_, n_ in by_c.items():
+                rec["launches_by_codec"][k_][c_] = rec["launches_by_codec"][k_].get(c_, 0) + n_
+        print(f"  MX domain mode, 1 layer: {len(names)} leaves, {words} raw words ({ex_words} of "
+              f"them the 4-D bf16 experts), written and read at nominal in {build:.1f} s; "
+              f"tokens = the unprotected engine's; launches {json.dumps(counts)}; peak "
+              f"{mx['domain']['peak_gb']:.1f} GB")
+
+        # LS: llama4-scout, 8 of its 48 layers, through serve
+        full_ls = get_config("llama4-scout-17b-a16e")
+        lcfg = dataclasses.replace(full_ls, n_layers=MOE_LAYERS)
+        require(lcfg.n_experts == 16 and lcfg.top_k == 1 and lcfg.shared_expert
+                and shapes.supports_paged_kv(lcfg), f"{lcfg}")
+        torch.cuda.reset_peak_memory_stats()
+        lparams = lm.init_params(lcfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        moe_gb = sum(v_.nbytes for v_ in lparams["blocks"]["p0"]["moe"].values()) / 1e9
+        print(f"  LS llama4-scout-17b-a16e at full width (d {lcfg.d_model}, {lcfg.n_heads}/"
+              f"{lcfg.n_kv_heads} heads, d_ff {lcfg.d_ff}, {lcfg.n_experts} experts top-1 + "
+              f"shared, vocab {lcfg.vocab}, bf16), depth cut to {MOE_LAYERS} of "
+              f"{full_ls.n_layers} layers: {moe_gb:.2f} GB of MoE weights")
+        l_prompts = rng_.integers(0, lcfg.vocab, (BATCH, PROMPT_LEN)).astype(np.int32)
+
+        def ls_serve(res, tally):
+            """Phase 6's stream through serve at a nominal kv rail: at cf 16
+            (nothing drops) every request = dense generate; at the published
+            cf 1.25 the agreement printed and two runs equal."""
+            res["serve_engines"] = 2
+            for cf, tag in ((16.0, "cf16"), (lcfg.capacity_factor, "cf1.25")):
+                c = dataclasses.replace(lcfg, capacity_factor=cf)
+                eng, _ = engine(c, lparams, PAGED_MAX_LEN)
+                dense = {i: eng.generate(p_[None], n)[0] for i, (p_, n) in enumerate(stream)}
+                reps = []
+                for _ in range(1 if cf == 16.0 else 2):
+                    t_ = time.perf_counter()
+                    rep = eng.serve(stream, n_lanes=4, n_pages=STREAM_PAGES)
+                    torch.cuda.synchronize()
+                    reps.append((rep, time.perf_counter() - t_))
+                rep, wall = reps[0]
+                require(len(rep.outputs) == len(stream) and rep.preemptions >= 1,
+                        f"LS {tag}: {len(rep.outputs)} requests, {rep.preemptions} preemptions")
+                eq = [bool(np.array_equal(np.asarray(rep.outputs[i]), dense[i]))
+                      for i in range(len(stream))]
+                n_tok = sum(len(v_) for v_ in rep.outputs.values())
+                res[tag] = {"wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+                            "steps": rep.steps, "preemptions": rep.preemptions,
+                            "kv_stats": rep.kv_stats.to_dict(), "equal_to_dense": eq,
+                            "agreement": float(np.mean([np.mean(np.asarray(rep.outputs[i])
+                                                                == dense[i])
+                                                        for i in range(len(stream))]))}
+                if len(reps) == 2:
+                    res[tag]["two_runs_equal"] = outputs_equal(reps[0][0].outputs,
+                                                               reps[1][0].outputs)
+                    require(res[tag]["two_runs_equal"], f"LS {tag}: two serves differ")
+                print(f"  LS serve at cf {cf} (stream of {len(stream)} requests, nominal kv "
+                      f"rail, {STREAM_PAGES} pages): {n_tok} tokens in {wall:.2f} s = "
+                      f"{n_tok / wall:.1f} tokens/s, {rep.steps} steps, {rep.preemptions} "
+                      f"preemptions; requests equal to dense generate: {sum(eq)} of {len(eq)} "
+                      f"(token agreement {res[tag]['agreement']:.4f})"
+                      + ("; two runs equal" if len(reps) == 2 else ""))
+                if cf == 16.0:
+                    require(all(eq), "LS: paged serve differs from dense generate at cf 16 "
+                            "(nothing drops)")
+                del eng, reps, rep
+                torch.cuda.empty_cache()
+
+        ls = out["LS"] = model_path("LS", lcfg, lparams, l_prompts, extra=ls_serve)
+        ls["peak_gb"] = peak_gb()
+        report["ecc_matmul_decode"]["llama4_scout"] = [
+            r for r in ls["b3"] if r["function"] == b3_names["decode"]]
+        report["ecc_matmul_prefill"]["llama4_scout"] = [
+            r for r in ls["b3"] if r["function"] == b3_names["tiled"]]
+        print(f"  LS peak {ls['peak_gb']:.1f} GB")
+        del lparams
+        torch.cuda.empty_cache()
+
+        # EX: the port's examples on the card
+        def example(name):
+            spec = importlib.util.spec_from_file_location(
+                name, os.path.join(ROOT, "examples", f"{name}.py"))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            return mod
+
+        ex = out["EX"] = {}
+        t0 = time.perf_counter()
+        quick = example("torch_quickstart")
+        with contextlib.redirect_stdout(io.StringIO()):
+            on_cpu = quick.main(["--device", "cpu"])
+        serve_ex = example("torch_serve_lm_ecc")
+        ops.reset_launch_count()
+        with Tally() as tally:
+            tally._wrap(memory, "decode_read", "reads")
+            print("  EX torch_quickstart on the card:")
+            on_card = quick.main([])
+            q_counts, q_reads = ops.launch_counts(), tally.n.get("reads", 0)
+            print("  EX torch_serve_lm_ecc on the card:")
+            ex["serve_main"] = serve_ex.main([])
+            print("  EX torch_serve_lm_ecc --share-demo on the card:")
+            ex["share_demo"] = serve_ex.main(["--share-demo"])
+            counts, n_ = ops.launch_counts(), dict(tally.n)
+        require(on_card == on_cpu, "EX quickstart: the card's numbers differ from the CPU's")
+        want = {k_: 0 for k_ in q_counts}
+        want.update(encode=1, inject=q_reads, decode=q_reads)
+        require(q_counts == want, f"EX quickstart launches {q_counts}, expected {want}")
+        ex["quickstart"] = {**on_card, "launches": q_counts}
+        require(ex["share_demo"]["shared_identical"] and ex["share_demo"]["spec_identical"],
+                "EX share demo")
+        require(all(counts[k_] > 0 for k_ in ("inject_scrub", "inject_scrub_domains", "decode",
+                                              "ecc_matmul", "encode", "gather_scrub", "inject",
+                                              "fault_field")), f"EX launches {counts}")
+        require(counts["gather_scrub"] == n_["intervals"] + n_["prefix_scrubs"]
+                and counts["inject"] == n_["reads"] and n_["plain_on_card"] == 0,
+                f"EX launches {counts}, tally {n_}")
+        by_k = ops.ecc_matmul_launches_by_kernel()
+        require(sum(by_k.values()) == counts["ecc_matmul"], f"EX B3 by kernel {by_k}")
+        paths_extra["EX"] = {
+            "launches": counts, "launches_by_codec": ops.launch_counts_by_codec(),
+            "kv_codec": "secded72", "b3_by_kernel": by_k, "matmuls_per_forward": 0,
+            "forwards": {"prefill": n_["prefill"], "decode": n_["decode"],
+                         "decode_kernel": n_.get("decode_kernel", 0)},
+            "packs": n_["packs"], "commits": n_["commits"]}
+        ex["launches"], ex["wall_s"] = counts, time.perf_counter() - t0
+        print(f"  EX launches: {json.dumps(counts)} (quickstart {json.dumps(q_counts)}: "
+              f"{q_reads} reads of one written array, its numbers = the CPU run's); EX in "
+              f"{ex['wall_s']:.1f} s")
+        return out
+
     with Phase("14 accuracy canary (qwen2-7b), campaign and sweeps"):
         accuracy_run = accuracy_phase(report, paths_extra)
 
     with Phase("15 dense family: minitron-8b, qwen1.5-4b, the sliding-window ring"):
         dense_run = dense_family_phase(report, paths_extra)
 
-    # ---------------------------------------------------------------- 16
-    with Phase("16 traced steps, timings and the kernels line"):
+    with Phase("16 MoE family: mixtral-8x22b, llama4-scout, the examples"):
+        moe_run = moe_phase(report, paths_extra)
+
+    # ---------------------------------------------------------------- 17
+    with Phase("17 traced steps, timings and the kernels line"):
         for name, run in runs.items():
             run["steps"] = step_breakdown(traced_params.pop(name), {"prefill": 0, "decode": 0},
                                           walls=run["steps"])
@@ -4149,6 +4679,7 @@ def main() -> int:
         print(f"  device {json.dumps(device_runs)}")
         print(f"  accuracy {json.dumps(accuracy_run)}")
         print(f"  dense {json.dumps(dense_run)}")
+        print(f"  moe {json.dumps(moe_run)}")
         paths = {**runs, **{k: v for k, v in paged.items() if "launches" in v}, **paths_extra}
 
         print(f"  codec {json.dumps(codec_run)}")
@@ -4253,7 +4784,8 @@ def main() -> int:
                                       "redundant_philox_calls", "neighbour_words", "class_draws",
                                       "word_draws", "flips", "flips_burst_free", "registers")
                     if k in r}),
-                **({k: r[k] for k in ("mlp", "verify", "qwen2_7b", "minitron_8b", "qwen1_5_4b")
+                **({k: r[k] for k in ("mlp", "verify", "qwen2_7b", "minitron_8b", "qwen1_5_4b",
+                                      "mixtral_8x22b", "llama4_scout")
                     if k in r}),
             })
         kernels[[k["name"] for k in kernels].index("encode")]["kv_arena"] = report["encode_kv_arena"]

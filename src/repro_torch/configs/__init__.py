@@ -11,6 +11,8 @@ ARCHS = {
     "qwen2-7b": "qwen2_7b",
     "qwen1.5-4b": "qwen1_5_4b",
     "minitron-8b": "minitron_8b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     # the paper's own accelerator workload (MLP on MNIST-class tasks)
     "paper-nn": "paper_nn",
 }

@@ -49,4 +49,5 @@ def supports_paged_kv(cfg) -> bool:
     """Whether the paged SECDED KV cache (core/kvpages.py) covers this arch:
     every mixer full-context attention with a position-indexed cache. SWA
     ring buffers and quantized caches keep their own layouts."""
-    return cfg.family == "dense" and not cfg.sliding_window and not cfg.kv_quant
+    all_attn = all(cfg.layer_kind(j)["mixer"] == "attn" for j in range(cfg.period))
+    return all_attn and not cfg.sliding_window and not cfg.kv_quant

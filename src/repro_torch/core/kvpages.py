@@ -103,7 +103,7 @@ class KVGeometry:
 
     @classmethod
     def from_config(cls, cfg, page_tokens: int = PAGE_TOKENS) -> "KVGeometry":
-        # The ported model family is all-attention with period 1.
+        # The ported families (dense, moe) are all-attention with period 1.
         attn = tuple(range(cfg.period))
         return cls(attn, cfg.n_groups, cfg.n_kv_heads, cfg.hd, int(page_tokens))
 

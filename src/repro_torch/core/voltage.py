@@ -35,6 +35,10 @@ class PlatformProfile:
     row_sigma: float  # lognormal per-row weakness (fault clustering)
 
     @property
+    def guardband(self) -> float:
+        return 1.0 - self.v_min / self.v_nom
+
+    @property
     def k(self) -> float:
         """Exponential slope of the fault-rate curve (per volt)."""
         return math.log(self.rate_crash / self.rate_floor) / (self.v_min - self.v_crash)

@@ -20,7 +20,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # only "dense" is ported
+    family: str  # dense | moe are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -36,6 +36,12 @@ class ModelConfig:
     rope_theta: float = 1e4
     sliding_window: int = 0  # 0 -> full attention
     tie_embeddings: bool = False
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_every: int = 1  # every k-th layer position is MoE (within a period)
+    shared_expert: bool = False
+    capacity_factor: float = 1.25
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.float32
     kv_quant: bool = False  # int8 KV cache (+per-token scales) for decode
@@ -46,11 +52,21 @@ class ModelConfig:
 
     @property
     def period(self) -> int:
+        """Layers per stacked group. The ported families repeat one layer
+        (``moe_every > 1`` needs more positions and is refused by
+        ``lm.check_family``)."""
         return 1
 
     @property
     def n_groups(self) -> int:
         return self.n_layers // self.period
+
+    def layer_kind(self, pos: int) -> dict:
+        """Period position ``pos``'s mixer and feed-forward type."""
+        if self.family == "moe":
+            ffn = "moe" if pos % self.moe_every == self.moe_every - 1 else "mlp"
+            return {"mixer": "attn", "ffn": ffn}
+        return {"mixer": "attn", "ffn": "mlp"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +78,9 @@ class Spec:
 
 def materialize(spec_tree, generator: torch.Generator, dtype, device):
     """Spec tree -> tensors: ``normal`` leaves are N(0, 1) * scale /
-    sqrt(fan_in) drawn from ``generator`` in flattening order."""
+    sqrt(fan_in) drawn from ``generator`` in flattening order. A leaf of
+    four or more dimensions (a stacked expert weight) is drawn one trailing
+    matrix at a time, so no float32 copy of it is ever whole."""
     flat = flatten(spec_tree, is_leaf=lambda x: isinstance(x, Spec))
     out = []
     for _, s in flat:
@@ -72,8 +90,14 @@ def materialize(spec_tree, generator: torch.Generator, dtype, device):
             a = torch.ones(s.shape, dtype=dtype, device=device)
         else:
             fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
-            a = torch.randn(s.shape, generator=generator, device=device)
-            a = (a * (s.scale / math.sqrt(fan_in))).to(dtype)
+            mult = s.scale / math.sqrt(fan_in)
+            if len(s.shape) >= 4:
+                a = torch.empty(s.shape, dtype=dtype, device=device)
+                for m in a.view(-1, *s.shape[-2:]):
+                    m.copy_(torch.randn(m.shape, generator=generator, device=device) * mult)
+            else:
+                a = torch.randn(s.shape, generator=generator, device=device)
+                a = (a * mult).to(dtype)
         out.append(a)
     return unflatten(spec_tree, [a for a in out], is_leaf=lambda x: isinstance(x, Spec))
 

@@ -1,5 +1,5 @@
-"""Dense decoder LM: parameter construction, prefill, chunked prefill and
-greedy decode.
+"""Decoder LM (the dense and MoE families): parameter construction,
+prefill, chunked prefill and greedy decode.
 
 The layer stack is a Python loop over the stacked ``n_groups`` axis (the
 reference's ``lax.scan``); protected matrices are ``EccWeight`` leaves whose
@@ -19,7 +19,8 @@ worth, rolled into ring order, quantised), a decode step writes its token's
 slot and attends the (dequantised) cache, and chunks are refused. Logits
 go through one product shape (rows zero-padded to ``LOGIT_ROWS``), so a
 row's logits do not depend on how many rows the call holds (see
-models/layers.py). Callers that know the positions on the host pass
+models/layers.py); an MoE layer's plain-weight products do the same
+(models/moe.py). Callers that know the positions on the host pass
 ``kv_len``, a bound on the cache length attended, so the attention reads
 no keys past it.
 """
@@ -31,13 +32,21 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.models import base, layers
+from repro_torch.models import base, layers, moe
 from repro_torch.models.base import ModelConfig, Spec, params_from_numpy  # noqa: F401
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: only the dense family is ported")
+def check_family(cfg: ModelConfig) -> None:
+    """Admit the ported families: dense, and moe with an MoE feed-forward
+    in every layer."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family is not ported "
+                                  "(dense and moe are)")
+    if cfg.family == "moe" and cfg.moe_every != 1:
+        raise NotImplementedError(
+            f"{cfg.name}: moe_every={cfg.moe_every} needs period positions p0..p"
+            f"{cfg.moe_every - 1} (dense and MoE layers interleaved), which come with "
+            "jamba's hybrid family; only moe_every=1 is ported")
 
 
 def _norm_spec(cfg):
@@ -73,6 +82,27 @@ def _mlp_spec(cfg):
     return p
 
 
+def _moe_spec(cfg):
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {"router": Spec((d, e)), "w1": Spec((e, d, f)), "w2": Spec((e, f, d))}
+    if cfg.gated_mlp:
+        p["w3"] = Spec((e, d, f))
+    if cfg.shared_expert:
+        p["shared_w1"] = Spec((d, f))
+        p["shared_w3"] = Spec((d, f))
+        p["shared_w2"] = Spec((f, d))
+    return p
+
+
+def _layer_spec(cfg, pos: int):
+    p = {"ln1": _norm_spec(cfg), "ln2": _norm_spec(cfg), "attn": _attn_spec(cfg)}
+    if cfg.layer_kind(pos)["ffn"] == "moe":
+        p["moe"] = _moe_spec(cfg)
+    else:
+        p["mlp"] = _mlp_spec(cfg)
+    return p
+
+
 def _stack(spec, g):
     return base.tree_map(
         lambda s: Spec((g,) + s.shape, s.init, s.scale), spec,
@@ -81,14 +111,10 @@ def _stack(spec, g):
 
 
 def init_specs(cfg: ModelConfig):
-    _check_dense(cfg)
-    layer = {
-        "ln1": _norm_spec(cfg), "ln2": _norm_spec(cfg),
-        "attn": _attn_spec(cfg), "mlp": _mlp_spec(cfg),
-    }
+    check_family(cfg)
     tree = {
         "embed": Spec((cfg.vocab, cfg.d_model)),
-        "blocks": {"p0": _stack(layer, cfg.n_groups)},
+        "blocks": {"p0": _stack(_layer_spec(cfg, 0), cfg.n_groups)},
         "final_norm": _norm_spec(cfg),
     }
     if not cfg.tie_embeddings:
@@ -98,7 +124,8 @@ def init_specs(cfg: ModelConfig):
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     """Random parameters from a ``torch.Generator`` seeded with ``seed``,
-    drawn on ``device`` (None: the card)."""
+    drawn on ``device`` (None: the card); a stacked expert leaf is drawn
+    one expert matrix at a time (``base.materialize``)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     return base.materialize(init_specs(cfg), gen, cfg.param_dtype, dev)
@@ -108,7 +135,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """Zero decode cache: {"p0": {"k", "v"}} of (G, B, S, Hkv, Dh), S =
     max_len, or min(max_len, sliding_window) slots of a ring; with
     ``kv_quant`` int8 K/V and a float32 "kv_scale" (G, B, S, Hkv, 2)."""
-    _check_dense(cfg)
+    check_family(cfg)
     dev = resolve_device(device)
     s = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     shape = (cfg.n_groups, batch, s, cfg.n_kv_heads, cfg.hd)
@@ -207,6 +234,8 @@ def _attn_block(x, p, cfg, *, cache, g, pos0, kv_len, rope, prefill):
     out = _attention(q, k, v, cfg, cache=cache, g=g, pos0=pos0, kv_len=kv_len, prefill=prefill)
     x = x + layers.out_proj(out, p["attn"])
     h2 = layers.apply_norm(x, p["ln2"], cfg.norm_type)
+    if "moe" in p:  # decode (S == 1) routes the batch as one group, else each row
+        return x + moe.moe_ffn(h2, p["moe"], cfg)
     return x + layers.mlp(h2, p["mlp"], cfg)
 
 
@@ -252,8 +281,9 @@ def forward(params, tokens, cfg: ModelConfig, cache, pos0, kv_len: int | None = 
     the cache in place. ``kv_len`` bounds max(pos0) + S from the host
     (derived when the positions are on the host; else the cache length).
     ``prefill`` (pos0 0) marks a prompt, which a ring or int8 cache stores
-    after attending it."""
-    _check_dense(cfg)
+    after attending it. An MoE layer routes a one-token forward's batch as
+    one dispatch group and each row of a longer one as its own."""
+    check_family(cfg)
     if kv_len is None:
         kv_len = _kv_bound(pos0, tokens.shape[1])
     pos0 = _positions(pos0, tokens.shape[0], tokens.device)

@@ -275,6 +275,7 @@ class ServingEngine:
         device=None,
         recorder=None,
     ):
+        lm.check_family(cfg)
         self.cfg = cfg
         self.rel = rel
         self.max_len = max_len

@@ -938,3 +938,81 @@ def test_escalating_serve_on_the_card_equals_the_cpu(cuda, monkeypatch):
                   rep.arena.codec_name, eng.power_report(), rec.to_jsonl())
     assert out["cuda"] == out["cpu"]
     assert out["cuda"][4] == "dected79" and '"kind":"kv_codec_change"' in out["cuda"][6]
+
+
+def _moe_layer(cuda, arch, d=1024, f=512, seed=0):
+    """Layer 0's MoE parameters of ``arch``'s smoke config widened to d / f,
+    in bf16 on the card, and the config."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_smoke_config(arch), n_layers=1, d_model=d, d_ff=f,
+                              n_heads=8, n_kv_heads=2, head_dim=128,
+                              param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    p = lm.init_params(cfg, seed=seed, device=cuda)["blocks"]["p0"]["moe"]
+    return cfg, {k: v[0] for k, v in p.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-scout-17b-a16e"])
+def test_moe_rows_do_not_depend_on_groups_or_capacity_on_the_card(cuda, arch):
+    """A token's MoE output is the same bits alone, in a batch of 4 (one
+    decode group), in per-row groups and at any capacity that drops none
+    of its assignments."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    cfg, p = _moe_layer(cuda, arch)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(4, 6, cfg.d_model, generator=g, device=cuda).to(torch.bfloat16)
+    for xs in (x[:, :1], x):
+        outs = []
+        for cf in (cfg.n_experts / cfg.top_k, 2.0 * cfg.n_experts):
+            c = dataclasses.replace(cfg, capacity_factor=cf)
+            full = moe.moe_ffn(xs, p, c)
+            assert bool(torch.isfinite(full).all())
+            for r in range(4):
+                assert torch.equal(moe.moe_ffn(xs[r:r + 1], p, c)[0], full[r])
+            outs.append(full)
+        assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-scout-17b-a16e"])
+def test_moe_routing_on_the_card_equals_the_cpu_routing(cuda, arch):
+    """The card's top-k and sort dispatch over the card's router logits
+    equal the CPU's over the same logits, at the published capacity factor
+    (drops) and in both groupings; ties (a zero row) take the lower
+    experts."""
+    from repro_torch.models import moe
+
+    cfg, p = _moe_layer(cuda, arch)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for shape in ((1, 4), (4, 32)):
+        x = torch.randn(*shape, cfg.d_model, generator=g, device=cuda).to(torch.bfloat16)
+        x[0, 1] = 0
+        logits = moe.router_logits(x, p["router"])
+        cap = moe.capacity(shape[1], cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+        got = moe.topk_from_logits(logits, cfg.top_k, x.dtype)
+        want = moe.topk_from_logits(logits.cpu(), cfg.top_k, x.dtype)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        assert got[0][0, 1].tolist() == list(range(cfg.top_k))
+        for a, b in zip(moe.sort_dispatch(got[0], cfg.n_experts, cap),
+                        moe.sort_dispatch(want[0], cfg.n_experts, cap)):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_moe_combine_is_deterministic_on_the_card(cuda):
+    """Two runs of the MoE feed-forward (dispatch, expert products,
+    combine) on the same input give the same bits, decode and prefill."""
+    from repro_torch.models import moe
+
+    cfg, p = _moe_layer(cuda, "mixtral-8x22b")
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for shape in ((4, 1), (4, 32)):
+        x = torch.randn(*shape, cfg.d_model, generator=g, device=cuda).to(torch.bfloat16)
+        assert torch.equal(moe.moe_ffn(x, p, cfg), moe.moe_ffn(x, p, cfg))
