@@ -226,7 +226,33 @@ them. Phases, each printed on its own line with its wall time:
      port's ``examples/torch_quickstart.py`` (its numbers = a CPU run's) and
      ``torch_serve_lm_ecc.py`` (``main`` and ``--share-demo``) on the card,
      their lines printed;
-  4-16 each zero the kernel launch counts at the start of a path and read
+  17. the recurrent families (``models/rwkv6.py``, ``models/mamba.py``).
+     RW: rwkv6-3b at its published width and depth (32 layers, d 2560, 40
+     heads of 64, d_ff 8960, vocab 65536, LayerNorm, bf16; 3,099,857,920
+     parameters): a. the plain model's generate (tokens/s, peak memory,
+     prefill wall, the decode step's wall and traced busy time); b. in
+     float32, prefill(33)'s last logits = prefill(32) + one decode step
+     within 1e-3 x max |logits| (the chunked scan against the step path),
+     layer 0's time-mix at S = 128 (two chunks) and over 16 decode steps
+     against a float64 recurrence within 1e-4 x max, and a timed 4 x
+     2,048-token bf16 prefill (32 chunks); c. a domain-mode engine writing
+     all 774,964,480 raw words (B4), its nominal read-back = the params bit
+     for bit and its tokens = the plain model's, then a 2-layer cut
+     (127,079,680 words) read at 0.56 V with every array and the counters
+     held against B7 + B5's plain versions on the same masks; d. the
+     single-rail inline engine, whose key rule protects no leaf: 0 words, no
+     launch, tokens at 0.56 V = the plain model's; e. a multi-rail inline
+     engine with device masks protecting the embedding alone (20,971,520
+     words): nominal tokens = the plain model's on the int8 embedding, a
+     0.56 V step and generate, the walk from 0.62 V, its locks and power.
+     JB: jamba's smoke config (one 8-layer period) through an inline engine
+     at 0.56 V with host masks on the card and on the CPU: 14 protected
+     leaves, equal tokens and counters, logits within 1e-4 x max; then one
+     mamba layer at jamba's published width (d 8192, d_inner 16384, d_state
+     16, dt_rank 512, bf16 parameters, batch 4) at S = 128 and over 16
+     decode steps against a float64 recurrence, computed in float32 (1e-4)
+     and in bf16 (``MAMBA_BF16_RTOL``);
+  4-17 each zero the kernel launch counts at the start of a path and read
      them at its end, and fail unless every voltage step launched its scrub
      kernel once (B1 single-rail, B2 and the embedding's B5 multi-rail,
      none of the other path's), every forward pass of the protected model
@@ -240,7 +266,7 @@ them. Phases, each printed on its own line with its wall time:
      once, every per-leaf step and every domain read launched the fault
      injection and the decode once per leaf, and the plain codec never ran
      on the card;
-  17. one prefill and one decode step of paths 4-5 under torch.profiler
+  18. one prefill and one decode step of paths 4-5 under torch.profiler
      (device busy time, idle share, fused-matmul time inside the step, which
      must come from the decode kernel in a decode step and the tiled kernel
      in a prefill), tokens/s, voltage-step times and one
@@ -305,6 +331,22 @@ W_WINDOW, W_DECODE = 4096, 16
 # phase 16: the MoE models' depth cut, and mixtral-8x22b's expert weights a
 # layer (8 experts x 3 x 6144 x 16384)
 MOE_LAYERS, MX_EXPERT_WEIGHTS = 8, 2_415_919_104
+# phase 17: rwkv6-3b's parameters and raw bf16 words (four to a 64-bit word),
+# the depth cut of the 0.56 V domain read and its words, the embedding's
+# protected int8 words; the tolerances of the recurrent checks (each of max
+# |reference|): a chunked float32 prefill against the float32 step path,
+# float32 time-mix and float32 mamba against a float64 recurrence, and the
+# mamba layer in bf16, its published compute dtype, against the same
+# float64 recurrence. In bf16 a decay within 2^-9 of 1 rounds to 1 (the
+# slowest of jamba's decays, exp(-delta exp(-6)), lie there) and every
+# state to an 8-bit mantissa, so over 144 steps the slow state components
+# drift by up to ~1 - 0.998^144 = 25% and the output, their weighted sum,
+# by a few percent: its gates are 0.1 (output) and 0.35 (state)
+RW_PARAMS, RW_WORDS = 3_099_857_920, 774_964_480
+RW_CUT_LAYERS, RW_CUT_WORDS, RW_EMBED_WORDS = 2, 127_079_680, 20_971_520
+RW_STEP_RTOL, F64_RTOL = 1e-3, 1e-4
+MAMBA_BF16_RTOL, MAMBA_BF16_STATE_RTOL = 0.1, 0.35
+RW_LONG = 2048  # the timed long prefill: 32 chunks
 
 T0 = time.perf_counter()
 
@@ -642,7 +684,9 @@ def main() -> int:
                 isinstance(t, torch.Tensor) and t.is_cuda for t in a) else None
 
             def kind(params, tokens, *a, **kw):
-                if not isinstance(params["blocks"]["p0"]["attn"]["wq"], ops.EccWeight):
+                # a forward on the card of a model with protected block leaves
+                if not tokens.is_cuda or not any(isinstance(w, ops.EccWeight)
+                                                 for _, w in base.flatten(params["blocks"])):
                     return None
                 k = "decode" if tokens.shape[1] == 1 else "prefill"
                 small = tokens.shape[0] * tokens.shape[1] <= b3_kernel.DECODE_MAX_M
@@ -823,6 +867,448 @@ def main() -> int:
         print(f"  {label} traced forwards, B3 launches by kernel in each window "
               f"(the last = the wrapper's count): {json.dumps(traced)}")
         return traced
+
+    # ---------------------------------------------------------------- 17
+    # The recurrent families: rwkv6-3b at its published width and depth
+    # (path RW) and jamba's smoke config on the card against the CPU with
+    # one mamba layer at jamba's published width (path JB).
+    def time_mix_f64(x, p, c):
+        """RWKV-6 time-mix as the plain recurrence, one token at a time, in
+        float64: token shift, the five-way data-dependent lerp, r / k / v /
+        g, the decay exp(-exp(wlog)), y_t = r_t (S + diag(u) k_t v_t^T), S =
+        diag(w_t) S + k_t v_t^T, the per-head norm, the output projection."""
+        b_, s_, d_ = x.shape
+        n_ = c.rwkv_head_dim
+        h_ = d_ // n_
+        prev = torch.zeros(b_, d_, dtype=x.dtype, device=x.device)
+        st = torch.zeros(b_, h_, n_, n_, dtype=x.dtype, device=x.device)
+        u = p["u"].reshape(h_, n_, 1)
+        outs = []
+        for t in range(s_):
+            xt = x[:, t]
+            xx = prev - xt
+            k5 = torch.tanh((xt + xx * p["mu_base"]) @ p["mix_a"]).reshape(b_, 5, -1)
+            dyn = torch.einsum("bfr,frd->bfd", k5, p["mix_b"])
+            xr, xk, xv, xg, xw = (xt[:, None] + xx[:, None] * (p["mu_five"] + dyn)).unbind(1)
+            r, k, v = ((z @ p[w]).reshape(b_, h_, n_) for z, w in
+                       ((xr, "w_r"), (xk, "w_k"), (xv, "w_v")))
+            g = xg @ p["w_g"]
+            w = torch.exp(-torch.exp(p["w_base"] + torch.tanh(xw @ p["decay_a"]) @ p["decay_b"]))
+            kv = k[..., :, None] * v[..., None, :]
+            y = torch.einsum("bhi,bhij->bhj", r, st + u * kv)
+            st = w.reshape(b_, h_, n_, 1) * st + kv
+            yc = y - y.mean(-1, keepdim=True)
+            yn = yc / torch.sqrt((yc * yc).mean(-1, keepdim=True) + 64e-5)
+            yn = yn.reshape(b_, d_) * p["ln_x_g"] + p["ln_x_b"]
+            outs.append((yn * torch.nn.functional.silu(g)) @ p["w_o"])
+            prev = xt
+        return torch.stack(outs, 1), st
+
+    def mamba_f64(x, p, c):
+        """The selective SSM as the plain recurrence, one token at a time, in
+        float64: the causal convolution over the last d_conv inputs, delta
+        = softplus(dt_proj(.) + dt_bias), h = exp(delta A) h + delta x B,
+        y = C . h + D x, gated by silu(z)."""
+        b_, s_, _ = x.shape
+        di, ds, kc = c.d_inner, c.d_state, c.d_conv
+        xs, z = torch.split(x @ p["in_proj"], di, dim=-1)
+        win = torch.zeros(b_, kc, di, dtype=x.dtype, device=x.device)
+        h = torch.zeros(b_, di, ds, dtype=x.dtype, device=x.device)
+        a = -torch.exp(p["a_log"])
+        dtr = p["dt_proj"].shape[0]
+        ys = []
+        for t in range(s_):
+            win = torch.cat([win[:, 1:], xs[:, t:t + 1]], dim=1)
+            xc = torch.nn.functional.silu((win * p["conv_w"].T[None]).sum(1) + p["conv_b"])
+            delta, bm, cm = torch.split(xc @ p["x_proj"], [dtr, ds, ds], dim=-1)
+            delta = torch.nn.functional.softplus(delta @ p["dt_proj"] + p["dt_bias"])
+            h = torch.exp(delta[..., None] * a) * h + (delta * xc)[..., None] * bm[:, None, :]
+            ys.append((h * cm[:, None, :]).sum(-1) + xc * p["d_skip"])
+        y = torch.stack(ys, 1)
+        return (y * torch.nn.functional.silu(z)) @ p["out_proj"], h
+
+    def recurrent_phase(report: dict, paths_extra: dict) -> dict:
+        from repro_torch.models import mamba, rwkv6
+
+        out: dict = {}
+        rng_ = np.random.default_rng(7)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        f32, f64 = torch.float32, torch.float64
+        below = lambda eng_, v, *a, **kw: ("steps", "steps_below") if \
+            platform.fault_rate(float(v)) > 0.0 else "steps"
+        rails_below = lambda eng_, volts, *a, **kw: ("rail_steps", "rail_steps_below") if any(
+            platform.fault_rate(float(v)) > 0.0 for v in volts.values()) else "rail_steps"
+
+        def record(counts, n_) -> dict:
+            by_k = ops.ecc_matmul_launches_by_kernel()
+            require(sum(by_k.values()) == counts["ecc_matmul"], f"B3 by kernel {by_k}")
+            return {"launches": counts, "launches_by_codec": ops.launch_counts_by_codec(),
+                    "kv_codec": None, "b3_by_kernel": by_k, "matmuls_per_forward": 0,
+                    "forwards": {"prefill": n_["prefill"], "decode": n_["decode"],
+                                 "decode_kernel": n_.get("decode_kernel", 0)},
+                    "packs": n_["packs"], "commits": n_["commits"]}
+
+        # RW: rwkv6-3b, nothing cut
+        rcfg = get_config("rwkv6-3b")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rparams = lm.init_params(rcfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        n_par = sum(v_.numel() for _, v_ in base.flatten(rparams))
+        require(n_par == RW_PARAMS, f"rwkv6-3b parameters {n_par}")
+        rw = out["RW"] = {"params": n_par, "init_s": time.perf_counter() - t0}
+        print(f"  RW rwkv6-3b at its published width and depth ({rcfg.n_layers} layers, d "
+              f"{rcfg.d_model}, {rcfg.d_model // rcfg.rwkv_head_dim} heads of "
+              f"{rcfg.rwkv_head_dim}, d_ff {rcfg.d_ff}, vocab {rcfg.vocab}, LayerNorm, bf16): "
+              f"{n_par} parameters ({2 * n_par / 1e9:.2f} GB), drawn in {rw['init_s']:.1f} s")
+        r_prompts = rng_.integers(0, rcfg.vocab, (BATCH, PROMPT_LEN)).astype(np.int32)
+
+        # a. the plain model
+        t_ = time.perf_counter()
+        toks_plain = ServingEngine(rcfg, rparams, rel=None, max_len=64).generate(
+            r_prompts, NEW_TOKENS)
+        gen_s = time.perf_counter() - t_
+        require(toks_plain.shape == (BATCH, NEW_TOKENS)
+                and bool(((toks_plain >= 0) & (toks_plain < rcfg.vocab)).all()), "RW tokens")
+        toks_d = torch.as_tensor(r_prompts, device=dev)
+        cache_ = lm.init_cache(rcfg, BATCH, 64)
+        pre = lambda: lm.prefill(rparams, toks_d, rcfg, cache_)
+        logits_, _ = pre()
+        require(bool(torch.isfinite(logits_).all()), "RW prefill logits")
+        tok_ = torch.argmax(logits_, dim=-1)[:, None]
+        dec = lambda: lm.decode_step(rparams, tok_, rcfg, cache_, PROMPT_LEN)
+        rw["a"] = {"generate_s": gen_s, "tokens_per_s": BATCH * NEW_TOKENS / gen_s,
+                   "prefill_wall_ms": min(wall_ms(pre) for _ in range(3)),
+                   "decode_wall_ms": min(wall_ms(dec) for _ in range(3))}
+        class OpCount(TorchDispatchMode):
+            """PyTorch (aten) operations dispatched inside the window."""
+
+            def __init__(self):
+                super().__init__()
+                self.n = 0
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                self.n += 1
+                return func(*args, **(kwargs or {}))
+
+        with OpCount() as ops_:
+            dec()
+        rw["a"]["decode_ops"] = ops_.n
+        evs = device_events(dec)
+        if evs:
+            rw["a"]["decode_busy_ms"] = busy_us(evs) / 1e3
+            rw["a"]["decode_idle_share"] = (1.0 - rw["a"]["decode_busy_ms"]
+                                            / rw["a"]["decode_wall_ms"])
+        rw["a"]["peak_gb"] = peak_gb()
+        print(f"  RW a. plain model: generate {BATCH} x {PROMPT_LEN} -> {NEW_TOKENS} tokens in "
+              f"{gen_s:.2f} s = {rw['a']['tokens_per_s']:.1f} tokens/s; prefill wall "
+              f"{rw['a']['prefill_wall_ms']:.2f} ms, decode step wall "
+              f"{rw['a']['decode_wall_ms']:.2f} ms, traced device busy "
+              f"{rw['a'].get('decode_busy_ms', float('nan')):.2f} ms (idle share "
+              f"{rw['a'].get('decode_idle_share', float('nan')):.3f}), "
+              f"{rw['a']['decode_ops']} PyTorch operations "
+              f"({rw['a']['decode_ops'] / rcfg.n_layers:.0f} a layer); peak "
+              f"{rw['a']['peak_gb']:.1f} GB")
+
+        # b. float32 at full width and depth: the chunked path against the
+        # step path, time-mix against a float64 recurrence; the long prefill
+        c32 = dataclasses.replace(rcfg, param_dtype=f32, compute_dtype=f32)
+        p32 = base.tree_map(lambda t_: t_.to(f32), rparams)
+        t33 = torch.as_tensor(rng_.integers(0, rcfg.vocab, (BATCH, PROMPT_LEN + 1)), device=dev)
+        l33, _ = lm.prefill(p32, t33, c32, lm.init_cache(c32, BATCH, 64))
+        c_ = lm.init_cache(c32, BATCH, 64)
+        lm.prefill(p32, t33[:, :PROMPT_LEN], c32, c_)
+        l1, _ = lm.decode_step(p32, t33[:, PROMPT_LEN:], c32, c_, PROMPT_LEN)
+        step_err, step_scale = float((l33 - l1).abs().max()), float(l33.abs().max())
+        require(bool(torch.isfinite(l33).all()) and step_err <= RW_STEP_RTOL * step_scale,
+                f"RW float32: prefill({PROMPT_LEN + 1}) differs from prefill({PROMPT_LEN}) + a "
+                f"decode step by {step_err} (max |logits| {step_scale})")
+        del l33, l1, c_
+        p_tm = {k_: v_[0] for k_, v_ in p32["blocks"]["p0"]["tm"].items()}
+        g32 = torch.Generator(device=dev).manual_seed(8)
+        for k_ in ("mu_base", "mu_five", "u", "ln_x_b"):  # init_params draws them as zeros
+            p_tm[k_] = 0.3 * torch.randn(p_tm[k_].shape, generator=g32, device=dev)
+        s_scan, s_dec = 128, 16
+        require(rwkv6.chunks_of(s_scan) == (2, 64), "RW time-mix chunks")
+        xs_ = torch.randn(BATCH, s_scan + s_dec, rcfg.d_model, generator=g32, device=dev)
+        y_, st_ = rwkv6.time_mix(xs_[:, :s_scan], p_tm, c32)
+        ys_ = [y_]
+        for t in range(s_scan, s_scan + s_dec):
+            y_, st_ = rwkv6.time_mix(xs_[:, t:t + 1], p_tm, c32, st_)
+            ys_.append(y_)
+        got = torch.cat(ys_, 1)
+        want, st64 = time_mix_f64(xs_.to(f64), {k_: v_.to(f64) for k_, v_ in p_tm.items()}, c32)
+        tm_err = float((got.to(f64) - want).abs().max() / want.abs().max())
+        wkv_err = float((st_["wkv"].to(f64) - st64).abs().max() / st64.abs().max())
+        require(tm_err <= F64_RTOL and wkv_err <= F64_RTOL,
+                f"RW float32 time-mix against the float64 recurrence: {tm_err} / {wkv_err} > "
+                f"{F64_RTOL}")
+        del p32, got, want, xs_, st_, st64, ys_, y_
+        torch.cuda.empty_cache()
+        long_t = torch.as_tensor(rng_.integers(0, rcfg.vocab, (BATCH, RW_LONG)), device=dev)
+        require(rwkv6.chunks_of(RW_LONG) == (32, 64), "RW long prefill chunks")
+        long_l = []
+        long_ms = min(wall_ms(lambda: long_l.append(lm.prefill(
+            rparams, long_t, rcfg, lm.init_cache(rcfg, BATCH, RW_LONG))[0])) for _ in range(2))
+        require(bool(torch.isfinite(long_l[-1]).all()), "RW long prefill logits")
+        del long_l, long_t
+        rw["b"] = {"step_max_abs_diff": step_err, "max_abs_logit": step_scale,
+                   "step_rtol": RW_STEP_RTOL, "time_mix_rel_err": tm_err,
+                   "wkv_rel_err": wkv_err, "f64_rtol": F64_RTOL,
+                   "long_prefill_tokens": RW_LONG, "long_prefill_ms": long_ms,
+                   "long_prefill_tokens_per_s": BATCH * RW_LONG / long_ms * 1e3}
+        print(f"  RW b. float32 at full width and depth: prefill({PROMPT_LEN + 1}) = "
+              f"prefill({PROMPT_LEN}) + a decode step within {step_err:.3e} (max |logits| "
+              f"{step_scale:.3e}, tolerance {RW_STEP_RTOL} x max); layer 0's time-mix at S = "
+              f"{s_scan} (2 chunks) and {s_dec} decode steps against a float64 recurrence: "
+              f"rel err {tm_err:.3e}, wkv state {wkv_err:.3e} (tolerance {F64_RTOL}); "
+              f"bf16 prefill of {BATCH} x {RW_LONG} tokens (32 chunks) {long_ms:.1f} ms = "
+              f"{rw['b']['long_prefill_tokens_per_s']:.0f} tokens/s")
+
+        ops.reset_launch_count()  # path RW: engines c-e
+        with Tally() as tally:
+            tally._wrap(memory, "decode_read", "reads")
+            tally._wrap(memory.EccMemoryDomain, "write", "writes")
+            tally._wrap(ServingEngine, "set_rails", rails_below)
+            # c. domain mode at full width, then the depth cut at 0.56 V
+            t_ = time.perf_counter()
+            deng = ServingEngine(rcfg, rparams, rel=ReliabilityConfig(mode="domain", voltage=1.0),
+                                 max_len=64)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t_
+            words = sum(deng.domain.entry(k_).n_words for k_ in deng.domain.names())
+            n_arrays = len(deng.domain.names())
+            require(words == RW_WORDS, f"RW domain words {words}")
+            require(all(same_bits(a_, b_) for (_, a_), (_, b_) in
+                        zip(base.flatten(deng.params), base.flatten(rparams))),
+                    "RW domain mode's nominal read-back differs from the params it wrote")
+            require(np.array_equal(deng.generate(r_prompts, NEW_TOKENS), toks_plain),
+                    "RW domain mode at nominal: tokens differ from the plain model's")
+            del deng
+            torch.cuda.empty_cache()
+            c2 = dataclasses.replace(rcfg, n_layers=RW_CUT_LAYERS)
+            p2 = {**rparams, "blocks": base.tree_map(lambda t_: t_[:RW_CUT_LAYERS],
+                                                     rparams["blocks"])}
+            ceng = ServingEngine(c2, p2, rel=ReliabilityConfig(mode="domain", voltage=1.0),
+                                 max_len=64)
+            cwords = sum(ceng.domain.entry(k_).n_words for k_ in ceng.domain.names())
+            require(cwords == RW_CUT_WORDS, f"RW cut domain words {cwords}")
+            mask_s = []
+            real_gather = memory.gather_masks
+
+            def timed_gather(*a, **kw):
+                t1 = time.perf_counter()
+                r_ = real_gather(*a, **kw)
+                mask_s.append(time.perf_counter() - t1)
+                return r_
+
+            memory.gather_masks = timed_gather
+            try:
+                before = ceng.stats.counters()
+                t_ = time.perf_counter()
+                ceng.set_voltage(0.56)
+                torch.cuda.synchronize()
+                read_s = time.perf_counter() - t_
+            finally:
+                memory.gather_masks = real_gather
+            step_cnt = ceng.stats.counters() - before
+            with tally.outside():
+                plain_cnt = np.zeros_like(step_cnt)
+                for key, arr in base.flatten(ceng.params):
+                    e_ = ceng.domain.entry("w" + key)
+                    m_ = faultsim.device_masks(e_.field, 0.56, dev)
+                    plo, phi, pst = ref.decode_ref(*ref.inject_ref(e_.lo, e_.hi, e_.parity, *m_))
+                    require(same_bits(arr, quantize.words_to_array(plo, phi, e_.nbytes, e_.shape,
+                                                                   e_.dtype)),
+                            f"RW domain read-back of {key} at 0.56 V differs from the plain read")
+                    plain_cnt += FaultStats.from_decode(pst, faultsim.flip_counts(*m_)).counters()
+                    del m_, plo, phi, pst
+            require(np.array_equal(plain_cnt, step_cnt),
+                    f"RW domain counters {step_cnt.tolist()} differ from the plain read's "
+                    f"{plain_cnt.tolist()}")
+            stats_056 = dict(zip(("clean", "corrected", "detected", "silent", "words_1bit",
+                                  "words_2bit", "words_multi", "faulty_bits"),
+                                 step_cnt.tolist()))
+            require(stats_056["corrected"] > 0, f"RW 0.56 V read {stats_056}")
+            rw["c"] = {"arrays": n_arrays, "words": words, "write_and_read_s": build_s,
+                       "cut_layers": RW_CUT_LAYERS, "cut_words": cwords, "read_056_s": read_s,
+                       "host_mask_s": sum(mask_s), "stats_056": stats_056}
+            del ceng, p2
+            torch.cuda.empty_cache()
+            print(f"  RW c. domain mode: {n_arrays} arrays, {words} raw words written and read "
+                  f"at nominal in {build_s:.1f} s, the read-back = the params bit for bit, tokens "
+                  f"= the plain model's; {RW_CUT_LAYERS}-layer cut ({cwords} words) read at "
+                  f"0.56 V in {read_s:.1f} s (host masks {sum(mask_s):.1f} s): every array and "
+                  f"the counters = B7 + B5's plain versions on the same masks; "
+                  f"{json.dumps(stats_056)}")
+
+            # d. single-rail inline: the key rule protects no leaf
+            before = ops.launch_counts()
+            ieng = ServingEngine(rcfg, rparams, rel=ReliabilityConfig(mode="inline", voltage=1.0),
+                                 max_len=64)
+            require(ieng._store.n_words == 0 and ieng._store.groups == (),
+                    f"RW single-rail arena of {ieng._store.n_words} words")
+            ieng.set_voltage(0.56)
+            require(np.array_equal(ieng.generate(r_prompts, NEW_TOKENS), toks_plain),
+                    "RW single-rail inline at 0.56 V: tokens differ from the plain model's")
+            require(ops.launch_counts() == before, f"RW empty arena launched "
+                    f"{ops.launch_counts()} (before {before})")
+            rw["d"] = {"protected_words": 0, "power_report": ieng.power_report()}
+            del ieng
+            print(f"  RW d. single-rail inline engine: 0 protected words (the leaves are keyed "
+                  f"tm / cm), no launch; tokens at 0.56 V = the plain model's; power "
+                  f"{json.dumps(rw['d']['power_report'])}")
+
+            # e. multi-rail inline with device masks: the embedding alone
+            rel = ReliabilityConfig(mode="inline", voltage=1.0,
+                                    fault_model=FaultModelConfig(mask_source="device"),
+                                    rails=RailsConfig(multi_rail=True, start_v=0.62))
+            meng = ServingEngine(rcfg, rparams, rel=rel, max_len=64)
+            require(meng._store.domains == ("embedding",)
+                    and meng._store.n_words == RW_EMBED_WORDS,
+                    f"RW multi-rail arena {meng._store.domains} of {meng._store.n_words} words")
+            m_nom = meng.generate(r_prompts, NEW_TOKENS)
+            with tally.outside():
+                qw, sc = quantize.quantize(rparams["embed"].to(f32), axis=1)
+                q_toks = ServingEngine(rcfg, {**rparams, "embed": qw.to(f32) * sc.reshape(-1)},
+                                       rel=None, max_len=64).generate(r_prompts, NEW_TOKENS)
+                del qw, sc
+            require(np.array_equal(m_nom, q_toks), "RW multi-rail at nominal: tokens differ "
+                    "from the plain model's on the int8 embedding")
+            meng.set_rails({"embedding": 0.56})
+            scrub = meng._last_scrub.total()
+            require(scrub.corrected > 0, f"RW 0.56 V embedding step {scrub}")
+            m56 = meng.generate(r_prompts, NEW_TOKENS)
+            t_ = time.perf_counter()
+            locks, hist = meng.autotune_voltage()
+            torch.cuda.synchronize()
+            require(meng.controller.locked, "RW multi-rail walk did not lock")
+            rw["e"] = {"protected_words": meng._store.n_words,
+                       "agreement_nominal_with_bf16": float((m_nom == toks_plain).mean()),
+                       "agreement_056_with_nominal": float((m56 == m_nom).mean()),
+                       "scrub_056": scrub.to_dict(), "walk_s": time.perf_counter() - t_,
+                       "locks": locks, "power_report": meng.power_report(),
+                       "history": {d: [(r.voltage, r.corrected, r.detected, r.action)
+                                       for r in h] for d, h in hist.items()}}
+            del meng
+            print(f"  RW e. multi-rail inline engine, device masks: the embedding alone "
+                  f"({RW_EMBED_WORDS} words); nominal tokens = the plain model's on the int8 "
+                  f"embedding (agreement with the bf16 embedding's "
+                  f"{rw['e']['agreement_nominal_with_bf16']:.4f}); 0.56 V scrub "
+                  f"{json.dumps(rw['e']['scrub_056'])}, agreement with nominal "
+                  f"{rw['e']['agreement_056_with_nominal']:.4f}; walk from 0.62 V in "
+                  f"{rw['e']['walk_s']:.2f} s: locks {json.dumps(locks)}, modelled power "
+                  f"{rw['e']['power_report']['total_w']:.4f} W, saving "
+                  f"{rw['e']['power_report']['saving_vs_nominal']:.4f}")
+            counts, n_ = ops.launch_counts(), dict(tally.n)
+        want = dict.fromkeys(counts, 0)
+        want.update(encode=n_["writes"] + n_["packs"], inject=n_["reads"],
+                    decode=n_["reads"] + n_["rail_steps"],
+                    inject_scrub_domains=n_["rail_steps"],
+                    fault_field=n_.get("rail_steps_below", 0))
+        require(counts == want and n_["packs"] == 1 and n_["plain_on_card"] == 0,
+                f"RW launches {counts}, expected {want} (tally {n_})")
+        paths_extra["RW"] = record(counts, n_)
+        rw["launches"], rw["peak_gb"] = counts, peak_gb()
+        print(f"  RW launches: {json.dumps(counts)} = {n_['writes']} domain writes + 1 "
+              f"embedding pack, {n_['reads']} domain array reads, {n_['rail_steps']} rail "
+              f"steps ({n_.get('rail_steps_below', 0)} below V_min); peak {rw['peak_gb']:.1f} GB")
+        del rparams
+        torch.cuda.empty_cache()
+
+        # JB: jamba's smoke config on the card against the CPU at 0.56 V
+        jcfg = get_smoke_config("jamba-1.5-large-398b")
+        jp = lm.init_params(jcfg, seed=0, device="cpu")
+        j_prompts = rng_.integers(0, jcfg.vocab, (2, 8)).astype(np.int32)
+        jrel = ReliabilityConfig(mode="inline", voltage=1.0)
+        jb = out["JB"] = {}
+        res = {}
+
+        def jamba_run(d):
+            e_ = ServingEngine(jcfg, jp, rel=jrel, max_len=32, device=d)
+            e_.set_voltage(0.56)
+            toks = e_.generate(j_prompts, 8)
+            logits = lm.prefill(e_.params, torch.as_tensor(j_prompts, device=d), jcfg,
+                                lm.init_cache(jcfg, 2, 32, device=d))[0]
+            keys = sorted(k_ for k_, w in base.flatten(e_.params) if isinstance(w, ops.EccWeight))
+            return toks, dataclasses.asdict(e_._last_scrub), logits.cpu(), keys
+
+        res["cpu"] = jamba_run("cpu")
+        ops.reset_launch_count()  # path JB: the card's engine
+        with Tally() as tally:
+            tally._wrap(ServingEngine, "set_voltage", below)
+            res["cuda"] = jamba_run("cuda")
+            counts, n_ = ops.launch_counts(), dict(tally.n)
+        (ct, cs, cl, ck), (gt, gs, gl, gk) = res["cpu"], res["cuda"]
+        n_prot = len(ck)
+        require(ck == gk and n_prot == 14, f"JB protected leaves {gk}")
+        require(cs == gs and gs["corrected"] > 0, f"JB counters: card {gs}, CPU {cs}")
+        require(np.array_equal(ct, gt), "JB tokens: the card's differ from the CPU's")
+        j_err, j_scale = float((gl - cl).abs().max()), float(cl.abs().max())
+        require(j_err <= MATMUL_RTOL * j_scale, f"JB logits differ by {j_err} (max {j_scale})")
+        want = dict.fromkeys(counts, 0)
+        want.update(inject_scrub=n_["steps"], encode=n_["packs"],
+                    ecc_matmul=n_prot * (n_["prefill"] + n_["decode"]))
+        by_k = ops.ecc_matmul_launches_by_kernel()
+        require(counts == want and n_["packs"] == n_prot and n_["steps"] == 2
+                and by_k["decode"] == n_prot * n_["decode_kernel"] and n_["plain_on_card"] == 0,
+                f"JB launches {counts}, expected {want}; by kernel {by_k}; tally {n_}")
+        paths_extra["JB"] = record(counts, n_)
+        jb.update({"protected_leaves": n_prot, "scrub_056": gs, "logit_max_abs_diff": j_err,
+                   "max_abs_logit": j_scale, "launches": counts, "b3_by_kernel": by_k})
+        print(f"  JB jamba smoke (8 layers = one period, p4 attention, MoE at odd positions) "
+              f"through an inline engine at 0.56 V, host masks: {n_prot} protected leaves, "
+              f"tokens and counters card = CPU, logits within {j_err:.3e} (max {j_scale:.3e}); "
+              f"launches {json.dumps(counts)}, B3 by kernel {json.dumps(by_k)}")
+
+        # one mamba layer at jamba's published width against a float64
+        # recurrence on the card: in float32 (the chunked lowering's
+        # exactness) and in bf16 (the published compute dtype)
+        wcfg = get_config("jamba-1.5-large-398b")
+        pm = base.materialize(lm._mamba_spec(wcfg), torch.Generator(device=dev).manual_seed(0),
+                              torch.bfloat16, dev)
+        for k_ in ("conv_b", "dt_bias"):  # init_params draws them as zeros
+            pm[k_] = (0.1 * torch.randn(pm[k_].shape, generator=gen, device=dev)).to(
+                torch.bfloat16)
+        require(pm["dt_proj"].shape[0] == 512 and pm["in_proj"].shape == (8192, 2 * 16384)
+                and pm["a_log"].shape == (16384, 16), "JB mamba shapes")
+        xm = torch.randn(BATCH, s_scan + s_dec, wcfg.d_model, generator=gen,
+                         device=dev).to(torch.bfloat16)
+        want_m, h64 = mamba_f64(xm.to(f64), {k_: v_.to(f64) for k_, v_ in pm.items()}, wcfg)
+        mw = jb["mamba_width"] = {"d_model": wcfg.d_model, "d_inner": wcfg.d_inner,
+                                  "d_state": wcfg.d_state, "dt_rank": 512, "batch": BATCH,
+                                  "scan": s_scan, "decode_steps": s_dec}
+        for dt, rtol, s_rtol in ((f32, F64_RTOL, F64_RTOL),
+                                 (torch.bfloat16, MAMBA_BF16_RTOL, MAMBA_BF16_STATE_RTOL)):
+            c_m = dataclasses.replace(wcfg, param_dtype=dt, compute_dtype=dt)
+            p_m = {k_: v_.to(dt) for k_, v_ in pm.items()}
+            t_ = time.perf_counter()
+            y_, st_ = mamba.mamba_layer(xm[:, :s_scan].to(dt), p_m, c_m)
+            ys_ = [y_]
+            for t in range(s_scan, s_scan + s_dec):
+                y_, st_ = mamba.mamba_layer(xm[:, t:t + 1].to(dt), p_m, c_m, st_)
+                ys_.append(y_)
+            got = torch.cat(ys_, 1)
+            torch.cuda.synchronize()
+            layer_s = time.perf_counter() - t_
+            m_err = float((got.to(f64) - want_m).abs().max() / want_m.abs().max())
+            h_err = float((st_["ssm"].to(f64) - h64).abs().max() / h64.abs().max())
+            tag = str(dt).split(".")[-1]
+            require(bool(torch.isfinite(got).all()) and m_err <= rtol and h_err <= s_rtol,
+                    f"JB mamba layer at jamba's width in {tag} against the float64 recurrence: "
+                    f"{m_err} / {h_err} > {rtol} / {s_rtol}")
+            mw[tag] = {"rel_err": m_err, "ssm_state_rel_err": h_err, "rtol": rtol,
+                       "state_rtol": s_rtol, "wall_s": layer_s}
+            print(f"  JB one mamba layer at jamba's published width (d {wcfg.d_model}, d_inner "
+                  f"{wcfg.d_inner}, d_state {wcfg.d_state}, dt_rank 512, bf16 parameters, batch "
+                  f"{BATCH}) computed in {tag}: S = {s_scan} (2 chunks) and {s_dec} decode steps "
+                  f"in {layer_s:.2f} s against a float64 recurrence: rel err {m_err:.3e} "
+                  f"(tolerance {rtol}), ssm state {h_err:.3e} (tolerance {s_rtol})")
+            del p_m, got, ys_, y_, st_
+        del pm, xm, want_m, h64
+        torch.cuda.empty_cache()
+        return out
 
     # ---------------------------------------------------------------- 14
     # The accuracy canary on qwen2-7b at full width (path Q), the accuracy
@@ -4640,8 +5126,11 @@ def main() -> int:
     with Phase("16 MoE family: mixtral-8x22b, llama4-scout, the examples"):
         moe_run = moe_phase(report, paths_extra)
 
-    # ---------------------------------------------------------------- 17
-    with Phase("17 traced steps, timings and the kernels line"):
+    with Phase("17 recurrent families: rwkv6-3b, jamba's mamba"):
+        recurrent_run = recurrent_phase(report, paths_extra)
+
+    # ---------------------------------------------------------------- 18
+    with Phase("18 traced steps, timings and the kernels line"):
         for name, run in runs.items():
             run["steps"] = step_breakdown(traced_params.pop(name), {"prefill": 0, "decode": 0},
                                           walls=run["steps"])
@@ -4680,6 +5169,7 @@ def main() -> int:
         print(f"  accuracy {json.dumps(accuracy_run)}")
         print(f"  dense {json.dumps(dense_run)}")
         print(f"  moe {json.dumps(moe_run)}")
+        print(f"  recurrent {json.dumps(recurrent_run)}")
         paths = {**runs, **{k: v for k, v in paged.items() if "launches" in v}, **paths_extra}
 
         print(f"  codec {json.dumps(codec_run)}")

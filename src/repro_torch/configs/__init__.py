@@ -13,6 +13,8 @@ ARCHS = {
     "minitron-8b": "minitron_8b",
     "mixtral-8x22b": "mixtral_8x22b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "rwkv6-3b": "rwkv6_3b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
     # the paper's own accelerator workload (MLP on MNIST-class tasks)
     "paper-nn": "paper_nn",
 }

@@ -20,7 +20,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe are ported
+    family: str  # dense | moe | ssm | hybrid are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -42,6 +42,12 @@ class ModelConfig:
     moe_every: int = 1  # every k-th layer position is MoE (within a period)
     shared_expert: bool = False
     capacity_factor: float = 1.25
+    # hybrid / ssm
+    attn_every: int = 0  # jamba: one attention layer per this many layers
+    d_state: int = 16
+    d_conv: int = 4
+    ssm_expand: int = 2
+    rwkv_head_dim: int = 64
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.float32
     kv_quant: bool = False  # int8 KV cache (+per-token scales) for decode
@@ -52,17 +58,31 @@ class ModelConfig:
 
     @property
     def period(self) -> int:
-        """Layers per stacked group. The ported families repeat one layer
-        (``moe_every > 1`` needs more positions and is refused by
-        ``lm.check_family``)."""
+        """Layers per stacked group (the repeating block pattern): jamba's
+        ``attn_every``, an MoE config's ``moe_every``, else one layer."""
+        if self.family == "hybrid":
+            return self.attn_every
+        if self.n_experts and self.moe_every > 1:
+            return self.moe_every
         return 1
 
     @property
     def n_groups(self) -> int:
         return self.n_layers // self.period
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
     def layer_kind(self, pos: int) -> dict:
-        """Period position ``pos``'s mixer and feed-forward type."""
+        """Period position ``pos``'s mixer and feed-forward type: a hybrid
+        period has its attention at ``attn_every // 2`` and MoE at the odd
+        positions; an ssm layer is RWKV time-mix and channel-mix."""
+        if self.family == "hybrid":
+            mixer = "attn" if pos == self.attn_every // 2 else "mamba"
+            return {"mixer": mixer, "ffn": "moe" if pos % 2 == 1 else "mlp"}
+        if self.family == "ssm":
+            return {"mixer": "rwkv", "ffn": "rwkv_cm"}
         if self.family == "moe":
             ffn = "moe" if pos % self.moe_every == self.moe_every - 1 else "mlp"
             return {"mixer": "attn", "ffn": ffn}
@@ -72,13 +92,15 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class Spec:
     shape: tuple
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | decay
     scale: float = 1.0
 
 
 def materialize(spec_tree, generator: torch.Generator, dtype, device):
     """Spec tree -> tensors: ``normal`` leaves are N(0, 1) * scale /
-    sqrt(fan_in) drawn from ``generator`` in flattening order. A leaf of
+    sqrt(fan_in) drawn from ``generator`` in flattening order; ``decay``
+    leaves (the recurrent mixers' decay logits) are linspace(-6, -0.5) over
+    the leaf's elements, reshaped, and draw nothing. A leaf of
     four or more dimensions (a stacked expert weight) is drawn one trailing
     matrix at a time, so no float32 copy of it is ever whole."""
     flat = flatten(spec_tree, is_leaf=lambda x: isinstance(x, Spec))
@@ -88,6 +110,9 @@ def materialize(spec_tree, generator: torch.Generator, dtype, device):
             a = torch.zeros(s.shape, dtype=dtype, device=device)
         elif s.init == "ones":
             a = torch.ones(s.shape, dtype=dtype, device=device)
+        elif s.init == "decay":
+            a = torch.from_numpy(np.linspace(-6.0, -0.5, num=math.prod(s.shape)))
+            a = a.to(torch.float32).reshape(s.shape).to(device, dtype)
         else:
             fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
             mult = s.scale / math.sqrt(fan_in)

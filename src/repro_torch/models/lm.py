@@ -1,9 +1,14 @@
-"""Decoder LM (the dense and MoE families): parameter construction,
-prefill, chunked prefill and greedy decode.
+"""Decoder LM (the dense, MoE, ssm and hybrid families): parameter
+construction, prefill, chunked prefill and greedy decode.
 
 The layer stack is a Python loop over the stacked ``n_groups`` axis (the
-reference's ``lax.scan``); protected matrices are ``EccWeight`` leaves whose
-layer ``g`` is sliced per step. The cache is updated in place.
+reference's ``lax.scan``), and inside each group over its period positions
+p0, p1, ... (jamba's eight layers, an MoE config's ``moe_every``); protected
+matrices are ``EccWeight`` leaves whose layer ``g`` is sliced per step. The
+cache is updated in place. A recurrent mixer (models/rwkv6.py,
+models/mamba.py) keeps a per-lane state in place of K/V: a prefill scans
+from a zero state, a one-token decode step advances the state, and chunks
+are refused.
 
 Every forward on a position-indexed float cache is one path: the new tokens
 of lane b sit at cache positions pos0[b], pos0[b] + 1, ...; their K/V are
@@ -32,21 +37,28 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.models import base, layers, moe
+from repro_torch.models import base, layers, mamba, moe, rwkv6
 from repro_torch.models.base import ModelConfig, Spec, params_from_numpy  # noqa: F401
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Admit the ported families: dense, and moe with an MoE feed-forward
-    in every layer."""
-    if cfg.family not in ("dense", "moe"):
+    """Admit the ported families: dense, moe (an MoE feed-forward at every
+    ``moe_every``-th period position), ssm (rwkv6) and hybrid (mamba with
+    attention and MoE, jamba); refuse vlm and audio. A depth that is not a
+    whole number of periods is refused, as the reference asserts."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family is not ported "
-                                  "(dense and moe are)")
-    if cfg.family == "moe" and cfg.moe_every != 1:
-        raise NotImplementedError(
-            f"{cfg.name}: moe_every={cfg.moe_every} needs period positions p0..p"
-            f"{cfg.moe_every - 1} (dense and MoE layers interleaved), which come with "
-            "jamba's hybrid family; only moe_every=1 is ported")
+                                  "(dense, moe, ssm and hybrid are)")
+    if cfg.period < 1 or cfg.n_layers % cfg.period:
+        raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} is not a whole number of "
+                         f"periods of {cfg.period} layers (period positions p0..p"
+                         f"{cfg.period - 1})")
+
+
+def recurrent(cfg: ModelConfig) -> bool:
+    """Whether some period position has a recurrent mixer (rwkv or mamba),
+    whose per-lane state takes the place of a KV cache."""
+    return any(cfg.layer_kind(j)["mixer"] in ("rwkv", "mamba") for j in range(cfg.period))
 
 
 def _norm_spec(cfg):
@@ -94,12 +106,65 @@ def _moe_spec(cfg):
     return p
 
 
+def _mamba_spec(cfg):
+    d, di, ds, k = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.d_conv
+    dtr = max(1, d // 16)
+    return {
+        "in_proj": Spec((d, 2 * di)),
+        "conv_w": Spec((di, k), scale=0.5),
+        "conv_b": Spec((di,), "zeros"),
+        "x_proj": Spec((di, dtr + 2 * ds)),
+        "dt_proj": Spec((dtr, di)),
+        "dt_bias": Spec((di,), "zeros"),
+        "a_log": Spec((di, ds), "decay"),
+        "d_skip": Spec((di,), "ones"),
+        "out_proj": Spec((di, d)),
+    }
+
+
+def _rwkv_tm_spec(cfg):
+    d = cfg.d_model
+    return {
+        "mu_base": Spec((d,), "zeros"),
+        "mix_a": Spec((d, rwkv6.N_MIX * rwkv6.LORA_MIX)),
+        "mix_b": Spec((rwkv6.N_MIX, rwkv6.LORA_MIX, d)),
+        "mu_five": Spec((rwkv6.N_MIX, d), "zeros"),
+        "w_r": Spec((d, d)),
+        "w_k": Spec((d, d)),
+        "w_v": Spec((d, d)),
+        "w_g": Spec((d, d)),
+        "w_o": Spec((d, d)),
+        "w_base": Spec((d,), "decay"),
+        "decay_a": Spec((d, rwkv6.LORA_DECAY)),
+        "decay_b": Spec((rwkv6.LORA_DECAY, d)),
+        "u": Spec((d,), "zeros"),
+        "ln_x_g": Spec((d,), "ones"),
+        "ln_x_b": Spec((d,), "zeros"),
+    }
+
+
+def _rwkv_cm_spec(cfg):
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "mu_k": Spec((d,), "zeros"),
+        "mu_r": Spec((d,), "zeros"),
+        "w_k": Spec((d, f)),
+        "w_v": Spec((f, d)),
+        "w_r": Spec((d, d)),
+    }
+
+
+_MIXER_SPECS = {"attn": ("attn", _attn_spec), "mamba": ("mamba", _mamba_spec),
+                "rwkv": ("tm", _rwkv_tm_spec)}
+_FFN_SPECS = {"moe": ("moe", _moe_spec), "rwkv_cm": ("cm", _rwkv_cm_spec),
+              "mlp": ("mlp", _mlp_spec)}
+
+
 def _layer_spec(cfg, pos: int):
-    p = {"ln1": _norm_spec(cfg), "ln2": _norm_spec(cfg), "attn": _attn_spec(cfg)}
-    if cfg.layer_kind(pos)["ffn"] == "moe":
-        p["moe"] = _moe_spec(cfg)
-    else:
-        p["mlp"] = _mlp_spec(cfg)
+    kind = cfg.layer_kind(pos)
+    p = {"ln1": _norm_spec(cfg), "ln2": _norm_spec(cfg)}
+    for key, spec in (_MIXER_SPECS[kind["mixer"]], _FFN_SPECS[kind["ffn"]]):
+        p[key] = spec(cfg)
     return p
 
 
@@ -114,7 +179,8 @@ def init_specs(cfg: ModelConfig):
     check_family(cfg)
     tree = {
         "embed": Spec((cfg.vocab, cfg.d_model)),
-        "blocks": {"p0": _stack(_layer_spec(cfg, 0), cfg.n_groups)},
+        "blocks": {f"p{j}": _stack(_layer_spec(cfg, j), cfg.n_groups)
+                   for j in range(cfg.period)},
         "final_norm": _norm_spec(cfg),
     }
     if not cfg.tie_embeddings:
@@ -132,19 +198,39 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """Zero decode cache: {"p0": {"k", "v"}} of (G, B, S, Hkv, Dh), S =
-    max_len, or min(max_len, sliding_window) slots of a ring; with
-    ``kv_quant`` int8 K/V and a float32 "kv_scale" (G, B, S, Hkv, 2)."""
+    """Zero decode cache, one entry per period position "p{j}" with layers
+    stacked on its first axis: an attention position's "k", "v" of (G, B,
+    S, Hkv, Dh), S = max_len, or min(max_len, sliding_window) slots of a
+    ring, with ``kv_quant`` int8 K/V and a float32 "kv_scale" (G, B, S,
+    Hkv, 2); an rwkv position's "shift_tm" (G, B, D), "wkv" (G, B, H, N, N)
+    and "shift_cm" (G, B, D); a mamba position's "conv" (G, B, d_conv - 1,
+    d_inner) and "ssm" (G, B, d_inner, d_state). States are in the compute
+    dtype."""
     check_family(cfg)
     dev = resolve_device(device)
-    s = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-    shape = (cfg.n_groups, batch, s, cfg.n_kv_heads, cfg.hd)
-    kv_dt = torch.int8 if cfg.kv_quant else cfg.compute_dtype
-    c = {"k": torch.zeros(shape, dtype=kv_dt, device=dev),
-         "v": torch.zeros(shape, dtype=kv_dt, device=dev)}
-    if cfg.kv_quant:
-        c["kv_scale"] = torch.zeros(shape[:-1] + (2,), dtype=torch.float32, device=dev)
-    return {"p0": c}
+    g, dt = cfg.n_groups, cfg.compute_dtype
+    zeros = lambda *shape: torch.zeros(shape, dtype=dt, device=dev)
+    cache = {}
+    for j in range(cfg.period):
+        mixer = cfg.layer_kind(j)["mixer"]
+        if mixer == "rwkv":
+            n = cfg.rwkv_head_dim
+            c = {"shift_tm": zeros(g, batch, cfg.d_model),
+                 "wkv": zeros(g, batch, cfg.d_model // n, n, n),
+                 "shift_cm": zeros(g, batch, cfg.d_model)}
+        elif mixer == "mamba":
+            c = {"conv": zeros(g, batch, cfg.d_conv - 1, cfg.d_inner),
+                 "ssm": zeros(g, batch, cfg.d_inner, cfg.d_state)}
+        else:
+            s = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+            shape = (g, batch, s, cfg.n_kv_heads, cfg.hd)
+            kv_dt = torch.int8 if cfg.kv_quant else dt
+            c = {"k": torch.zeros(shape, dtype=kv_dt, device=dev),
+                 "v": torch.zeros(shape, dtype=kv_dt, device=dev)}
+            if cfg.kv_quant:
+                c["kv_scale"] = torch.zeros(shape[:-1] + (2,), dtype=torch.float32, device=dev)
+        cache[f"p{j}"] = c
+    return cache
 
 
 def _quant_kv(k, v):
@@ -228,15 +314,44 @@ def _attention(q, k, v, cfg, *, cache, g, pos0, kv_len, prefill):
     return layers.chunk_attention(q, ck, cv, pos0, kv_len, window=w)
 
 
-def _attn_block(x, p, cfg, *, cache, g, pos0, kv_len, rope, prefill):
-    h = layers.apply_norm(x, p["ln1"], cfg.norm_type)
-    q, k, v = layers.qkv_proj(h, p["attn"], cfg, rope)
-    out = _attention(q, k, v, cfg, cache=cache, g=g, pos0=pos0, kv_len=kv_len, prefill=prefill)
-    x = x + layers.out_proj(out, p["attn"])
+def _ffn(x, p, cfg):
     h2 = layers.apply_norm(x, p["ln2"], cfg.norm_type)
     if "moe" in p:  # decode (S == 1) routes the batch as one group, else each row
         return x + moe.moe_ffn(h2, p["moe"], cfg)
     return x + layers.mlp(h2, p["mlp"], cfg)
+
+
+def _attn_block(x, p, cfg, *, cache, g, pos0, kv_len, rope, prefill):
+    h = layers.apply_norm(x, p["ln1"], cfg.norm_type)
+    q, k, v = layers.qkv_proj(h, p["attn"], cfg, rope)
+    out = _attention(q, k, v, cfg, cache=cache, g=g, pos0=pos0, kv_len=kv_len, prefill=prefill)
+    return _ffn(x + layers.out_proj(out, p["attn"]), p, cfg)
+
+
+def _mamba_block(x, p, cfg, *, cache, g, prefill):
+    """A prefill starts from a zero state, a decode step from layer g's
+    state; both write the state they end in."""
+    h = layers.apply_norm(x, p["ln1"], cfg.norm_type)
+    state = None if prefill else {"conv": cache["conv"][g], "ssm": cache["ssm"][g]}
+    y, new = mamba.mamba_layer(h, p["mamba"], cfg, state)
+    cache["conv"][g].copy_(new["conv"])
+    cache["ssm"][g].copy_(new["ssm"])
+    return _ffn(x + y, p, cfg)
+
+
+def _rwkv_block(x, p, cfg, *, cache, g, prefill):
+    """Time-mix and channel-mix; state as in ``_mamba_block``."""
+    h = layers.apply_norm(x, p["ln1"], cfg.norm_type)
+    st = None if prefill else {"shift": cache["shift_tm"][g], "wkv": cache["wkv"][g]}
+    y, tm = rwkv6.time_mix(h, p["tm"], cfg, st)
+    x = x + y
+    h2 = layers.apply_norm(x, p["ln2"], cfg.norm_type)
+    y2, cm = rwkv6.channel_mix(h2, p["cm"], cfg, None if prefill else
+                               {"shift": cache["shift_cm"][g]})
+    cache["shift_tm"][g].copy_(tm["shift"])
+    cache["wkv"][g].copy_(tm["wkv"])
+    cache["shift_cm"][g].copy_(cm["shift"])
+    return x + y2
 
 
 def _embed(params, tokens, cfg):
@@ -277,23 +392,40 @@ def _kv_bound(pos0, s: int) -> int | None:
 def forward(params, tokens, cfg: ModelConfig, cache, pos0, kv_len: int | None = None,
             prefill: bool = False):
     """Backbone: (B, S) tokens at cache positions pos0 .. pos0 + S - 1 (pos0
-    a scalar or (B,)) -> final-norm hidden (B, S, D); writes their K/V into
-    the cache in place. ``kv_len`` bounds max(pos0) + S from the host
-    (derived when the positions are on the host; else the cache length).
-    ``prefill`` (pos0 0) marks a prompt, which a ring or int8 cache stores
-    after attending it. An MoE layer routes a one-token forward's batch as
-    one dispatch group and each row of a longer one as its own."""
+    a scalar or (B,)) -> final-norm hidden (B, S, D); writes their K/V and
+    the recurrent layers' states into the cache in place. ``kv_len`` bounds
+    max(pos0) + S from the host (derived when the positions are on the
+    host; else the cache length). ``prefill`` (pos0 0) marks a prompt,
+    which a ring or int8 cache stores after attending it and a recurrent
+    layer scans from a zero state; a recurrent layer's other forward is a
+    one-token decode step from its state (a chunk is refused: the state
+    holds no positions to resume from). Groups run in order, and inside
+    each the period positions p0, p1, ... An MoE layer routes a one-token
+    forward's batch as one dispatch group and each row of a longer one as
+    its own."""
     check_family(cfg)
+    if not prefill and tokens.shape[1] != 1 and recurrent(cfg):
+        raise ValueError(f"{cfg.name}: a recurrent mixer takes prefills and one-token "
+                         "decode steps, not chunks")
     if kv_len is None:
         kv_len = _kv_bound(pos0, tokens.shape[1])
     pos0 = _positions(pos0, tokens.shape[0], tokens.device)
     x = _embed(params, tokens, cfg)
-    positions = pos0[:, None] + torch.arange(tokens.shape[1], device=x.device)[None, :]
-    rope = layers.rope_tables(positions, cfg.hd, cfg.rope_theta)  # once for every layer
-    blocks = params["blocks"]["p0"]
+    kinds = [cfg.layer_kind(j)["mixer"] for j in range(cfg.period)]
+    rope = None
+    if "attn" in kinds:  # once for every layer
+        positions = pos0[:, None] + torch.arange(tokens.shape[1], device=x.device)[None, :]
+        rope = layers.rope_tables(positions, cfg.hd, cfg.rope_theta)
     for g in range(cfg.n_groups):
-        x = _attn_block(x, _layer(blocks, g), cfg, cache=cache["p0"], g=g, pos0=pos0,
-                        kv_len=kv_len, rope=rope, prefill=prefill)
+        for j, mixer in enumerate(kinds):
+            p, c = _layer(params["blocks"][f"p{j}"], g), cache[f"p{j}"]
+            if mixer == "attn":
+                x = _attn_block(x, p, cfg, cache=c, g=g, pos0=pos0, kv_len=kv_len, rope=rope,
+                                prefill=prefill)
+            elif mixer == "mamba":
+                x = _mamba_block(x, p, cfg, cache=c, g=g, prefill=prefill)
+            else:
+                x = _rwkv_block(x, p, cfg, cache=c, g=g, prefill=prefill)
     return layers.apply_norm(x, params["final_norm"], cfg.norm_type)
 
 
@@ -329,6 +461,11 @@ def _check_chunkable(cfg: ModelConfig) -> None:
     if cfg.sliding_window or cfg.kv_quant:
         raise ValueError(f"{cfg.name}: chunks need a position-indexed float cache "
                          "(no sliding_window, no kv_quant)")
+    if recurrent(cfg):
+        # the reference's chunk mode restarts the recurrence from a zero
+        # state and leaves it unwritten; the port refuses instead
+        raise ValueError(f"{cfg.name}: chunks need attention at every layer (a recurrent "
+                         "mixer's state cannot resume at a chunk's position)")
 
 
 @torch.no_grad()

@@ -1016,3 +1016,92 @@ def test_moe_combine_is_deterministic_on_the_card(cuda):
     for shape in ((4, 1), (4, 32)):
         x = torch.randn(*shape, cfg.d_model, generator=g, device=cuda).to(torch.bfloat16)
         assert torch.equal(moe.moe_ffn(x, p, cfg), moe.moe_ffn(x, p, cfg))
+
+
+def _recurrent_layer(arch, key, seed=0):
+    """Layer 0's ``key`` subtree of ``arch``'s smoke config on the CPU in
+    float32, its constant leaves (token-shift mixes, bonus, norm gains and
+    shifts, biases) filled with seeded values."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    cfg = configs.get_smoke_config(arch)
+    p = {k: v[0] for k, v in lm.init_params(cfg, seed=seed, device="cpu")["blocks"]["p0"][key]
+         .items()}
+    g = torch.Generator().manual_seed(seed + 1)
+    for k in ("mu_base", "mu_five", "u", "ln_x_g", "ln_x_b", "mu_k", "mu_r", "conv_b",
+              "dt_bias", "d_skip"):
+        if k in p:
+            p[k] = p[k] + 0.3 * torch.randn(p[k].shape, generator=g)
+    return cfg, p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 10, 128])
+def test_rwkv_time_and_channel_mix_on_the_card_equal_the_cpu(cuda, s):
+    """float32 on both sides, from a fresh and from a nonzero state; the
+    card's products sum in other orders."""
+    from repro_torch.models import rwkv6
+
+    g = torch.Generator().manual_seed(s)
+    for key, fn in (("tm", rwkv6.time_mix), ("cm", rwkv6.channel_mix)):
+        cfg, p = _recurrent_layer("rwkv6-3b", key)
+        n = cfg.rwkv_head_dim
+        x = torch.randn(2, s, cfg.d_model, generator=g)
+        st = {"shift": torch.randn(2, cfg.d_model, generator=g)}
+        if key == "tm":
+            st["wkv"] = torch.randn(2, cfg.d_model // n, n, n, generator=g)
+        for state in (None, st):
+            want = fn(x, p, cfg, state)
+            got = fn(x.to(cuda), {k: v.to(cuda) for k, v in p.items()}, cfg,
+                     None if state is None else {k: v.to(cuda) for k, v in state.items()})
+            for a, b in zip((got[0], *got[1].values()), (want[0], *want[1].values())):
+                assert a.is_cuda and bool(torch.isfinite(a).all())
+                torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                           atol=MATMUL_RTOL * float(b.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 2, 128])
+def test_mamba_layer_on_the_card_equals_the_cpu(cuda, s):
+    from repro_torch.models import mamba
+
+    cfg, p = _recurrent_layer("jamba-1.5-large-398b", "mamba")
+    g = torch.Generator().manual_seed(s)
+    x = torch.randn(2, s, cfg.d_model, generator=g)
+    st = {"conv": torch.randn(2, cfg.d_conv - 1, cfg.d_inner, generator=g),
+          "ssm": torch.randn(2, cfg.d_inner, cfg.d_state, generator=g)}
+    for state in (None, st):
+        want = mamba.mamba_layer(x, p, cfg, state)
+        on_card = None if state is None else {k: v.to(cuda) for k, v in state.items()}
+        got = mamba.mamba_layer(x.to(cuda), {k: v.to(cuda) for k, v in p.items()}, cfg, on_card)
+        for a, b in zip((got[0], *got[1].values()), (want[0], *want[1].values())):
+            assert a.is_cuda and bool(torch.isfinite(a).all())
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=MATMUL_RTOL * float(b.abs().max()))
+
+
+@pytest.mark.gpu
+def test_empty_inline_arena_launches_nothing_on_the_card(cuda):
+    """rwkv6's inline key rule protects no leaf: the single-rail engine's
+    arena is empty, and its voltage steps, generate and walk launch no
+    kernel; its power report is the reference's single-rail form."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving import engine
+
+    cfg = configs.get_smoke_config("rwkv6-3b")
+    params = lm.init_params(cfg, seed=0, device=cuda)
+    rel = engine.ReliabilityConfig(mode="inline", voltage=1.0,
+                                   rails=engine.RailsConfig(start_v=0.62))
+    ops.reset_launch_count()
+    eng = engine.ServingEngine(cfg, params, rel=rel, max_len=24, device=cuda)
+    assert eng._store.n_words == 0
+    eng.set_voltage(0.56)
+    toks = eng.generate(np.zeros((2, 5), np.int32), 4)
+    plain = engine.ServingEngine(cfg, params, rel=None, max_len=24, device=cuda)
+    assert np.array_equal(toks, plain.generate(np.zeros((2, 5), np.int32), 4))
+    eng.set_voltage(eng.controller.voltage)
+    eng.autotune_voltage()
+    assert sum(ops.launch_counts().values()) == 0, ops.launch_counts()
+    rep = eng.power_report()
+    assert rep["codecs"] == {} and np.isfinite(rep["total_w"])

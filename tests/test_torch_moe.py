@@ -2,7 +2,8 @@
 llama4-scout-17b-a16e) against the reference on smoke configs: routing and
 the sort dispatch bit for bit (ties and drops included), ``moe_ffn`` for
 the gated, non-gated and shared-expert forms in decode and per-row
-grouping, prefill logits and greedy tokens and the refusals; within the
+grouping, prefill logits and greedy tokens and the refusals (a depth
+that is not a whole number of periods, the vlm and audio families); within the
 port, row invariance and the dispatch against a plain per-token mixture.
 The engines are in ``test_torch_moe_engine.py``."""
 
@@ -258,8 +259,14 @@ def test_prefill_decode_and_greedy_tokens_match_reference(models):
 
 @pytest.mark.parametrize("entry", ["init_params", "init_cache", "forward", "engine"])
 def test_moe_every_above_one_is_refused_naming_jamba(models, entry):
+    """``moe_every > 1`` came with jamba's period positions p0, p1, ... and
+    is admitted (``test_torch_mamba.py`` holds it against the reference);
+    what every entry point still refuses is a depth that is not a whole
+    number of periods, which the reference asserts."""
     _, _, tcfg, tparams = models
-    c = dataclasses.replace(tcfg, moe_every=2)
+    assert sorted(tlm.init_specs(dataclasses.replace(tcfg, moe_every=2))["blocks"]) == [
+        "p0", "p1"]
+    c = dataclasses.replace(tcfg, moe_every=3)  # 2 layers, periods of 3
     calls = {
         "init_params": lambda: tlm.init_params(c, seed=0, device="cpu"),
         "init_cache": lambda: tlm.init_cache(c, 1, 8, device="cpu"),
@@ -268,11 +275,13 @@ def test_moe_every_above_one_is_refused_naming_jamba(models, entry):
         "engine": lambda: teng.ServingEngine(c, tparams, rel=teng.ReliabilityConfig(),
                                              device="cpu"),
     }
-    with pytest.raises(NotImplementedError, match="jamba"):
+    with pytest.raises(ValueError, match="whole number of periods"):
         calls[entry]()
 
 
 def test_other_families_are_refused():
-    c = dataclasses.replace(tconfigs.get_smoke_config("qwen3-0.6b"), family="ssm")
-    with pytest.raises(NotImplementedError, match="'ssm' family"):
-        tlm.init_specs(c)
+    """ssm and hybrid are ported; vlm and audio are not."""
+    for fam in ("vlm", "audio"):
+        c = dataclasses.replace(tconfigs.get_smoke_config("qwen3-0.6b"), family=fam)
+        with pytest.raises(NotImplementedError, match=f"'{fam}' family"):
+            tlm.init_specs(c)
