@@ -252,7 +252,39 @@ them. Phases, each printed on its own line with its wall time:
      16, dt_rank 512, bf16 parameters, batch 4) at S = 128 and over 16
      decode steps against a float64 recurrence, computed in float32 (1e-4)
      and in bf16 (``MAMBA_BF16_RTOL``);
-  4-17 each zero the kernel launch counts at the start of a path and read
+  18. the vlm and audio families (``lm.prefill(img=)``, (B, K, S) tokens,
+     ``make_serve_step``). V: llama-3.2-vision-11b at its published width
+     (40 layers in periods of 4 self- and 1 cross-attention layers, d 4096,
+     32/8 heads, d_ff 14336, vocab 128256, bf16; 9,775,157,264 parameters;
+     cross gates seeded to tanh near +-0.5, image embeddings (4, 6,404,
+     4,096) from a seeded generator in place of the vision frontend): a.
+     the plain model through ``make_prefill_step(img=)`` and 16
+     ``make_serve_step`` steps (tokens/s, prefill wall, the decode step's
+     wall and traced busy time, peak memory, the image K/V cache's
+     839,385,088 B); b. in float32 on the one-period cut (p0-p3 self, p4
+     cross): prefill(33) = prefill(32) + a decode step within 1e-3 x max,
+     p4's cross attention over the 6,404 cached keys batch-invariant (a lane
+     alone and a one-query call bit for bit) and within 1e-4 of a float64
+     softmax(QK^T / sqrt(Dh))V, zero gates = the identity bit for bit; c.
+     domain mode on the cut (535,309,314 raw words; read-back bit for bit,
+     tokens = the plain cut's); d. the inline single-rail engine on the cut
+     (136,314,880 words, device masks): a 0.56 V step, then the prefill
+     refused naming ``blocks.p4.attn.wk`` with no launch. A: musicgen-medium
+     at its published width and depth (48 layers, d 1536, 24/24 heads of 64,
+     d_ff 6144 non-gated gelu, LayerNorm, 4 codebooks of 2048, bf16;
+     1,384,418,304 parameters): a. the fused matmul at its (K, N) at M =
+     batch, 20 and batch x prompt against the plain version beside
+     torch.matmul and its bound, and a traced prefill and decode step (288
+     tiled / decode-kernel launches); b. float32 prefill(33) = prefill(32) +
+     a decode step within 1e-3 x max (the sinusoid swap and RoPE); c. the
+     inline single-rail engine (169,869,312 words, device masks): generate
+     through the serving steps at nominal and 0.56 V, the walk from 0.62 V;
+     d. a multi-rail engine with the codebook tables on the embedding rail
+     (1,572,864 words): one B2 and one B5 launch a rail step, the walk's
+     locks. Each path first runs its smoke config (cross gates seeded)
+     through an inline engine at 0.56 V with host masks on the card and on
+     the CPU: equal keys, counters and tokens, logits within 1e-4 x max;
+  4-18 each zero the kernel launch counts at the start of a path and read
      them at its end, and fail unless every voltage step launched its scrub
      kernel once (B1 single-rail, B2 and the embedding's B5 multi-rail,
      none of the other path's), every forward pass of the protected model
@@ -266,7 +298,7 @@ them. Phases, each printed on its own line with its wall time:
      once, every per-leaf step and every domain read launched the fault
      injection and the decode once per leaf, and the plain codec never ran
      on the card;
-  18. one prefill and one decode step of paths 4-5 under torch.profiler
+  19. one prefill and one decode step of paths 4-5 under torch.profiler
      (device busy time, idle share, fused-matmul time inside the step, which
      must come from the decode kernel in a decode step and the tiled kernel
      in a prefill), tokens/s, voltage-step times and one
@@ -347,6 +379,15 @@ RW_CUT_LAYERS, RW_CUT_WORDS, RW_EMBED_WORDS = 2, 127_079_680, 20_971_520
 RW_STEP_RTOL, F64_RTOL = 1e-3, 1e-4
 MAMBA_BF16_RTOL, MAMBA_BF16_STATE_RTOL = 0.1, 0.35
 RW_LONG = 2048  # the timed long prefill: 32 chunks
+# phase 18: llama-3.2-vision-11b's parameters, its image K/V cache (8 cross
+# layers x 4 lanes x 6,404 tokens x 8 heads x 128 x K and V x 2 B), the raw
+# bf16 words of its one-period cut (p0-p3 self, p4 cross) and the cut's
+# inline arena (5 x 27,262,976 words, the cross wk / wv among them);
+# musicgen-medium's parameters, its inline arena (48 x 6 matrices) and its
+# four codebook tables' int8 words
+V_PARAMS, V_IMG_KV_BYTES = 9_775_157_264, 839_385_088
+V_CUT_WORDS, V_CUT_INLINE_WORDS = 535_309_314, 136_314_880
+A_PARAMS, A_WORDS, A_EMBED_WORDS = 1_384_418_304, 169_869_312, 1_572_864
 
 T0 = time.perf_counter()
 
@@ -414,7 +455,7 @@ def main() -> int:
     from repro_torch.kernels import ecc_matmul as b3_kernel
     from repro_torch.kernels import fault_field as field_kernel
     from repro_torch.kernels import secded as b5_kernel
-    from repro_torch.models import base, lm
+    from repro_torch.models import base, layers, lm
     from repro_torch.serving import steps as serve_steps
     from repro_torch.serving.engine import (
         FaultModelConfig, ProtectionConfig, RailsConfig, ReliabilityConfig, ServingEngine,
@@ -688,8 +729,8 @@ def main() -> int:
                 if not tokens.is_cuda or not any(isinstance(w, ops.EccWeight)
                                                  for _, w in base.flatten(params["blocks"])):
                     return None
-                k = "decode" if tokens.shape[1] == 1 else "prefill"
-                small = tokens.shape[0] * tokens.shape[1] <= b3_kernel.DECODE_MAX_M
+                k = "decode" if tokens.shape[-1] == 1 else "prefill"
+                small = tokens.shape[0] * tokens.shape[-1] <= b3_kernel.DECODE_MAX_M
                 return (k, "decode_kernel") if small else k
 
             self._wrap(ops, "pack_ecc_weights", "packs")
@@ -844,7 +885,7 @@ def main() -> int:
         toks_ = torch.as_tensor(prompts_, device=dev)
         cache_ = lm.init_cache(c, BATCH, 64)
         logits_, _ = lm.prefill(params_, toks_, c, cache_)
-        tok_ = torch.argmax(logits_, dim=-1)[:, None]
+        tok_ = torch.argmax(logits_, dim=-1)[..., None]
         traced = {}
         for kind_, f_, want in (
                 ("prefill", lambda: lm.prefill(params_, toks_, c, cache_),
@@ -1307,6 +1348,453 @@ def main() -> int:
                   f"(tolerance {rtol}), ssm state {h_err:.3e} (tolerance {s_rtol})")
             del p_m, got, ys_, y_, st_
         del pm, xm, want_m, h64
+        torch.cuda.empty_cache()
+        return out
+
+    # ---------------------------------------------------------------- 18
+    # The last model families: llama-3.2-vision-11b (path V; its smoke
+    # config card = CPU) and musicgen-medium (path A; its smoke config card
+    # = CPU), each at its published width.
+    def cross_f64(q, k, v):
+        """softmax(q k^T / sqrt(Dh)) v over every key, in float64, each kv
+        head shared by n_heads / n_kv_heads query heads."""
+        r_ = q.shape[2] // k.shape[2]
+        k, v = k.repeat_interleave(r_, dim=2), v.repeat_interleave(r_, dim=2)
+        s_ = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s_, dim=-1), v)
+
+    def step_tokens(params_, c, toks_, n, img_=None, max_len=64):
+        """Greedy tokens through ``make_prefill_step`` (with ``img_``) and
+        ``n`` steps of ``make_serve_step``: (prefill logits, tokens (B, n +
+        1) or an audio config's (B, K, n + 1) as numpy, the cache)."""
+        d_ = toks_.device
+        cache_ = lm.init_cache(c, toks_.shape[0], max_len, device=d_)
+        logits_, cache_ = lm.prefill(params_, toks_, c, cache_, img=img_)
+        tok_ = torch.argmax(logits_, dim=-1)[..., None]
+        serve = serve_steps.make_serve_step(c)
+        out_ = [tok_]
+        for i in range(n):
+            tok_, cache_ = serve(params_, tok_, cache_, toks_.shape[-1] + i)
+            out_.append(tok_)
+        return logits_, torch.cat(out_, dim=-1).cpu().numpy(), cache_
+
+    def vlm_audio_phase(report: dict, paths_extra: dict) -> dict:
+        out: dict = {}
+        rng_ = np.random.default_rng(11)
+        f32, f64 = torch.float32, torch.float64
+        # a single-rail store's step; a device-mask step below V_min draws the field
+        below = lambda store_, v, *a, **kw: ("steps", "steps_below") if \
+            platform.fault_rate(float(v)) > 0.0 and store_.mask_source == "device" else "steps"
+        rails_below = lambda eng_, volts, *a, **kw: ("rail_steps", "rail_steps_below") if any(
+            platform.fault_rate(float(v)) > 0.0 for v in volts.values()) else "rail_steps"
+
+        def record(counts, n_) -> dict:
+            by_k = ops.ecc_matmul_launches_by_kernel()
+            require(sum(by_k.values()) == counts["ecc_matmul"], f"B3 by kernel {by_k}")
+            return {"launches": counts, "launches_by_codec": ops.launch_counts_by_codec(),
+                    "kv_codec": None, "b3_by_kernel": by_k, "matmuls_per_forward": 0,
+                    "forwards": {"prefill": n_["prefill"], "decode": n_["decode"],
+                                 "decode_kernel": n_.get("decode_kernel", 0)},
+                    "packs": n_["packs"], "commits": n_["commits"]}
+
+        def gate(params_, seed):
+            """Cross gates (drawn as zeros, which make every cross layer the
+            identity) set to +-0.45..0.65, tanh near +-0.5."""
+            g_ = torch.Generator().manual_seed(seed)
+            for j in range(len(params_["blocks"])):
+                p_ = params_["blocks"][f"p{j}"]
+                for k_ in ("gate_attn", "gate_ffn"):
+                    if k_ in p_:
+                        mag = 0.45 + 0.2 * torch.rand(p_[k_].shape, generator=g_)
+                        sign = torch.where(torch.rand(p_[k_].shape, generator=g_) < 0.5, -1.0, 1.0)
+                        p_[k_].copy_(mag * sign)
+
+        def inline_engine(c, params_, **rails):
+            rel = ReliabilityConfig(mode="inline", voltage=1.0,
+                                    fault_model=FaultModelConfig(mask_source="device"),
+                                    rails=RailsConfig(**rails))
+            return ServingEngine(c, params_, rel=rel, max_len=64)
+
+        def smoke_card_vs_cpu(label, arch, with_img, tally):
+            """The smoke config through an inline engine at 0.56 V with host
+            masks on the card and on the CPU (outside the tally): protected
+            keys, counters and tokens equal, prefill logits within
+            MATMUL_RTOL x max. Returns (its row, fused matmuls a forward)."""
+            sc = get_smoke_config(arch)
+            sp = lm.init_params(sc, seed=0, device="cpu")
+            gate(sp, 5)
+            shape = (2, sc.n_codebooks, 8) if sc.n_codebooks else (2, 8)
+            s_toks = rng_.integers(0, sc.vocab, shape)
+            s_img = (torch.from_numpy(rng_.standard_normal((2, sc.n_img_tokens, sc.d_model))
+                                      .astype(np.float32)) if with_img else None)
+            res = {}
+
+            def run(d_):
+                e_ = ServingEngine(sc, sp, rel=ReliabilityConfig(mode="inline", voltage=1.0),
+                                   max_len=32, device=d_)
+                e_.set_voltage(0.56)
+                lg, tk, _ = step_tokens(e_.params, sc, torch.as_tensor(s_toks, device=d_), 6,
+                                        None if s_img is None else s_img.to(d_), max_len=32)
+                keys = sorted(k_ for k_, w in base.flatten(e_.params)
+                              if isinstance(w, ops.EccWeight))
+                res[d_] = (tk, dataclasses.asdict(e_._last_scrub), lg.cpu(), keys)
+
+            with tally.outside():
+                run("cpu")
+            run("cuda")
+            (ct, cs, cl, ck), (gt, gs, gl, gk) = res["cpu"], res["cuda"]
+            require(ck == gk and cs == gs and gs["corrected"] > 0,
+                    f"{label} smoke: keys / counters card {gk} {gs}, CPU {ck} {cs}")
+            require(np.array_equal(ct, gt),
+                    f"{label} smoke tokens: the card's differ from the CPU's")
+            err, scale = float((gl - cl).abs().max()), float(cl.abs().max())
+            require(err <= MATMUL_RTOL * scale,
+                    f"{label} smoke logits differ by {err} (max {scale})")
+            gates = ", cross gates seeded" if with_img else ""
+            print(f"  {label} smoke ({sc.n_layers} layers{gates}) through an inline engine at "
+                  f"0.56 V, host masks: {len(gk)} protected leaves, tokens and counters card = "
+                  f"CPU, prefill logits within {err:.3e} (max {scale:.3e})")
+            return {"protected_leaves": len(gk), "scrub_056": gs, "logit_max_abs_diff": err,
+                    "max_abs_logit": scale}, len(gk) * sc.n_groups
+
+        # V: llama-3.2-vision-11b at its published width
+        vcfg = get_config("llama-3.2-vision-11b")
+        v_prompts = rng_.integers(0, vcfg.vocab, (BATCH, PROMPT_LEN + 1))
+        v_toks = torch.as_tensor(v_prompts[:, :PROMPT_LEN], device=dev)
+        vt = out["V"] = {}
+        ops.reset_launch_count()  # path V
+        with Tally() as tally:
+            tally._wrap(memory, "decode_read", "reads")
+            tally._wrap(memory.EccMemoryDomain, "write", "writes")
+            tally._wrap(PlaneStore, "set_voltage", below)
+            vt["smoke"], v_smoke_mm = smoke_card_vs_cpu("V", "llama-3.2-vision-11b", True, tally)
+            n_smoke = dict(tally.n)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t_ = time.perf_counter()
+            vparams = lm.init_params(vcfg, seed=0, device=dev)
+            gate(vparams, 6)
+            gen = torch.Generator(device=dev).manual_seed(12)
+            img = torch.randn(BATCH, vcfg.n_img_tokens, vcfg.d_model, generator=gen,
+                              device=dev).to(torch.bfloat16)  # the vision frontend's stand-in
+            torch.cuda.synchronize()
+            n_par = sum(v_.numel() for _, v_ in base.flatten(vparams))
+            require(n_par == V_PARAMS == lm.param_count(vcfg)[0], f"V parameters {n_par}")
+            vt["params"], vt["init_s"] = n_par, time.perf_counter() - t_
+            print(f"  V llama-3.2-vision-11b at its published width and depth ({vcfg.n_layers} "
+                  f"layers in {vcfg.n_groups} periods of {vcfg.period}, p4 cross-attention over "
+                  f"{vcfg.n_img_tokens} image tokens, d {vcfg.d_model}, {vcfg.n_heads}/"
+                  f"{vcfg.n_kv_heads} heads, d_ff {vcfg.d_ff}, vocab {vcfg.vocab}, bf16): {n_par} "
+                  f"parameters ({2 * n_par / 1e9:.2f} GB), drawn in {vt['init_s']:.1f} s; image "
+                  f"embeddings {tuple(img.shape)} bf16 from a seeded generator")
+
+            # a. the plain model through the serving steps
+            t_ = time.perf_counter()
+            logits_, toks_plain, cache_ = step_tokens(vparams, vcfg, v_toks, NEW_TOKENS, img)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t_
+            require(bool(torch.isfinite(logits_).all()) and toks_plain.shape == (
+                BATCH, NEW_TOKENS + 1) and bool(((toks_plain >= 0) & (toks_plain < vcfg.vocab))
+                                                .all()), "V plain tokens")
+            kv_bytes = cache_["p4"]["k"].nbytes + cache_["p4"]["v"].nbytes
+            require(kv_bytes == V_IMG_KV_BYTES, f"V image K/V cache of {kv_bytes} B")
+            pre_step = serve_steps.make_prefill_step(vcfg)
+            serve_step = serve_steps.make_serve_step(vcfg)
+            tok_ = torch.as_tensor(toks_plain[:, :1], device=dev)
+            pre = lambda: pre_step(vparams, v_toks, cache_, img=img)
+            dec = lambda: serve_step(vparams, tok_, cache_, PROMPT_LEN)
+            va = vt["a"] = {"tokens": BATCH * (NEW_TOKENS + 1), "generate_s": gen_s,
+                            "tokens_per_s": BATCH * (NEW_TOKENS + 1) / gen_s,
+                            "prefill_wall_ms": min(wall_ms(pre) for _ in range(2)),
+                            "decode_wall_ms": min(wall_ms(dec) for _ in range(3)),
+                            "image_kv_cache_bytes": kv_bytes}
+            evs = device_events(dec)
+            if evs:
+                va["decode_busy_ms"] = busy_us(evs) / 1e3
+                va["decode_idle_share"] = 1.0 - va["decode_busy_ms"] / va["decode_wall_ms"]
+            va["peak_gb"] = peak_gb()
+            print(f"  V a. plain model: a {BATCH} x {PROMPT_LEN}-token prefill "
+                  f"(make_prefill_step, img=) and {NEW_TOKENS} make_serve_step steps: "
+                  f"{BATCH * (NEW_TOKENS + 1)} tokens in {gen_s:.2f} s = "
+                  f"{va['tokens_per_s']:.1f} tokens/s; prefill wall "
+                  f"{va['prefill_wall_ms']:.2f} ms, decode step wall "
+                  f"{va['decode_wall_ms']:.2f} ms, traced device busy "
+                  f"{va.get('decode_busy_ms', float('nan')):.2f} ms (idle share "
+                  f"{va.get('decode_idle_share', float('nan')):.3f}); image K/V cache "
+                  f"{kv_bytes} B; peak {va['peak_gb']:.1f} GB")
+            # the one-period cut (p0-p3 self-attention, p4 cross), copied so
+            # the full model can go
+            c5 = dataclasses.replace(vcfg, n_layers=vcfg.period)
+            p5 = {**{k_: v_ for k_, v_ in vparams.items() if k_ != "blocks"},
+                  "blocks": base.tree_map(lambda t0: t0[:1].clone(), vparams["blocks"])}
+            del vparams, cache_, logits_, pre, dec
+            torch.cuda.empty_cache()
+
+            # b. float32 on the cut
+            c32 = dataclasses.replace(c5, param_dtype=f32, compute_dtype=f32)
+            p32 = base.tree_map(lambda t0: t0.to(f32), p5)
+            img32 = img.to(f32)
+            t33 = torch.as_tensor(v_prompts, device=dev)
+            l33, _ = lm.prefill(p32, t33, c32, lm.init_cache(c32, BATCH, 64), img=img32)
+            cb = lm.init_cache(c32, BATCH, 64)
+            lm.prefill(p32, t33[:, :PROMPT_LEN], c32, cb, img=img32)
+            l1, _ = lm.decode_step(p32, t33[:, PROMPT_LEN:], c32, cb, PROMPT_LEN)
+            step_err, step_scale = float((l33 - l1).abs().max()), float(l33.abs().max())
+            require(bool(torch.isfinite(l33).all()) and step_err <= RW_STEP_RTOL * step_scale,
+                    f"V float32: prefill({PROMPT_LEN + 1}) differs from prefill({PROMPT_LEN}) + a "
+                    f"decode step by {step_err} (max |logits| {step_scale})")
+            p4 = lm._layer(p32["blocks"]["p4"], 0)
+            ck, cv = cb["p4"]["k"][0], cb["p4"]["v"][0]
+            xg = torch.randn(BATCH, PROMPT_LEN, c32.d_model, generator=gen, device=dev)
+            hq = layers.apply_norm(xg, p4["ln1"], c32.norm_type)
+            q = (hq @ p4["attn"]["wq"]).reshape(BATCH, PROMPT_LEN, c32.n_heads, c32.hd)
+            att = lm.cross_attention(q, ck, cv)
+            lanes_equal = all(torch.equal(lm.cross_attention(q[b:b + 1], ck[b:b + 1], cv[b:b + 1]),
+                                          att[b:b + 1]) for b in range(BATCH))
+            rows_equal = torch.equal(lm.cross_attention(q[:, -1:], ck, cv), att[:, -1:])
+            require(lanes_equal and rows_equal, "V: the cross attention over the image keys is "
+                    "not batch-invariant (a lane alone, or a decode row, differs)")
+            want = cross_f64(q.to(f64), ck.to(f64), cv.to(f64))
+            att_err = float((att.to(f64) - want).abs().max() / want.abs().max())
+            require(att_err <= F64_RTOL, f"V p4 cross attention against float64: {att_err}")
+            p0g = {**p4, "gate_attn": torch.zeros_like(p4["gate_attn"]),
+                   "gate_ffn": torch.zeros_like(p4["gate_ffn"])}
+            cz = lm.init_cache(c32, BATCH, 64)["p4"]
+            require(torch.equal(lm._cross_block(xg, p0g, c32, cache=cz, g=0, img=img32,
+                                                prefill=True), xg),
+                    "V: with both gates 0 the cross layer does not return its input")
+            vt["b"] = {"step_max_abs_diff": step_err, "max_abs_logit": step_scale,
+                       "step_rtol": RW_STEP_RTOL, "cross_attention_rel_err": att_err,
+                       "f64_rtol": F64_RTOL, "lanes_bit_equal": lanes_equal,
+                       "decode_row_bit_equal": rows_equal}
+            print(f"  V b. float32 on the one-period cut ({c5.n_layers} layers: p0-p3 self, p4 "
+                  f"cross): prefill({PROMPT_LEN + 1}) = prefill({PROMPT_LEN}) + a decode step "
+                  f"within {step_err:.3e} (max |logits| {step_scale:.3e}, tolerance "
+                  f"{RW_STEP_RTOL} x max); p4's cross attention over {vcfg.n_img_tokens} keys: "
+                  f"each lane alone and a one-query call = the batch bit for bit, against a "
+                  f"float64 softmax(QK^T/sqrt(Dh))V rel err {att_err:.3e} (tolerance "
+                  f"{F64_RTOL}); gates 0: the layer returns its input bit for bit")
+            del p32, img32, l33, l1, cb, cz, p4, p0g, ck, cv, q, att, want, xg, hq
+            torch.cuda.empty_cache()
+
+            # c. domain mode on the cut
+            _, toks_cut, _ = step_tokens(p5, c5, v_toks, NEW_TOKENS, img)
+            t_ = time.perf_counter()
+            deng = ServingEngine(c5, p5, rel=ReliabilityConfig(mode="domain", voltage=1.0),
+                                 max_len=64)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t_
+            words = sum(deng.domain.entry(k_).n_words for k_ in deng.domain.names())
+            require(words == V_CUT_WORDS, f"V domain words {words}")
+            require(all(same_bits(a_, b_) for (_, a_), (_, b_) in
+                        zip(base.flatten(deng.params), base.flatten(p5))),
+                    "V domain mode's nominal read-back differs from the params it wrote")
+            _, toks_dom, _ = step_tokens(deng.params, c5, v_toks, NEW_TOKENS, img)
+            require(np.array_equal(toks_dom, toks_cut), "V domain mode at nominal: tokens differ "
+                    "from the plain model's on the cut")
+            vt["c"] = {"arrays": len(deng.domain.names()), "words": words,
+                       "write_and_read_s": build_s}
+            del deng
+            torch.cuda.empty_cache()
+            print(f"  V c. domain mode on the cut: {vt['c']['arrays']} arrays, {words} raw words "
+                  f"written (B4) and read at nominal (B7 + B5) in {build_s:.1f} s, the read-back "
+                  f"= the params bit for bit, tokens with img = the plain cut's")
+
+            # d. the inline single-rail engine on the cut: its rail steps,
+            # then the forward refused before any fused matmul
+            ieng = inline_engine(c5, p5)
+            require(ieng._store.n_words == V_CUT_INLINE_WORDS,
+                    f"V inline arena of {ieng._store.n_words} words")
+            require(isinstance(ieng.params["blocks"]["p4"]["attn"]["wk"], ops.EccWeight),
+                    "V: the cross wk is not protected at the published width")
+            ieng.set_voltage(0.56)
+            scrub = ieng._last_scrub
+            require(scrub.corrected > 0, f"V 0.56 V step {scrub}")
+            before = ops.launch_counts()
+            refused = None
+            with tally.outside():
+                try:
+                    lm.prefill(ieng.params, v_toks, c5, lm.init_cache(c5, BATCH, 64), img=img)
+                except ValueError as e:
+                    refused = str(e)
+            require(refused is not None and "blocks.p4.attn.wk" in refused
+                    and ops.launch_counts() == before,
+                    f"V inline prefill: {refused!r}, launches {ops.launch_counts()} (before "
+                    f"{before})")
+            vt["d"] = {"protected_words": ieng._store.n_words, "scrub_056": scrub.to_dict(),
+                       "refusal": refused}
+            del ieng, p5, img
+            torch.cuda.empty_cache()
+            print(f"  V d. inline single-rail engine on the cut, device masks: "
+                  f"{V_CUT_INLINE_WORDS} protected words (the cross wk / wv among them); 0.56 V "
+                  f"step {json.dumps(vt['d']['scrub_056'])}; prefill refused before any launch: "
+                  f"{refused}")
+            counts, n_ = ops.launch_counts(), dict(tally.n)
+        want = dict.fromkeys(counts, 0)
+        want.update(encode=n_["writes"] + n_["packs"], inject=n_["reads"], decode=n_["reads"],
+                    inject_scrub=n_["steps"], fault_field=n_.get("steps_below", 0),
+                    ecc_matmul=v_smoke_mm * (n_smoke["prefill"] + n_smoke["decode"]))
+        require(counts == want and n_["plain_on_card"] == 0
+                and n_["prefill"] + n_["decode"] == n_smoke["prefill"] + n_smoke["decode"],
+                f"V launches {counts}, expected {want} (tally {n_})")
+        paths_extra["V"] = record(counts, n_)
+        vt["launches"], vt["peak_gb"] = counts, peak_gb()
+        print(f"  V launches: {json.dumps(counts)} = {n_['writes']} domain writes + {n_['packs']} "
+              f"packs, {n_['reads']} domain reads, {n_['steps']} rail steps "
+              f"({n_.get('steps_below', 0)} below V_min), the smoke engine's "
+              f"{v_smoke_mm} fused matmuls a forward; peak {vt['peak_gb']:.1f} GB")
+
+        # A: musicgen-medium at its published width and depth
+        acfg = get_config("musicgen-medium")
+        kb = acfg.n_codebooks
+        at = out["A"] = {}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        aparams = lm.init_params(acfg, seed=0, device=dev)
+        n_par = sum(v_.numel() for _, v_ in base.flatten(aparams))
+        require(n_par == A_PARAMS == lm.param_count(acfg)[0], f"A parameters {n_par}")
+        a_prompts = rng_.integers(0, acfg.vocab, (BATCH, kb, PROMPT_LEN + 1))
+        a_toks = torch.as_tensor(a_prompts[..., :PROMPT_LEN], device=dev)
+        print(f"  A musicgen-medium at its published width and depth ({acfg.n_layers} layers, d "
+              f"{acfg.d_model}, {acfg.n_heads}/{acfg.n_kv_heads} heads of {acfg.hd}, d_ff "
+              f"{acfg.d_ff} non-gated gelu, LayerNorm, {kb} codebooks of {acfg.vocab}, bf16): "
+              f"{n_par} parameters ({2 * n_par / 1e9:.2f} GB); tokens {tuple(a_toks.shape)}")
+
+        # a. B3 at its three (K, N) against the plain version, and the
+        # traced kernel split, on an engine of its own at 0.56 V
+        require(b3_split(acfg, BATCH) == {"decode": 288, "tiled": 0}
+                and b3_split(acfg, BATCH * PROMPT_LEN) == {"decode": 0, "tiled": 288},
+                f"musicgen-medium B3 split {b3_split(acfg, BATCH)}")
+        eng = inline_engine(acfg, aparams)
+        eng.set_voltage(0.56)
+        leaves = {k.split("[")[-1].strip("']"): w for k, w in base.flatten(eng.params)
+                  if isinstance(w, ops.EccWeight)}
+        require(sorted(leaves) == ["w1", "w2", "wk", "wo", "wq", "wv"],
+                f"musicgen-medium protected leaves {sorted(leaves)}")
+        b3_rows = b3_shape_rows("musicgen-medium", leaves, acfg.n_groups)
+        at["b3"] = b3_rows
+        at["b3_traced"] = b3_traced("musicgen-medium", eng.params, acfg, a_toks.cpu().numpy())
+        report["ecc_matmul_decode"]["musicgen_medium"] = [
+            r for r in b3_rows if r["function"] == b3_names["decode"]]
+        report["ecc_matmul_prefill"]["musicgen_medium"] = [
+            r for r in b3_rows if r["function"] == b3_names["tiled"]]
+        del eng, leaves
+        torch.cuda.empty_cache()
+
+        # b. float32 at full width and depth: the sinusoid swap and RoPE of
+        # a decode step against a longer prefill
+        c32 = dataclasses.replace(acfg, param_dtype=f32, compute_dtype=f32)
+        p32 = base.tree_map(lambda t0: t0.to(f32), aparams)
+        t33 = torch.as_tensor(a_prompts, device=dev)
+        l33, _ = lm.prefill(p32, t33, c32, lm.init_cache(c32, BATCH, 64))
+        cb = lm.init_cache(c32, BATCH, 64)
+        lm.prefill(p32, t33[..., :PROMPT_LEN], c32, cb)
+        l1, _ = lm.decode_step(p32, t33[..., PROMPT_LEN:], c32, cb, PROMPT_LEN)
+        step_err, step_scale = float((l33 - l1).abs().max()), float(l33.abs().max())
+        require(tuple(l33.shape) == (BATCH, kb, acfg.vocab) and bool(torch.isfinite(l33).all())
+                and step_err <= RW_STEP_RTOL * step_scale,
+                f"A float32: prefill({PROMPT_LEN + 1}) differs from prefill({PROMPT_LEN}) + a "
+                f"decode step by {step_err} (max |logits| {step_scale})")
+        at["b"] = {"step_max_abs_diff": step_err, "max_abs_logit": step_scale,
+                   "step_rtol": RW_STEP_RTOL}
+        del p32, l33, l1, cb
+        torch.cuda.empty_cache()
+        print(f"  A b. float32, all {acfg.n_layers} layers: prefill({PROMPT_LEN + 1})'s last "
+              f"(B, K, V) logits = prefill({PROMPT_LEN}) + a decode step (sinusoid swap and "
+              f"RoPE) within {step_err:.3e} (max |logits| {step_scale:.3e}, tolerance "
+              f"{RW_STEP_RTOL} x max)")
+
+        ops.reset_launch_count()  # path A
+        with Tally() as tally:
+            tally._wrap(PlaneStore, "set_voltage", below)
+            tally._wrap(ServingEngine, "set_rails", rails_below)
+            at["smoke"], a_smoke_mm = smoke_card_vs_cpu("A", "musicgen-medium", False, tally)
+            n_smoke = dict(tally.n)
+            # c. the inline single-rail engine: generate through the serving
+            # steps at nominal and 0.56 V, then the walk from 0.62 V
+            t_ = time.perf_counter()
+            eng = inline_engine(acfg, aparams, start_v=0.62)
+            torch.cuda.synchronize()
+            require(eng._store.n_words == A_WORDS, f"A arena of {eng._store.n_words} words")
+            ac = at["c"] = {"protected_words": A_WORDS, "build_s": time.perf_counter() - t_}
+            for v in (1.0, 0.56):
+                eng.set_voltage(v)
+                t_ = time.perf_counter()
+                _, tk, _ = step_tokens(eng.params, acfg, a_toks, NEW_TOKENS)
+                torch.cuda.synchronize()
+                s_ = time.perf_counter() - t_
+                require(tk.shape == (BATCH, kb, NEW_TOKENS + 1)
+                        and bool(((tk >= 0) & (tk < acfg.vocab)).all()), f"A tokens at {v} V")
+                ac[f"{v}V"] = {"generate_s": s_, "tokens_per_s": BATCH * (NEW_TOKENS + 1) / s_,
+                               "scrub": eng._last_scrub.to_dict()}
+                ac.setdefault("tokens", []).append(tk)
+            ac["agreement_056_with_nominal"] = float((ac["tokens"][0] == ac["tokens"][1]).mean())
+            del ac["tokens"]
+            eng.set_voltage(0.62)
+            t_ = time.perf_counter()
+            lock, hist = eng.autotune_voltage()
+            torch.cuda.synchronize()
+            require(eng.controller.locked, "A walk did not lock")
+            ac["walk"] = {"walk_s": time.perf_counter() - t_, "lock": lock,
+                          "power_w": eng.power_w(),
+                          "saving_vs_nominal": eng.power_report()["saving_vs_nominal"],
+                          "history": [(r.voltage, r.corrected, r.detected, r.action)
+                                      for r in hist]}
+            del eng
+            torch.cuda.empty_cache()
+            print(f"  A c. inline single-rail engine, device masks, {A_WORDS} protected words: "
+                  f"prefill + {NEW_TOKENS} make_serve_step steps of (B, K, 1) tokens at nominal "
+                  f"{ac['1.0V']['tokens_per_s']:.1f} tokens/s, at 0.56 V "
+                  f"{ac['0.56V']['tokens_per_s']:.1f} tokens/s (agreement "
+                  f"{ac['agreement_056_with_nominal']:.4f}, scrub "
+                  f"{json.dumps(ac['0.56V']['scrub'])}); the DED-canary walk from 0.62 V locks at "
+                  f"{lock:.2f} V in {len(hist)} rounds ({ac['walk']['walk_s']:.1f} s), "
+                  f"{ac['walk']['power_w']:.4f} W (saving {ac['walk']['saving_vs_nominal']:.4f})")
+
+            # d. multi-rail: the codebook tables on the embedding rail
+            meng = inline_engine(acfg, aparams, multi_rail=True, start_v=0.62)
+            emb_words = sum(s_.size for s_ in meng._store.slots if s_.domain == "embedding")
+            require(emb_words == A_EMBED_WORDS and meng._store.n_words == A_WORDS + A_EMBED_WORDS,
+                    f"A multi-rail embedding of {emb_words} words")
+            before = dict(ops.launch_counts())
+            meng.set_rails({d: 0.56 for d in meng._store.domains})
+            step = {k_: ops.launch_counts()[k_] - before[k_] for k_ in before}
+            require(step["inject_scrub_domains"] == 1 and step["decode"] == 1,
+                    f"A multi-rail step launches {step}")
+            require(tuple(meng.params["embed"].shape) == (kb, acfg.vocab, acfg.d_model),
+                    "A multi-rail embedding table")
+            locks, mhist = meng.autotune_voltage()
+            require(meng.controller.locked, "A multi-rail walk did not lock")
+            at["d"] = {"embedding_words": emb_words, "step_launches": step, "locks": locks,
+                       "power_report": meng.power_report(),
+                       "history": {d: [(r.voltage, r.corrected, r.detected, r.action) for r in h]
+                                   for d, h in mhist.items()}}
+            del meng
+            torch.cuda.empty_cache()
+            print(f"  A d. multi-rail engine, the {kb} codebook tables on the embedding rail "
+                  f"({emb_words} words): a rail step launches B2 once and B5 once; walk from "
+                  f"0.62 V, locks {json.dumps(locks)}, modelled power "
+                  f"{at['d']['power_report']['total_w']:.4f} W")
+            counts, n_ = ops.launch_counts(), dict(tally.n)
+        per_fwd = len(protected(acfg)) * acfg.n_layers
+        require(per_fwd == 288, f"A: {per_fwd} protected matmuls a forward")
+        fwd_smoke = n_smoke["prefill"] + n_smoke["decode"]
+        want = dict.fromkeys(counts, 0)
+        want.update(inject_scrub=n_["steps"], inject_scrub_domains=n_.get("rail_steps", 0),
+                    decode=n_.get("rail_steps", 0), encode=n_["packs"],
+                    fault_field=n_.get("steps_below", 0) + n_.get("rail_steps_below", 0),
+                    ecc_matmul=a_smoke_mm * fwd_smoke
+                    + per_fwd * (n_["prefill"] + n_["decode"] - fwd_smoke))
+        require(counts == want and n_["plain_on_card"] == 0,
+                f"A launches {counts}, expected {want} (tally {n_})")
+        paths_extra["A"] = record(counts, n_)
+        at["launches"], at["peak_gb"] = counts, peak_gb()
+        print(f"  A launches: {json.dumps(counts)} = {n_['steps']} single-rail steps + "
+              f"{n_['rail_steps']} rail steps ({n_.get('steps_below', 0)} + "
+              f"{n_.get('rail_steps_below', 0)} below V_min), {per_fwd} fused matmuls x "
+              f"{n_['prefill'] + n_['decode'] - fwd_smoke} full-width forwards, {n_['packs']} "
+              f"packs; peak {at['peak_gb']:.1f} GB")
+        del aparams
         torch.cuda.empty_cache()
         return out
 
@@ -5129,8 +5617,11 @@ def main() -> int:
     with Phase("17 recurrent families: rwkv6-3b, jamba's mamba"):
         recurrent_run = recurrent_phase(report, paths_extra)
 
-    # ---------------------------------------------------------------- 18
-    with Phase("18 traced steps, timings and the kernels line"):
+    with Phase("18 vlm and audio families: llama-3.2-vision-11b, musicgen-medium"):
+        vlm_audio_run = vlm_audio_phase(report, paths_extra)
+
+    # ---------------------------------------------------------------- 19
+    with Phase("19 traced steps, timings and the kernels line"):
         for name, run in runs.items():
             run["steps"] = step_breakdown(traced_params.pop(name), {"prefill": 0, "decode": 0},
                                           walls=run["steps"])
@@ -5170,6 +5661,7 @@ def main() -> int:
         print(f"  dense {json.dumps(dense_run)}")
         print(f"  moe {json.dumps(moe_run)}")
         print(f"  recurrent {json.dumps(recurrent_run)}")
+        print(f"  vlm_audio {json.dumps(vlm_audio_run)}")
         paths = {**runs, **{k: v for k, v in paged.items() if "launches" in v}, **paths_extra}
 
         print(f"  codec {json.dumps(codec_run)}")
@@ -5275,7 +5767,7 @@ def main() -> int:
                                       "word_draws", "flips", "flips_burst_free", "registers")
                     if k in r}),
                 **({k: r[k] for k in ("mlp", "verify", "qwen2_7b", "minitron_8b", "qwen1_5_4b",
-                                      "mixtral_8x22b", "llama4_scout")
+                                      "mixtral_8x22b", "llama4_scout", "musicgen_medium")
                     if k in r}),
             })
         kernels[[k["name"] for k in kernels].index("encode")]["kv_arena"] = report["encode_kv_arena"]

@@ -9,11 +9,13 @@ from repro_torch.configs import shapes
 ARCHS = {
     "qwen3-0.6b": "qwen3_0_6b",
     "qwen2-7b": "qwen2_7b",
+    "llama-3.2-vision-11b": "llama32_vision_11b",
     "qwen1.5-4b": "qwen1_5_4b",
     "minitron-8b": "minitron_8b",
     "mixtral-8x22b": "mixtral_8x22b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "rwkv6-3b": "rwkv6_3b",
+    "musicgen-medium": "musicgen_medium",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
     # the paper's own accelerator workload (MLP on MNIST-class tasks)
     "paper-nn": "paper_nn",

@@ -48,6 +48,7 @@ def domain_codecs(overrides=None) -> dict:
 def supports_paged_kv(cfg) -> bool:
     """Whether the paged SECDED KV cache (core/kvpages.py) covers this arch:
     every mixer full-context attention with a position-indexed cache. SWA
-    ring buffers and quantized caches keep their own layouts."""
+    ring buffers and quantized caches keep their own layouts, and codebook
+    decoders interleave tokens."""
     all_attn = all(cfg.layer_kind(j)["mixer"] == "attn" for j in range(cfg.period))
-    return all_attn and not cfg.sliding_window and not cfg.kv_quant
+    return all_attn and not cfg.sliding_window and not cfg.kv_quant and not cfg.n_codebooks

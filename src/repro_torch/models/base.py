@@ -20,7 +20,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid are ported
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -48,6 +48,11 @@ class ModelConfig:
     d_conv: int = 4
     ssm_expand: int = 2
     rwkv_head_dim: int = 64
+    # vlm
+    cross_attn_every: int = 0  # one cross-attention layer per this many layers
+    n_img_tokens: int = 0
+    # audio
+    n_codebooks: int = 0
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.float32
     kv_quant: bool = False  # int8 KV cache (+per-token scales) for decode
@@ -59,9 +64,12 @@ class ModelConfig:
     @property
     def period(self) -> int:
         """Layers per stacked group (the repeating block pattern): jamba's
-        ``attn_every``, an MoE config's ``moe_every``, else one layer."""
+        ``attn_every``, a vlm's ``cross_attn_every``, an MoE config's
+        ``moe_every``, else one layer."""
         if self.family == "hybrid":
             return self.attn_every
+        if self.family == "vlm":
+            return self.cross_attn_every
         if self.n_experts and self.moe_every > 1:
             return self.moe_every
         return 1
@@ -77,10 +85,13 @@ class ModelConfig:
     def layer_kind(self, pos: int) -> dict:
         """Period position ``pos``'s mixer and feed-forward type: a hybrid
         period has its attention at ``attn_every // 2`` and MoE at the odd
-        positions; an ssm layer is RWKV time-mix and channel-mix."""
+        positions; a vlm period's last position is cross-attention; an ssm
+        layer is RWKV time-mix and channel-mix."""
         if self.family == "hybrid":
             mixer = "attn" if pos == self.attn_every // 2 else "mamba"
             return {"mixer": mixer, "ffn": "moe" if pos % 2 == 1 else "mlp"}
+        if self.family == "vlm":
+            return {"mixer": "cross" if pos == self.period - 1 else "attn", "ffn": "mlp"}
         if self.family == "ssm":
             return {"mixer": "rwkv", "ffn": "rwkv_cm"}
         if self.family == "moe":

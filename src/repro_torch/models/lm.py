@@ -1,5 +1,5 @@
-"""Decoder LM (the dense, MoE, ssm and hybrid families): parameter
-construction, prefill, chunked prefill and greedy decode.
+"""Decoder LM (the dense, MoE, ssm, hybrid, vlm and audio families):
+parameter construction, prefill, chunked prefill and greedy decode.
 
 The layer stack is a Python loop over the stacked ``n_groups`` axis (the
 reference's ``lax.scan``), and inside each group over its period positions
@@ -8,7 +8,14 @@ matrices are ``EccWeight`` leaves whose layer ``g`` is sliced per step. The
 cache is updated in place. A recurrent mixer (models/rwkv6.py,
 models/mamba.py) keeps a per-lane state in place of K/V: a prefill scans
 from a zero state, a one-token decode step advances the state, and chunks
-are refused.
+are refused. A vlm period ends in a gated cross-attention layer over the
+image tokens: a prefill projects the image (``img``, (B, T, D)) into that
+layer's K/V cache of T slots and a decode step attends the cached K/V. An
+audio config reads (B, K, S) tokens of K codebooks, sums their embeddings
+with a sinusoid of the position and returns (B, K, V) logits; it decodes at
+one scalar position. Where the reference fails on these families (a
+protected cross K/V projection, chunks, a vector audio position), the port
+raises ``ValueError`` before any launch.
 
 Every forward on a position-indexed float cache is one path: the new tokens
 of lane b sit at cache positions pos0[b], pos0[b] + 1, ...; their K/V are
@@ -32,6 +39,8 @@ no keys past it.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
@@ -41,14 +50,19 @@ from repro_torch.models import base, layers, mamba, moe, rwkv6
 from repro_torch.models.base import ModelConfig, Spec, params_from_numpy  # noqa: F401
 
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
 def check_family(cfg: ModelConfig) -> None:
     """Admit the ported families: dense, moe (an MoE feed-forward at every
-    ``moe_every``-th period position), ssm (rwkv6) and hybrid (mamba with
-    attention and MoE, jamba); refuse vlm and audio. A depth that is not a
-    whole number of periods is refused, as the reference asserts."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    ``moe_every``-th period position), ssm (rwkv6), hybrid (mamba with
+    attention and MoE, jamba), vlm (a cross-attention layer ending every
+    period of ``cross_attn_every``) and audio (``n_codebooks`` codebooks);
+    refuse any other. A depth that is not a whole number of periods is
+    refused, as the reference asserts."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family is not ported "
-                                  "(dense, moe, ssm and hybrid are)")
+                                  f"({', '.join(FAMILIES)} are)")
     if cfg.period < 1 or cfg.n_layers % cfg.period:
         raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} is not a whole number of "
                          f"periods of {cfg.period} layers (period positions p0..p"
@@ -154,8 +168,8 @@ def _rwkv_cm_spec(cfg):
     }
 
 
-_MIXER_SPECS = {"attn": ("attn", _attn_spec), "mamba": ("mamba", _mamba_spec),
-                "rwkv": ("tm", _rwkv_tm_spec)}
+_MIXER_SPECS = {"attn": ("attn", _attn_spec), "cross": ("attn", _attn_spec),
+                "mamba": ("mamba", _mamba_spec), "rwkv": ("tm", _rwkv_tm_spec)}
 _FFN_SPECS = {"moe": ("moe", _moe_spec), "rwkv_cm": ("cm", _rwkv_cm_spec),
               "mlp": ("mlp", _mlp_spec)}
 
@@ -165,6 +179,9 @@ def _layer_spec(cfg, pos: int):
     p = {"ln1": _norm_spec(cfg), "ln2": _norm_spec(cfg)}
     for key, spec in (_MIXER_SPECS[kind["mixer"]], _FFN_SPECS[kind["ffn"]]):
         p[key] = spec(cfg)
+    if kind["mixer"] == "cross":  # tanh gates of the attention and the MLP
+        p["gate_attn"] = Spec((1,), "zeros")
+        p["gate_ffn"] = Spec((1,), "zeros")
     return p
 
 
@@ -176,16 +193,31 @@ def _stack(spec, g):
 
 
 def init_specs(cfg: ModelConfig):
+    """The parameter spec tree; an audio config's embedding is (K, V, D)
+    and its head (K, D, V), one table per codebook."""
     check_family(cfg)
+    books = (cfg.n_codebooks,) if cfg.n_codebooks else ()
     tree = {
-        "embed": Spec((cfg.vocab, cfg.d_model)),
+        "embed": Spec(books + (cfg.vocab, cfg.d_model)),
         "blocks": {f"p{j}": _stack(_layer_spec(cfg, j), cfg.n_groups)
                    for j in range(cfg.period)},
         "final_norm": _norm_spec(cfg),
     }
     if not cfg.tie_embeddings:
-        tree["lm_head"] = Spec((cfg.d_model, cfg.vocab))
+        tree["lm_head"] = Spec(books + (cfg.d_model, cfg.vocab))
     return tree
+
+
+def param_count(cfg: ModelConfig) -> tuple[int, int]:
+    """Exact (total, active) parameter counts from the spec tree: a token
+    reads ``top_k`` of the ``n_experts`` matrices of a stacked expert leaf."""
+    total = active = 0
+    for key, s in base.flatten(init_specs(cfg), is_leaf=lambda x: isinstance(x, Spec)):
+        n = math.prod(s.shape)
+        total += n
+        expert = "['moe']" in key and len(s.shape) >= 4
+        active += n * cfg.top_k // cfg.n_experts if expert else n
+    return total, active
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
@@ -197,15 +229,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     return base.materialize(init_specs(cfg), gen, cfg.param_dtype, dev)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None, img_tokens: int = 0):
     """Zero decode cache, one entry per period position "p{j}" with layers
     stacked on its first axis: an attention position's "k", "v" of (G, B,
     S, Hkv, Dh), S = max_len, or min(max_len, sliding_window) slots of a
     ring, with ``kv_quant`` int8 K/V and a float32 "kv_scale" (G, B, S,
-    Hkv, 2); an rwkv position's "shift_tm" (G, B, D), "wkv" (G, B, H, N, N)
-    and "shift_cm" (G, B, D); a mamba position's "conv" (G, B, d_conv - 1,
-    d_inner) and "ssm" (G, B, d_inner, d_state). States are in the compute
-    dtype."""
+    Hkv, 2); a cross-attention position's "k", "v" of (G, B, T, Hkv, Dh),
+    T = ``img_tokens`` or ``cfg.n_img_tokens``; an rwkv position's
+    "shift_tm" (G, B, D), "wkv" (G, B, H, N, N) and "shift_cm" (G, B, D); a
+    mamba position's "conv" (G, B, d_conv - 1, d_inner) and "ssm" (G, B,
+    d_inner, d_state). States are in the compute dtype."""
     check_family(cfg)
     dev = resolve_device(device)
     g, dt = cfg.n_groups, cfg.compute_dtype
@@ -221,6 +254,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
         elif mixer == "mamba":
             c = {"conv": zeros(g, batch, cfg.d_conv - 1, cfg.d_inner),
                  "ssm": zeros(g, batch, cfg.d_inner, cfg.d_state)}
+        elif mixer == "cross":
+            t = img_tokens or cfg.n_img_tokens
+            c = {"k": zeros(g, batch, t, cfg.n_kv_heads, cfg.hd),
+                 "v": zeros(g, batch, t, cfg.n_kv_heads, cfg.hd)}
         else:
             s = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
             shape = (g, batch, s, cfg.n_kv_heads, cfg.hd)
@@ -328,6 +365,46 @@ def _attn_block(x, p, cfg, *, cache, g, pos0, kv_len, rope, prefill):
     return _ffn(x + layers.out_proj(out, p["attn"]), p, cfg)
 
 
+def cross_attention(q, k, v):
+    """Non-causal attention of q (B, S, H, Dh) over all T image keys of
+    the cross cache k, v (B, T, Hkv, Dh): ``layers.chunk_attention`` with
+    the queries at cache positions T - 1, T, ..., so each sees every key. A
+    query row then sums over the same tree of pow2_ceil(T) keys in a
+    prefill as in a decode step, whatever the batch."""
+    pos0 = torch.full((q.shape[0],), k.shape[1] - 1, dtype=torch.int64, device=q.device)
+    return layers.chunk_attention(q, k, v, pos0)
+
+
+def _cross_block(x, p, cfg, *, cache, g, img, prefill):
+    """Gated cross-attention over the image tokens, as the reference's
+    ``_attn_block(cross=True)``: q from the text alone (no RoPE), the
+    image's K/V projected and stored at a prefill and read from the cache
+    at a decode step, then out_proj * tanh(gate_attn) and mlp * tanh(gate_ffn)."""
+    b, s, _ = x.shape
+    a = p["attn"]
+    h = layers.apply_norm(x, p["ln1"], cfg.norm_type)
+    q = layers._linear(h, a["wq"])
+    if cfg.qkv_bias:
+        q = q + a["bq"]
+    q = q.reshape(b, s, cfg.n_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, a["q_norm"])
+    ck, cv = cache["k"][g], cache["v"][g]
+    if prefill:
+        hi = img.to(x.dtype)
+        kv_shape = hi.shape[:2] + (cfg.n_kv_heads, cfg.hd)
+        k = layers._linear(hi, a["wk"]).reshape(kv_shape)
+        v = layers._linear(hi, a["wv"]).reshape(kv_shape)
+        if cfg.qk_norm:
+            k = layers.rms_norm(k, a["k_norm"])
+        ck.copy_(k)
+        cv.copy_(v)
+    out = cross_attention(q, ck, cv)
+    x = x + layers.out_proj(out, a) * torch.tanh(p["gate_attn"])
+    h2 = layers.apply_norm(x, p["ln2"], cfg.norm_type)
+    return x + layers.mlp(h2, p["mlp"], cfg) * torch.tanh(p["gate_ffn"])
+
+
 def _mamba_block(x, p, cfg, *, cache, g, prefill):
     """A prefill starts from a zero state, a decode step from layer g's
     state; both write the state they end in."""
@@ -354,8 +431,27 @@ def _rwkv_block(x, p, cfg, *, cache, g, prefill):
     return x + y2
 
 
+def _sinusoid(s: int, d: int, dtype, device, offset: int = 0):
+    """(1, s, d) sinusoidal positions offset .. offset + s - 1: sin then
+    cos of pos / 10000^(2i / d), in float32, cast to ``dtype``."""
+    pos = (torch.arange(s, dtype=torch.float32, device=device) + offset)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)[None]
+
+
 def _embed(params, tokens, cfg):
-    return params["embed"][tokens].to(cfg.compute_dtype)
+    """(B, S) tokens, or an audio config's (B, K, S): the sum of the K
+    codebook embeddings in codebook order plus the positions 0 .. S - 1,
+    in the parameter dtype; cast to the compute dtype."""
+    if not cfg.n_codebooks:
+        return params["embed"][tokens].to(cfg.compute_dtype)
+    e = params["embed"]
+    x = e[0][tokens[:, 0]]
+    for k in range(1, cfg.n_codebooks):
+        x = x + e[k][tokens[:, k]]
+    x = x + _sinusoid(tokens.shape[-1], cfg.d_model, x.dtype, x.device)
+    return x.to(cfg.compute_dtype)
 
 
 def _unembed_f32(params, cfg):
@@ -368,7 +464,7 @@ def _unembed_f32(params, cfg):
             hit = (w._version, w.to(torch.float32))
             _UNEMBED_F32[w] = hit
         w = hit[1]
-    return w.T if cfg.tie_embeddings else w
+    return w.transpose(-1, -2) if cfg.tie_embeddings else w
 
 
 def _positions(pos, b: int, device) -> torch.Tensor:
@@ -389,11 +485,52 @@ def _kv_bound(pos0, s: int) -> int | None:
     return int(torch.as_tensor(pos0).max()) + s
 
 
+def _check_inputs(params, tokens, cfg: ModelConfig, cache, pos0, prefill: bool, img) -> None:
+    """The vlm and audio inputs the reference cannot run, refused with
+    ``ValueError`` before any launch."""
+    s = tokens.shape[-1]
+    chunk = not prefill and s != 1
+    if cfg.n_codebooks:
+        if tokens.ndim != 3 or tokens.shape[1] != cfg.n_codebooks:
+            raise ValueError(f"{cfg.name}: tokens must be (B, {cfg.n_codebooks}, S), got "
+                             f"{tuple(tokens.shape)}")
+        nd = pos0.ndim if hasattr(pos0, "ndim") else int(isinstance(pos0, (list, tuple)))
+        if nd:
+            raise ValueError(f"{cfg.name}: a codebook decoder takes one scalar position (the "
+                             "reference's sinusoid cannot take a per-lane vector)")
+        if chunk:
+            raise ValueError(f"{cfg.name}: a codebook decoder takes prefills and one-token "
+                             "decode steps, not chunks")
+    if cfg.family != "vlm":
+        return
+    if chunk:
+        raise ValueError(f"{cfg.name}: a vlm takes prefills and one-token decode steps, not "
+                         "chunks (the reference's chunk mode passes no image)")
+    for j in range(cfg.period):
+        if cfg.layer_kind(j)["mixer"] != "cross":
+            continue
+        for w in ("wk", "wv"):
+            if isinstance(params["blocks"][f"p{j}"]["attn"][w], kops.EccWeight):
+                raise ValueError(f"{cfg.name}: blocks.p{j}.attn.{w} is ECC-protected; the "
+                                 "reference projects the image with a plain einsum, which "
+                                 "cannot read an EccWeight")
+        if not prefill:
+            continue
+        t = cache[f"p{j}"]["k"].shape[2]
+        if img is None:
+            raise ValueError(f"{cfg.name}: a vlm prefill needs the image embeddings (img=)")
+        if tuple(img.shape) != (tokens.shape[0], t, cfg.d_model):
+            raise ValueError(f"{cfg.name}: img must be (B, T, D) = ({tokens.shape[0]}, {t}, "
+                             f"{cfg.d_model}) for this cache, got {tuple(img.shape)}")
+
+
 def forward(params, tokens, cfg: ModelConfig, cache, pos0, kv_len: int | None = None,
-            prefill: bool = False):
-    """Backbone: (B, S) tokens at cache positions pos0 .. pos0 + S - 1 (pos0
-    a scalar or (B,)) -> final-norm hidden (B, S, D); writes their K/V and
-    the recurrent layers' states into the cache in place. ``kv_len`` bounds
+            prefill: bool = False, img=None):
+    """Backbone: (B, S) tokens, an audio config's (B, K, S), at cache
+    positions pos0 .. pos0 + S - 1 (pos0 a scalar or (B,); an audio
+    config's a scalar) -> final-norm hidden (B, S, D); writes their K/V and
+    the recurrent layers' states into the cache in place. A vlm prefill
+    projects ``img`` (B, T, D) into each cross-attention layer's cache. ``kv_len`` bounds
     max(pos0) + S from the host (derived when the positions are on the
     host; else the cache length). ``prefill`` (pos0 0) marks a prompt,
     which a ring or int8 cache stores after attending it and a recurrent
@@ -402,19 +539,26 @@ def forward(params, tokens, cfg: ModelConfig, cache, pos0, kv_len: int | None = 
     holds no positions to resume from). Groups run in order, and inside
     each the period positions p0, p1, ... An MoE layer routes a one-token
     forward's batch as one dispatch group and each row of a longer one as
-    its own."""
+    its own. An audio decode step swaps the offset-0 sinusoid of its
+    embedding for the one at its position."""
     check_family(cfg)
-    if not prefill and tokens.shape[1] != 1 and recurrent(cfg):
+    s = tokens.shape[-1]
+    if not prefill and s != 1 and recurrent(cfg):
         raise ValueError(f"{cfg.name}: a recurrent mixer takes prefills and one-token "
                          "decode steps, not chunks")
+    _check_inputs(params, tokens, cfg, cache, pos0, prefill, img)
     if kv_len is None:
-        kv_len = _kv_bound(pos0, tokens.shape[1])
-    pos0 = _positions(pos0, tokens.shape[0], tokens.device)
+        kv_len = _kv_bound(pos0, s)
     x = _embed(params, tokens, cfg)
+    if cfg.n_codebooks and not prefill:
+        off = int(pos0)
+        x = (x - _sinusoid(1, cfg.d_model, x.dtype, x.device)
+             + _sinusoid(1, cfg.d_model, x.dtype, x.device, offset=off))
+    pos0 = _positions(pos0, tokens.shape[0], tokens.device)
     kinds = [cfg.layer_kind(j)["mixer"] for j in range(cfg.period)]
     rope = None
     if "attn" in kinds:  # once for every layer
-        positions = pos0[:, None] + torch.arange(tokens.shape[1], device=x.device)[None, :]
+        positions = pos0[:, None] + torch.arange(s, device=x.device)[None, :]
         rope = layers.rope_tables(positions, cfg.hd, cfg.rope_theta)
     for g in range(cfg.n_groups):
         for j, mixer in enumerate(kinds):
@@ -422,6 +566,8 @@ def forward(params, tokens, cfg: ModelConfig, cache, pos0, kv_len: int | None = 
             if mixer == "attn":
                 x = _attn_block(x, p, cfg, cache=c, g=g, pos0=pos0, kv_len=kv_len, rope=rope,
                                 prefill=prefill)
+            elif mixer == "cross":
+                x = _cross_block(x, p, cfg, cache=c, g=g, img=img, prefill=prefill)
             elif mixer == "mamba":
                 x = _mamba_block(x, p, cfg, cache=c, g=g, prefill=prefill)
             else:
@@ -430,10 +576,17 @@ def forward(params, tokens, cfg: ModelConfig, cache, pos0, kv_len: int | None = 
 
 
 def _logits(params, hidden, cfg):
-    """(..., D) hidden -> (..., V) float32 logits. The rows are zero-padded
-    to a multiple of ``LOGIT_ROWS`` and every product is LOGIT_ROWS x D by
-    D x V, one shape for every call."""
+    """(..., D) hidden -> (..., V) float32 logits, an audio config's (...,
+    K, V), one head per codebook. The rows are zero-padded to a multiple of
+    ``LOGIT_ROWS`` and every product is LOGIT_ROWS x D by D x V, one shape
+    for every call."""
     un = _unembed_f32(params, cfg)
+    if cfg.n_codebooks:
+        return torch.stack([_rows_times(hidden, un[k]) for k in range(cfg.n_codebooks)], -2)
+    return _rows_times(hidden, un)
+
+
+def _rows_times(hidden, un):
     n, d = hidden.shape[:-1].numel(), hidden.shape[-1]
     h2 = hidden.new_zeros((-(-n // LOGIT_ROWS) * LOGIT_ROWS, d), dtype=torch.float32)
     h2[:n] = hidden.reshape(n, d)
@@ -442,22 +595,35 @@ def _logits(params, hidden, cfg):
 
 
 @torch.no_grad()
-def prefill(params, tokens, cfg: ModelConfig, cache):
-    """Process a prompt, fill the cache. Returns (last-token logits, cache)."""
-    hidden = forward(params, tokens, cfg, cache, 0, prefill=True)
+def prefill(params, tokens, cfg: ModelConfig, cache, img=None):
+    """Process a prompt, fill the cache (a vlm's cross-attention K/V from
+    ``img`` (B, T, D)). Returns (last-token logits, cache)."""
+    hidden = forward(params, tokens, cfg, cache, 0, prefill=True, img=img)
     return _logits(params, hidden[:, -1], cfg), cache
 
 
 @torch.no_grad()
-def decode_step(params, tokens, cfg: ModelConfig, cache, pos, kv_len: int | None = None):
-    """One decode step of (B, 1) tokens at 0-based position ``pos``: a
-    scalar, or a (B,) vector giving every lane its own position (continuous
-    batching)."""
+def decode_step(params, tokens, cfg: ModelConfig, cache, pos, kv_len: int | None = None,
+                img=None):
+    """One decode step of (B, 1) tokens, an audio config's (B, K, 1), at
+    0-based position ``pos``: a scalar, or a (B,) vector giving every lane
+    its own position (continuous batching; not for audio). A vlm reads its
+    image K/V from the cache; ``img`` is unused, as in the reference."""
     hidden = forward(params, tokens, cfg, cache, pos, kv_len)
     return _logits(params, hidden[:, -1], cfg), cache
 
 
+def _refuse_codebooks(cfg: ModelConfig, entry: str) -> None:
+    if cfg.n_codebooks:
+        raise ValueError(f"{cfg.name}: {entry} takes single-codebook models (the reference "
+                         "asserts it, or its decode loop changes shape)")
+
+
 def _check_chunkable(cfg: ModelConfig) -> None:
+    _refuse_codebooks(cfg, "chunked prefill")
+    if cfg.family == "vlm":
+        raise ValueError(f"{cfg.name}: chunks need no image (the reference's chunk mode "
+                         "passes none to the cross-attention layers)")
     if cfg.sliding_window or cfg.kv_quant:
         raise ValueError(f"{cfg.name}: chunks need a position-indexed float cache "
                          "(no sliding_window, no kv_quant)")
@@ -488,7 +654,7 @@ def chunk_logits(params, tokens, cfg: ModelConfig, cache, pos0, kv_len: int | No
 
 
 @torch.no_grad()
-def sequence_logits(params, tokens, cfg: ModelConfig):
+def sequence_logits(params, tokens, cfg: ModelConfig, img=None):
     """Teacher-forced (B, S, V) float32 logits of a fixed token sequence
     (B, S): the paired clean-against-faulty evaluation of core/campaign.py,
     which feeds the same tokens through both parameter sets. The forward is
@@ -496,9 +662,11 @@ def sequence_logits(params, tokens, cfg: ModelConfig):
     protected leaves read through the fused ECC matmul as in serving and the
     last position's logits equal ``prefill``'s on the same tokens bit for
     bit. As the reference's train-mode forward, it is windowed and
-    unquantised: a prefill attends its fresh K/V."""
-    cache = init_cache(cfg, tokens.shape[0], tokens.shape[1], device=tokens.device)
-    hidden = forward(params, tokens, cfg, cache, 0, prefill=True)
+    unquantised: a prefill attends its fresh K/V. A vlm attends ``img``."""
+    _refuse_codebooks(cfg, "sequence_logits")
+    cache = init_cache(cfg, tokens.shape[0], tokens.shape[1], device=tokens.device,
+                       img_tokens=0 if img is None else img.shape[1])
+    hidden = forward(params, tokens, cfg, cache, 0, prefill=True, img=img)
     return _logits(params, hidden, cfg)
 
 
@@ -506,6 +674,7 @@ def sequence_logits(params, tokens, cfg: ModelConfig):
 def greedy_decode_loop(params, tok0, cfg: ModelConfig, cache, start_pos: int, n_steps: int):
     """Greedy-decode ``n_steps`` tokens after ``tok0`` (B, 1).
     Returns (tokens (B, n_steps) int64, cache)."""
+    _refuse_codebooks(cfg, "greedy_decode_loop")
     tok, out = tok0, []
     pos = _positions(start_pos, tok0.shape[0], tok0.device)
     for i in range(n_steps):

@@ -23,6 +23,7 @@ from repro_torch.serving.steps import (
     PagedHelpers,
     make_paged_helpers,
     make_prefill_step,
+    make_serve_step,
 )
 from repro_torch.serving.engine import (
     CanaryConfig,
@@ -54,6 +55,7 @@ __all__ = [
     "TraceRecorder",
     "make_paged_helpers",
     "make_prefill_step",
+    "make_serve_step",
     "normalize_requests",
     "serve_stream",
 ]

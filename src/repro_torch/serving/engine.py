@@ -453,7 +453,14 @@ class ServingEngine:
     # -- serving --------------------------------------------------------------
     @torch.no_grad()
     def generate(self, prompts: np.ndarray, n_tokens: int, *, params=None) -> np.ndarray:
-        """Greedy-decode a batch: prompts (B, S0) int -> tokens (B, n)."""
+        """Greedy-decode a batch: prompts (B, S0) int -> tokens (B, n). A vlm
+        (no image) and an audio config ((B, K, S) tokens) are refused, as the
+        reference fails on them; so are the canary and ``serve``, which
+        decode through this path or the paged one."""
+        if self.cfg.family == "vlm" or self.cfg.n_codebooks:
+            raise ValueError(f"{self.cfg.name}: generate takes (B, S) prompts and no image; "
+                             "drive this family through lm.prefill / lm.decode_step or "
+                             "serving.steps.make_prefill_step / make_serve_step")
         p = self.params if params is None else params
         toks = torch.as_tensor(np.asarray(prompts), dtype=torch.int64, device=self.device)
         b, s0 = toks.shape

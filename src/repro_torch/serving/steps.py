@@ -1,5 +1,5 @@
-"""Serving step functions: prefill, and the paged-cache lane helpers for
-continuous batching.
+"""Serving step functions: prefill, one greedy decode step, and the
+paged-cache lane helpers for continuous batching.
 
 ``make_paged_helpers`` builds the glue between the dense per-lane decode
 cache and the ECC page arena (core/kvpages.py): extract tokens' K/V
@@ -41,11 +41,25 @@ def _profiled(name: str, fn):
 
 
 def make_prefill_step(cfg: ModelConfig):
-    def prefill_step(params, tokens, cache):
-        logits, cache = lm.prefill(params, tokens, cfg, cache)
+    """prefill_step(params, tokens, cache, img=None) -> (next tokens (B,),
+    an audio config's (B, K); cache). A vlm prefill takes its image
+    embeddings ``img`` (B, T, D)."""
+    def prefill_step(params, tokens, cache, img=None):
+        logits, cache = lm.prefill(params, tokens, cfg, cache, img=img)
         return torch.argmax(logits, dim=-1), cache
 
     return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """serve_step(params, tokens, cache, pos, img=None) -> (next tokens
+    (B, 1), an audio config's (B, K, 1); cache): one greedy decode step
+    (a vlm reads its image K/V from the cache)."""
+    def serve_step(params, tokens, cache, pos, img=None):
+        logits, cache = lm.decode_step(params, tokens, cfg, cache, pos, img=img)
+        return torch.argmax(logits, dim=-1)[..., None], cache
+
+    return serve_step
 
 
 def _extract_tokens(cache, idx, *, geom: KVGeometry):

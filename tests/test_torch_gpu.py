@@ -1105,3 +1105,75 @@ def test_empty_inline_arena_launches_nothing_on_the_card(cuda):
     assert sum(ops.launch_counts().values()) == 0, ops.launch_counts()
     rep = eng.power_report()
     assert rep["codecs"] == {} and np.isfinite(rep["total_w"])
+
+
+def _family_run(arch, device, seed=0):
+    """The smoke config through an inline engine at 0.56 V with host masks
+    on ``device``: (prefill logits, 4 greedy steps through the serving
+    steps, the step's counters, the fused matmul's launches). vlm cross
+    gates are set nonzero (drawn as zeros, the identity)."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving import engine, steps
+
+    cfg = configs.get_smoke_config(arch)
+    params = lm.init_params(cfg, seed=seed, device="cpu")
+    if cfg.family == "vlm":
+        for name in ("gate_attn", "gate_ffn"):
+            params["blocks"]["p4"][name].fill_(0.55)
+    rng = np.random.default_rng(seed)
+    shape = (2, cfg.n_codebooks, 6) if cfg.n_codebooks else (2, 6)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, shape), device=device)
+    img = None
+    if cfg.family == "vlm":
+        img = torch.from_numpy(rng.standard_normal((2, cfg.n_img_tokens, cfg.d_model))
+                               .astype(np.float32)).to(device)
+    ops.reset_launch_count()
+    eng = engine.ServingEngine(cfg, params, rel=engine.ReliabilityConfig(mode="inline",
+                                                                         voltage=1.0),
+                               max_len=16, device=device)
+    eng.set_voltage(0.56)
+    cache = lm.init_cache(cfg, 2, 16, device=device)
+    tok, cache = steps.make_prefill_step(cfg)(eng.params, toks, cache, img=img)
+    logits, _ = lm.prefill(eng.params, toks, cfg, lm.init_cache(cfg, 2, 16, device=device),
+                           img=img)
+    out, tok = [tok.cpu()], tok[..., None]
+    for i in range(4):
+        tok, cache = steps.make_serve_step(cfg)(eng.params, tok, cache, toks.shape[-1] + i)
+        out.append(tok[..., 0].cpu())
+    return logits.cpu(), torch.stack(out, -1), eng._last_scrub, ops.launch_counts()["ecc_matmul"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-medium"])
+def test_vlm_and_audio_on_the_card_equal_the_cpu(cuda, arch):
+    """Image cross-attention and codebook decoding through the fused ECC
+    matmul on the card: the CPU's tokens and counters, logits within
+    MATMUL_RTOL x max."""
+    cl, ct, cs, _ = _family_run(arch, "cpu")
+    gl, gt, gs, launches = _family_run(arch, cuda)
+    assert launches > 0 and gs == cs and gs.corrected > 0
+    assert torch.equal(gt, ct)
+    torch.testing.assert_close(gl, cl, rtol=0, atol=MATMUL_RTOL * float(cl.abs().max()))
+
+
+@pytest.mark.gpu
+def test_protected_cross_projection_is_refused_on_the_card(cuda):
+    """At n_kv_heads = 4 the cross wk / wv are packed: the prefill raises
+    before any kernel launch."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving import engine
+
+    cfg = dataclasses.replace(configs.get_smoke_config("llama-3.2-vision-11b"), n_kv_heads=4)
+    eng = engine.ServingEngine(cfg, lm.init_params(cfg, seed=0, device=cuda),
+                               rel=engine.ReliabilityConfig(mode="inline", voltage=1.0),
+                               max_len=16, device=cuda)
+    ops.reset_launch_count()
+    img = torch.zeros(2, cfg.n_img_tokens, cfg.d_model, device=cuda)
+    with pytest.raises(ValueError, match=r"blocks\.p4\.attn\.wk"):
+        lm.prefill(eng.params, torch.zeros(2, 4, dtype=torch.long, device=cuda), cfg,
+                   lm.init_cache(cfg, 2, 16, device=cuda), img=img)
+    assert sum(ops.launch_counts().values()) == 0, ops.launch_counts()

@@ -280,8 +280,15 @@ def test_moe_every_above_one_is_refused_naming_jamba(models, entry):
 
 
 def test_other_families_are_refused():
-    """ssm and hybrid are ported; vlm and audio are not."""
-    for fam in ("vlm", "audio"):
-        c = dataclasses.replace(tconfigs.get_smoke_config("qwen3-0.6b"), family=fam)
-        with pytest.raises(NotImplementedError, match=f"'{fam}' family"):
+    """All six families are ported (each registered smoke config builds its
+    spec tree); a family outside them is refused."""
+    fams = {c.family for c in map(tconfigs.get_smoke_config, tconfigs.ARCHS)
+            if c.family != "mlp"}
+    assert fams == set(tlm.FAMILIES) == {"dense", "moe", "ssm", "hybrid", "vlm", "audio"}
+    for arch in tconfigs.ARCHS:
+        c = tconfigs.get_smoke_config(arch)
+        if c.family != "mlp":
             tlm.init_specs(c)
+    c = dataclasses.replace(tconfigs.get_smoke_config("qwen3-0.6b"), family="diffusion")
+    with pytest.raises(NotImplementedError, match="'diffusion' family"):
+        tlm.init_specs(c)

@@ -377,10 +377,11 @@ def test_domain_mode_engine_matches_reference(models, v):
 
 
 def test_family_admission():
-    """ssm and hybrid are admitted; vlm and audio are refused."""
-    tlm.check_family(tconfigs.get_config("rwkv6-3b"))
-    tlm.check_family(tconfigs.get_config("jamba-1.5-large-398b"))
+    """The six families are admitted at their published configs; an unknown
+    family is refused."""
+    for arch in ("qwen3-0.6b", "mixtral-8x22b", "rwkv6-3b", "jamba-1.5-large-398b",
+                 "llama-3.2-vision-11b", "musicgen-medium"):
+        tlm.check_family(tconfigs.get_config(arch))
     q = tconfigs.get_smoke_config("qwen3-0.6b")
-    for fam in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError, match=f"'{fam}' family"):
-            tlm.init_specs(dataclasses.replace(q, family=fam))
+    with pytest.raises(NotImplementedError, match="'diffusion' family"):
+        tlm.init_specs(dataclasses.replace(q, family="diffusion"))
