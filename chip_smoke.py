@@ -284,7 +284,32 @@ them. Phases, each printed on its own line with its wall time:
      locks. Each path first runs its smoke config (cross gates seeded)
      through an inline engine at 0.56 V with host masks on the card and on
      the CPU: equal keys, counters and tokens, logits within 1e-4 x max;
-  4-18 each zero the kernel launch counts at the start of a path and read
+  19. training and checkpoints (path T; ``repro_torch.train``,
+     ``optim.adamw``, ``checkpoint.manager``, ``data.pipeline``): a.
+     qwen3-0.6b at its published width and depth (28 layers, d 1024, 16/8
+     heads of 128, d_ff 3072, vocab 151,936, bf16 parameters, float32
+     moments) trained by ``Trainer`` for 8 steps of 4 x 512 tokens from
+     ``TokenPipeline`` (remat "full"), with ``RailPolicy(scrub_every=2,
+     start_v=0.60, mask_source="device")``: every loss finite, each scrub
+     one B4 launch a packed matrix (197), one B2 and one field launch where
+     a rail lies below V_min; the same 8 steps without the policy give the
+     same losses and final params bit for bit and launch no kernel but the
+     checkpoints' B4; the step wall (median of steps 2-8), tokens/s, peak
+     memory, one traced step's device busy time and heaviest kernels; b. an
+     ECC save (one B4 a leaf) and load (one B5 a leaf) of the 40-leaf
+     state, read back bit for bit, their seconds and GB; c. a trainer
+     restored from the step-4 checkpoint and run to step 8, whether it is
+     bitwise in this process (printed), and the same check required bit
+     for bit in a child process under ``torch.use_deterministic_algorithms``
+     and ``CUBLAS_WORKSPACE_CONFIG=:4096:8``; d. the tiny config trained on
+     the card and on the CPU from the same params (12 steps, ECC
+     checkpoints every 5, ``FaultInjected`` at step 7): one recovery to
+     step 5, a falling loss, card = CPU within 1e-3 relative; a flipped bit
+     in a saved leaf corrected and two in one word detected, ``restore()``
+     falling back, each load through B5 on the card; e.
+     ``examples/torch_train_lm.py --steps 40 --fail-at 25`` on the card, its
+     lines printed; the path's launches into the kernels line;
+  4-19 each zero the kernel launch counts at the start of a path and read
      them at its end, and fail unless every voltage step launched its scrub
      kernel once (B1 single-rail, B2 and the embedding's B5 multi-rail,
      none of the other path's), every forward pass of the protected model
@@ -298,7 +323,7 @@ them. Phases, each printed on its own line with its wall time:
      once, every per-leaf step and every domain read launched the fault
      injection and the decode once per leaf, and the plain codec never ran
      on the card;
-  19. one prefill and one decode step of paths 4-5 under torch.profiler
+  20. one prefill and one decode step of paths 4-5 under torch.profiler
      (device busy time, idle share, fused-matmul time inside the step, which
      must come from the decode kernel in a decode step and the tiled kernel
      in a prefill), tokens/s, voltage-step times and one
@@ -422,6 +447,463 @@ class Phase:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+# ---------------------------------------------------------------- path T
+# phase 19: qwen3-0.6b trained at full width (path T): steps, batch, sequence
+# length and the step its checkpoint is resumed from; the tiny trainer's
+# steps, fault step and card-against-CPU tolerance (the CPU tests' 12-step
+# trajectory tolerance); the example's arguments
+T_STEPS, T_BATCH, T_SEQ, T_RESUME_AT = 8, 4, 512, 4
+T_TINY_STEPS, T_TINY_FAULT, T_TINY_RTOL = 12, 7, 1e-3
+T_EXAMPLE_ARGS = ["--steps", "40", "--fail-at", "25"]
+T_CHILD_FLAG = "--train-resume-child"
+T_TINY = dict(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+              d_ff=128, vocab=64, head_dim=16)
+
+
+def _train_setup(cfg):
+    """Path T's trainer configuration and data: AdamW warming up over 2 of
+    the 8 steps, full remat, the pipeline at batch 4 x 512 tokens."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import TrainConfig
+
+    tc = TrainConfig(optimizer=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=T_STEPS),
+                     remat="full")
+    return tc, TokenPipeline(DataConfig(vocab=cfg.vocab, global_batch=T_BATCH, seq_len=T_SEQ))
+
+
+def _losses(hist) -> list:
+    return [r["loss"] for r in hist if "loss" in r]
+
+
+def _bits_equal(a, b) -> bool:
+    """Two trees of tensors equal in keys, dtype, shape and bits."""
+    import torch
+
+    from repro_torch.models import base
+
+    fa, fb = base.flatten(a), base.flatten(b)
+    return len(fa) == len(fb) and all(
+        ka == kb and x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for (ka, x), (kb, y) in zip(fa, fb))
+
+
+def _resume_run(cfg, dev, ckpt_dir) -> dict:
+    """An uninterrupted T_STEPS run that checkpoints at T_RESUME_AT, and a
+    second trainer restored from that checkpoint and run to T_STEPS: the
+    resumed steps' losses and the final states compared bit for bit."""
+    from repro_torch.train.trainer import Trainer
+
+    tc, pipe = _train_setup(cfg)
+    full = Trainer(cfg, tc, pipe, ckpt_dir, ckpt_every=T_RESUME_AT, device=dev)
+    full.run(T_RESUME_AT)
+    full.ckpt_every = 10**9
+    full.run(T_STEPS - T_RESUME_AT)
+    res = Trainer(cfg, tc, pipe, ckpt_dir, ckpt_every=10**9, device=dev)
+    require(res.restore(T_RESUME_AT) and res.step == T_RESUME_AT, "T resume: restore")
+    res.run(T_STEPS - T_RESUME_AT)
+    a, b = _losses(full.history)[T_RESUME_AT:], _losses(res.history)
+    return {"losses_uninterrupted": a, "losses_resumed": b,
+            "bitwise": a == b and _bits_equal(full._state(), res._state())}
+
+
+def train_resume_child(argv) -> int:
+    """Path T's resume check in deterministic mode (the parent starts this
+    process with CUBLAS_WORKSPACE_CONFIG=:4096:8), checkpointing under
+    ``argv[0]``; prints one JSON line and exits 0 when the resumed run
+    equals the uninterrupted one bit for bit."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory(prefix="child_", dir=argv[0]) as d:
+        try:
+            out = _resume_run(get_config("qwen3-0.6b"), torch.device("cuda"), d)
+        except RuntimeError as e:  # an operation without a deterministic form
+            out = {"bitwise": False, "error": str(e).splitlines()[0]}
+    print(json.dumps(out), flush=True)
+    return 0 if out["bitwise"] else 1
+
+
+def _flip(path: str, offset: int, bits: int) -> None:
+    """XOR ``bits`` into the byte ``offset`` (from the end) of a file."""
+    with open(path, "rb") as f:
+        raw = bytearray(f.read())
+    raw[offset] ^= bits
+    with open(path, "wb") as f:
+        f.write(bytes(raw))
+
+
+def _traced_step(fn, dev, top: int = 6) -> dict:
+    """Wall time of ``fn`` (synchronised) and, from torch.profiler's CUDA
+    trace of one more call, the device's busy time (the union of its
+    events), idle share and the ``top`` kernels by device time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                 if e.device_type == cuda)
+    if not evs:
+        return {"wall_ms": 1e3 * wall, "device": "not measured (no device event traced)"}
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for s, e, name in evs:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+    heavy = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"wall_ms": 1e3 * wall, "device_events": len(evs), "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / 1e3 / (1e3 * wall),
+            "top_kernels_ms": {n[:80]: t / 1e3 for n, t in heavy}}
+
+
+def train_phase(dev, cfg, tiny_cfg) -> tuple:
+    """Path T on ``dev``: a. ``cfg`` trained with a device-mask RailPolicy
+    and without it, bit for bit; b. an ECC checkpoint of the state saved
+    and loaded back bit for bit; c. the state resumed from step T_RESUME_AT,
+    here and in a deterministic child process; d. ``tiny_cfg`` trained on
+    ``dev`` and on the CPU with a fault, a recovery and corrupt checkpoints;
+    e. the example. Returns (results, the path's record for the kernels
+    line)."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.voltage import PLATFORMS
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import base, lm
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import TrainConfig
+    from repro_torch.train.trainer import FaultInjected, RailPolicy, Trainer
+
+    card = dev.type == "cuda"
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if card else float("nan")
+
+    t_phase = time.perf_counter()
+    out = {}
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    by_codec = {k: {} for k in ops.launch_counts_by_codec()}
+    packs = [0]
+
+    def harvest() -> dict:
+        """The launches since the last reset, added to the path's totals."""
+        counts = ops.launch_counts()
+        for k, n in counts.items():
+            total[k] += n
+        for k, per in ops.launch_counts_by_codec().items():
+            for c, n in per.items():
+                by_codec[k][c] = by_codec[k].get(c, 0) + n
+        ops.reset_launch_count()
+        return counts
+
+    def expect(**kw) -> dict:
+        """The launches ``kw``, none of any other kernel (off the card, where
+        the plain versions run: none at all)."""
+        want = dict.fromkeys(total, 0)
+        if card:
+            want.update(kw)
+        return want
+
+    real_pack = ops.pack_ecc_weights
+
+    def counted_pack(*a, **kw):
+        packs[0] += 1
+        return real_pack(*a, **kw)
+
+    ops.pack_ecc_weights = counted_pack
+    root = tempfile.mkdtemp(prefix=".train_ckpt_", dir=ROOT)
+    try:
+        tc, pipe = _train_setup(cfg)
+        tokens = T_BATCH * T_SEQ
+        print(f"  T {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+              f"{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+              f"{str(cfg.param_dtype).split('.')[-1]} parameters ({lm.param_count(cfg)[0]}), "
+              f"float32 moments; batch {T_BATCH} x {T_SEQ} tokens, remat {tc.remat!r}")
+
+        # a. the device-mask rail policy, then the same steps without it
+        ops.reset_launch_count()
+        pol = RailPolicy(scrub_every=2, start_v=0.60, mask_source="device")
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        railed = Trainer(cfg, tc, pipe, os.path.join(root, "a"), ckpt_every=10**9, rails=pol,
+                         device=dev)
+        scrubs, real_scrub = [], railed._rail_scrub
+
+        def traced_scrub():
+            """One scrub's rails (start_v before the controller exists) and
+            launches."""
+            ctl, prof = railed.rail_controller, PLATFORMS[pol.platform]
+            # the controller starts at start_v, held within [V_min, V_nom]
+            rails = dict(ctl.voltages) if ctl is not None else {
+                "all": min(prof.v_nom, max(pol.start_v, prof.v_min))}
+            before, p0 = ops.launch_counts(), packs[0]
+            real_scrub()
+            after = ops.launch_counts()
+            scrubs.append({"rails": rails, "packs": packs[0] - p0,
+                           "launches": {k: after[k] - before[k] for k in after}})
+
+        railed._rail_scrub = traced_scrub
+        t0 = time.perf_counter()
+        railed.run(T_STEPS)
+        sync()
+        wall_a, peak_a = time.perf_counter() - t0, peak_gb()
+        la = _losses(railed.history)
+        events = [r for r in railed.history if r.get("event") == "rails"]
+        counts_a, packs_a = harvest(), packs[0]
+        vmin = PLATFORMS[pol.platform].v_min
+        for s in scrubs:  # B4 per packed matrix, one B2, the field below V_min
+            below = any(v < vmin for v in s["rails"].values())
+            want = expect(encode=s["packs"], inject_scrub_domains=1, fault_field=int(below))
+            require(s["launches"] == want, f"T a. a scrub at rails {s['rails']} launched "
+                    f"{s['launches']}, expected {want}; scrubs {scrubs}")
+        below = sum(s["launches"]["fault_field"] for s in scrubs)
+        per_scrub = packs_a // len(events)
+        require(len(events) == len(scrubs) == T_STEPS // pol.scrub_every
+                and all(s["packs"] == per_scrub for s in scrubs)
+                and counts_a == expect(encode=packs_a, inject_scrub_domains=len(events),
+                                       fault_field=below),
+                f"T a. {len(events)} scrubs launched {counts_a} ({packs_a} packs)")
+        used = [s["rails"] for s in scrubs]
+        require(len(la) == T_STEPS and all(np.isfinite(la)), f"T a. losses {la}")
+        railed_params = railed.params
+        del railed
+
+        packs[0] = 0
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        plain = Trainer(cfg, tc, pipe, os.path.join(root, "b"), ckpt_every=T_RESUME_AT,
+                        ecc_checkpoints=True, device=dev)
+        saves = []
+        real_save = plain.save
+
+        def timed_save():
+            sync()
+            t_ = time.perf_counter()
+            real_save()
+            sync()
+            saves.append(time.perf_counter() - t_)
+
+        plain.save = timed_save
+        t0 = time.perf_counter()
+        plain.run(T_STEPS)
+        sync()
+        wall_b, peak_b = time.perf_counter() - t0, peak_gb()
+        lb = _losses(plain.history)
+        step_s = [r["seconds"] for r in plain.history if "loss" in r]
+        med = float(np.median(step_s[1:]))
+        counts_b = harvest()
+        state = plain._state()
+        n_leaves = len(base.flatten(state))
+        want = expect(encode=n_leaves * len(saves))
+        require(counts_b == want and packs[0] == 0, f"T a. {T_STEPS} steps and {len(saves)} "
+                f"saves launched {counts_b}, expected {want}: a train step launches none")
+        read_only = la == lb and _bits_equal(railed_params, plain.params)
+        require(read_only, "T a. the rail policy changed training: losses "
+                f"{la} against {lb}, or the final params differ")
+        del railed_params
+        out["a"] = {
+            "losses_railed": la, "losses": lb, "read_only_bitwise": read_only,
+            "step_s": step_s, "median_step_s": med, "tokens_per_step": tokens,
+            "tokens_per_s": tokens / med, "peak_gb": peak_b, "peak_gb_railed": peak_a,
+            "wall_railed_s": wall_a, "wall_s": wall_b, "rails": events,
+            "launches_railed": counts_a, "packs_per_scrub": per_scrub,
+            "scrubs_below_vmin": below}
+        print(f"  T a. with RailPolicy(scrub_every=2, start_v=0.60, device masks): losses "
+              f"{la}; {len(events)} scrubs at rails {used}, DED "
+              f"{[e['detected'] for e in events]}, locked {events[-1]['locked']}; each scrub "
+              f"{per_scrub} B4 packs + 1 B2 (+ 1 field launch below V_min: {below} of "
+              f"{len(events)}); {wall_a:.2f} s, peak {peak_a:.2f} GB")
+        print(f"  T a. without it: the same losses and final params bit for bit; step wall "
+              f"median (steps 2-{T_STEPS}) {med * 1e3:.1f} ms = {tokens / med:.0f} tokens/s; "
+              f"steps {[round(s * 1e3, 1) for s in step_s]} ms; peak {peak_b:.2f} GB (ECC "
+              f"saves at steps {T_RESUME_AT} and {T_STEPS} included); {wall_b:.2f} s")
+
+        # one more step traced: device busy time and the kernels that take it
+        step_batch = {k: torch.as_tensor(v).to(dev) for k, v in pipe.batch_at(T_STEPS).items()}
+        run_step = lambda: plain._step_fn(plain.params, plain.opt_state, step_batch)[2]["loss"]
+        out["a"]["traced_step"] = _traced_step(run_step, dev) if card else "not measured"
+        print(f"  T a. one traced train step: {json.dumps(out['a']['traced_step'])}")
+
+        # b. the ECC checkpoint of the final state, loaded back
+        sync()
+        t0 = time.perf_counter()
+        back = ckpt.load(os.path.join(root, "b"), T_STEPS, state)
+        sync()
+        load_s = time.perf_counter() - t0
+        counts = harvest()
+        require(counts == expect(decode=n_leaves) and _bits_equal(back, state),
+                f"T b. load launches {counts} ({n_leaves} leaves) or the read-back differs")
+        del back
+        gb = sum(t.numel() * t.element_size() for _, t in base.flatten(state)) / 1e9
+        parity_gb = sum(-(-t.numel() * t.element_size() // 8) for _, t in
+                        base.flatten(state)) / 1e9
+        out["b"] = {"leaves": n_leaves, "gb": gb, "parity_gb": parity_gb,
+                    "save_s": saves[-1], "saves_s": saves, "load_s": load_s,
+                    "save_gb_per_s": gb / saves[-1], "load_gb_per_s": gb / load_s}
+        print(f"  T b. ECC checkpoint of the step-{T_STEPS} state ({n_leaves} leaves, {gb:.3f} "
+              f"GB + {parity_gb:.3f} GB of check bits): save {saves[-1]:.2f} s (one B4 a leaf; "
+              f"{gb / saves[-1]:.2f} GB/s), load {load_s:.2f} s (one B5 a leaf; "
+              f"{gb / load_s:.2f} GB/s); read-back = the state bit for bit")
+
+        # c. resumed from step T_RESUME_AT: here, then in a deterministic child
+        res = Trainer(cfg, tc, pipe, os.path.join(root, "b"), ckpt_every=10**9, device=dev)
+        require(res.restore(T_RESUME_AT) and res.step == T_RESUME_AT, "T c. restore")
+        res.run(T_STEPS - T_RESUME_AT)
+        lc = _losses(res.history)
+        main_bitwise = lc == lb[T_RESUME_AT:] and _bits_equal(res._state(), state)
+        counts = harvest()
+        require(counts == expect(decode=n_leaves), f"T c. resume launches {counts}")
+        del res, state, plain
+        sync()
+        if card:
+            torch.cuda.empty_cache()
+        det, child_s, rc, err = {"bitwise": None, "error": "not run off the card"}, 0.0, 0, ""
+        if card:  # a dry run off the card runs no child
+            t0 = time.perf_counter()
+            env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+            child = subprocess.run([sys.executable, os.path.abspath(__file__), T_CHILD_FLAG,
+                                    root], capture_output=True, text=True, timeout=900, env=env)
+            child_s, rc, err = time.perf_counter() - t0, child.returncode, child.stderr[-2000:]
+            lines = child.stdout.strip().splitlines()
+            det = json.loads(lines[-1]) if lines else {"bitwise": False, "error": err}
+        out["c"] = {"main_process_bitwise": main_bitwise, "losses_resumed_main": lc,
+                    "deterministic_child": det, "child_s": child_s}
+        print(f"  T c. resumed from step {T_RESUME_AT} in this process (default algorithms): "
+              f"{'bitwise' if main_bitwise else 'NOT bitwise'} (losses {lc}); in a child with "
+              f"use_deterministic_algorithms and CUBLAS_WORKSPACE_CONFIG=:4096:8: "
+              f"{json.dumps(det)} ({child_s:.1f} s)")
+        require(not card or (rc == 0 and det.get("bitwise")),
+                f"T c. the deterministic resume is not bitwise (rc {rc}): {json.dumps(det)} "
+                f"{err}")
+
+        # d. the tiny trainer on the card and on the CPU: a fault, a recovery
+        tc_t = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=100),
+                           remat=None)
+        dc_t = DataConfig(vocab=tiny_cfg.vocab, global_batch=8, seq_len=32)
+        p0 = lm.init_params(tiny_cfg, 0, "cpu")
+
+        def tiny_run(d_, path):
+            armed = [True]
+
+            def chaos(step):
+                if armed[0] and step == T_TINY_FAULT:
+                    armed[0] = False
+                    raise FaultInjected("node lost")
+
+            tr = Trainer(tiny_cfg, tc_t, TokenPipeline(dc_t), path, ckpt_every=5,
+                         ecc_checkpoints=True, fault_hook=chaos, device=d_)
+            tr.params = base.tree_map(lambda t: t.to(tr.device), p0)
+            tr.opt_state = adamw.init(tr.params, tc_t.optimizer)
+            tr.run(T_TINY_STEPS)
+            rec = [r for r in tr.history if r.get("event") == "recovery"]
+            require(tr.recoveries == 1 and [r["step"] for r in rec] == [5]
+                    and tr.step == T_TINY_STEPS, f"T d. recoveries {rec} on {tr.device}")
+            return tr
+
+        tiny_dir = os.path.join(root, "d")
+        tr_d = tiny_run(dev, tiny_dir)
+        counts = harvest()
+        tiny_leaves = len(base.flatten(tr_d._state()))
+        require(counts == expect(encode=2 * tiny_leaves, decode=tiny_leaves),
+                f"T d. launches {counts}: two saves and one restore of {tiny_leaves} leaves")
+        tr_cpu = tiny_run(torch.device("cpu"), os.path.join(root, "d_cpu"))
+        l_d, l_cpu = _losses(tr_d.history), _losses(tr_cpu.history)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(l_d, l_cpu))
+        require(l_d[-1] < l_d[0] and len(l_d) == len(l_cpu) and rel <= T_TINY_RTOL,
+                f"T d. losses card {l_d} CPU {l_cpu} (max rel {rel:.2e})")
+
+        # corrupt the step-10 checkpoint's largest leaf: one flipped bit is
+        # corrected, two in one word are detected and restore() falls back
+        like = tr_d._state()
+        flat = base.flatten(like)
+        big = max(range(len(flat)), key=lambda i: flat[i][1].numel())
+        require(flat[big][1].numel() * flat[big][1].element_size() % 8 == 0, "T d. leaf")
+        leaf_file = os.path.join(tiny_dir, "step_000010", f"leaf_{big:05d}.npy")
+        clean = ckpt.load(tiny_dir, 10, like)
+        _flip(leaf_file, -100, 0x04)
+        require(_bits_equal(ckpt.load(tiny_dir, 10, like), clean),
+                "T d. a single flipped bit was not corrected")
+        _flip(leaf_file, -8, 0x03)
+        detected = False
+        try:
+            ckpt.load(tiny_dir, 10, like)
+        except ckpt.CheckpointCorruption as e:
+            detected = str(e)
+        require(bool(detected), "T d. two flipped bits in one word were not detected")
+        require(tr_d.restore() and tr_d.step == 5, f"T d. restore fell back to {tr_d.step}")
+        counts = harvest()
+        want = expect(decode=3 * tiny_leaves + 2 * (big + 1))
+        require(counts == want, f"T d. corrupt-checkpoint launches {counts}, expected {want}")
+        out["d"] = {"losses_card": l_d, "losses_cpu": l_cpu, "max_rel": rel,
+                    "recovered_to": 5, "detected": detected, "fallback_step": tr_d.step}
+        print(f"  T d. tiny trainer ({T_TINY_STEPS} steps, ECC checkpoints every 5, a fault at "
+              f"step {T_TINY_FAULT}): one recovery to step 5 on the card and on the CPU; "
+              f"losses {l_d[0]:.4f} -> {l_d[-1]:.4f}, card vs CPU max rel {rel:.2e} (<= "
+              f"{T_TINY_RTOL}); one flipped bit corrected, two in one word detected "
+              f"({detected!r}) and restore() fell back to step 5, each load through B5")
+        del tr_d, tr_cpu, clean
+
+        # e. the example on the card
+        spec = importlib.util.spec_from_file_location(
+            "torch_train_lm", os.path.join(ROOT, "examples", "torch_train_lm.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            ex = mod.main(T_EXAMPLE_ARGS + ([] if card else ["--device", "cpu"]))
+        for line in buf.getvalue().strip().splitlines():
+            print(f"  T e. | {line}")
+        counts = harvest()
+        # one save (step 25) and one restore of the smoke config's state
+        ex_params = len(base.flatten(lm.init_specs(get_smoke_config("qwen3-0.6b")),
+                                     is_leaf=lambda x: isinstance(x, base.Spec)))
+        want = expect(encode=3 * ex_params + 1, decode=3 * ex_params + 1)
+        require(ex["recoveries"] == 1 and counts == want,
+                f"T e. example: {ex['recoveries']} recoveries, launches {counts}, expected "
+                f"{want}")
+        out["e"] = {"losses_first_last": [ex["losses"][0], ex["losses"][-1]],
+                    "recoveries": ex["recoveries"], "stragglers": ex["stragglers"],
+                    "launches": counts}
+    finally:
+        ops.pack_ecc_weights = real_pack
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = total
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  T launches {json.dumps(total)}; T in {out['wall_s']:.1f} s")
+    record = {"launches": total, "launches_by_codec": by_codec, "kv_codec": "secded72",
+              "matmuls_per_forward": 0, "packs": packs_a, "commits": 0,
+              "forwards": {"prefill": 0, "decode": 0, "decode_kernel": 0}}
+    return out, record
 
 
 def main() -> int:
@@ -5620,8 +6102,12 @@ def main() -> int:
     with Phase("18 vlm and audio families: llama-3.2-vision-11b, musicgen-medium"):
         vlm_audio_run = vlm_audio_phase(report, paths_extra)
 
-    # ---------------------------------------------------------------- 19
-    with Phase("19 traced steps, timings and the kernels line"):
+    with Phase("19 training and checkpoints (path T): qwen3-0.6b at full width"):
+        train_run, paths_extra["T"] = train_phase(dev, get_config("qwen3-0.6b"),
+                                                  base.ModelConfig(**T_TINY))
+
+    # ---------------------------------------------------------------- 20
+    with Phase("20 traced steps, timings and the kernels line"):
         for name, run in runs.items():
             run["steps"] = step_breakdown(traced_params.pop(name), {"prefill": 0, "decode": 0},
                                           walls=run["steps"])
@@ -5662,6 +6148,7 @@ def main() -> int:
         print(f"  moe {json.dumps(moe_run)}")
         print(f"  recurrent {json.dumps(recurrent_run)}")
         print(f"  vlm_audio {json.dumps(vlm_audio_run)}")
+        print(f"  train {json.dumps(train_run)}")
         paths = {**runs, **{k: v for k, v in paged.items() if "launches" in v}, **paths_extra}
 
         print(f"  codec {json.dumps(codec_run)}")
@@ -5780,4 +6267,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [T_CHILD_FLAG]:
+        sys.exit(train_resume_child(sys.argv[2:]))
     sys.exit(main())

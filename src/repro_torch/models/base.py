@@ -56,6 +56,7 @@ class ModelConfig:
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.float32
     kv_quant: bool = False  # int8 KV cache (+per-token scales) for decode
+    flash_chunk: int = 1024  # q / kv chunk of the train forward's chunked attention
 
     @property
     def hd(self) -> int:

@@ -214,6 +214,114 @@ def decode_attention(q, k_cache, v_cache, cur_len):
     return chunk_attention(q, k_cache, v_cache, cur_len - 1)
 
 
+# ---------------------------------------------------------------------------
+# Train-mode attention: the reference's three cacheless forms, differentiable
+# plain products (batch invariance is a serving property; training does not
+# need the tree sums above). Scores are formed in q's dtype and cast to
+# float32, probabilities cast back to q's dtype, as the reference's einsums
+# round. Query heads are grouped over their KV head (head h = g * R + r,
+# the reference's repeat order) instead of repeating K and V.
+# ---------------------------------------------------------------------------
+def _inv_sqrt(dh: int) -> float:
+    """1 / sqrt(dh) rounded as float32 arithmetic rounds it."""
+    return torch.tensor(float(dh), dtype=torch.float32).sqrt().reciprocal().item()
+
+
+def _scores(q, k):
+    """q (B, Sq, Hkv, R, Dh), k (B, Sk, Hkv, Dh) -> (B, Hkv, R, Sq, Sk) float32."""
+    return torch.einsum("bqgrd,bkgd->bgrqk", q, k).to(torch.float32)
+
+
+def _pv(p, v):
+    """p (B, Hkv, R, Sq, Sk), v (B, Sk, Hkv, Dh) -> (B, Sq, Hkv, R, Dh)."""
+    return torch.einsum("bgrqk,bkgd->bqgrd", p, v)
+
+
+def full_attention(q, k, v, causal: bool = True, window: int = 0):
+    """q: (B, Sq, H, Dh), k/v: (B, Skv, Hkv, Dh); query i sits at key
+    position i + Skv - Sq and, with ``causal``, attends keys up to it (and
+    above it minus ``window``)."""
+    b, sq, h, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, dh)
+    s = _scores(qg, k) / math.sqrt(dh)
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = kpos <= qpos if causal else torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if window:
+        mask = mask & (kpos > qpos - window)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return _pv(p, v).reshape(b, sq, h, dh)
+
+
+def flash_attention(q, k, v, causal: bool = True, q_chunk: int = 1024, kv_chunk: int = 1024):
+    """Doubly chunked online-softmax attention: memory O(q_chunk x
+    kv_chunk) a step instead of O(S^2). A causal q chunk skips the KV
+    chunks wholly after its last query: there the reference adds exp(-inf)
+    = 0 to a sum whose running maximum is already finite (key 0 is valid for
+    every query), which leaves every float as it was."""
+    b, sq, h, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    r = h // hkv
+    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, skv)
+    assert sq % q_chunk == 0 and skv % kv_chunk == 0, (sq, q_chunk, skv, kv_chunk)
+    scale = _inv_sqrt(dh)
+    qg = q.reshape(b, sq, hkv, r, dh)
+    outs = []
+    for qi in range(sq // q_chunk):
+        qc = qg[:, qi * q_chunk:(qi + 1) * q_chunk]
+        qpos = qi * q_chunk + torch.arange(q_chunk, device=q.device)[:, None] + (skv - sq)
+        m = torch.full((b, hkv, r, q_chunk), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, q_chunk, hkv, r, dh), dtype=torch.float32, device=q.device)
+        last = (qi + 1) * q_chunk - 1 + (skv - sq)
+        for ki in range(skv // kv_chunk):
+            if causal and ki * kv_chunk > last:
+                break
+            kc = k[:, ki * kv_chunk:(ki + 1) * kv_chunk]
+            vc = v[:, ki * kv_chunk:(ki + 1) * kv_chunk]
+            s = _scores(qc, kc) * scale
+            if causal:
+                kpos = ki * kv_chunk + torch.arange(kv_chunk, device=q.device)[None, :]
+                s = torch.where(kpos <= qpos, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr.permute(0, 3, 1, 2)[..., None] + _pv(p.to(q.dtype), vc).to(
+                torch.float32)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[..., None]
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, dim=1).reshape(b, sq, h, dh)
+
+
+def banded_attention(q, k, v, window: int, q_chunk: int = 1024):
+    """Sliding-window causal attention over an explicit KV band: each q
+    chunk [t, t + C) reads only keys [t - window, t + C), so the products
+    are O(S x (window + C)), not O(S^2)."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    q_chunk = min(q_chunk, sq)
+    assert sq % q_chunk == 0, (sq, q_chunk)
+    band = window + q_chunk
+    kp = F.pad(k, (0, 0, 0, 0, window, 0))  # left-pad the keys by the window
+    vp = F.pad(v, (0, 0, 0, 0, window, 0))
+    scale = _inv_sqrt(dh)
+    qg = q.reshape(b, sq, hkv, h // hkv, dh)
+    qpos = torch.arange(q_chunk, device=q.device)[:, None] + window  # position in the band
+    kpos = torch.arange(band, device=q.device)[None, :]
+    outs = []
+    for qi in range(sq // q_chunk):
+        start = qi * q_chunk  # the band begins at start - window
+        s = _scores(qg[:, start:start + q_chunk], kp[:, start:start + band]) * scale
+        valid = (kpos <= qpos) & (kpos > qpos - window) & (kpos + start >= window)
+        p = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1).to(q.dtype)
+        outs.append(_pv(p, vp[:, start:start + band]))
+    return torch.cat(outs, dim=1).reshape(b, sq, h, dh)
+
+
 def qkv_proj(x, p, cfg, rope=None):
     """x: (B, S, D) -> q (B,S,H,Dh), k/v (B,S,Hkv,Dh); q and k rotated by
     ``rope`` = (cos, sin) where given. With ``cfg.qkv_bias`` the three

@@ -35,6 +35,14 @@ models/layers.py); an MoE layer's plain-weight products do the same
 (models/moe.py). Callers that know the positions on the host pass
 ``kv_len``, a bound on the cache length attended, so the attention reads
 no keys past it.
+
+Training has its own forward (``train_forward``, ``train_loss``): no
+cache, autograd through plain products, the reference's train-mode
+attention forms (``layers.full_attention``, ``flash_attention``,
+``banded_attention``) in place of the batch-invariant cache path, the
+MoE's aux loss, remat per layer group, and the cross-entropy in sequence
+chunks against the float32 unembedding. The serving entry points above
+stay ``no_grad`` and do not change.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.kernels import ops as kops
@@ -380,29 +389,40 @@ def _cross_block(x, p, cfg, *, cache, g, img, prefill):
     ``_attn_block(cross=True)``: q from the text alone (no RoPE), the
     image's K/V projected and stored at a prefill and read from the cache
     at a decode step, then out_proj * tanh(gate_attn) and mlp * tanh(gate_ffn)."""
-    b, s, _ = x.shape
     a = p["attn"]
     h = layers.apply_norm(x, p["ln1"], cfg.norm_type)
-    q = layers._linear(h, a["wq"])
-    if cfg.qkv_bias:
-        q = q + a["bq"]
-    q = q.reshape(b, s, cfg.n_heads, cfg.hd)
-    if cfg.qk_norm:
-        q = layers.rms_norm(q, a["q_norm"])
+    q = _cross_q(h, a, cfg)
     ck, cv = cache["k"][g], cache["v"][g]
     if prefill:
-        hi = img.to(x.dtype)
-        kv_shape = hi.shape[:2] + (cfg.n_kv_heads, cfg.hd)
-        k = layers._linear(hi, a["wk"]).reshape(kv_shape)
-        v = layers._linear(hi, a["wv"]).reshape(kv_shape)
-        if cfg.qk_norm:
-            k = layers.rms_norm(k, a["k_norm"])
+        k, v = _cross_kv(img.to(x.dtype), a, cfg)
         ck.copy_(k)
         cv.copy_(v)
     out = cross_attention(q, ck, cv)
     x = x + layers.out_proj(out, a) * torch.tanh(p["gate_attn"])
     h2 = layers.apply_norm(x, p["ln2"], cfg.norm_type)
     return x + layers.mlp(h2, p["mlp"], cfg) * torch.tanh(p["gate_ffn"])
+
+
+def _cross_q(h, a, cfg):
+    """The text's queries of a cross-attention layer: no RoPE."""
+    b, s, _ = h.shape
+    q = layers._linear(h, a["wq"])
+    if cfg.qkv_bias:
+        q = q + a["bq"]
+    q = q.reshape(b, s, cfg.n_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, a["q_norm"])
+    return q
+
+
+def _cross_kv(hi, a, cfg):
+    """The image's K/V (B, T, Hkv, Dh) of a cross-attention layer."""
+    kv_shape = hi.shape[:2] + (cfg.n_kv_heads, cfg.hd)
+    k = layers._linear(hi, a["wk"]).reshape(kv_shape)
+    v = layers._linear(hi, a["wv"]).reshape(kv_shape)
+    if cfg.qk_norm:
+        k = layers.rms_norm(k, a["k_norm"])
+    return k, v
 
 
 def _mamba_block(x, p, cfg, *, cache, g, prefill):
@@ -685,3 +705,187 @@ def greedy_decode_loop(params, tok0, cfg: ModelConfig, cache, start_pos: int, n_
     if not out:
         return torch.zeros(tok0.shape[0], 0, dtype=torch.int64, device=tok0.device), cache
     return torch.cat(out, dim=1), cache
+
+
+# ---------------------------------------------------------------------------
+# Training: a cacheless forward with autograd, and the chunked loss
+# ---------------------------------------------------------------------------
+# Remat per layer group, as the reference's jax.checkpoint policies: None
+# keeps every activation, "full" keeps only each group's input, "dots" also
+# keeps the outputs of the projections (products with a batch of one:
+# jax's dots_with_no_batch_dims_saveable).
+REMAT_POLICIES = (None, "full", "dots")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat):
+    """``fn`` run under the remat policy ``remat``."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat must be one of {REMAT_POLICIES}, got {remat!r}")
+    if remat is None:
+        return fn
+    import functools
+
+    from torch.utils import checkpoint as ckpt
+
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                             _dots_policy)
+    return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
+def _train_attention(q, k, v, cfg):
+    """The reference's train-mode choice: a sliding window shorter than the
+    sequence takes the band, 4,096 tokens or more the flash form, else the
+    direct product (with the window as a mask)."""
+    s, w = q.shape[1], cfg.sliding_window
+    if w and s > w:
+        return layers.banded_attention(q, k, v, window=w, q_chunk=cfg.flash_chunk)
+    if s >= 4096:
+        return layers.flash_attention(q, k, v, causal=True, q_chunk=cfg.flash_chunk,
+                                      kv_chunk=cfg.flash_chunk)
+    return layers.full_attention(q, k, v, causal=True, window=w)
+
+
+def _train_ffn(x, p, cfg):
+    """x + the feed-forward of the ln2-normed x, and the MoE's aux loss
+    (0.0 for a dense MLP)."""
+    h2 = layers.apply_norm(x, p["ln2"], cfg.norm_type)
+    if "moe" in p:
+        y, aux = moe.moe_ffn(h2, p["moe"], cfg, with_aux=True)
+        return x + y, aux
+    return x + layers.mlp(h2, p["mlp"], cfg), 0.0
+
+
+def _train_layer(x, p, cfg, mixer, rope, img):
+    """One layer of the train forward -> (x, aux)."""
+    h = layers.apply_norm(x, p["ln1"], cfg.norm_type)
+    if mixer == "attn":
+        q, k, v = layers.qkv_proj(h, p["attn"], cfg, rope)
+        return _train_ffn(x + layers.out_proj(_train_attention(q, k, v, cfg), p["attn"]), p,
+                          cfg)
+    if mixer == "cross":  # every query sees every image token
+        a = p["attn"]
+        q = _cross_q(h, a, cfg)
+        k, v = _cross_kv(img.to(x.dtype), a, cfg)
+        if q.shape[1] >= 2048:
+            out = layers.flash_attention(q, k, v, causal=False, q_chunk=cfg.flash_chunk,
+                                         kv_chunk=k.shape[1])
+        else:
+            out = layers.full_attention(q, k, v, causal=False)
+        x = x + layers.out_proj(out, a) * torch.tanh(p["gate_attn"])
+        h2 = layers.apply_norm(x, p["ln2"], cfg.norm_type)
+        return x + layers.mlp(h2, p["mlp"], cfg) * torch.tanh(p["gate_ffn"]), 0.0
+    if mixer == "mamba":
+        y, _ = mamba.mamba_layer(h, p["mamba"], cfg, None)
+        return _train_ffn(x + y, p, cfg)
+    y, _ = rwkv6.time_mix(h, p["tm"], cfg, None)
+    x = x + y
+    h2 = layers.apply_norm(x, p["ln2"], cfg.norm_type)
+    y2, _ = rwkv6.channel_mix(h2, p["cm"], cfg, None)
+    return x + y2, 0.0
+
+
+def _train_embed(params, tokens, cfg):
+    """``_embed`` through ``F.embedding``: the same gather, whose gradient
+    on the card is a sorted segment sum rather than an atomic scatter."""
+    e = params["embed"]
+    if not cfg.n_codebooks:
+        return F.embedding(tokens, e).to(cfg.compute_dtype)
+    x = F.embedding(tokens[:, 0], e[0])
+    for k in range(1, cfg.n_codebooks):
+        x = x + F.embedding(tokens[:, k], e[k])
+    x = x + _sinusoid(tokens.shape[-1], cfg.d_model, x.dtype, x.device)
+    return x.to(cfg.compute_dtype)
+
+
+def _unstack(tree, n: int) -> list:
+    """A stacked parameter subtree as ``n`` per-layer trees (views whose
+    gradients autograd stacks back in one operation)."""
+    flat = base.flatten(tree)
+    per = [torch.unbind(leaf, 0) for _, leaf in flat]
+    return [base.unflatten(tree, [u[g] for u in per]) for g in range(n)]
+
+
+def train_forward(params, tokens, cfg: ModelConfig, img=None, remat=None):
+    """The reference's ``forward(mode="train")``: no cache, gradients kept.
+    (B, S) tokens, an audio config's (B, K, S), at positions 0 .. S - 1 ->
+    (final-norm hidden (B, S, D), float32 aux loss: the MoE layers'
+    load-balancing losses summed). A vlm attends ``img`` (B, T, D) without
+    a causal mask. Groups run in order, each under ``remat``."""
+    check_family(cfg)
+    kinds = [cfg.layer_kind(j)["mixer"] for j in range(cfg.period)]
+    if "cross" in kinds and img is None:
+        raise ValueError(f"{cfg.name}: a vlm train forward needs the image embeddings (img=)")
+    tokens = tokens.long()
+    s = tokens.shape[-1]
+    x = _train_embed(params, tokens, cfg)
+    rope = None
+    if "attn" in kinds:
+        rope = layers.rope_tables(torch.arange(s, device=x.device)[None, :], cfg.hd,
+                                  cfg.rope_theta)
+    groups = {j: _unstack(params["blocks"][f"p{j}"], cfg.n_groups) for j in range(cfg.period)}
+
+    def group(h, g):
+        aux_g = 0.0
+        for j, mixer in enumerate(kinds):
+            h, a = _train_layer(h, groups[j][g], cfg, mixer, rope, img)
+            aux_g = aux_g + a
+        return h, torch.as_tensor(aux_g, dtype=torch.float32, device=h.device)
+
+    step = _remat(group, remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(cfg.n_groups):
+        x, a = step(x, g)
+        aux = aux + a
+    return layers.apply_norm(x, params["final_norm"], cfg.norm_type), aux
+
+
+def chunked_xent(hidden, unembed, labels, chunk: int = 512):
+    """Mean cross-entropy without the (B, S, V) logits: hidden (B, S, D),
+    unembed (D, V), labels (B, S) (-1 = masked). The sequence is cut into
+    chunks (``chunk``, halved until it divides S) whose (B, chunk, V)
+    logits are float32 products."""
+    b, s, d = hidden.shape
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk //= 2
+    labels = labels.long()
+    un = unembed.to(torch.float32)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    n = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        h, lab = hidden[:, c0:c0 + chunk].to(torch.float32), labels[:, c0:c0 + chunk]
+        logits = torch.einsum("bcd,dv->bcv", h, un)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, torch.clamp(lab, min=0)[..., None])[..., 0]
+        mask = (lab >= 0).to(torch.float32)
+        loss_sum = loss_sum + torch.sum((lse - gold) * mask)
+        n = n + mask.sum()
+    return loss_sum / torch.clamp(n, min=1.0)
+
+
+def train_loss(params, batch, cfg: ModelConfig, remat="full"):
+    """batch: {"tokens", "labels"[, "img"]} tensors. Returns (loss = ce +
+    0.01 x aux, {"ce", "aux"}); an audio config's ce is the mean of one
+    loss per codebook."""
+    hidden, aux = train_forward(params, batch["tokens"], cfg, img=batch.get("img"), remat=remat)
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    un = w.transpose(-1, -2) if cfg.tie_embeddings else w
+    labels = batch["labels"]
+    if cfg.n_codebooks:
+        ce = sum(chunked_xent(hidden, un[k], labels[:, k]) for k in range(cfg.n_codebooks))
+        ce = ce / cfg.n_codebooks
+    else:
+        ce = chunked_xent(hidden, un, labels)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}

@@ -20,8 +20,9 @@ Every product here has plain (unprotected) weights: the float32 router, the
 expert FFNs and the shared expert. Each runs over rows zero-padded to a
 multiple of ``MOE_ROWS``, one product shape per weight, so a slot's output
 does not depend on how many groups or slots the call holds (the forward
-stays batch-invariant; see ``lm._logits``). The reference's auxiliary
-load-balancing loss only matters to training and is not ported.
+stays batch-invariant; see ``lm._logits``). The train forward asks for the
+reference's auxiliary load-balancing loss as well (``with_aux``); serving
+does not form it.
 """
 
 from __future__ import annotations
@@ -114,17 +115,18 @@ def _expert_ffn(xe: torch.Tensor, p, cfg) -> torch.Tensor:
     return torch.stack(outs).reshape(e, g, c, d).transpose(0, 1)
 
 
-def moe_ffn(x: torch.Tensor, p, cfg) -> torch.Tensor:
+def moe_ffn(x: torch.Tensor, p, cfg, with_aux: bool = False):
     """x: (B, S, D) -> (B, S, D). p: router (D, E), w1 / w3 (E, D, F), w2
     (E, F, D), and with ``cfg.shared_expert`` shared_w1 / shared_w3 (D, F),
-    shared_w2 (F, D)."""
+    shared_w2 (F, D). ``with_aux`` returns (out, load_balance_loss of the
+    router logits and the top-1 experts) instead."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     xg = x.reshape(1, b, d) if s == 1 else x  # decode: one group; else one per row
     g, t = xg.shape[:2]
     cap = capacity(t, k, e, cfg.capacity_factor)
 
-    expert_idx, probs, _ = route_topk(xg, p["router"], e, k)
+    expert_idx, probs, logits = route_topk(xg, p["router"], e, k)
     slot_src, slot_valid, _ = sort_dispatch(expert_idx, e, cap)
 
     tok_of_slot = torch.clamp(slot_src // k, max=t - 1)  # (G, E*C)
@@ -154,4 +156,17 @@ def moe_ffn(x: torch.Tensor, p, cfg) -> torch.Tensor:
         x2 = xg.reshape(g * t, d)
         h = F.silu(_rows(x2, p["shared_w1"])) * _rows(x2, p["shared_w3"])
         out = out + _rows(h, p["shared_w2"]).reshape(g, t, d)
-    return out.reshape(b, s, d)
+    if not with_aux:
+        return out.reshape(b, s, d)
+    aux = load_balance_loss(logits.reshape(b * s, e), expert_idx.reshape(b * s, k), e)
+    return out.reshape(b, s, d), aux
+
+
+def load_balance_loss(router_logits, expert_idx, n_experts: int) -> torch.Tensor:
+    """Switch-style auxiliary loss: E x sum over experts of (mean router
+    probability) x (share of tokens whose first choice it is)."""
+    probs = torch.softmax(router_logits, dim=-1)  # (T, E)
+    me = probs.mean(0)
+    first = expert_idx.reshape(-1, expert_idx.shape[-1])[:, 0]
+    ce = F.one_hot(first, n_experts).to(probs.dtype).mean(0)
+    return n_experts * torch.sum(me * ce)

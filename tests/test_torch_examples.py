@@ -97,6 +97,32 @@ def test_share_demo_prints_the_references_lines(capsys, monkeypatch):
     assert f"{got['prefix_hit_tokens']} prompt tokens prefilled" in ref
 
 
+TRAIN_ARGS = ["--steps", "30", "--fail-at", "27", "--batch", "8", "--seq", "32"]
+TRAIN_LINE = re.compile(r"arch=(\S+) steps=(\d+) loss ([\d.]+) -> ([\d.]+) recoveries=(\d+) "
+                        r"stragglers=(\d+)")
+
+
+def test_train_lm_prints_the_references_lines(capsys, monkeypatch):
+    """The reference's lines: the failure at step 27, restored from the
+    ECC checkpoint of step 25, then the summary line (its losses within
+    2e-3 of the reference's at 3 decimals; straggler lines and counts
+    follow the host's clock and are not compared)."""
+    reference_weights(monkeypatch)
+    # the port first: the reference's trainer donates (deletes) the drawn arrays
+    got = load_port_example("torch_train_lm").main(TRAIN_ARGS + ["--device", "cpu"])
+    lines = [l for l in capsys.readouterr().out.splitlines() if not l.startswith("straggler")]
+    monkeypatch.setattr(sys, "argv", ["train_lm.py"] + TRAIN_ARGS)
+    reference_example("train_lm")["main"]()
+    ref = [l for l in capsys.readouterr().out.splitlines() if not l.startswith("straggler")]
+    assert lines[:-1] == ref[:-1] == ["*** simulated node failure at step 27 ***", ""]
+    (g,), (r,) = TRAIN_LINE.findall(lines[-1]), TRAIN_LINE.findall(ref[-1])
+    assert g[:2] == r[:2] == ("qwen3-0.6b", "32") and g[4] == r[4] == "1"
+    np.testing.assert_allclose([float(g[2]), float(g[3])], [float(r[2]), float(r[3])], atol=2e-3)
+    assert got["recoveries"] == 1 and len(got["losses"]) == 32
+    assert got["losses"][-1] < got["losses"][0]
+    assert f"loss {got['losses'][0]:.3f} -> {got['losses'][-1]:.3f}" in lines[-1]
+
+
 def test_mesh_demo_is_refused_naming_multi_device():
     with pytest.raises(SystemExit, match="item 10"):
         load_port_example("torch_serve_lm_ecc").main(["--mesh-demo", "--device", "cpu"])
@@ -105,7 +131,8 @@ def test_mesh_demo_is_refused_naming_multi_device():
 @pytest.mark.parametrize("name,argv", [("torch_quickstart", []),
                                        ("torch_mnist_undervolt", ["--steps", "1"]),
                                        ("torch_serve_lm_ecc", []),
-                                       ("torch_serve_lm_ecc", ["--share-demo"])])
+                                       ("torch_serve_lm_ecc", ["--share-demo"]),
+                                       ("torch_train_lm", ["--steps", "1"])])
 def test_examples_default_to_the_card(monkeypatch, name, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -120,7 +147,8 @@ def test_port_examples_import_neither_jax_nor_the_reference():
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         f"sys.path.insert(0, {os.path.join(root, 'src')!r})\n"
-        "for name in ('torch_quickstart', 'torch_mnist_undervolt', 'torch_serve_lm_ecc'):\n"
+        "for name in ('torch_quickstart', 'torch_mnist_undervolt', 'torch_serve_lm_ecc',"
+        " 'torch_train_lm'):\n"
         f"    spec = importlib.util.spec_from_file_location(name, {EXAMPLES!r} + f'/{{name}}.py')\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')"

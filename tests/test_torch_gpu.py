@@ -1177,3 +1177,86 @@ def test_protected_cross_projection_is_refused_on_the_card(cuda):
         lm.prefill(eng.params, torch.zeros(2, 4, dtype=torch.long, device=cuda), cfg,
                    lm.init_cache(cfg, 2, 16, device=cuda), img=img)
     assert sum(ops.launch_counts().values()) == 0, ops.launch_counts()
+
+
+def _train_state(device, seed=0):
+    """A tiny float32 trainer state with a bf16 leaf, on ``device``."""
+    g = torch.Generator().manual_seed(seed)
+    return {"params": {"w": torch.randn(64, 96, generator=g),
+                       "e": torch.randn(37, 5, generator=g).to(torch.bfloat16)},
+            "opt": {"m": {"w": torch.randn(64, 96, generator=g)},
+                    "step": torch.tensor(3, dtype=torch.int32)}}
+
+
+@pytest.mark.gpu
+def test_checkpoint_encode_and_decode_on_the_card_equal_the_plain_versions(cuda, tmp_path):
+    """Saved from the card, each leaf's check plane is one B4 launch equal
+    to the plain encode's; loaded onto the card, each leaf is one B5 launch,
+    a flipped bit corrected and two in one word detected."""
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.core import quantize
+    from repro_torch.models import base
+
+    cpu_state = _train_state("cpu")
+    state = base.tree_map(lambda t: t.to(cuda), cpu_state)
+    ops.reset_launch_count()
+    ckpt.save(str(tmp_path / "card"), 1, state, ecc_protect=True)
+    assert ops.launch_counts()["encode"] == 4
+    ckpt.save(str(tmp_path / "cpu"), 1, cpu_state, ecc_protect=True)
+    for i, (_, leaf) in enumerate(base.flatten(cpu_state)):
+        a = np.load(tmp_path / "card" / "step_000001" / f"leaf_{i:05d}.ecc.npz")
+        b = np.load(tmp_path / "cpu" / "step_000001" / f"leaf_{i:05d}.ecc.npz")
+        lo, hi, _ = quantize.array_to_words(leaf)
+        assert np.array_equal(a["parity"], b["parity"])
+        assert np.array_equal(a["parity"], ref.encode_ref(lo, hi, "secded72").numpy())
+    ops.reset_launch_count()
+    back = ckpt.load(str(tmp_path / "card"), 1, state)
+    assert ops.launch_counts()["decode"] == 4
+    for (_, a), (_, b) in zip(base.flatten(back), base.flatten(state)):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(
+            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+    i_w = [k for k, _ in base.flatten(state)].index("['params']['w']")
+    leaf = tmp_path / "card" / "step_000001" / f"leaf_{i_w:05d}.npy"
+    raw = bytearray(leaf.read_bytes())
+    raw[-100] ^= 0x04
+    leaf.write_bytes(bytes(raw))
+    assert torch.equal(ckpt.load(str(tmp_path / "card"), 1, state)["params"]["w"],
+                       state["params"]["w"])
+    raw[-8] ^= 0x03
+    leaf.write_bytes(bytes(raw))
+    with pytest.raises(ckpt.CheckpointCorruption):
+        ckpt.load(str(tmp_path / "card"), 1, state)
+
+
+@pytest.mark.gpu
+def test_tiny_train_steps_on_the_card_equal_the_cpu(cuda, tmp_path):
+    """Three steps of the tiny trainer from the same weights: the card's
+    losses and parameters within the CPU parity tests' tolerances, and no
+    kernel launched by a train step."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import base, lm
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import TrainConfig
+    from repro_torch.train.trainer import Trainer
+
+    cfg = base.ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
+                           n_kv_heads=2, d_ff=128, vocab=64, head_dim=16)
+    tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=100),
+                     remat="full")
+    p0 = lm.init_params(cfg, seed=0, device="cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        tr = Trainer(cfg, tc, TokenPipeline(DataConfig(vocab=64, global_batch=8, seq_len=32)),
+                     str(tmp_path / str(dev)), ckpt_every=100, device=dev)
+        tr.params = base.tree_map(lambda t: t.to(dev), p0)
+        tr.opt_state = adamw.init(tr.params, tc.optimizer)
+        ops.reset_launch_count()
+        losses = [r["loss"] for r in tr.run(3) if "loss" in r]
+        assert sum(ops.launch_counts().values()) == 0, ops.launch_counts()
+        out[str(dev)] = (losses, tr.params)
+    (lc, pc), (lg, pg) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for (k, a), (_, b) in zip(base.flatten(pg), base.flatten(pc)):
+        assert a.is_cuda
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4 * float(b.abs().max()))

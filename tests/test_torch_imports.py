@@ -36,7 +36,9 @@ def test_port_modules_are_listed():
               "repro_torch.obs.events", "repro_torch.obs.metrics",
               "repro_torch.obs.recorder", "repro_torch.obs.export",
               "repro_torch.obs.report", "repro_torch.obs.profile",
-              "repro_torch.core.scenario"):
+              "repro_torch.core.scenario", "repro_torch.data.pipeline",
+              "repro_torch.optim.adamw", "repro_torch.train.train_step",
+              "repro_torch.train.trainer", "repro_torch.checkpoint.manager"):
         assert m in mods
 
 
