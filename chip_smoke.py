@@ -309,7 +309,33 @@ them. Phases, each printed on its own line with its wall time:
      falling back, each load through B5 on the card; e.
      ``examples/torch_train_lm.py --steps 40 --fail-at 25`` on the card, its
      lines printed; the path's launches into the kernels line;
-  4-19 each zero the kernel launch counts at the start of a path and read
+  20. the reliability mesh (path MH; ``launch.mesh``, ``distributed.
+     {sharding,collectives,meshrel}``, ``ServingEngine(mesh=)``): qwen3-0.6b
+     at its published width and depth on an inline multi-rail SECDED
+     engine with device masks, seed 0, voltage and walk start 0.60 V,
+     phase 6's 8-request stream. a. ``make_reliability_mesh(1)`` against
+     the unsharded engine: the reference's three rail schedules
+     (planes and counters), ``autotune_voltage(max_rounds=8)``,
+     ``serve(walk_kv=True, kv_voltage=0.57, scrub_interval=2)`` (tokens and
+     kv counters) bit for bit, ``power_report`` totals within 1e-9; b. 4
+     ``per_shard`` shards on the one card (``devices=[card] * 4``): the
+     stream at nominal rails = the unsharded engine's tokens, a 0.56 V step
+     whose shard rows differ and sum to ``reduced()``, the walk's locks per
+     shard, ``serve(walk_kv=True, scrub_interval=1)`` at the locks (every
+     request once, round-robin ``shard_of``, kv rows tagged 0-3, kv locks,
+     tokens/s), the fleet's power at 0.56 V within 2% of 4 x the
+     unsharded engine's; c. 4 ``uniform`` shards: one schedule, each
+     domain's lock the highest of b's per-shard locks; d. one 4-shard rail
+     step at 0.55 V and one KV scrub step over b's four arenas: every
+     shard's field (F) and B2, and B6, = their plain versions on the card
+     bit for bit; e. ``examples/torch_serve_lm_ecc.py --mesh-demo``, its
+     lines printed. The rail step at 0.56 V is timed unsharded, at 1 and at
+     4 shards (wall of the engine step, and the queued store step by CUDA
+     events). The mesh engines' launches are the path's: B2 once per shard
+     a rail step, B5 once an engine rail step (the embedding), B4 once a
+     pack and a token commit, B6 once an interval, B3 once a protected
+     matrix of each forward, F at most once a shard step and an interval;
+  4-20 each zero the kernel launch counts at the start of a path and read
      them at its end, and fail unless every voltage step launched its scrub
      kernel once (B1 single-rail, B2 and the embedding's B5 multi-rail,
      none of the other path's), every forward pass of the protected model
@@ -323,7 +349,7 @@ them. Phases, each printed on its own line with its wall time:
      once, every per-leaf step and every domain read launched the fault
      injection and the decode once per leaf, and the plain codec never ran
      on the card;
-  20. one prefill and one decode step of paths 4-5 under torch.profiler
+  21. one prefill and one decode step of paths 4-5 under torch.profiler
      (device busy time, idle share, fused-matmul time inside the step, which
      must come from the decode kernel in a decode step and the tiled kernel
      in a prefill), tokens/s, voltage-step times and one
@@ -903,6 +929,445 @@ def train_phase(dev, cfg, tiny_cfg) -> tuple:
     record = {"launches": total, "launches_by_codec": by_codec, "kv_codec": "secded72",
               "matmuls_per_forward": 0, "packs": packs_a, "commits": 0,
               "forwards": {"prefill": 0, "decode": 0, "decode_kernel": 0}}
+    return out, record
+
+
+# ---------------------------------------------------------------- path MH
+# phase 20: the reliability mesh (path MH): the shard count of the
+# multi-shard engines on one card, the reference's three rail schedules of
+# the one-shard anchor (tests/test_meshrel.py), the timed rail steps, the
+# reference's fleet-power acceptance (tests/test_mesh_serve.py), the voltage
+# of part d's rail step, and the fused matmuls of one qwen3-0.6b forward
+MH_SHARDS = 4
+MH_SCHEDULES = ({"attention": 0.58, "mlp": 0.58, "embedding": 0.58},
+                {"attention": 0.55, "mlp": 0.60, "embedding": 0.57},
+                {"attention": 0.545, "mlp": 0.545, "embedding": 0.58})
+MH_TIMED, MH_POWER_RTOL, MH_CHECK_V = 7, 0.02, 0.55
+MH_MAX_LEN = 80  # PAGED_MAX_LEN: the stream's longest request fits
+
+
+def mesh_phase(dev, cfg, params, stream) -> tuple:
+    """Path MH on ``dev``: the reliability mesh of ``cfg`` (inline,
+    multi-rail, SECDED, device masks, seed 0, voltage and walk start 0.60),
+    ``stream`` its requests. a. a one-shard mesh engine against the
+    unsharded engine: the three schedules' planes and counters, the walk,
+    a ``walk_kv`` serve and the power report bit for bit; b. MH_SHARDS
+    shards, ``per_shard``, on one device: nominal tokens = the unsharded
+    engine's, a 0.56 V step whose shard rows differ and sum to the reduced
+    view, the walk, a ``walk_kv`` serve at the locks, fleet power within
+    MH_POWER_RTOL of MH_SHARDS x one chip; c. ``uniform``: one schedule, each
+    domain's lock the highest of b's; d. one rail step at MH_CHECK_V and one
+    KV scrub step: F, B2 and B6 on every shard = their plain versions on
+    ``dev`` bit for bit; e. the example's ``--mesh-demo``. The launches of
+    the mesh engines' runs are the path's (the unsharded engine's and d's
+    are not). Returns (results, the path's record for the kernels line)."""
+    import contextlib
+    import gc
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import kvpages
+    from repro_torch.core.planestore import PlaneStore
+    from repro_torch.distributed import meshrel
+    from repro_torch.kernels import ecc_matmul as b3_kernel
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import make_reliability_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.base import flatten as base_flatten
+    from repro_torch.serving import steps as serve_steps
+    from repro_torch.serving.engine import (
+        FaultModelConfig, RailsConfig, ReliabilityConfig, ServingEngine,
+    )
+
+    card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    out: dict = {}
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    by_codec = {k: {} for k in ops.launch_counts_by_codec()}
+    b3 = {"decode": 0, "tiled": 0}
+    n = dict(packs=0, commits=0, prefill=0, decode=0, decode_kernel=0, matmuls=0,
+             matmuls_decode_kernel=0, engine_steps=0, shard_steps=0, field_draws=0, ticks=0,
+             kv_draws=0)
+    active = [False]
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    def count(key, k_=1):
+        if active[0]:
+            n[key] += k_
+
+    undo = []
+
+    def wrap(obj, name, on_call):
+        real = getattr(obj, name)
+
+        def wrapped(*a, **kw):
+            on_call(*a, **kw)
+            return real(*a, **kw)
+
+        setattr(obj, name, wrapped)
+        undo.append((obj, name, real))
+
+    def forward_kind(params_, tokens, *a, **kw):
+        """A forward on the card of a model with protected block leaves: its
+        kind, and its fused matmuls (one a protected matrix of a layer)."""
+        eccs = [w for _, w in base_flatten(params_["blocks"]) if isinstance(w, ops.EccWeight)]
+        if not tokens.is_cuda or not eccs:
+            return
+        mm = sum(w.lo.shape[0] if w.lo.ndim == 3 else 1 for w in eccs)
+        count("decode" if tokens.shape[-1] == 1 else "prefill")
+        count("matmuls", mm)
+        if tokens.shape[0] * tokens.shape[-1] <= b3_kernel.DECODE_MAX_M:
+            count("decode_kernel")
+            count("matmuls_decode_kernel", mm)
+
+    wrap(ops, "pack_ecc_weights", lambda *a, **kw: count("packs"))
+    wrap(kvpages, "_commit_tokens", lambda *a, **kw: count("commits"))
+    wrap(serve_steps, "_commit_tokens", lambda *a, **kw: count("commits"))
+    def tick_counts(arena):
+        """A KV interval: one scrub, and one field launch below V_min."""
+        count("ticks")
+        count("kv_draws", int(arena.profile.fault_rate(arena.voltage) > 0))
+
+    def rail_step_counts(store, schedule, ecc=True):
+        """A mesh rail step: one B2 launch per (shard, codec group) slice,
+        and one field launch per slice holding a domain whose rail on that
+        shard lies below V_min (read from the slice's domain ids)."""
+        count("shard_steps", store.n_shards * len(store.groups))
+        if not active[0]:
+            return
+        volts, k = store._normalize_schedule(schedule), len(store.domains)
+        for g in store.groups:
+            L = g.sharded.local_words
+            for s in range(store.n_shards):
+                held = torch.bincount(g.sharded.dom[s * L:(s + 1) * L].long(),
+                                      minlength=k + 1)[:k].tolist()
+                count("field_draws", int(any(
+                    held[i] and store.domain_profile(d).fault_rate(volts[s][d]) > 0
+                    for i, d in enumerate(store.domains))))
+
+    wrap(kvpages.KVPageArena, "tick", tick_counts)
+    wrap(lm, "forward", forward_kind)
+    wrap(ServingEngine, "_set_rails_mesh", lambda *a, **kw: count("engine_steps"))
+    wrap(PlaneStore, "set_rails_sharded_async", rail_step_counts)
+
+    @contextlib.contextmanager
+    def path():
+        """What runs inside is path MH: its launches join the path's."""
+        ops.reset_launch_count()
+        active[0] = True
+        try:
+            yield
+        finally:
+            active[0] = False
+            for k, v in ops.launch_counts().items():
+                total[k] += v
+            for k, per in ops.launch_counts_by_codec().items():
+                for c, v in per.items():
+                    by_codec[k][c] = by_codec[k].get(c, 0) + v
+            for k, v in ops.ecc_matmul_launches_by_kernel().items():
+                b3[k] += v
+            ops.reset_launch_count()
+
+    def release():
+        """Give back the memory of the engines just deleted."""
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+
+    def rel(policy):
+        return ReliabilityConfig(mode="inline", voltage=0.60, seed=0,
+                                 fault_model=FaultModelConfig(mask_source="device"),
+                                 rails=RailsConfig(multi_rail=True, policy=policy, start_v=0.60))
+
+    def shards_on_dev(k):
+        return make_reliability_mesh(k, devices=[dev] * k)
+
+    def engine(policy, mesh=None):
+        return ServingEngine(cfg, params, rel(policy), max_len=MH_MAX_LEN, device=dev, mesh=mesh)
+
+    def step_ms(fn) -> list:
+        """Wall ms of MH_TIMED synchronous calls (after one warm-up)."""
+        fn()
+        times = []
+        for _ in range(MH_TIMED):
+            sync()
+            t_ = time.perf_counter()
+            fn()
+            sync()
+            times.append(1e3 * (time.perf_counter() - t_))
+        return times
+
+    def queued_ms(fn) -> float:
+        """Device ms of one queued call (CUDA events; host clock off the
+        card), median of MH_TIMED."""
+        times = []
+        for _ in range(MH_TIMED):
+            sync()
+            if card:
+                s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s_.record()
+                fn()
+                e_.record()
+                e_.synchronize()
+                times.append(s_.elapsed_time(e_))
+            else:
+                t_ = time.perf_counter()
+                fn()
+                times.append(1e3 * (time.perf_counter() - t_))
+        return float(np.median(times))
+
+    def same_leaves(a, b) -> bool:
+        return all(torch.equal(x.lo, y.lo) and torch.equal(x.hi, y.hi)
+                   and torch.equal(x.parity, y.parity) for x, y in zip(a, b))
+
+    at056 = lambda e: {d: 0.56 for d in e._store.domains}
+    try:
+        # a. one shard = unsharded
+        t_a = time.perf_counter()
+        e0 = engine("uniform")
+        mesh1 = make_reliability_mesh(1) if card else shards_on_dev(1)
+        with path():
+            e1 = engine("per_shard", mesh1)
+        require(e1._store.n_shards == 1 and e1._store.groups[0].sharded.pad == 0,
+                "MH a. one shard, no pad")
+        a_rows = []
+        for sched in MH_SCHEDULES:
+            l0, d0 = e0._store.set_rails(sched)
+            with path():
+                l1, s1 = e1._store.set_rails_sharded(sched)
+            require(same_leaves(l0, l1), f"MH a. planes at {sched}")
+            for d in d0.domains:
+                require(d0[d].counters().tolist() == s1[0][d].counters().tolist(),
+                        f"MH a. {d} counters at {sched}")
+            a_rows.append(d0.total().to_dict())
+            del l0, l1
+        require(a_rows[-1]["faulty_words"] > 0, "MH a. no fault in the schedules")
+        v0, _ = e0.autotune_voltage(max_rounds=8)
+        with path():
+            v1, h1 = e1.autotune_voltage(max_rounds=8)
+        require(v1 == [v0], f"MH a. walk {v1} against {v0}")
+        kw = dict(walk_kv=True, kv_voltage=0.57, scrub_interval=2)
+        r0 = e0.serve(stream, **kw)
+        with path():
+            r1 = e1.serve(stream, **kw)
+        require(set(r0.outputs) == set(r1.outputs) and all(
+            np.array_equal(r0.outputs[i], r1.outputs[i]) for i in r0.outputs),
+            "MH a. serve tokens")
+        require(r0.kv_stats.counters().tolist() == r1.kv_stats.counters().tolist(),
+                f"MH a. kv counters {r0.kv_stats} against {r1.kv_stats}")
+        p0, p1 = e0.power_report(), e1.power_report()
+        require(abs(p0["total_w"] - p1["total_w"]) < 1e-9
+                and abs(p0["saving_vs_nominal"] - p1["saving_vs_nominal"]) < 1e-9,
+                f"MH a. power {p0['total_w']} against {p1['total_w']}")
+        timing = {"unsharded": {"wall_ms": step_ms(lambda: e0.set_rails(at056(e0))),
+                                "queued_ms": queued_ms(
+                                    lambda: e0._store.set_rails_async(at056(e0)))},
+                  "1": {"wall_ms": step_ms(lambda: e1.set_rails(at056(e1))),
+                        "queued_ms": queued_ms(
+                            lambda: e1._store.set_rails_sharded_async(at056(e1)))}}
+        out["a"] = {"schedules": a_rows, "locks": v0, "kv_stats": r0.kv_stats.to_dict(),
+                    "total_w": p0["total_w"], "wall_s": time.perf_counter() - t_a}
+        print(f"  MH a. 1 shard = unsharded bit for bit: 3 schedules (last {a_rows[-1]}), "
+              f"walk locks {json.dumps(v0)}, walk_kv serve ({len(r0.outputs)} requests, kv "
+              f"{r0.kv_stats.to_dict()}), power {p0['total_w']:.9f} W; "
+              f"{out['a']['wall_s']:.1f} s")
+        # what part b holds the mesh to: the unsharded engine's nominal tokens
+        # and its power at 0.56 V
+        e0.set_rails({d: 1.0 for d in e0._store.domains})
+        nominal = e0.serve(stream, kv_voltage=1.0).outputs
+        e0.set_rails(at056(e0))
+        e0.rails["kv"] = 0.56
+        p0_056 = e0.power_report()["total_w"]
+        del e0, e1, r0, r1
+        release()
+
+        # b. MH_SHARDS shards, per_shard, on one device
+        t_b = time.perf_counter()
+        mesh4 = shards_on_dev(MH_SHARDS)
+        with path():
+            e4 = engine("per_shard", mesh4)
+            e4.set_rails({d: 1.0 for d in e4._store.domains})
+            rn = e4.serve(stream, kv_voltage=1.0)
+        require(all(np.array_equal(rn.outputs[i], nominal[i]) for i in nominal)
+                and set(rn.outputs) == set(nominal), "MH b. nominal tokens")
+        with path():
+            e4.set_rails(at056(e4))
+        st = e4._last_scrub
+        rows = {tuple(st[s].total().counters().tolist()) for s in range(MH_SHARDS)}
+        require(len(rows) >= 2, f"MH b. shard rows all equal: {rows}")
+        for d in st.domains:
+            block = sum(st[s][d].counters() for s in range(MH_SHARDS))
+            require(block.tolist() == st.reduced()[d].counters().tolist(),
+                    f"MH b. {d}: block sum against reduced()")
+        timing[str(MH_SHARDS)] = {
+            "wall_ms": step_ms(lambda: e4.set_rails(at056(e4))),
+            "queued_ms": queued_ms(lambda: e4._store.set_rails_sharded_async(at056(e4)))}
+        with path():
+            locks, _ = e4.autotune_voltage(max_rounds=12)
+        require(e4.controller.locked_for(e4._store.domains), f"MH b. walk did not lock: {locks}")
+        for s, sch in enumerate(locks):
+            print(f"  MH b. shard {s} locks {json.dumps(sch)}")
+        with path():
+            t_ = time.perf_counter()
+            rs = e4.serve(stream, walk_kv=True, scrub_interval=1)
+            sync()
+            serve_s = time.perf_counter() - t_
+        toks = sum(len(v) for v in rs.outputs.values())
+        require(sorted(rs.outputs) == list(range(len(stream)))
+                and all(len(rs.outputs[i]) == k for i, (_, k) in enumerate(stream)),
+                "MH b. serve at the locks: every request once, at its length")
+        require(rs.shard_of == {i: i % MH_SHARDS for i in range(len(stream))},
+                f"MH b. shard_of {rs.shard_of}")
+        require([x.shard for x in rs.kv_stats_by_shard] == list(range(MH_SHARDS)),
+                "MH b. kv_stats_by_shard tags")
+        kv_locks = [e4.rails[s]["kv"] for s in range(MH_SHARDS)]
+        print(f"  MH b. serve at the locks (walk_kv, scrub every step): {toks} tokens in "
+              f"{serve_s:.2f} s = {toks / serve_s:.1f} tokens/s, {rs.steps} steps, kv locks "
+              f"{kv_locks}, kv by shard {[x.to_dict() for x in rs.kv_stats_by_shard]}")
+        e4.set_rails(at056(e4))
+        for s in range(MH_SHARDS):
+            e4.rails[s]["kv"] = 0.56
+        p4 = e4.power_report()["total_w"]
+        require(abs(p4 - MH_SHARDS * p0_056) <= MH_POWER_RTOL * MH_SHARDS * p0_056,
+                f"MH b. fleet {p4} W against {MH_SHARDS} x {p0_056} W")
+        out["b"] = {"locks": locks, "kv_locks": kv_locks, "serve_s": serve_s, "tokens": toks,
+                    "tokens_per_s": toks / serve_s, "steps": rs.steps,
+                    "kv_stats_by_shard": [x.to_dict() for x in rs.kv_stats_by_shard],
+                    "fleet_w": p4, "one_chip_w": p0_056,
+                    "fleet_ratio": p4 / (MH_SHARDS * p0_056),
+                    "rows_056": [list(r) for r in rows], "wall_s": time.perf_counter() - t_b}
+        print(f"  MH b. {MH_SHARDS} shards on one device: nominal tokens = unsharded; 0.56 V "
+              f"rows differ ({len(rows)} distinct) and sum to reduced(); fleet {p4:.6f} W = "
+              f"{out['b']['fleet_ratio']:.6f} x {MH_SHARDS} x {p0_056:.6f} W; "
+              f"{out['b']['wall_s']:.1f} s")
+
+        # d. F, B2 and B6 on the new callers against their plain versions
+        t_d = time.perf_counter()
+        store = e4._store
+        rates = meshrel.schedule_rates({d: MH_CHECK_V for d in store.domains}, store.domains,
+                                       {d: store.domain_profile(d) for d in store.domains},
+                                       MH_SHARDS)
+        worst = 0
+        for g in store.groups:
+            sg = g.sharded
+            step = meshrel.make_rail_step(mesh4, sg.local_words, len(store.domains), g.name,
+                                          sg.fields, sg.present)
+            flo, fhi, fchk, cnt = step(sg.lo, sg.hi, sg.check, sg.dom, rates)
+            L = sg.local_words
+            for s, f in enumerate(sg.fields):
+                cut = slice(s * L, (s + 1) * L)
+                rate_w = torch.index_select(torch.as_tensor(rates[s], device=dev), 0,
+                                            sg.dom[cut])
+                got = ops.fault_field(f.f_row, rate_w, f.key, g.codec.n_check)
+                want = ref.fault_field_plain(f.f_row, rate_w, f.key, g.codec.n_check,
+                                             ref.burst_thresholds(None), chunk_words=1 << 22)
+                require(all(torch.equal(x, y) for x, y in zip(got, want)),
+                        f"MH d. shard {s} field")
+                plain = ref.inject_scrub_domains_ref(sg.lo[cut], sg.hi[cut], sg.check[cut],
+                                                     *want, sg.dom[cut], len(store.domains),
+                                                     codec=g.name)
+                require(all(torch.equal(x, y) for x, y in zip(
+                    (flo[cut], fhi[cut], fchk[cut], cnt[s]), plain)),
+                    f"MH d. shard {s} B2 against its plain version")
+                worst = max(worst, int(cnt[s][:, 1:3].sum()))
+                del got, want, plain
+        require(worst > 0, "MH d. no corrected or detected word at the check voltage")
+        arenas = e4.kv_arenas
+        wpp = arenas[0].geom.words_per_page
+        for a in arenas:
+            a.set_voltage(MH_CHECK_V)
+            a.tick()
+        planes = [torch.cat([getattr(a, k) for a in arenas]) for k in ("lo", "hi", "parity")]
+        saved = [p.clone() for p in planes]
+        table = np.tile(np.arange(arenas[0].n_pages + 1, dtype=np.int32), (MH_SHARDS, 1))
+        kv_step = meshrel.make_kv_scrub_step(mesh4, wpp, arenas[0]._total_words, table.shape[1])
+        klo, khi, kpar, kpay, kcnt = kv_step(*planes, table)
+        Lk = arenas[0]._total_words
+        for s in range(MH_SHARDS):
+            cut = slice(s * Lk, (s + 1) * Lk)
+            w = [p[cut].clone() for p in saved]
+            ppay, pcnt = ref.gather_scrub_ref(*w, torch.as_tensor(table[s], device=dev), wpp,
+                                              arenas[s].codec_name)
+            require(all(torch.equal(x, y) for x, y in zip((klo[cut], khi[cut], kpar[cut]), w))
+                    and torch.equal(kpay[s].view(torch.int32), ppay.view(torch.int32))
+                    and torch.equal(kcnt[s], pcnt),
+                    f"MH d. shard {s} B6 against its plain version")
+        kv_fixed = int(kcnt[:, :, 1:3].sum())
+        require(kv_fixed > 0, "MH d. the KV scrub step found no fault")
+        out["d"] = {"b2_words_corrected_or_detected_max": worst, "kv_corrected_detected": kv_fixed,
+                    "max_abs_err": 0, "wall_s": time.perf_counter() - t_d}
+        print(f"  MH d. F, B2 ({len(store.groups)} group x {MH_SHARDS} shards at {MH_CHECK_V} V) "
+              f"and B6 ({MH_SHARDS} arenas, {table.shape[1]} pages each, {kv_fixed} words "
+              f"corrected or detected) = their plain versions bit for bit; "
+              f"{out['d']['wall_s']:.1f} s")
+        del planes, saved, klo, khi, kpar, kpay, kcnt, flo, fhi, fchk, store, arenas, step
+        del e4, rs, rn
+        release()
+
+        # c. uniform: one schedule at the worst shard's lock
+        t_c = time.perf_counter()
+        with path():
+            eu = engine("uniform", shards_on_dev(MH_SHARDS))
+            ulocks, uhist = eu.autotune_voltage(max_rounds=12)
+        require(all(x == ulocks[0] for x in ulocks), f"MH c. uniform schedules {ulocks}")
+        worst_lock = {d: max(x[d] for x in locks) for d in ulocks[0]}
+        require(ulocks[0] == worst_lock, f"MH c. uniform {ulocks[0]} against the highest "
+                f"per-shard locks {worst_lock}")
+        require(all(s == -1 for s, _ in uhist), "MH c. a uniform walk carries no shard")
+        out["c"] = {"locks": ulocks[0], "wall_s": time.perf_counter() - t_c}
+        print(f"  MH c. uniform: one schedule {json.dumps(ulocks[0])} = the highest per-shard "
+              f"lock of each domain; {out['c']['wall_s']:.1f} s")
+        del eu
+        release()
+
+        # e. the example
+        spec = importlib.util.spec_from_file_location(
+            "torch_serve_lm_ecc", os.path.join(ROOT, "examples", "torch_serve_lm_ecc.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        with path(), contextlib.redirect_stdout(buf):
+            ex = mod.main(["--mesh-demo"] + ([] if card else ["--device", "cpu"]))
+        for line in buf.getvalue().strip().splitlines():
+            print(f"  MH e. | {line}")
+        require(ex["requests"] == 3 * ex["n_shards"], f"MH e. example {ex}")
+        out["e"] = {"n_shards": ex["n_shards"], "requests": ex["requests"],
+                    "saving": ex["saving"]}
+    finally:
+        for obj, name, real in reversed(undo):
+            setattr(obj, name, real)
+
+    out["rail_step"] = timing
+    for k, v in timing.items():
+        print(f"  MH rail step at 0.56 V, {k} shard(s): wall median "
+              f"{float(np.median(v['wall_ms'])):.3f} ms (calls {[round(x, 3) for x in v['wall_ms']]}), "
+              f"queued device {v['queued_ms']:.3f} ms")
+    if card:
+        want = {"inject_scrub_domains": n["shard_steps"], "decode": n["engine_steps"],
+                "encode": n["packs"] + n["commits"], "ecc_matmul": n["matmuls"],
+                "gather_scrub": n["ticks"], "inject_scrub": 0, "inject": 0}
+        got = {k: total[k] for k in want}
+        require(got == want, f"MH launches {got}, expected {want}")
+        require(total["fault_field"] == n["field_draws"] + n["kv_draws"],
+                f"MH field launches {total['fault_field']}, expected "
+                f"{n['field_draws']} + {n['kv_draws']}")
+        require(b3["decode"] == n["matmuls_decode_kernel"], f"MH B3 by kernel {b3}")
+        require(all(total[k] > 0 for k in ("inject_scrub_domains", "decode", "encode",
+                                           "ecc_matmul", "gather_scrub", "fault_field")),
+                f"MH: a kernel of the path never launched: {total}")
+    out["launches"] = total
+    out["counts"] = dict(n)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  MH launches {json.dumps(total)} ({json.dumps(n)}); MH in {out['wall_s']:.1f} s")
+    record = {"launches": total, "launches_by_codec": by_codec, "kv_codec": "secded72",
+              "b3_by_kernel": dict(b3), "packs": n["packs"], "commits": n["commits"],
+              "forwards": {"prefill": n["prefill"], "decode": n["decode"],
+                           "decode_kernel": n["decode_kernel"]}}
     return out, record
 
 
@@ -6106,8 +6571,11 @@ def main() -> int:
         train_run, paths_extra["T"] = train_phase(dev, get_config("qwen3-0.6b"),
                                                   base.ModelConfig(**T_TINY))
 
-    # ---------------------------------------------------------------- 20
-    with Phase("20 traced steps, timings and the kernels line"):
+    with Phase(f"20 reliability mesh (path MH): qwen3-0.6b on {MH_SHARDS} shards of one card"):
+        mesh_run, paths_extra["MH"] = mesh_phase(dev, cfg, params, stream)
+
+    # ---------------------------------------------------------------- 21
+    with Phase("21 traced steps, timings and the kernels line"):
         for name, run in runs.items():
             run["steps"] = step_breakdown(traced_params.pop(name), {"prefill": 0, "decode": 0},
                                           walls=run["steps"])
@@ -6149,6 +6617,7 @@ def main() -> int:
         print(f"  recurrent {json.dumps(recurrent_run)}")
         print(f"  vlm_audio {json.dumps(vlm_audio_run)}")
         print(f"  train {json.dumps(train_run)}")
+        print(f"  mesh {json.dumps(mesh_run)}")
         paths = {**runs, **{k: v for k, v in paged.items() if "launches" in v}, **paths_extra}
 
         print(f"  codec {json.dumps(codec_run)}")

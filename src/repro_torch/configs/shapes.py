@@ -45,6 +45,17 @@ def domain_codecs(overrides=None) -> dict:
     return out
 
 
+def rail_policy(name: str) -> str:
+    """Validate a mesh rail policy name: ``uniform`` (one voltage per domain
+    on every chip, locked at the worst shard's first DED) or ``per_shard``
+    (each chip walks to its own V_min)."""
+    from repro_torch.core.controller import RAIL_POLICIES
+
+    name = str(name)
+    assert name in RAIL_POLICIES, f"unknown rail policy {name!r}; known: {RAIL_POLICIES}"
+    return name
+
+
 def supports_paged_kv(cfg) -> bool:
     """Whether the paged SECDED KV cache (core/kvpages.py) covers this arch:
     every mixer full-context attention with a position-indexed cache. SWA

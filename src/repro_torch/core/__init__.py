@@ -18,7 +18,9 @@ from repro_torch.core import (
 )
 from repro_torch.core.campaign import CampaignSpec, DivergenceReport, run_campaign
 from repro_torch.core.controller import (
+    RAIL_POLICIES,
     EscalationPolicy,
+    MeshRailController,
     MultiRailController,
     UndervoltController,
 )
@@ -26,14 +28,16 @@ from repro_torch.core.faultsim import FaultField, FlipMasks
 from repro_torch.core.kvpages import SharedPageDEDError
 from repro_torch.core.memory import EccMemoryDomain
 from repro_torch.core.scenario import ENVIRONMENTS, BurstProfile, EnvironmentProfile
-from repro_torch.core.telemetry import DomainFaultStats, FaultStats
+from repro_torch.core.telemetry import DomainFaultStats, FaultStats, ShardFaultStats
 from repro_torch.core.voltage import PLATFORMS, PlatformProfile
 
 __all__ = [
     "campaign", "controller", "faultsim", "memory", "quantize", "scenario", "sweep",
     "telemetry", "voltage", "CampaignSpec", "DivergenceReport", "run_campaign",
-    "EscalationPolicy", "MultiRailController", "UndervoltController", "FaultField",
+    "EscalationPolicy", "MeshRailController", "MultiRailController", "RAIL_POLICIES",
+    "UndervoltController", "FaultField",
     "FlipMasks", "SharedPageDEDError",
-    "EccMemoryDomain", "DomainFaultStats", "FaultStats", "PLATFORMS", "PlatformProfile",
+    "EccMemoryDomain", "DomainFaultStats", "FaultStats", "ShardFaultStats", "PLATFORMS",
+    "PlatformProfile",
     "ENVIRONMENTS", "BurstProfile", "EnvironmentProfile",
 ]

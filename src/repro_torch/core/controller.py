@@ -28,7 +28,8 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.codes import DEFAULT_CODEC
-from repro_torch.core.telemetry import FaultStats
+from repro_torch.configs import shapes
+from repro_torch.core.telemetry import DomainFaultStats, FaultStats
 from repro_torch.core.voltage import PlatformProfile
 
 
@@ -72,6 +73,7 @@ class ControllerRecord:
     silent: int
     action: str
     codec: str = DEFAULT_CODEC
+    shard: int = -1  # the mesh shard whose canary was judged (-1: unsharded)
     divergence: float = 0.0  # the interval's canary divergence (0.0 without one)
 
 
@@ -177,7 +179,7 @@ class UndervoltController:
         self.history.append(
             ControllerRecord(
                 self.voltage, stats.corrected, stats.detected, stats.silent, action, self.codec,
-                div,
+                self.shard, div,
             )
         )
         rec = self.recorder
@@ -209,7 +211,8 @@ class UndervoltController:
 class MultiRailController:
     """One DED canary per memory domain: each domain's rail walks down and
     locks independently; converged when every rail is locked. A bound
-    flight recorder reaches every rail, late-bound ones too."""
+    flight recorder reaches every rail, late-bound ones too. ``shard`` tags
+    every rail with the mesh shard it judges (-1: unsharded)."""
 
     def __init__(
         self,
@@ -222,6 +225,7 @@ class MultiRailController:
         profiles: dict | None = None,
         escalation: EscalationPolicy | None = None,
         codecs: dict | None = None,
+        shard: int = -1,
         adaptive: bool = False,
         divergence_slo: float | None = None,
     ):
@@ -230,9 +234,10 @@ class MultiRailController:
         self.domains = tuple(domains)
         assert self.domains, "MultiRailController needs at least one domain"
         self._platform = platform
+        self.shard = int(shard)
         self._defaults = dict(
             step_v=step_v, backoff_steps=backoff_steps, paranoid=paranoid,
-            start_v=start_v, escalation=escalation, adaptive=adaptive,
+            start_v=start_v, escalation=escalation, shard=shard, adaptive=adaptive,
             divergence_slo=divergence_slo,
         )
         self.recorder = None
@@ -301,4 +306,109 @@ class MultiRailController:
         for d, ctrl in self.rails.items():
             if d in by_domain:
                 ctrl.update(by_domain[d], divergence=div_of(d))
+        return self.voltages
+
+
+RAIL_POLICIES = ("uniform", "per_shard")
+
+
+class MeshRailController:
+    """Rail control across a mesh of chips, each with its own fault
+    population and so its own V_min. Two policies:
+
+      * ``uniform``: one MultiRailController fed the cross-shard sum of the
+        per-domain counters, so any shard's DED event trips the shared
+        schedule: the fleet locks at the worst shard's V_min, one voltage
+        per domain;
+      * ``per_shard``: one MultiRailController per shard, each fed its own
+        shard's rows, so every chip walks to its own first DED.
+
+    On a one-shard mesh both are the single MultiRailController's walk."""
+
+    def __init__(self, platform: PlatformProfile, domains, n_shards: int,
+                 policy: str = "uniform", **defaults):
+        self.policy = shapes.rail_policy(policy)
+        assert n_shards >= 1, n_shards
+        self.n_shards = int(n_shards)
+        self.domains = tuple(domains)
+        if policy == "uniform":
+            self.shards = [MultiRailController(platform, domains, **defaults)]
+        else:
+            self.shards = [MultiRailController(platform, domains, shard=s, **defaults)
+                           for s in range(self.n_shards)]
+
+    def shard(self, s: int) -> MultiRailController:
+        """The controller judging shard ``s`` (the shared one under
+        ``uniform``)."""
+        return self.shards[0] if self.policy == "uniform" else self.shards[s]
+
+    def bind_recorder(self, recorder) -> None:
+        """Attach a flight recorder to every shard's controller."""
+        for c in self.shards:
+            c.bind_recorder(recorder)
+
+    def add_rail(self, domain: str, profile=None, codec=None) -> list:
+        """Attach a late-bound rail (the `kv` cache) on every shard's
+        controller; returns one rail per shard (under ``uniform`` the one
+        shared rail in every entry)."""
+        if domain not in self.domains:
+            self.domains = self.domains + (domain,)
+        return [self.shard(s).add_rail(domain, profile, codec) for s in range(self.n_shards)]
+
+    @property
+    def locked(self) -> bool:
+        return all(c.locked for c in self.shards)
+
+    def locked_for(self, domains) -> bool:
+        return all(c.rails[d].locked for c in self.shards for d in domains)
+
+    @property
+    def voltages(self) -> list:
+        """Per-shard {domain: voltage} schedule (n_shards entries)."""
+        return [dict(self.shard(s).voltages) for s in range(self.n_shards)]
+
+    @property
+    def history(self) -> dict:
+        """{(shard, domain): [ControllerRecord]} of every rail walked; the
+        shared walk of ``uniform`` under shard -1."""
+        if self.policy == "uniform":
+            return {(-1, d): recs for d, recs in self.shards[0].history.items()}
+        return {(s, d): recs for s, c in enumerate(self.shards) for d, recs in c.history.items()}
+
+    @property
+    def codecs(self) -> dict:
+        """{domain: codec} of shard 0's controller: a mesh store carries one
+        codec per domain."""
+        return dict(self.shards[0].codecs)
+
+    def pop_codec_changes(self) -> dict:
+        """Escalations since the last poll (``uniform`` only: the store
+        applies them to every shard)."""
+        assert self.policy == "uniform", "per-shard codec escalation needs per-shard plane groups"
+        return self.shards[0].pop_codec_changes()
+
+    def update(self, stats, divergence=None) -> list:
+        """Feed one interval's mesh telemetry; returns the next per-shard
+        schedule.
+
+        ``stats``: a ShardFaultStats, a list of DomainFaultStats (one per
+        shard) or, under ``uniform`` only, one DomainFaultStats already
+        reduced across shards. ``divergence``: a scalar canary score for
+        every shard, or one score per shard (``uniform`` takes their
+        maximum)."""
+        by_shard = getattr(stats, "by_shard", stats)
+        if self.policy == "uniform":
+            if isinstance(divergence, (list, tuple)):
+                divergence = max((d for d in divergence if d is not None), default=None)
+            reduced = by_shard if hasattr(by_shard, "by_domain") else DomainFaultStats.summed(
+                by_shard)
+            self.shards[0].update(reduced, divergence=divergence)
+        else:
+            assert not hasattr(by_shard, "by_domain"), (
+                "per_shard policy needs per-shard telemetry rows")
+            assert len(by_shard) == self.n_shards, (len(by_shard), self.n_shards)
+            if not isinstance(divergence, (list, tuple)):
+                divergence = [divergence] * self.n_shards
+            for s, st in enumerate(by_shard):
+                self.shards[s].update(st, divergence=divergence[s])
         return self.voltages

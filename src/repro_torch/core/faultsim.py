@@ -330,6 +330,20 @@ def zero_masks(n_words: int, n_check: int, device):
                  for dt in (torch.int32, torch.int32, check_dtypes(n_check)[1]))
 
 
+def interval_key(seed: int, interval: int) -> int:
+    """The 63-bit key of KV fault interval ``interval`` of the stream seeded
+    ``seed``: bits 0-31 the interval, bits 32-62 the low 31 bits of ``seed ^
+    0xCACE`` XOR the seed's bits above 32 times an odd constant (mod 2^31).
+    A seed below 2^32 gives ``((seed ^ 0xCACE) << 32 | interval)`` cut to
+    63 bits. A shard's seed (``collectives.shard_seed``: the shard in the
+    bits above 32) XORs its keys with the shard's odd multiple, which
+    differs for every shard below 2^31, so for one seed no two (shard,
+    interval) pairs share a key while the interval stays below 2^32."""
+    high = int(seed) ^ 0xCACE
+    high = (high & 0x7FFFFFFF) ^ (((high >> 32) * 0x9E3779B1) & 0x7FFFFFFF)
+    return (high << 32) | (int(interval) & 0xFFFFFFFF)
+
+
 def interval_masks(seed: int, interval: int, n_words: int, rate: float, row_sigma: float,
                    n_check: int = N_CHECK_DEFAULT, device=None, burst=None):
     """One fault interval's (lo int32, hi int32, check) flip masks for
@@ -340,7 +354,7 @@ def interval_masks(seed: int, interval: int, n_words: int, rate: float, row_sigm
     fault-field kernel (the plain version off the card). ``device`` None is
     the card."""
     dev = resolve_device(device)
-    key = (((int(seed) ^ 0xCACE) << 32) | (int(interval) & 0xFFFFFFFF)) & ((1 << 63) - 1)
+    key = interval_key(seed, interval)
     f_row = row_factor(n_words, float(row_sigma), key, dev)
     return kops.fault_field(f_row, float(np.float32(rate)), philox_key(key), n_check,
                             burst=burst)

@@ -41,8 +41,10 @@ or tensors; an arena with a burst shape also passes ``burst=``), by default
 (``env=``) brings its burst shape to every interval's draw and its aging
 drift to the interval's rate (the interval counter is the aging clock); its
 flux is expected in the profile the caller passes, so it is never applied
-twice. Not ported: mesh shards (an arena is shard 0, the reference's
-default).
+twice. ``shard`` is the mesh shard the arena serves: its own silicon, so
+shard s > 0 draws its intervals from its own stream (the seed
+``collectives.shard_seed(seed, s)``) and drifts by its own aging
+multiplier; shard 0, the default, keeps the unsharded stream.
 
 The interval draw, the token commit and the scrub go through the opt-in
 dispatch profiler (``obs.profile.call``) under the reference's names; a
@@ -62,6 +64,7 @@ from repro_torch.codes.base import as_words
 from repro_torch.core import faultsim, scenario
 from repro_torch.core.telemetry import FaultStats
 from repro_torch.core.voltage import PlatformProfile
+from repro_torch.distributed.collectives import shard_seed
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.backend import resolve_device, to_device
 from repro_torch.obs import profile as obs_profile
@@ -407,7 +410,8 @@ class KVPageArena:
     masked or inactive writes are steered to; the scratch row is never read
     for a request. ``device=None`` is the card. ``env`` is an environment
     scenario (a name or an ``EnvironmentProfile``, as ``scenario.resolve``
-    takes); its flux belongs in ``profile``."""
+    takes); its flux belongs in ``profile``. ``shard`` is the mesh shard
+    whose chip the arena lives on (0: the unsharded stream)."""
 
     def __init__(
         self,
@@ -420,6 +424,7 @@ class KVPageArena:
         device=None,
         mask_fn=None,
         env=None,
+        shard: int = 0,
     ):
         self.geom = geom
         self.env = scenario.resolve(env)
@@ -432,7 +437,9 @@ class KVPageArena:
         self.codec = codes.get(self.codec_name)
         self.device = resolve_device(device)
         self.mask_fn = mask_fn
-        self.shard = 0  # the mesh shard the arena serves (the reference's default)
+        self.shard = int(shard)
+        # the stream seed of this shard's chip (shard 0: ``seed`` itself)
+        self._stream_seed = shard_seed(self.seed, self.shard)
         w = geom.words_per_page
         self.n_words = self.n_pages * w  # real (non-scratch) words
         self._total_words = (self.n_pages + 1) * w
@@ -490,7 +497,7 @@ class KVPageArena:
         kw = {"burst": self._burst} if self._burst is not None else {}
         if self.mask_fn is None:
             out = faultsim.interval_masks(
-                self.seed, self._interval, self._total_words, rate, sigma, n_check,
+                self._stream_seed, self._interval, self._total_words, rate, sigma, n_check,
                 device=self.device, **kw,
             )
         else:

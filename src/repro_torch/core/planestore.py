@@ -23,6 +23,13 @@ step is one fused launch per group with the counters summed over groups. A
 store of one codec is one group whose planes alias the master arenas (and,
 under SECDED, the check plane the leaves arrived with).
 
+Mesh stores (``mesh=``, a ``launch.mesh.ReliabilityMesh``; device masks
+only): each codec group is also cut into one slice per reliability shard
+(``distributed.meshrel``), and ``set_rails_sharded`` steps every shard at its
+own rails from its own fault stream, one counter row block per shard. A
+one-shard mesh adds no padding and reuses the group's device field, so it
+equals ``set_rails`` with device masks bit for bit.
+
 Every voltage step also has a ``*_async`` form that queues the launches and
 returns a ``PendingFaultStats`` at once; its ``harvest()`` is the one copy
 of the counters to the host. The reference also rotates each group's planes
@@ -46,8 +53,10 @@ from repro_torch.core import scenario
 from repro_torch.core.faultsim import (
     DeviceFaultField, FaultField, flip_counts, gather_masks, zero_masks,
 )
-from repro_torch.core.telemetry import DomainFaultStats, FaultStats
+from repro_torch.core.telemetry import DomainFaultStats, FaultStats, ShardFaultStats
 from repro_torch.core.voltage import PlatformProfile
+from repro_torch.distributed import meshrel
+from repro_torch.distributed.sharding import reliability_shards
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.backend import resolve_device, to_device
 
@@ -112,6 +121,24 @@ class CodecGroup:
     check: torch.Tensor  # (n_words,) the codec's check dtype
     dom_ids: torch.Tensor  # (n_words,) int32 store-global domain indices
     field: DeviceFaultField | None = None  # mask_source="device"
+    sharded: "ShardedGroup | None" = None  # the mesh slices of a mesh store
+
+
+@dataclasses.dataclass(eq=False)
+class ShardedGroup:
+    """A codec group cut into one slice per reliability shard: planes padded
+    to ``n_shards * local_words`` words (the group's own planes where no pad
+    is needed), pad words at the spill domain index, each shard's fault
+    field (``meshrel.shard_fields``) and the domains each shard holds."""
+
+    local_words: int
+    pad: int
+    lo: torch.Tensor
+    hi: torch.Tensor
+    check: torch.Tensor
+    dom: torch.Tensor
+    fields: list
+    present: np.ndarray  # (n_shards, n_domains) bool
 
 
 class PlaneStore:
@@ -126,7 +153,9 @@ class PlaneStore:
     ``scenario.ENVIRONMENTS`` or an ``EnvironmentProfile``): its flux scales
     every domain's fault curve (``domain_profile``) and its burst shape goes
     to every fault field. ``env=None`` is the store without a scenario, bit
-    for bit.
+    for bit. ``mesh`` (a ``ReliabilityMesh``) makes a mesh store, which
+    needs ``mask_source="device"``: the shards' streams exist only on the
+    device.
     """
 
     def __init__(
@@ -141,13 +170,19 @@ class PlaneStore:
         codecs=None,
         device=None,
         env=None,
+        mesh=None,
     ):
         if mask_source not in ("host", "device"):
             raise ValueError(f"mask_source must be 'host' or 'device', got {mask_source!r}")
         assert len(leaves) == len(set(keys)), "leaf keys must be unique"
+        if mesh is not None:
+            # the host oracle has no shard identity
+            assert mask_source == "device", "sharded arenas need device masks"
         self.platform = platform
         self.seed = int(seed)
         self.mask_source = mask_source
+        self.mesh = mesh
+        self._soak = 0  # sharded rail steps taken: the aging clock
         self.env = scenario.resolve(env)
         self._burst = scenario.active_burst(self.env)
         self._profiles = dict(profiles or {})
@@ -194,6 +229,7 @@ class PlaneStore:
         for name in self._codecs.values():
             codes.get(name)  # fail fast on unknown codecs
         self._external_words: dict = {}
+        self._external_shard_words: dict = {}  # {shard: {domain: words}}
         self._external_codecs: dict = {}
         self._build_groups()
 
@@ -242,6 +278,8 @@ class PlaneStore:
             groups.append(CodecGroup(name, codec, tuple(slot_ids), tuple(offsets), off,
                                      lo, hi, check, dom, field))
         self.groups = tuple(groups)
+        if self.mesh is not None:
+            self._build_sharded_groups()
         self._host_fields = {
             self.slots[si].key: FaultField(
                 self.domain_profile(self.slots[si].domain), self.slots[si].size,
@@ -280,22 +318,146 @@ class PlaneStore:
         prof = self._profiles.get(domain, self.platform)
         return self.env.scale_profile(prof) if self.env else prof
 
-    def register_domain_words(self, domain: str, words: int, codec: str = DEFAULT_CODEC) -> None:
+    def register_domain_words(self, domain: str, words: int, codec: str = DEFAULT_CODEC,
+                              shard: int | None = None) -> None:
         """Account storage that lives outside the arena (the paged KV cache)
         under a named domain: it joins ``words_by_domain`` (power weighting)
-        but not the arena's counter rows."""
-        self._external_words[str(domain)] = int(words)
+        but not the arena's counter rows. ``shard`` attributes the words to
+        one reliability shard's chip (a mesh store: each replica's KV arena
+        is its own silicon); None registers them store-wide."""
+        if shard is None:
+            self._external_words[str(domain)] = int(words)
+        else:
+            self._external_shard_words.setdefault(int(shard), {})[str(domain)] = int(words)
         self._external_codecs[str(domain)] = str(codec)
 
     def words_by_domain(self) -> dict:
         """Word count per domain: arena slots plus registered external
-        domains."""
+        domains (shard-registered ones summed over the shards)."""
         counts = dict.fromkeys(self.domains, 0)
         for s in self.slots:
             counts[s.domain] += s.size
         for d, w in self._external_words.items():
             counts[d] = counts.get(d, 0) + w
+        for per in self._external_shard_words.values():
+            for d, w in per.items():
+                counts[d] = counts.get(d, 0) + w
         return counts
+
+    # -- the mesh ------------------------------------------------------------
+    @property
+    def n_shards(self) -> int:
+        """Reliability shard (chip) count; 0 when the store is unsharded."""
+        return 0 if self.mesh is None else reliability_shards(self.mesh)
+
+    def _build_sharded_groups(self) -> None:
+        """Cut every codec group across the mesh: word ``w`` of a group lies
+        on shard ``w // local_words``; pad words (zero data, a valid
+        codeword, at the spill domain index) fill the tail so every shard
+        holds the same count. Every shard draws with one row-weakness sigma,
+        so the domains' must agree. A one-shard mesh pads nothing and its
+        step reuses the group's device field."""
+        n_shards = self.n_shards
+        sigmas = {self.domain_profile(d).row_sigma for d in self.domains}
+        assert len(sigmas) <= 1, (
+            f"sharded arenas share one row-weakness field per chip; got sigmas {sorted(sigmas)}")
+        sigma = next(iter(sigmas), self.platform.row_sigma)
+        spill = len(self.domains)
+        self._shard_words = [dict.fromkeys(self.domains, 0) for _ in range(n_shards)]
+        for g in self.groups:
+            padded = meshrel.pad_to_shards(g.n_words, n_shards)
+            pad = padded - g.n_words
+            local = padded // n_shards
+            dom_np = np.full(padded, spill, np.int32)
+            dom_np[: g.n_words] = g.dom_ids.cpu().numpy()
+            present = np.zeros((n_shards, len(self.domains)), bool)
+            for s in range(n_shards):
+                counts = np.bincount(dom_np[s * local : (s + 1) * local], minlength=spill + 1)
+                present[s] = counts[:spill] > 0
+                for i, d in enumerate(self.domains):
+                    self._shard_words[s][d] += int(counts[i])
+            padded_plane = lambda t: torch.cat([t, t.new_zeros(pad)]) if pad else t
+            g.sharded = ShardedGroup(
+                local_words=local, pad=pad,
+                lo=padded_plane(g.lo), hi=padded_plane(g.hi), check=padded_plane(g.check),
+                dom=torch.from_numpy(dom_np).to(self.device) if pad else g.dom_ids,
+                fields=meshrel.shard_fields(self.mesh, local, g.field.seed, float(sigma),
+                                            base_field=g.field),
+                present=present,
+            )
+
+    def shard_words_by_domain(self) -> list:
+        """Per-shard {domain: words} (the power weighting and the per-shard
+        telemetry denominators): the shard's arena slices plus the
+        external words registered to it."""
+        assert self.mesh is not None
+        out = []
+        for s in range(self.n_shards):
+            d = dict(self._shard_words[s])
+            for dom, w in self._external_shard_words.get(s, {}).items():
+                d[dom] = d.get(dom, 0) + w
+            out.append(d)
+        return out
+
+    def _normalize_schedule(self, schedule) -> list:
+        """One {domain: voltage} dict per shard from any accepted form: one
+        dict (every shard alike), a sequence of per-shard dicts, or a dict
+        whose values are per-shard sequences. Every shard gets its own dict,
+        so a change to one shard's entry retunes no other chip."""
+        n = self.n_shards
+        if isinstance(schedule, dict):
+            if any(np.ndim(v) for v in schedule.values()):
+                for d, v in schedule.items():
+                    assert np.ndim(v) == 0 or np.size(v) == n, (
+                        f"domain {d!r}: {np.size(v)} voltages for {n} shards")
+                return [{d: float(np.asarray(v).reshape(-1)[s]) if np.ndim(v) else float(v)
+                         for d, v in schedule.items()} for s in range(n)]
+            return [dict(schedule) for _ in range(n)]
+        schedule = [dict(s) for s in schedule]
+        assert len(schedule) == n, (len(schedule), n)
+        return schedule
+
+    def set_rails_sharded_async(self, schedule, ecc: bool = True):
+        """``set_rails_sharded`` with its counters left on the device: one
+        rail step per codec group (per shard a field launch and a B2
+        launch), queued; ``harvest()`` gives the ShardFaultStats, so a soak
+        of N intervals can pay one counter copy instead of N. Each call is
+        one interval of the aging clock: under an environment every shard's
+        rates take its aging multiplier."""
+        assert self.mesh is not None, "set_rails_sharded needs a mesh"
+        schedule = self._normalize_schedule(schedule)
+        n_shards = self.n_shards
+        if self.n_words == 0:
+            empty = ShardFaultStats([DomainFaultStats(shard=s) for s in range(n_shards)])
+            return list(self._leaves), PendingFaultStats([], lambda _c: empty)
+        profiles = {d: self.domain_profile(d) for d in self.domains}
+        self._soak += 1
+        mult = (np.array([scenario.aging_multiplier(s, self._soak, self.env, self.seed)
+                          for s in range(n_shards)], np.float32)
+                if self.env is not None else None)
+        rates = meshrel.schedule_rates(schedule, self.domains, profiles, n_shards,
+                                       shard_multipliers=mult)
+        outs = []
+        for g in self.groups:
+            sg = g.sharded
+            step = meshrel.make_rail_step(
+                self.mesh, sg.local_words, len(self.domains), g.name, sg.fields, sg.present,
+                reencode=not ecc, burst=self._burst)
+            outs.append(step(sg.lo, sg.hi, sg.check, sg.dom, rates))
+        finish = lambda c: ShardFaultStats.from_counter_blocks(
+            c, self.domains, self.shard_words_by_domain())
+        return self._slice_leaves([o[:3] for o in outs]), PendingFaultStats(
+            [o[3] for o in outs], finish)
+
+    def set_rails_sharded(self, schedule, ecc: bool = True):
+        """Per-(shard, domain) voltage step across the mesh: every shard
+        injects its own fault population at its own rails and tallies its
+        own counter rows; only the (n_shards, n_domains, 8) block crosses to
+        the host. Returns (faulty_leaves, ShardFaultStats). One schedule on
+        a one-shard mesh equals ``set_rails`` with device masks bit for
+        bit."""
+        leaves, pending = self.set_rails_sharded_async(schedule, ecc=ecc)
+        return leaves, pending.harvest()
 
     # -- masks ---------------------------------------------------------------
     def group_host_masks(self, v) -> list:
@@ -358,6 +520,7 @@ class PlaneStore:
         """``set_voltage`` with its counters left on the device: one fused
         inject+scrub launch per codec group, queued. Returns (faulty_leaves,
         PendingFaultStats) at once; ``harvest()`` gives the FaultStats."""
+        assert self.mesh is None, "a mesh store steps through set_rails_sharded"
         if self.n_words == 0:
             return list(self._leaves), PendingFaultStats([], lambda _c: FaultStats())
         outs = [
@@ -380,6 +543,7 @@ class PlaneStore:
         """``set_rails`` with its counters left on the device (as
         ``set_voltage_async``): (faulty_leaves, PendingFaultStats) whose
         ``harvest()`` gives the DomainFaultStats."""
+        assert self.mesh is None, "a mesh store steps through set_rails_sharded"
         missing = set(self.domains) - set(volts)
         assert not missing, f"rails missing for domains: {sorted(missing)}"
         if self.n_words == 0:

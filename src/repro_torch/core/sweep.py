@@ -29,6 +29,7 @@ from repro_torch.core import scenario
 from repro_torch.core.faultsim import DeviceFaultField, zero_masks
 from repro_torch.core.telemetry import DomainFaultStats, FaultStats
 from repro_torch.core.voltage import PLATFORMS, PlatformProfile
+from repro_torch.distributed.collectives import shard_seed
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.backend import resolve_device
 
@@ -71,12 +72,6 @@ def _grid_rates(grid, env) -> np.ndarray:
     if env is not None:
         rates *= np.float32(env.rate_multiplier)
     return rates
-
-
-def shard_seed(seed: int, shard: int) -> int:
-    """The field seed of shard ``shard``: shard 0 keeps ``seed``, every other
-    shard keys its own stream."""
-    return int(seed) if shard == 0 else int(seed) ^ (int(shard) << 32)
 
 
 def _draw(field: DeviceFaultField, rates):

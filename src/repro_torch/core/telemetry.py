@@ -198,5 +198,76 @@ class DomainFaultStats:
         if self.shard != other.shard:
             self.shard = -1
 
+    @classmethod
+    def summed(cls, stats) -> "DomainFaultStats":
+        """Pure cross-shard reduction of DomainFaultStats into a fresh
+        per-domain view: domain rows keep their identity, the shard tag
+        collapses to -1 unless every input carries the same one."""
+        out = cls()
+        first = True
+        for s in stats:
+            if first:
+                out.shard = s.shard
+                first = False
+            out.accumulate(s)
+        return out
+
     def coverage(self) -> dict:
         return {d: st.coverage() for d, st in self.by_domain.items()}
+
+
+@dataclasses.dataclass
+class ShardFaultStats:
+    """Per-shard, per-domain fault statistics of a mesh: one
+    DomainFaultStats per reliability shard, in shard order (the host view of
+    an (n_shards, n_domains, 8) counter block). ``reduced()`` is the
+    explicit cross-shard reduction; the per-shard rows are never collapsed
+    on their own, since a `per_shard` rail walk needs each shard's row."""
+
+    by_shard: list = dataclasses.field(default_factory=list)
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.by_shard)
+
+    @property
+    def domains(self) -> tuple:
+        return self.by_shard[0].domains if self.by_shard else ()
+
+    def __getitem__(self, shard: int) -> DomainFaultStats:
+        return self.by_shard[shard]
+
+    @classmethod
+    def from_counter_blocks(cls, counters, names, words_by_shard) -> "ShardFaultStats":
+        """Build from an (n_shards, n_domains, 8) counter block;
+        ``words_by_shard`` is one {domain: words} dict per shard."""
+        c = np.asarray(counters)
+        assert c.ndim == 3 and c.shape[0] == len(words_by_shard), c.shape
+        return cls([FaultStats.from_counter_matrix(c[s], names, words_by_shard[s], shard=s)
+                    for s in range(c.shape[0])])
+
+    def reduced(self) -> DomainFaultStats:
+        """The cross-shard reduction to one per-domain view."""
+        return DomainFaultStats.summed(self.by_shard)
+
+    def total(self) -> FaultStats:
+        return self.reduced().total()
+
+    def accumulate(self, other: "ShardFaultStats") -> None:
+        """Add ``other`` row by row (aligned by shard index); a row beyond
+        this one's shards is adopted as a fresh copy, so its shard tags stay
+        as they were."""
+        for s, st in enumerate(other.by_shard):
+            if s < len(self.by_shard):
+                self.by_shard[s].accumulate(st)
+            else:
+                self.by_shard.append(DomainFaultStats.summed([st]))
+
+    @classmethod
+    def summed(cls, stats) -> "ShardFaultStats":
+        """Pure cross-run reduction: an iterable of ShardFaultStats summed
+        into a fresh one, row-aligned by shard index."""
+        out = cls()
+        for s in stats:
+            out.accumulate(s)
+        return out

@@ -179,3 +179,25 @@ def multi_rail_power_saving(
     return 1.0 - multi_rail_bram_power(
         volts, words_by_domain, ecc=ecc, check_bits=check_bits
     ) / p0
+
+
+# -- the mesh: every reliability shard is its own chip ------------------------
+def mesh_bram_power(schedules, words_by_shard, ecc: bool = True,
+                    check_bits: dict | None = None) -> float:
+    """Total BRAM power (W) across a mesh of chips: ``schedules`` one
+    {domain: voltage} schedule per shard, ``words_by_shard`` the matching
+    {domain: words} dicts. Each chip draws the calibrated P(V) curve at its
+    own rails; the rails are per-chip supplies, so the total is the plain
+    sum."""
+    assert len(schedules) == len(words_by_shard), (len(schedules), len(words_by_shard))
+    return sum(multi_rail_bram_power(v, w, ecc=ecc, check_bits=check_bits)
+               for v, w in zip(schedules, words_by_shard))
+
+
+def mesh_power_saving(schedules, words_by_shard, ecc: bool = True, v_nom: float = 1.0,
+                      check_bits: dict | None = None) -> float:
+    """Fleet-level fractional BRAM saving against every chip at the nominal
+    rail (n_shards x one chip's nominal draw)."""
+    p0 = len(schedules) * bram_power(v_nom, ecc=False)
+    return 1.0 - mesh_bram_power(schedules, words_by_shard, ecc=ecc,
+                                 check_bits=check_bits) / max(p0, 1e-30)

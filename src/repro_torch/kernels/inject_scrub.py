@@ -39,16 +39,24 @@ def inject_scrub(lo, hi, check, mlo, mhi, mcheck, *, codec: Codec, reencode: boo
 
 
 def inject_scrub_domains(
-    lo, hi, check, mlo, mhi, mcheck, dom, n_domains: int, *, codec: Codec, reencode: bool
+    lo, hi, check, mlo, mhi, mcheck, dom, n_domains: int, *, codec: Codec, reencode: bool,
+    out=None,
 ):
     """-> (faulty lo, hi, check, counters (n_domains, N_COUNTERS) int32);
     ``dom`` holds every word's domain index; a word whose index lies outside
-    [0, n_domains) is counted in no row."""
+    [0, n_domains) is counted in no row. ``out`` (three planes shaped like
+    lo, hi and check, views allowed where contiguous) receives the faulty
+    planes in place of new tensors."""
     n = B.check_planes(lo, hi, check, mlo, mhi, mcheck, codec.check_torch_dtype)
     B.check(dom, torch.int32, "domain_ids", (n,))
     if not 1 <= n_domains <= 16:
         raise ValueError(f"n_domains must be in [1, 16], got {n_domains}")
-    olo, ohi, ochk = torch.empty_like(lo), torch.empty_like(hi), torch.empty_like(check)
+    if out is None:
+        olo, ohi, ochk = torch.empty_like(lo), torch.empty_like(hi), torch.empty_like(check)
+    else:
+        olo, ohi, ochk = out
+        for t, ref_, name in ((olo, lo, "out_lo"), (ohi, hi, "out_hi"), (ochk, check, "out_check")):
+            B.check(t, ref_.dtype, name, (n,))
     cnt = torch.zeros(n_domains, N_COUNTERS, dtype=torch.int32, device=lo.device)
     if n:
         INJECT_SCRUB_DOMAINS(

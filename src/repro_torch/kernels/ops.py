@@ -166,20 +166,27 @@ def inject_scrub(lo, hi, parity, mlo, mhi, mparity, *,
 
 
 def inject_scrub_domains(lo, hi, parity, mlo, mhi, mparity, domain_ids, n_domains: int,
-                         *, codec: str = codes.DEFAULT_CODEC, reencode: bool = False):
+                         *, codec: str = codes.DEFAULT_CODEC, reencode: bool = False,
+                         out=None):
     """Fused inject + scrub with one counter row per memory domain:
     (faulty lo, hi, parity, counters (n_domains, 8) int32). Words whose
-    domain id lies outside [0, n_domains) are counted in no row."""
+    domain id lies outside [0, n_domains) are counted in no row. ``out``
+    (flat lo, hi, parity planes on the same device) receives the faulty
+    planes, which are then returned."""
     planes = _flat(lo, hi, parity, mlo, mhi, mparity, domain_ids)
-    if backend.dispatch(*planes) == "cpu":
-        out = _ref.inject_scrub_domains_ref(
+    if backend.dispatch(*planes, *(out or ())) == "cpu":
+        res = _ref.inject_scrub_domains_ref(
             *planes, n_domains, reencode=reencode, codec=codec
         )
+        if out is not None:
+            for o, r in zip(out, res[:3]):
+                o.copy_(r)
+            res = tuple(out) + (res[3],)
     else:
-        out = _isc.inject_scrub_domains(
-            *planes, n_domains, codec=codes.get(codec), reencode=reencode
+        res = _isc.inject_scrub_domains(
+            *planes, n_domains, codec=codes.get(codec), reencode=reencode, out=out
         )
-    return tuple(t.reshape(lo.shape) for t in out[:3]) + (out[3],)
+    return tuple(t.reshape(lo.shape) for t in res[:3]) + (res[3],)
 
 
 @dataclasses.dataclass

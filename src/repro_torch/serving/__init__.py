@@ -10,11 +10,13 @@ recorder. Submodules stay importable directly::
 from repro_torch.obs import MetricsRegistry, TraceRecorder
 from repro_torch.serving.scheduler import (
     ContinuousBatchingScheduler,
+    MeshServeReport,
     Request,
     RequestState,
     ServeReport,
     ServeRequest,
     normalize_requests,
+    partition_requests,
     serve_stream,
 )
 from repro_torch.serving.steps import (
@@ -41,6 +43,7 @@ __all__ = [
     "DecodeBlockHelpers",
     "FaultModelConfig",
     "HelpersFactory",
+    "MeshServeReport",
     "MetricsRegistry",
     "PagedHelpers",
     "ProtectionConfig",
@@ -57,5 +60,6 @@ __all__ = [
     "make_prefill_step",
     "make_serve_step",
     "normalize_requests",
+    "partition_requests",
     "serve_stream",
 ]

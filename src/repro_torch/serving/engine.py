@@ -21,6 +21,14 @@ domain's check bits.
 ``serve`` drives a stream of variable-length requests through continuous
 batching over a paged KV cache held in ECC pages (the `kv` domain's codec)
 on the `kv` voltage domain (core/kvpages.py, serving/scheduler.py).
+
+A mesh engine (``mesh=``, a ``launch.mesh.ReliabilityMesh``; inline,
+multi-rail, device masks) treats every reliability shard as its own chip:
+its own fault stream over its slice of the plane arena, its own rails
+(``MeshRailController``: ``uniform`` locks one schedule at the worst
+shard's first DED, ``per_shard`` walks every chip to its own V_min), its own
+KV arena and its own share of a served stream. The forward stays on one
+device, as in the reference's engine.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from repro_torch.core import campaign, scenario
 from repro_torch.core import voltage as vmod
 from repro_torch.core.controller import (
     EscalationPolicy,
+    MeshRailController,
     MultiRailController,
     UndervoltController,
 )
@@ -44,7 +53,7 @@ from repro_torch.core.faultsim import FaultField, device_masks, gather_masks
 from repro_torch.core.kvpages import PAGE_TOKENS, KVGeometry, KVPageArena
 from repro_torch.core.memory import EccMemoryDomain
 from repro_torch.core.planestore import PlaneStore, inject_leaf, leaf_seed
-from repro_torch.core.telemetry import DomainFaultStats, FaultStats
+from repro_torch.core.telemetry import DomainFaultStats, FaultStats, ShardFaultStats
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.backend import resolve_device
@@ -80,6 +89,9 @@ class RailsConfig:
     """Voltage-rail topology and controller tuning."""
 
     multi_rail: bool = False
+    # mesh engines: "uniform" locks one schedule at the worst shard's first
+    # DED; "per_shard" walks every chip to its own V_min
+    policy: str = "uniform"
     spread: float = 0.0  # > 0: per-domain fault-curve variation
     step_v: float = 0.01
     start_v: float | None = None  # warm start of the canary search
@@ -127,7 +139,8 @@ class ReliabilityConfig:
 
     def validate(self, *, mesh=None) -> "ReliabilityConfig":
         """Raise ReliabilityConfigError on an invalid or unported
-        combination; returns ``self``."""
+        combination; returns ``self``. ``mesh`` adds the mesh engine's
+        constraints."""
 
         def _require(cond: bool, msg: str):
             if not cond:
@@ -153,7 +166,24 @@ class ReliabilityConfig:
                 "the per-leaf reference path is SECDED-only; codec selection needs "
                 "the batched arena",
             )
-        _require(mesh is None, "mesh engines are not ported")
+        try:
+            shapes.rail_policy(self.rails.policy)
+        except AssertionError as e:
+            raise ReliabilityConfigError(str(e)) from None
+        if mesh is not None:
+            _require(
+                multi and self.mode == "inline",
+                "mesh engines drive the multi-rail batched plane arena",
+            )
+            _require(
+                fm.mask_source == "device",
+                "mesh engines need device masks (the per-shard streams live on the device)",
+            )
+            _require(
+                self.rails.policy == "uniform" or prot.escalation is None,
+                "per-shard codec escalation needs per-shard plane groups; use "
+                "policy='uniform' with an escalation ladder",
+            )
         _require(
             fm.mask_source in ("host", "device"),
             f"mask_source must be 'host' or 'device', got {fm.mask_source!r}",
@@ -264,7 +294,10 @@ class ServingEngine:
     ``device="cpu"``, which runs every kernel's plain version. An optional
     flight recorder (``recorder``, obs.TraceRecorder) gets every rail
     decision and serve-loop event in one causally ordered, deterministic
-    trace; it only reads values the host already holds."""
+    trace; it only reads values the host already holds. ``mesh`` (a
+    ``ReliabilityMesh``) makes a mesh engine: then ``device=None`` is the
+    device of shard 0, every shard must be on a device of that type, and
+    ``rails`` holds one {domain: voltage} dict per shard."""
 
     def __init__(
         self,
@@ -274,15 +307,28 @@ class ServingEngine:
         max_len: int = 512,
         device=None,
         recorder=None,
+        mesh=None,
     ):
         lm.check_family(cfg)
         self.cfg = cfg
         self.rel = rel
         self.max_len = max_len
         self.recorder = recorder
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(
+            mesh.device_of(0) if device is None and mesh is not None else device)
         if rel is not None:
-            rel.validate()
+            rel.validate(mesh=mesh)
+        elif mesh is not None:
+            raise ReliabilityConfigError(
+                "mesh engines drive the multi-rail batched plane arena (a ReliabilityConfig "
+                "is required)")
+        if mesh is not None:
+            kinds = {mesh.device_of(s).type for s in range(mesh.shape["data"])}
+            if kinds != {self.device.type}:
+                raise ValueError(f"mesh shards on {sorted(kinds)} and the engine on "
+                                 f"{self.device.type}: every shard runs on the engine's kind "
+                                 "of device")
         params = base.tree_map(lambda t: t.to(self.device), params)
         self.platform = vmod.PLATFORMS[rel.platform] if rel else None
         rails = rel.rails if rel else None
@@ -297,12 +343,14 @@ class ServingEngine:
             if rel and not rails.multi_rail
             else None
         )
-        self.rails = None  # {domain: voltage} on multi-rail engines
+        self.rails = None  # {domain: voltage} on multi-rail engines; one per shard on a mesh
         self.rail_stats = DomainFaultStats()
+        self.shard_stats = ShardFaultStats()  # cumulative per-shard rows (mesh)
         self.stats = FaultStats()
         self._last_scrub = None
         self._canary_ref = None  # the clean canary rollout, made on first use
         self.kv_arena = None
+        self.kv_arenas = None  # one per shard after a mesh serve
         self._paged_helper_cache: dict = {}
         self.domain = None
         if rel is None:
@@ -347,12 +395,11 @@ class ServingEngine:
             codecs=shapes.domain_codecs(codecs) if rails.multi_rail else codecs,
             device=self.device,
             env=rel.environment_profile,
+            mesh=mesh,
         )
         self.voltage = rel.voltage or self.platform.v_nom
         if rails.multi_rail:
-            self.controller = MultiRailController(
-                self.platform,
-                self._store.domains,
+            rail_kw = dict(
                 step_v=rails.step_v,
                 paranoid=rel.canary.paranoid,
                 start_v=rails.start_v,
@@ -362,6 +409,13 @@ class ServingEngine:
                 adaptive=rails.adaptive,
                 divergence_slo=rel.canary.divergence_slo,
             )
+            if mesh is not None:
+                self.controller = MeshRailController(
+                    self.platform, self._store.domains, self._store.n_shards,
+                    policy=rails.policy, **rail_kw)
+            else:
+                self.controller = MultiRailController(self.platform, self._store.domains,
+                                                      **rail_kw)
             self.set_rails({d: self.voltage for d in self._store.domains})
             if recorder is not None:
                 self.controller.bind_recorder(recorder)
@@ -418,10 +472,15 @@ class ServingEngine:
         self.stats.accumulate(agg)
         self._last_scrub = agg
 
-    def set_rails(self, volts: dict):
+    def set_rails(self, volts):
         """Per-domain voltage step (multi-rail engines): one fused launch,
-        one counter row per domain."""
+        one counter row per domain. Rails ``volts`` does not name (the `kv`
+        rail) keep their voltage. A mesh engine takes any schedule form of
+        ``PlaneStore._normalize_schedule`` (one dict, one per shard, or
+        per-shard values) and steps every shard (``_set_rails_mesh``)."""
         assert self.rel is not None and self.rel.rails.multi_rail
+        if self.mesh is not None:
+            return self._set_rails_mesh(volts)
         new = {d: float(v) for d, v in volts.items()}
         self.rails = {**self.rails, **new} if self.rails else new
         self.voltage = max(self.rails.values())
@@ -430,6 +489,25 @@ class ServingEngine:
         self.rail_stats.accumulate(dstats)
         self.stats.accumulate(dstats.total())
         self._last_scrub = dstats
+
+    def _set_rails_mesh(self, volts):
+        """Mesh rail step: every shard at its own schedule, per codec group
+        one field and one B2 launch a shard (``set_rails_sharded``)."""
+        schedule = self._store._normalize_schedule(volts)
+        if self.rails:
+            schedule = [{**old, **{d: float(v) for d, v in new.items()}}
+                        for old, new in zip(self.rails, schedule)]
+        else:
+            schedule = [{d: float(v) for d, v in s.items()} for s in schedule]
+        self.rails = schedule
+        self.voltage = max(v for s in schedule for v in s.values())
+        leaves, sstats = self._store.set_rails_sharded(schedule, ecc=self.rel.ecc)
+        self.params = self._reassemble_params(leaves)
+        self.shard_stats.accumulate(sstats)
+        reduced = sstats.reduced()
+        self.rail_stats.accumulate(reduced)
+        self.stats.accumulate(reduced.total())
+        self._last_scrub = sstats
 
     def _leaf_codec(self, key: str) -> str:
         return self._store.codec_of(next(s.domain for s in self._store.slots if s.key == key))
@@ -529,7 +607,10 @@ class ServingEngine:
         harvest to the next interval; False: serialized) changes no result.
         The cache arena stays on ``self.kv_arena``; its counters join
         ``stats`` and ``rail_stats`` and its words, under the arena's final
-        code, the power accounting."""
+        code, the power accounting.
+
+        A mesh engine serves the stream data-parallel (``_serve_mesh``) and
+        returns a ``scheduler.MeshServeReport``."""
         if not shapes.supports_paged_kv(self.cfg):
             raise ValueError(f"{self.cfg.name}: paged KV unsupported (see "
                              "shapes.supports_paged_kv)")
@@ -539,6 +620,13 @@ class ServingEngine:
             )
         else:
             draft_params = draft_cfg = None
+        if self.mesh is not None:
+            return self._serve_mesh(
+                requests, n_lanes=n_lanes, page_tokens=page_tokens, n_pages=n_pages,
+                scrub_interval=scrub_interval, max_block=max_block, kv_voltage=kv_voltage,
+                walk_kv=walk_kv, share_prefix=share_prefix, speculative=speculative,
+                draft_params=draft_params, draft_cfg=draft_cfg, scrub_overlap=scrub_overlap,
+            )
         profile = self.platform or vmod.PLATFORMS["vc707"]
         envp = self.rel.environment_profile if self.rel is not None else None
         if self.rel is not None and self.rel.rails.multi_rail:
@@ -606,6 +694,72 @@ class ServingEngine:
         self.kv_arena = arena
         return report
 
+    def _serve_mesh(self, requests, *, n_lanes: int, page_tokens: int, n_pages: int | None,
+                    scrub_interval: int, max_block: int, kv_voltage: float | None,
+                    walk_kv: bool, share_prefix: bool, speculative: int, draft_params,
+                    draft_cfg: ModelConfig | None,
+                    scrub_overlap: bool | None) -> sched.MeshServeReport:
+        """Data-parallel continuous batching across the reliability shards:
+        the stream dealt round-robin (``partition_requests``), and each
+        shard's part served over the shard's own KV arena
+        (``KVPageArena(shard=s)``: its own fault stream, and under
+        ``per_shard`` rails its own `kv` rail). Under ``uniform`` one shared
+        kv rail walks through every shard's part in turn, so its canary sees
+        every chip's DED events. The arenas live on the engine's device,
+        where the forward runs."""
+        geom = KVGeometry.from_config(self.cfg, page_tokens)
+        if n_pages is None:
+            n_pages = n_lanes * geom.pages_for(self.max_len)
+        profile = self._store.domain_profile("kv")
+        n_shards = self._store.n_shards
+        parts = sched.partition_requests(sched.normalize_requests(requests), n_shards)
+        base_codec = shapes.domain_codecs(self.rel.protection.codecs)["kv"]
+        kv_rails = (self.controller.add_rail("kv", profile, codec=base_codec) if walk_kv
+                    else [None] * n_shards)
+        reports = []
+        for s in range(n_shards):
+            rail = kv_rails[s]
+            # an earlier serve's escalation persists on the rail
+            kv_codec = rail.codec if rail is not None else base_codec
+            arena = KVPageArena(
+                geom, profile, n_pages, seed=self.rel.seed, ecc=self.rel.ecc, codec=kv_codec,
+                device=self.device, env=self.rel.environment_profile, shard=s,
+            )
+            if kv_voltage is not None:
+                arena.set_voltage(float(kv_voltage))
+            else:
+                arena.set_voltage(float(self.rails[s].get("kv", self.voltage)))
+            if rail is not None:
+                # the controller is the source of truth for a walked rail;
+                # under `uniform` it resumes where the previous shard left it
+                arena.set_voltage(rail.voltage)
+            reports.append(sched.serve_stream(
+                self.params, self.cfg, self._paged_helpers(geom, kv_codec, draft_cfg=draft_cfg),
+                arena, parts[s],
+                n_lanes=n_lanes, max_len=self.max_len, scrub_interval=scrub_interval,
+                max_block=max_block, kv_controller=rail,
+                init_cache_fn=lambda b: lm.init_cache(self.cfg, b, self.max_len,
+                                                      device=self.device),
+                helpers_factory=lambda cname: self._paged_helpers(geom, cname,
+                                                                  draft_cfg=draft_cfg),
+                share_prefix=share_prefix, speculative=speculative,
+                draft_params=draft_params, draft_cfg=draft_cfg, recorder=self.recorder,
+                scrub_overlap=scrub_overlap,
+            ))
+            self._store.register_domain_words("kv", arena.n_words, codec=arena.codec_name,
+                                              shard=s)
+            self.rails[s]["kv"] = arena.voltage
+        report = sched.MeshServeReport.merge(reports)
+        self.stats.accumulate(report.kv_stats)
+        self.rail_stats.accumulate(DomainFaultStats({"kv": report.kv_stats}))
+        self.shard_stats.accumulate(ShardFaultStats([
+            DomainFaultStats({"kv": st}, shard=s)
+            for s, st in enumerate(report.kv_stats_by_shard)
+        ]))
+        self.kv_arenas = [r.arena for r in reports]
+        self.kv_arena = self.kv_arenas[0]
+        return report
+
     def _paged_helpers(self, geom: KVGeometry, codec: str = shapes.DEFAULT_CODEC,
                        draft_cfg: ModelConfig | None = None) -> serve_steps.PagedHelpers:
         key = (geom, codec, draft_cfg)
@@ -624,6 +778,8 @@ class ServingEngine:
         {domain: history}). Each round advances the recorder's clock by
         one."""
         assert self.rel is not None and self.controller is not None
+        if self.mesh is not None:
+            return self._autotune_rails_mesh(max_rounds)
         if self.rel.rails.multi_rail:
             return self._autotune_rails(max_rounds)
         for _ in range(max_rounds):
@@ -664,6 +820,30 @@ class ServingEngine:
                 break
         return self.controller.voltages, self.controller.history
 
+    def _autotune_rails_mesh(self, max_rounds: int):
+        """The mesh rail search: every shard's canary is judged on its own
+        counter rows. ``per_shard`` walks each chip to its own V_min;
+        ``uniform`` locks one schedule at the worst chip's first DED (the
+        summed counters trip on any shard's event). Returns (per-shard
+        schedules, {(shard, domain): history})."""
+        self.set_rails(self.controller.voltages)
+        arena_rails = self._store.domains
+        for _ in range(max_rounds):
+            if self.recorder:
+                self.recorder.advance(1)
+            schedule = self.controller.update(self._last_scrub,
+                                              divergence=self.canary_divergence())
+            if self.controller.policy == "uniform":
+                # one code per domain across the mesh (per_shard refuses ladders)
+                for d in arena_rails:
+                    cname = self.controller.shards[0].rails[d].pop_codec_change()
+                    if cname:
+                        self._store.set_domain_codec(d, cname)
+            self.set_rails(schedule)
+            if self.controller.locked_for(arena_rails):
+                break
+        return self.controller.voltages, self.controller.history
+
     def _domain_scrub(self) -> FaultStats:
         """A read of every array of the domain at its rail (domain mode's
         canary round)."""
@@ -674,8 +854,14 @@ class ServingEngine:
         return store.check_bits_by_domain() if store is not None else {}
 
     def power_w(self) -> float:
-        """Modeled accelerator power at the current rail voltage(s)."""
+        """Modeled accelerator power at the current rail voltage(s); on a
+        mesh the fleet's, every shard its own chip."""
         ecc = bool(self.rel and self.rel.ecc)
+        if self.mesh is not None:
+            return self._store.n_shards * vmod.P_REST_W + vmod.mesh_bram_power(
+                self.rails, self._store.shard_words_by_domain(), ecc=ecc,
+                check_bits=self._check_bits(),
+            )
         if self.rails is not None:
             return vmod.P_REST_W + vmod.multi_rail_bram_power(
                 self.rails, self._store.words_by_domain(), ecc=ecc,
@@ -685,9 +871,33 @@ class ServingEngine:
         return vmod.P_REST_W + vmod.bram_power(self.voltage, ecc=ecc) * factor
 
     def power_report(self) -> dict:
-        """Per-rail power breakdown + fractional BRAM saving vs nominal."""
+        """Per-rail power breakdown + fractional BRAM saving vs nominal; on a
+        mesh each shard's chip and the fleet's totals."""
         ecc = bool(self.rel and self.rel.ecc)
         bits = self._check_bits()
+        if self.mesh is not None:
+            words = self._store.shard_words_by_domain()
+            return {
+                "n_shards": self._store.n_shards,
+                "policy": self.rel.rails.policy,
+                "codecs": self._store.codecs_by_domain(),
+                "check_bits": bits,
+                "shards": [
+                    {
+                        "shard": s,
+                        "rails": dict(self.rails[s]),
+                        "bram_w": vmod.multi_rail_bram_power(
+                            self.rails[s], words[s], ecc=ecc, check_bits=bits),
+                        "saving_vs_nominal": vmod.multi_rail_power_saving(
+                            self.rails[s], words[s], ecc=ecc, check_bits=bits),
+                    }
+                    for s in range(self._store.n_shards)
+                ],
+                "bram_w": vmod.mesh_bram_power(self.rails, words, ecc=ecc, check_bits=bits),
+                "total_w": self.power_w(),
+                "saving_vs_nominal": vmod.mesh_power_saving(
+                    self.rails, words, ecc=ecc, check_bits=bits),
+            }
         if self.rails is not None:
             words = self._store.words_by_domain()
             total = max(sum(words.values()), 1)

@@ -24,8 +24,12 @@ its step clock, which advances with decode progress, and the ``serve.*``,
 ``request.*``, ``spec.*`` and ``kv.scrub.*`` metrics; it reads only values
 the host already holds. When the `kv` rail escalates its code, the arena is
 re-protected under it right after the scrub that flushed it, and a helpers
-factory rebuilds the commit path. Not ported: the mesh's
-``MeshServeReport`` / ``partition_requests``.
+factory rebuilds the commit path.
+
+A mesh engine serves data-parallel: ``partition_requests`` deals the stream
+round-robin to the reliability shards, each shard runs ``serve_stream`` over
+its own KV arena, and ``MeshServeReport.merge`` joins their reports (request
+ids stay global).
 """
 
 from __future__ import annotations
@@ -126,6 +130,60 @@ def normalize_requests(requests) -> list:
         r if isinstance(r, Request) else Request(i, np.asarray(r[0], np.int32), int(r[1]))
         for i, r in enumerate(requests)
     ]
+
+
+def partition_requests(requests, n_shards: int) -> list:
+    """Round-robin the stream across ``n_shards`` data-parallel replicas by
+    arrival index: each replica's queue keeps the global FCFS order, and a
+    one-shard mesh gets the whole stream in order."""
+    assert n_shards >= 1, n_shards
+    parts: list = [[] for _ in range(n_shards)]
+    for i, r in enumerate(requests):
+        parts[i % n_shards].append(r)
+    return parts
+
+
+@dataclasses.dataclass
+class MeshServeReport:
+    """The merged outcome of one data-parallel mesh serve: each shard's
+    ServeReport stays whole in ``by_shard`` (the per-chip counters and kv
+    rail trajectories), beside the merged views of the stream."""
+
+    by_shard: list  # ServeReport per reliability shard
+    outputs: dict  # rid -> generated tokens, merged across shards
+    request_stats: dict  # rid -> FaultStats, merged across shards
+    kv_stats: FaultStats  # cross-shard aggregate cache telemetry
+    shard_of: dict  # rid -> the shard that served it
+    steps: int  # decode steps over all shards
+    preemptions: int
+
+    @property
+    def kv_stats_by_shard(self) -> list:
+        """Per-chip cache telemetry, tagged with its shard."""
+        return [dataclasses.replace(r.kv_stats, shard=s) for s, r in enumerate(self.by_shard)]
+
+    @property
+    def kv_voltages_by_shard(self) -> list:
+        return [list(r.kv_voltages) for r in self.by_shard]
+
+    @classmethod
+    def merge(cls, reports) -> "MeshServeReport":
+        """Join per-shard reports (shard order); a request served by two
+        shards is an error."""
+        reports = list(reports)
+        outputs, request_stats, shard_of = {}, {}, {}
+        for s, r in enumerate(reports):
+            for rid, toks in r.outputs.items():
+                assert rid not in outputs, f"request {rid} served twice"
+                outputs[rid] = toks
+                shard_of[rid] = s
+            request_stats.update(r.request_stats)
+        return cls(
+            by_shard=reports, outputs=outputs, request_stats=request_stats,
+            kv_stats=FaultStats.summed(r.kv_stats for r in reports), shard_of=shard_of,
+            steps=sum(r.steps for r in reports),
+            preemptions=sum(r.preemptions for r in reports),
+        )
 
 
 class ContinuousBatchingScheduler:

@@ -1,7 +1,8 @@
 """The port's examples against the reference's: ``torch_quickstart`` in
 full and ``torch_serve_lm_ecc --share-demo`` print the
 reference example's lines, number for number, and return the numbers they
-print; the mesh demo is refused; the examples default to the card. The
+print; the mesh demo is refused without a card; the examples default to
+the card. The
 serving examples run the reference's weights (``lm.init_params`` is
 replaced in both packages' runs by the reference's draw) and, where KV
 pages undervolt, the same numpy interval masks
@@ -123,9 +124,14 @@ def test_train_lm_prints_the_references_lines(capsys, monkeypatch):
     assert f"loss {got['losses'][0]:.3f} -> {got['losses'][-1]:.3f}" in lines[-1]
 
 
-def test_mesh_demo_is_refused_naming_multi_device():
-    with pytest.raises(SystemExit, match="item 10"):
-        load_port_example("torch_serve_lm_ecc").main(["--mesh-demo", "--device", "cpu"])
+def test_mesh_demo_is_refused_naming_multi_device(monkeypatch):
+    """The mesh demo takes every visible card as a shard: with none and no
+    ``--device`` it is refused, naming the cards, before any model is
+    made (with ``--device cpu`` it serves on a one-shard mesh:
+    ``test_torch_examples_serve.py``)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="visible cards"):
+        load_port_example("torch_serve_lm_ecc").main(["--mesh-demo"])
 
 
 @pytest.mark.parametrize("name,argv", [("torch_quickstart", []),

@@ -55,3 +55,27 @@ def test_serve_main_prints_the_references_lines(capsys, monkeypatch):
         assert v.v_crash <= row["lock_v"] <= v.v_nom
         assert f"{d:>10}: locked {row['lock_v']:.2f} V under {row['codec']:>9}" in ttail
     assert got["codecs"]["mlp"]["codec"] == "dected79"
+
+
+def test_mesh_demo_prints_the_references_lines(capsys, monkeypatch):
+    """``--mesh-demo`` on a one-shard mesh (the reference's one host device;
+    the port's ``--device cpu``): the reference's lines in form, since the
+    mesh draws device masks, and the numbers it returns are the printed
+    ones."""
+    reference_weights(monkeypatch)
+    reference_example("serve_lm_ecc")["mesh_demo"]()
+    ref = capsys.readouterr().out
+    got = load_port_example("torch_serve_lm_ecc").main(["--mesh-demo", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert [_shape(x) for x in out.splitlines()] == [_shape(x) for x in ref.splitlines()]
+    assert out.splitlines()[0] == ref.splitlines()[0]
+    assert got["n_shards"] == 1 and got["requests"] == 3 and set(got["shard_of"].values()) == {0}
+    v = PLATFORMS["vc707"]
+    chip = got["chips"][0]
+    assert sorted(chip["rails"]) == ["attention", "embedding", "kv", "mlp"]
+    assert all(v.v_crash <= x <= v.v_nom for x in chip["rails"].values())
+    rails = ", ".join(f"{d[:4]}={x:.2f}" for d, x in sorted(chip["rails"].items()))
+    assert f"  chip 0: {rails} | kv scrubs corrected={chip['corrected']} " \
+           f"detected={chip['detected']}" in out
+    assert f"served 3 requests across 1 chips ({got['steps']} dispatch steps" in out
+    assert f"{100 * got['saving']:.1f}% saving vs nominal" in out

@@ -1260,3 +1260,118 @@ def test_tiny_train_steps_on_the_card_equal_the_cpu(cuda, tmp_path):
     for (k, a), (_, b) in zip(base.flatten(pg), base.flatten(pc)):
         assert a.is_cuda
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4 * float(b.abs().max()))
+
+
+MESH_SCHEDULE = [{"attention": 0.55, "mlp": 0.54, "embedding": 1.0},
+                 {"attention": 0.54, "mlp": 1.0, "embedding": 0.55}]
+
+
+def _mesh_store(dev, shard_devices):
+    """A mesh store of three leaves (two codec groups, the dected79 one with
+    a pad word) with its planes on ``dev`` and one shard on each of
+    ``shard_devices``."""
+    from repro_torch.configs import shapes
+    from repro_torch.core.planestore import PlaneStore
+    from repro_torch.core.voltage import PLATFORMS
+    from repro_torch.launch.mesh import make_reliability_mesh
+
+    g = np.random.default_rng(5)
+    ws = [g.standard_normal(s).astype(np.float32) for s in ((64, 96), (72, 65), (256, 64))]
+    keys = ["['blocks']['p0']['attn']['wq']", "['blocks']['p0']['mlp']['w1']", "['embed']"]
+    leaves = [ops.pack_ecc_weights(torch.from_numpy(w).to(dev)) for w in ws]
+    return PlaneStore(leaves, keys, PLATFORMS["vc707"], seed=3, mask_source="device",
+                      domain_key=shapes.domain_of, codecs={"mlp": "dected79"},
+                      device=dev, mesh=make_reliability_mesh(len(shard_devices),
+                                                             devices=shard_devices))
+
+
+def _assert_mesh_stores_equal(a, b, schedule):
+    """One ``set_rails_sharded`` step of each store: equal planes and
+    per-shard counters bit for bit, with faults in them. ``b`` takes
+    ``a``'s row factors first, so both draw one field. Returns ``a``'s
+    launch counts."""
+    import dataclasses
+
+    assert [gr.sharded.pad for gr in a.groups] == [0, 1]
+    for ga, gb in zip(a.groups, b.groups):
+        gb.sharded.fields = [dataclasses.replace(f, f_row=f.f_row.to(gb.lo.device))
+                             for f in ga.sharded.fields]
+    ops.reset_launch_count()
+    la, sa = a.set_rails_sharded(schedule)
+    counts = ops.launch_counts()
+    lb, sb = b.set_rails_sharded(schedule)
+    for x_, y_ in zip(la, lb):
+        for x, y in ((x_.lo, y_.lo), (x_.hi, y_.hi), (x_.parity, y_.parity)):
+            assert x.device == a.groups[0].lo.device
+            assert torch.equal(x.cpu(), y.cpu())
+    for s in range(a.n_shards):
+        for d in a.domains:
+            assert sa[s][d].counters().tolist() == sb[s][d].counters().tolist(), (s, d)
+    assert sa.total().faulty_words > 0
+    return counts
+
+
+@pytest.mark.gpu
+def test_two_shard_store_and_kv_scrub_step_on_the_card_equal_the_cpu(cuda):
+    """A 2-shard mesh store (two codec groups, a pad word) and a 2-shard KV
+    scrub step on the card against the same on the CPU, bit for bit: the
+    CPU store takes the card shards' row factors, so both draw one field.
+    Each shard launches the field and B2 once per codec group below V_min."""
+    from repro_torch.core.kvpages import KVGeometry, KVPageArena
+    from repro_torch.core.voltage import PLATFORMS
+    from repro_torch.distributed import meshrel
+    from repro_torch.launch.mesh import make_reliability_mesh
+    from repro_torch.models.base import ModelConfig
+
+    g = np.random.default_rng(5)
+    for s in ((64, 96), (72, 65), (256, 64)):
+        g.standard_normal(s)  # the store's weights: the KV payloads follow them
+    counts = _assert_mesh_stores_equal(_mesh_store(cuda, [cuda] * 2),
+                                       _mesh_store("cpu", ["cpu"] * 2), MESH_SCHEDULE)
+    # B2 on each (shard, group) slice; the field on three of them: shard 1's
+    # dected79 slice holds only mlp words, whose rail there is at 1.0 V
+    assert counts["fault_field"] == 3 and counts["inject_scrub_domains"] == 4, counts
+
+    cfg = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
+                      n_kv_heads=2, d_ff=128, vocab=128, head_dim=16)
+    geom = KVGeometry.from_config(cfg, page_tokens=4)
+    planes = []
+    for s in range(2):
+        a = KVPageArena(geom, PLATFORMS["vc707"], n_pages=3, seed=11, device=cuda, shard=s)
+        payload = torch.from_numpy(g.standard_normal((4, geom.token_f32)).astype(np.float32))
+        a.commit_tokens(payload.to(cuda), np.array([0, 0, 1, 2]), np.array([0, 1, 0, 0]))
+        a.set_voltage(0.545)
+        a.tick()
+        planes.append((a.lo, a.hi, a.parity))
+    stacked = [torch.cat([p[i] for p in planes]) for i in range(3)]
+    table = np.array([[0, 1, 2, 3], [2, 2, 0, 3]], np.int32)
+    step = meshrel.make_kv_scrub_step(make_reliability_mesh(2, devices=[cuda] * 2),
+                                      geom.words_per_page, planes[0][0].numel(), 4)
+    host = [t.to("cpu", copy=True) for t in stacked]
+    ok = step(*stacked, table)
+    op = meshrel.make_kv_scrub_step(make_reliability_mesh(2, devices=["cpu"] * 2),
+                                    geom.words_per_page, planes[0][0].numel(), 4)(*host, table)
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(ok, op))
+    assert int(op[-1][:, :, 1:3].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("other", ["cpu", "cuda:1"])
+def test_mesh_store_with_a_shard_off_the_planes_device_equals_the_cpu(cuda, other):
+    """A 2-shard mesh store whose planes lie on the card and whose shard 1
+    runs on another device (the CPU, or a second card where there is one,
+    as ``make_reliability_mesh()`` places shards on a machine of several
+    cards): shard 1 draws its field and runs B2 there on a copy of its clean
+    slices, and its faulty slices and counters are copied back. Planes and
+    counters equal the all-CPU store's bit for bit."""
+    if other.startswith("cuda") and torch.cuda.device_count() < 2:
+        pytest.skip("needs a second card")
+    mixed = _mesh_store(cuda, [cuda, other])
+    assert mixed.mesh.device_of(1) == torch.device(other)
+    counts = _assert_mesh_stores_equal(mixed, _mesh_store("cpu", ["cpu"] * 2), MESH_SCHEDULE)
+    # shard 0 launches the field and B2 on both groups; shard 1 on its
+    # secded72 group alone (its dected79 slice holds mlp words at 1.0 V),
+    # through the kernels on a second card and the plain versions on the CPU
+    on_card = 1 if other.startswith("cuda") else 0
+    assert counts["fault_field"] == 2 + on_card, counts
+    assert counts["inject_scrub_domains"] == 2 + 2 * on_card, counts

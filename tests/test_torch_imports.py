@@ -38,7 +38,9 @@ def test_port_modules_are_listed():
               "repro_torch.obs.report", "repro_torch.obs.profile",
               "repro_torch.core.scenario", "repro_torch.data.pipeline",
               "repro_torch.optim.adamw", "repro_torch.train.train_step",
-              "repro_torch.train.trainer", "repro_torch.checkpoint.manager"):
+              "repro_torch.train.trainer", "repro_torch.checkpoint.manager",
+              "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
+              "repro_torch.distributed.collectives", "repro_torch.distributed.meshrel"):
         assert m in mods
 
 
