@@ -335,7 +335,32 @@ them. Phases, each printed on its own line with its wall time:
      a rail step, B5 once an engine rail step (the embedding), B4 once a
      pack and a token commit, B6 once an interval, B3 once a protected
      matrix of each forward, F at most once a shard step and an interval;
-  4-20 each zero the kernel launch counts at the start of a path and read
+  21. the training mesh (path MT; ``launch.mesh.make_host_mesh``,
+     ``distributed.{sharding,collectives}``, ``Trainer(mesh=)``,
+     ``checkpoint.load(shardings=)``): MT_WORLD = 2 ranks, processes of this
+     script (``--train-mesh-child``) in a ``gloo`` group with both ranks on
+     the one card (NCCL refuses two ranks on one card; with a card per rank
+     they take NCCL), payloads copied card to card through per-rank
+     mailboxes mapped once by CUDA IPC, deterministic algorithms; qwen3-0.6b at its published width and depth,
+     phase 19's batch 4 x 512 (2 rows a rank). a. one int8-compressed
+     data-parallel step against the plain step (losses within 1e-5
+     relative, params within 5e-3: the reference's bounds), a non-zero
+     error feedback, and the step bit for bit its one-process emulation
+     (both halves' gradients, quantised, summed in rank order, / 2) on
+     every rank; the step wall and the collective's bytes and ms (and the
+     share of its barriers), beside the card's free memory and the host's
+     load when the ranks start; b. 3 steps
+     of ``Trainer(mesh=)`` rescaled onto the FSDP shardings of the (2, 1)
+     mesh, with ``RailPolicy(scrub_every=1, start_v=0.60, device masks)``
+     (rank 0 scrubs the gathered params) and ECC saves every step (rank 0
+     writes): losses within 1e-3 relative of phase 19's trainer, rank 0's
+     launches B4 a packed matrix and a saved leaf, one B2 a scrub, the
+     field below V_min, none on rank 1; c. ``checkpoint.load(shardings=)``
+     of the last checkpoint on each rank and on a one-rank mesh in this
+     process: each local shard its slice of the saved leaf bit for bit, one
+     B5 a leaf on each rank's card; d. a rescale back to whole tensors keeps
+     params, m and v bit for bit;
+  4-21 each zero the kernel launch counts at the start of a path and read
      them at its end, and fail unless every voltage step launched its scrub
      kernel once (B1 single-rail, B2 and the embedding's B5 multi-rail,
      none of the other path's), every forward pass of the protected model
@@ -349,7 +374,7 @@ them. Phases, each printed on its own line with its wall time:
      once, every per-leaf step and every domain read launched the fault
      injection and the decode once per leaf, and the plain codec never ran
      on the card;
-  21. one prefill and one decode step of paths 4-5 under torch.profiler
+  22. one prefill and one decode step of paths 4-5 under torch.profiler
      (device busy time, idle share, fused-matmul time inside the step, which
      must come from the decode kernel in a decode step and the tiled kernel
      in a prefill), tokens/s, voltage-step times and one
@@ -1371,6 +1396,418 @@ def mesh_phase(dev, cfg, params, stream) -> tuple:
     return out, record
 
 
+# ---------------------------------------------------------------- path MT
+# phase 21: the training mesh (path MT): W ranks of a process group (gloo
+# with every rank on the one card, NCCL with a card per rank), phase 19's
+# trainer configuration; the sharded trainer's steps; the tolerances: the
+# compressed step's loss against the plain step's and its params (the
+# reference's own bounds, tests/test_train_ckpt.py), the sharded trainer's
+# losses against phase 19's one-card trainer (the CPU tests' trajectory
+# tolerance)
+MT_WORLD, MT_STEPS = 2, 3
+MT_LOSS_RTOL, MT_PARAM_ATOL, MT_TRAJ_RTOL = 1e-5, 5e-3, 1e-3
+MT_CHILD_FLAG = "--train-mesh-child"
+
+
+def _mt_config(spec: dict):
+    from repro_torch.configs import get_config
+    from repro_torch.models import base
+
+    return get_config(spec["arch"]) if "arch" in spec else base.ModelConfig(**spec["tiny"])
+
+
+def _counts_since(ops) -> dict:
+    """The launches since the last reset (by kernel and by codec); resets."""
+    out = {"launches": ops.launch_counts(), "by_codec": ops.launch_counts_by_codec()}
+    ops.reset_launch_count()
+    return out
+
+
+def _peak_gb(card: bool) -> dict:
+    """The device memory peak since the last call, in GB; the cache emptied
+    for the next part."""
+    import torch
+
+    if not card:
+        return {"peak_gb": None}
+    out = {"peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def _shards_match_files(tree, path: str, dev) -> bool:
+    """Whether every DTensor leaf of ``tree`` (loaded from the checkpoint
+    at ``path``) holds, on ``dev``, its slice of the saved leaf bit for
+    bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import base
+
+    with open(os.path.join(path, "manifest.json")) as f:
+        dtypes = json.load(f)["dtypes"]
+    ok = True
+    for i, (_, leaf) in enumerate(base.flatten(tree)):
+        full = ckpt._tensor_of(np.load(os.path.join(path, f"leaf_{i:05d}.npy")), dtypes[i])
+        mine = shd.local_slice(full, leaf.device_mesh, leaf.placements)
+        local = leaf.to_local()
+        ok &= (local.device == dev and local.shape == mine.shape and torch.equal(
+            local.cpu().reshape(-1).view(torch.uint8), mine.reshape(-1).view(torch.uint8)))
+    return bool(ok)
+
+
+def train_mesh_child(argv) -> int:
+    """One rank of path MT: ``RANK WORLD WORKDIR DEVICE CONFIG-JSON``. Joins
+    the group (``file://WORKDIR/pg``), runs parts a-d, writes
+    ``WORKDIR/mt_r{RANK}.json`` and exits 0 when every check passed."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import base, lm
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import _value_and_grad, make_loss_fn
+    from repro_torch.train.trainer import RailPolicy, Trainer
+
+    rank, world, work, device = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    cfg = _mt_config(json.loads(argv[4]))
+    card = device == "cuda"
+    if card:  # the deterministic algorithms make the two ranks' halves reproducible
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    else:
+        torch.set_num_threads(1)
+    backend = "nccl" if card and torch.cuda.device_count() >= world else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{os.path.join(work, 'pg')}",
+                            world_size=world, rank=rank)
+    out = {"rank": rank, "backend": backend, "parts": {}}
+    try:
+        mesh = make_host_mesh(device=device)
+        dev = mesh.device
+
+        def sync():
+            if card:
+                torch.cuda.synchronize()
+
+        tc, pipe = _train_setup(cfg)
+        tokens = T_BATCH * T_SEQ
+        ops.reset_launch_count()
+
+        # a. one compressed data-parallel step, the plain step, the emulation
+        params = lm.init_params(cfg, 0, dev)
+        opt, ef0 = adamw.init(params, tc.optimizer), coll.init_error_feedback(params)
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in pipe.batch_at(0).items()}
+        step_c = coll.make_dp_compressed_train_step(cfg, tc, mesh, compress=True)
+        step_u = coll.make_dp_compressed_train_step(cfg, tc, mesh, compress=False)
+        walls, coll_log, bar_log = {}, [], []
+        real_gather, real_barrier = coll.all_gather, dist.barrier
+
+        def timed_barrier(*args, **kw):
+            t0_ = time.perf_counter()
+            real_barrier(*args, **kw)
+            bar_log.append(time.perf_counter() - t0_)
+
+        def timed_gather(t, group=None):
+            sync()
+            t0_ = time.perf_counter()
+            parts = real_gather(t, group)
+            sync()
+            coll_log.append((t.numel() * t.element_size(), time.perf_counter() - t0_))
+            return parts
+
+        res = {}
+        for tag, step in (("c", step_c), ("u", step_u)):
+            step(params, opt, ef0, batch)  # warm
+            sync()
+            t0_ = time.perf_counter()
+            p_, _, ef_, loss_ = step(params, opt, ef0, batch)
+            sync()
+            walls[tag] = time.perf_counter() - t0_
+            res[tag] = (p_, ef_ if tag == "c" else None, float(loss_))
+            del p_, ef_
+            coll_log.clear()
+            bar_log.clear()
+            coll.all_gather, dist.barrier = timed_gather, timed_barrier
+            try:
+                again = step(params, opt, ef0, batch)[0]
+            finally:
+                coll.all_gather, dist.barrier = real_gather, real_barrier
+            require(_bits_equal(again, res[tag][0]), f"MT a. rank {rank}: a repeated {tag} "
+                    "step gave other params")
+            walls[f"{tag}_collective_bytes"] = sum(b for b, _ in coll_log)
+            walls[f"{tag}_collective_ms"] = 1e3 * sum(s for _, s in coll_log)
+            walls[f"{tag}_collectives"] = len(coll_log)
+            walls[f"{tag}_barrier_ms"] = 1e3 * sum(bar_log)
+            del again
+        (pc, efc, lc), (pu, _, lu) = res["c"], res["u"]
+        diff = max(float((a.float() - b.float()).abs().max())
+                   for (_, a), (_, b) in zip(base.flatten(pc), base.flatten(pu)))
+        ef_max = max(float(e.abs().max()) for _, e in base.flatten(efc))
+        require(abs(lc - lu) <= MT_LOSS_RTOL * abs(lu) and diff < MT_PARAM_ATOL and ef_max > 0,
+                f"MT a. rank {rank}: losses {lc} / {lu}, param diff {diff}, ef max {ef_max}")
+        # the emulation: both halves on this rank, quantised, summed in rank order, / W
+        loss_fn = make_loss_fn(cfg, tc)
+        halves = [_value_and_grad(loss_fn, params, coll.local_rows(batch, r, world))
+                  for r in range(world)]
+        flat_g = [[g for _, g in base.flatten(h[2])] for h in halves]
+        avg, ef_mine = [], []
+        for i in range(len(flat_g[0])):
+            total = None
+            for r in range(world):
+                target = flat_g[r][i].to(torch.float32)  # + a zero error feedback
+                q, scale = coll.quantize_int8(target)
+                sent = q.to(torch.float32) * scale
+                total = sent if total is None else total + sent
+                if r == rank:
+                    ef_mine.append(target - sent)
+            avg.append(total / world)
+        loss_e = sum((h[0] for h in halves[1:]), halves[0][0]) / world
+        pe, _, _ = adamw.update(base.unflatten(params, avg), opt, params, tc.optimizer)
+        emulated = (_bits_equal(pe, pc) and float(loss_e) == lc
+                    and _bits_equal(base.unflatten(params, ef_mine), efc))
+        require(emulated, f"MT a. rank {rank}: the {world}-rank step differs from its "
+                "one-process emulation")
+        del res, pc, pu, efc, pe, halves, flat_g, avg, ef_mine, params, opt, ef0
+        out["parts"]["a"] = {"loss_compressed": lc, "loss_plain": lu, "param_diff": diff,
+                             "ef_max": ef_max, "emulation_bitwise": emulated,
+                             "step_wall_s": walls, **_peak_gb(card), **_counts_since(ops)}
+
+        # b. the sharded trainer: rescaled onto FSDP shardings, RailPolicy, ECC saves
+        packs = [0]
+        real_pack = ops.pack_ecc_weights
+
+        def counted_pack(*a, **kw):
+            packs[0] += 1
+            return real_pack(*a, **kw)
+
+        ops.pack_ecc_weights = counted_pack
+        ps = shd.param_shardings(cfg, mesh, fsdp=True)
+        d_b = os.path.join(work, "b")
+        pol = RailPolicy(scrub_every=1, start_v=0.60, mask_source="device")
+        try:
+            tr = Trainer(cfg, tc, pipe, d_b, mesh=mesh, ckpt_every=1, ecc_checkpoints=True,
+                         rails=pol)
+            tr.rescale(mesh, ps)
+            t0_ = time.perf_counter()
+            tr.run(MT_STEPS)
+            sync()
+            wall_b = time.perf_counter() - t0_
+        finally:
+            ops.pack_ecc_weights = real_pack
+        hist = tr.history
+        losses = _losses(hist)
+        step_s = [r["seconds"] for r in hist if "loss" in r]
+        events = [r for r in hist if r.get("event") == "rails"]
+        n_leaves = len(base.flatten(tr._state()))
+        out["parts"]["b"] = {
+            "losses": losses, "step_s": step_s,
+            "median_step_s": float(np.median(step_s[1:])), "tokens_per_step": tokens,
+            "tokens_per_s": tokens / float(np.median(step_s[1:])), "wall_s": wall_b,
+            "rails": [{k: e[k] for k in ("step", "voltages", "locked", "detected")}
+                      for e in events],
+            "packs": packs[0], "leaves": n_leaves, "saves": MT_STEPS,
+            "local_embed_shape": list(tr.params["embed"].to_local().shape),
+            **_peak_gb(card), **_counts_since(ops)}
+
+        # c. load the last checkpoint onto the trainer's shardings
+        shardings = {"params": ps, "opt": {"m": ps, "v": ps, "step": shd.replicated(mesh)}}
+        sync()
+        t0_ = time.perf_counter()
+        back = ckpt.load(d_b, MT_STEPS, tr._state(), shardings=shardings)
+        sync()
+        load_s = time.perf_counter() - t0_
+        counts_c = _counts_since(ops)
+        slices_equal = _shards_match_files(back, os.path.join(d_b, f"step_{MT_STEPS:06d}"), dev)
+        require(slices_equal and counts_c["launches"]["decode"] == (n_leaves if card else 0),
+                f"MT c. rank {rank}: local shards equal {slices_equal}, launches "
+                f"{counts_c['launches']}")
+        del back
+        out["parts"]["c"] = {"load_s": load_s, "slices_bitwise": slices_equal, **counts_c}
+
+        # d. rescale from the data-sharded mesh to whole tensors on every rank
+        before = {k: shd.gather_leaf(v).clone() for k, v in base.flatten(tr._state())}
+        tr.rescale(mesh)
+        kept = all(type(v) is torch.Tensor for _, v in base.flatten(tr._state())) and \
+            _bits_equal(base.unflatten(tr._state(), list(before.values())), tr._state())
+        require(kept, f"MT d. rank {rank}: the rescale changed the state")
+        out["parts"]["d"] = {"bitwise": kept, **_counts_since(ops)}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(work, f"mt_r{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def train_mesh_phase(dev, cfg_spec: dict, t_losses: list) -> tuple:
+    """Path MT on ``dev``: MT_WORLD ranks (``train_mesh_child`` processes)
+    run a. one compressed data-parallel step against the plain step and
+    against its one-process emulation, b. MT_STEPS steps of a sharded
+    ``Trainer(mesh=)`` with a device-mask RailPolicy and ECC saves every
+    step, whose losses must be within MT_TRAJ_RTOL of ``t_losses`` (phase
+    19's one-card trainer), c. ``checkpoint.load(shardings=)`` of its last
+    checkpoint onto the ranks, d. a rescale back to whole tensors; then this
+    process loads the checkpoint onto a one-rank mesh. Returns (results,
+    the path's record for the kernels line)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import base, lm
+    from repro_torch.optim import adamw
+
+    card = dev.type == "cuda"
+    cfg = _mt_config(cfg_spec)
+    t_phase = time.perf_counter()
+    if card:
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+    # what the ranks start beside: this process's card memory and the host's load
+    at_spawn = {"load_avg_1m": os.getloadavg()[0]}
+    if card:
+        free_b, _ = torch.cuda.mem_get_info(dev)
+        at_spawn.update(card_free_gb=free_b / 1e9,
+                        this_process_allocated_gb=torch.cuda.memory_allocated(dev) / 1e9,
+                        this_process_reserved_gb=torch.cuda.memory_reserved(dev) / 1e9)
+    work = tempfile.mkdtemp(prefix=".train_ckpt_mt_", dir=ROOT)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src")]
+                                          + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    procs, outs = [], {}
+    try:
+        for r in range(MT_WORLD):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), MT_CHILD_FLAG, str(r), str(MT_WORLD),
+                 work, dev.type, json.dumps(cfg_spec)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env))
+        errs = [p.communicate(timeout=900)[1] for p in procs]
+        require(all(p.returncode == 0 for p in procs), "MT: " + " | ".join(
+            f"rank {r} exited {p.returncode}: {e[-2500:]}" for r, (p, e) in
+            enumerate(zip(procs, errs)) if p.returncode))
+        for r in range(MT_WORLD):
+            with open(os.path.join(work, f"mt_r{r}.json")) as f:
+                outs[r] = json.load(f)
+        spawn_s = time.perf_counter() - t_phase
+
+        # the one-rank load of the same checkpoint, in this process
+        ops.reset_launch_count()
+        dist.init_process_group("gloo", init_method=f"file://{os.path.join(work, 'pg1')}",
+                                world_size=1, rank=0)
+        try:
+            mesh1 = make_host_mesh(device=dev)
+            ps1 = shd.param_shardings(cfg, mesh1, fsdp=True)
+            pstruct = lm.param_struct(cfg)
+            like = {"params": pstruct, "opt": adamw.init(pstruct, _train_setup(cfg)[0].optimizer)}
+            sh1 = {"params": ps1, "opt": {"m": ps1, "v": ps1, "step": shd.replicated(mesh1)}}
+            t0_ = time.perf_counter()
+            back = ckpt.load(os.path.join(work, "b"), MT_STEPS, like, shardings=sh1)
+            if card:
+                torch.cuda.synchronize()
+            load1_s = time.perf_counter() - t0_
+            counts_w1 = _counts_since(ops)
+            n_leaves = len(base.flatten(back))
+            w1_equal = _shards_match_files(
+                back, os.path.join(work, "b", f"step_{MT_STEPS:06d}"), mesh1.device)
+            del back
+        finally:
+            dist.destroy_process_group()
+        require(w1_equal and counts_w1["launches"]["decode"] == (n_leaves if card else 0),
+                f"MT c. one rank: local = full {w1_equal}, launches {counts_w1['launches']}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(work, ignore_errors=True)
+
+    res = {r: o["parts"] for r, o in outs.items()}
+    b0 = res[0]["b"]
+    losses = b0["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, t_losses))
+    require(all(res[r]["b"]["losses"] == losses for r in res)
+            and len(losses) == MT_STEPS and rel <= MT_TRAJ_RTOL,
+            f"MT b. losses {[res[r]['b']['losses'] for r in res]} against phase 19's "
+            f"{t_losses[:MT_STEPS]} (max rel {rel:.2e})")
+    # launches: rank 0 scrubs (B4 a packed matrix, one B2, the field below
+    # V_min) and writes the saves (B4 a leaf); every rank's load is one B5 a leaf
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    by_codec = {k: {} for k in ops.launch_counts_by_codec()}
+    for counts in [res[r][p] for r in res for p in "abcd"] + [counts_w1]:
+        for k, n in counts["launches"].items():
+            total[k] += n
+        for k, per in counts["by_codec"].items():
+            for c, n in per.items():
+                by_codec[k][c] = by_codec[k].get(c, 0) + n
+    if card:
+        n_scrubs = len(b0["rails"])
+        want0 = dict.fromkeys(total, 0)
+        want0.update(encode=b0["packs"] + b0["saves"] * b0["leaves"],
+                     inject_scrub_domains=n_scrubs,
+                     fault_field=res[0]["b"]["launches"]["fault_field"])
+        require(n_scrubs == MT_STEPS and b0["launches"] == want0
+                and b0["launches"]["fault_field"] <= n_scrubs
+                and all(sum(res[r]["b"]["launches"].values()) == 0 for r in res if r),
+                f"MT b. launches {[res[r]['b']['launches'] for r in res]}, expected rank 0 "
+                f"{want0} and none elsewhere")
+        require(all(sum(res[r][p]["launches"].values()) == 0 for r in res for p in "ad"),
+                "MT a./d. a train step or a rescale launched a kernel")
+        require(all(total[k] > 0 for k in ("inject_scrub_domains", "encode", "decode")),
+                f"MT: a kernel of the path never launched: {total}")
+    a0 = res[0]["a"]
+    w = a0["step_wall_s"]
+    out = {"world": MT_WORLD, "backend": outs[0]["backend"], "ranks": res,
+           "load_one_rank_s": load1_s, "spawn_s": spawn_s, "launches": total,
+           "at_spawn": at_spawn,
+           "max_rel_vs_phase_19": rel, "wall_s": time.perf_counter() - t_phase}
+    print(f"  MT {cfg.name} on {MT_WORLD} ranks ({outs[0]['backend']}, "
+          f"{'one card' if card and torch.cuda.device_count() < MT_WORLD else dev.type}), "
+          f"batch {T_BATCH} x {T_SEQ} ({T_BATCH // MT_WORLD} rows a rank) | "
+          f"{gpu_line() if card else 'cpu'}; at the ranks' start "
+          f"{json.dumps({k: round(v, 3) for k, v in at_spawn.items()})}")
+    print(f"  MT a. compressed step: loss {a0['loss_compressed']:.6f} vs plain "
+          f"{a0['loss_plain']:.6f}, params within {a0['param_diff']:.2e} (< {MT_PARAM_ATOL}), "
+          f"error feedback max {a0['ef_max']:.3e}, = the one-process emulation bit for bit on "
+          f"every rank; step wall {1e3 * w['c']:.1f} ms compressed ({T_BATCH * T_SEQ / w['c']:.0f} "
+          f"tokens/s), {1e3 * w['u']:.1f} ms plain; collective a step and rank: compressed "
+          f"{w['c_collective_bytes'] / 1e6:.1f} MB in {w['c_collectives']} all-gathers, "
+          f"{w['c_collective_ms']:.1f} ms ({w['c_barrier_ms']:.1f} of it barriers); plain "
+          f"{w['u_collective_bytes'] / 1e6:.1f} MB in {w['u_collectives']}, "
+          f"{w['u_collective_ms']:.1f} ms ({w['u_barrier_ms']:.1f} of it barriers)")
+    print(f"  MT b. Trainer(mesh=) rescaled onto FSDP shardings (local embed "
+          f"{b0['local_embed_shape']}), RailPolicy(scrub_every=1, start_v=0.60, device masks), "
+          f"ECC saves every step: losses {losses} vs phase 19's {t_losses[:MT_STEPS]} (max rel "
+          f"{rel:.2e} <= {MT_TRAJ_RTOL}); step wall median {1e3 * b0['median_step_s']:.1f} ms = "
+          f"{b0['tokens_per_s']:.0f} tokens/s; rails {[e['voltages'] for e in b0['rails']]}; "
+          f"rank 0 launches {json.dumps(b0['launches'])} ({b0['packs']} packs); peak "
+          f"{b0['peak_gb']} GB a rank")
+    print(f"  MT c. load(shardings=) of the step-{MT_STEPS} checkpoint: each rank's shards its "
+          f"slices bit for bit, one B5 a leaf on its card "
+          f"({[res[r]['c']['launches']['decode'] for r in res]}; "
+          f"{[round(res[r]['c']['load_s'], 2) for r in res]} s); one rank "
+          f"{counts_w1['launches']['decode']} B5, {load1_s:.2f} s")
+    print(f"  MT d. rescale to whole tensors: params, m, v bit for bit on every rank; "
+          f"MT launches {json.dumps(total)}; MT in {out['wall_s']:.1f} s")
+    record = {"launches": total, "launches_by_codec": by_codec, "kv_codec": "secded72",
+              "matmuls_per_forward": 0, "packs": b0["packs"], "commits": 0,
+              "forwards": {"prefill": 0, "decode": 0, "decode_kernel": 0}}
+    return out, record
+
+
 def main() -> int:
     import torch
 
@@ -1822,13 +2259,14 @@ def main() -> int:
         """Which B3 kernel each matmul of a forward ran, as the profiler saw
         it: a prefill's all tiled, a decode step's by ``b3_split`` (w2 tiled
         where its K is past the decode kernel's shared memory); the wrapper
-        counts the same. torch.profiler can lose a device record from a
-        window: late in this process it loses one at the same place of
+        counts the same. torch.profiler can lose device records from a
+        window: late in this process it loses one or two near the start of
         every window of a step (minitron-8b's decode step: layer 0's w1
-        launch, in every window). So a window that saw fewer launches than
-        the wrapper counted is traced again (up to 5 windows), each opened
-        by one more one-element kernel, which moves that place; a window
-        that saw more, or the other kernel, fails."""
+        launch, in every window), fewer the more kernels open the window.
+        So a window that saw fewer launches than the wrapper counted is
+        traced again (up to 5 windows), each opened by 4x more one-element
+        kernels (0, 4, 16, 64, 256), which take the losses; a window that
+        saw more, or the other kernel, fails."""
         toks_ = torch.as_tensor(prompts_, device=dev)
         cache_ = lm.init_cache(c, BATCH, 64)
         logits_, _ = lm.prefill(params_, toks_, c, cache_)
@@ -1839,7 +2277,7 @@ def main() -> int:
                  b3_split(c, BATCH * PROMPT_LEN)),
                 ("decode", lambda: lm.decode_step(params_, tok_, c, cache_, PROMPT_LEN),
                  b3_split(c, BATCH))):
-            for lead in range(5):
+            for lead in (0, 4, 16, 64, 256):
                 ops.reset_launch_count()
                 evs = device_events(f_, lead)
                 ran = {k_: sum(v in e[0] for e in evs) for k_, v in b3_names.items()}
@@ -6574,8 +7012,12 @@ def main() -> int:
     with Phase(f"20 reliability mesh (path MH): qwen3-0.6b on {MH_SHARDS} shards of one card"):
         mesh_run, paths_extra["MH"] = mesh_phase(dev, cfg, params, stream)
 
-    # ---------------------------------------------------------------- 21
-    with Phase("21 traced steps, timings and the kernels line"):
+    with Phase(f"21 training mesh (path MT): qwen3-0.6b on {MT_WORLD} ranks"):
+        train_mesh_run, paths_extra["MT"] = train_mesh_phase(
+            dev, {"arch": "qwen3-0.6b"}, train_run["a"]["losses"])
+
+    # ---------------------------------------------------------------- 22
+    with Phase("22 traced steps, timings and the kernels line"):
         for name, run in runs.items():
             run["steps"] = step_breakdown(traced_params.pop(name), {"prefill": 0, "decode": 0},
                                           walls=run["steps"])
@@ -6618,6 +7060,7 @@ def main() -> int:
         print(f"  vlm_audio {json.dumps(vlm_audio_run)}")
         print(f"  train {json.dumps(train_run)}")
         print(f"  mesh {json.dumps(mesh_run)}")
+        print(f"  train_mesh {json.dumps(train_mesh_run)}")
         paths = {**runs, **{k: v for k, v in paged.items() if "launches" in v}, **paths_extra}
 
         print(f"  codec {json.dumps(codec_run)}")
@@ -6738,4 +7181,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [T_CHILD_FLAG]:
         sys.exit(train_resume_child(sys.argv[2:]))
+    if sys.argv[1:2] == [MT_CHILD_FLAG]:
+        sys.exit(train_mesh_child(sys.argv[2:]))
     sys.exit(main())

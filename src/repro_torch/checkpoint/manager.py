@@ -21,6 +21,15 @@ corruption is CORRECTED transparently, a multi-bit one is DETECTED and
 raises ``CheckpointCorruption`` (the trainer then falls back to the
 previous checkpoint) — the CORRECTED/DETECTED split of the BRAM
 controller, applied to the long-lived memory of a training run.
+
+Resharding: leaves are saved as full tensors and placed on load, so a
+checkpoint written by one layout restores onto any other. In an initialised
+process group a save is collective: DTensor leaves are gathered whole on
+every rank, rank 0 writes the reference's files and the other ranks wait at
+a barrier. ``load(shardings=)`` reads every full leaf on every rank,
+verifies and corrects it there (B5 on the rank's device, as the reference
+corrects before ``device_put``) and keeps the rank's own slice as a
+``DTensor``: nothing is scattered.
 """
 
 from __future__ import annotations
@@ -67,9 +76,35 @@ def _host_array(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def save(ckpt_dir: str, step: int, tree, *, ecc_protect: bool = False, keep: int = 3):
+def save(ckpt_dir: str, step: int, tree, *, ecc_protect: bool = False, keep: int = 3,
+         group=None):
     """Atomically write one checkpoint; prunes old ones beyond ``keep``.
-    Leaves are tensors (numpy arrays are taken as CPU tensors)."""
+    Leaves are tensors (numpy arrays are taken as CPU tensors) or DTensors.
+    With ``group`` (a process group) the save is collective: every rank of
+    the group calls it, DTensor leaves are gathered whole, the group's rank
+    0 writes and the others wait at a barrier. Without it this process
+    writes alone, and a tree of DTensors is refused."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as shd
+
+    if group is None:
+        if any(isinstance(l, DTensor) for l in _flatten(tree)):
+            raise ValueError("a tree of DTensors is saved by every rank of its mesh: "
+                             "pass group=")
+        _write(ckpt_dir, step, tree, ecc_protect, keep)
+        return
+    import torch.distributed as dist
+
+    tree = shd.gather(tree)
+    try:
+        if dist.get_rank(group) == 0:
+            _write(ckpt_dir, step, tree, ecc_protect, keep)
+    finally:
+        dist.barrier(group=group)
+
+
+def _write(ckpt_dir: str, step: int, tree, ecc_protect: bool, keep: int):
     leaves = [torch.as_tensor(l) for l in _flatten(tree)]
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step:06d}")
     final = os.path.join(ckpt_dir, f"step_{step:06d}")
@@ -156,24 +191,30 @@ def _tensor_of(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def load(ckpt_dir: str, step: int, like, shardings=None):
-    """Load into the structure of ``like``; each leaf goes to the device of
-    the leaf of ``like`` it replaces (the CPU for a numpy leaf) and is
-    verified there."""
-    if shardings is not None:
-        raise ValueError("resharding on load takes a device mesh, which the port does not "
-                         "have yet (ROADMAP.md queue A item 10)")
+    """Load into the structure of ``like``; each leaf is verified on the
+    device it goes to. Without ``shardings`` that is the device of the leaf
+    of ``like`` it replaces (the CPU for a numpy leaf); with a tree of
+    ``sharding.NamedSharding``s it is the sharding's mesh device, and the
+    leaf becomes this rank's slice of it, a DTensor."""
+    from repro_torch.distributed import sharding as shd
+
     path = os.path.join(ckpt_dir, f"step_{step:06d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     leaves_like = _flatten(like)
     assert manifest["n_leaves"] == len(leaves_like), "tree structure mismatch"
+    shards = ([None] * len(leaves_like) if shardings is None else
+              [s for _, s in base.flatten(shardings,
+                                          is_leaf=lambda x: isinstance(x, shd.NamedSharding))])
+    assert len(shards) == len(leaves_like), "sharding tree mismatch"
     out = []
-    for i, ref in enumerate(leaves_like):
+    for i, (ref, sh) in enumerate(zip(leaves_like, shards)):
         arr = np.load(os.path.join(path, f"leaf_{i:05d}.npy"))
-        dev = ref.device if isinstance(ref, torch.Tensor) else torch.device("cpu")
+        dev = (sh.mesh.device if sh is not None else
+               ref.device if isinstance(ref, torch.Tensor) else torch.device("cpu"))
         t = _tensor_of(arr, manifest["dtypes"][i]).to(dev)
         eccf = os.path.join(path, f"leaf_{i:05d}.ecc.npz")
         if manifest["ecc"] and os.path.exists(eccf):
             t = _verify_and_correct(t, eccf)
-        out.append(t)
+        out.append(t if sh is None else shd.place(t, sh))
     return base.unflatten(like, out)

@@ -5,6 +5,7 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs import shapes
+from repro_torch.configs.shapes import SHAPES, input_specs, supported_shapes
 
 ARCHS = {
     "qwen3-0.6b": "qwen3_0_6b",
@@ -36,4 +37,7 @@ def get_smoke_config(arch: str):
     return _module(arch).smoke_config()
 
 
-__all__ = ["ARCHS", "get_config", "get_smoke_config", "shapes"]
+__all__ = [
+    "ARCHS", "SHAPES", "get_config", "get_smoke_config", "input_specs",
+    "supported_shapes", "shapes",
+]

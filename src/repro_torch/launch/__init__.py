@@ -1,1 +1,2 @@
-"""Meshes of the port: the reliability mesh of data-parallel shards."""
+"""Meshes of the port (the reliability mesh, the pod meshes, the host mesh
+over a process group), the dry run's ECC structs and its analytic model."""

@@ -1,5 +1,6 @@
-"""The reliability mesh: data-parallel shards, each one chip with its own
-rails and fault population.
+"""Meshes of the port: the reliability mesh of data-parallel shards, the
+production pod meshes as abstract meshes, and the host mesh over a
+``torch.distributed`` process group.
 
 A ``ReliabilityMesh`` names its axes, their sizes (``shape``, a mapping such
 as ``{"data": 4, "model": 1}``) and the ``torch.device`` of each
@@ -8,8 +9,15 @@ card (``devices=["cuda:0"] * 4``), as the reference's forced host devices
 share one CPU. The decode stays on one device, as in the reference's engine,
 so a ``model`` axis above 1 is recorded and not used.
 
-Not ported here: the production pod meshes (``make_production_mesh``,
-``make_host_mesh``), which only the dry run and the training mesh use.
+The reference's meshes are TPU pods: ``make_production_mesh`` builds
+(16, 16) ("data", "model") or (2, 16, 16) ("pod", "data", "model") over
+256 or 512 chips. No host here has that many ranks, so the port returns
+them as abstract meshes (axes and sizes, no devices), which is all the
+sharding rules and the dry run's analytic model read. ``make_host_mesh``
+is the mesh that runs: a ``HostMesh`` of ("data", "model") over the ranks
+of the default process group, which the caller starts (``torchrun``, or
+``torch.distributed.init_process_group`` with its address, world size and
+rank). It never starts a group and never falls back to one rank.
 """
 
 from __future__ import annotations
@@ -17,6 +25,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from repro_torch.kernels.backend import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,3 +98,62 @@ def make_reliability_mesh(n_shards: int | None = None, model: int = 1,
                          f"got {n}")
     return ReliabilityMesh(("data", "model"), (n_shards, model),
                            tuple(devices[s * model] for s in range(n_shards)))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ReliabilityMesh:
+    """The reference's pod mesh as an abstract mesh: (16, 16) ("data",
+    "model"), or (2, 16, 16) ("pod", "data", "model") across two pods."""
+    if multi_pod:
+        return abstract_mesh((2, 16, 16), ("pod", "data", "model"))
+    return abstract_mesh((16, 16), ("data", "model"))
+
+
+class HostMesh:
+    """A ("data", "model") mesh over the ranks of the default process group:
+    axis names, their sizes (``shape``), the ``DeviceMesh`` that DTensors
+    are placed on, this rank's device and coordinate, the group of all its
+    ranks (``group``) and the group of the ranks along "data" through this
+    rank (``batch_group``: the data-parallel replicas of its shard, in batch
+    order)."""
+
+    def __init__(self, device_mesh, device: torch.device):
+        import torch.distributed as dist
+
+        self.device_mesh = device_mesh
+        self.group = dist.group.WORLD
+        self.axis_names = tuple(device_mesh.mesh_dim_names)
+        if self.axis_names != ("data", "model"):
+            raise ValueError(f"a host mesh has the axes ('data', 'model'), not {self.axis_names}")
+        self.sizes = tuple(int(n) for n in device_mesh.mesh.shape)
+        self.device = device
+        self.coordinate = tuple(int(c) for c in device_mesh.get_coordinate())
+        self.batch_group = device_mesh.get_group("data")
+        self.batch_index, self.n_batch = self.coordinate[0], self.sizes[0]
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def make_host_mesh(model: int = 1, device=None) -> HostMesh:
+    """A ("data", "model") mesh over the default process group's world:
+    world / ``model`` data-parallel ways x ``model``. Ranks are laid out
+    row-major, so rank r has coordinate (r // model, r % model). Each rank
+    runs on ``device`` (None: the card, the current CUDA device, which the
+    caller sets per rank; ``"cpu"`` off the card). Raises without an
+    initialised process group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("no process group: start one (torchrun, or "
+                           "torch.distributed.init_process_group) before make_host_mesh")
+    dev = resolve_device(device)
+    n = dist.get_world_size()
+    model = int(model)
+    if model < 1 or n % model:
+        raise ValueError(f"a world of {n} ranks does not split into rows of {model}")
+    dm = init_device_mesh(dev.type, (n // model, model), mesh_dim_names=("data", "model"))
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return HostMesh(dm, dev)

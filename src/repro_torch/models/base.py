@@ -106,6 +106,21 @@ class Spec:
     shape: tuple
     init: str = "normal"  # normal | zeros | ones | decay
     scale: float = 1.0
+    # logical axis names, one per dim ("layers", "embed", "heads:<n>", "ffn",
+    # "experts", "vocab" or None): distributed/sharding.py maps them to a mesh
+    axes: tuple = ()
+
+
+def struct(spec_tree, dtype):
+    """Spec tree -> tensors on the meta device: shapes and dtypes, no
+    storage (the reference's ShapeDtypeStructs)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype, device="meta"), spec_tree,
+                    is_leaf=lambda x: isinstance(x, Spec))
+
+
+def axes_tree(spec_tree):
+    """Spec tree -> the tree of its leaves' logical axes."""
+    return tree_map(lambda s: s.axes, spec_tree, is_leaf=lambda x: isinstance(x, Spec))
 
 
 def materialize(spec_tree, generator: torch.Generator, dtype, device):

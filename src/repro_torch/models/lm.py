@@ -85,47 +85,52 @@ def recurrent(cfg: ModelConfig) -> bool:
 
 
 def _norm_spec(cfg):
-    p = {"gamma": Spec((cfg.d_model,), "ones")}
+    p = {"gamma": Spec((cfg.d_model,), "ones", axes=("embed",))}
     if cfg.norm_type == "layernorm":
-        p["beta"] = Spec((cfg.d_model,), "zeros")
+        p["beta"] = Spec((cfg.d_model,), "zeros", axes=("embed",))
     return p
 
 
 def _attn_spec(cfg):
+    # "heads:<n>" shards over the model axis only where n divides it, so no
+    # head is split across devices (distributed/sharding.py)
     d, hd = cfg.d_model, cfg.hd
+    qh, kh = f"heads:{cfg.n_heads}", f"heads:{cfg.n_kv_heads}"
     p = {
-        "wq": Spec((d, cfg.n_heads * hd)),
-        "wk": Spec((d, cfg.n_kv_heads * hd)),
-        "wv": Spec((d, cfg.n_kv_heads * hd)),
-        "wo": Spec((cfg.n_heads * hd, d)),
+        "wq": Spec((d, cfg.n_heads * hd), axes=("embed", qh)),
+        "wk": Spec((d, cfg.n_kv_heads * hd), axes=("embed", kh)),
+        "wv": Spec((d, cfg.n_kv_heads * hd), axes=("embed", kh)),
+        "wo": Spec((cfg.n_heads * hd, d), axes=(qh, "embed")),
     }
     if cfg.qkv_bias:
-        p["bq"] = Spec((cfg.n_heads * hd,), "zeros")
-        p["bk"] = Spec((cfg.n_kv_heads * hd,), "zeros")
-        p["bv"] = Spec((cfg.n_kv_heads * hd,), "zeros")
+        p["bq"] = Spec((cfg.n_heads * hd,), "zeros", axes=(qh,))
+        p["bk"] = Spec((cfg.n_kv_heads * hd,), "zeros", axes=(kh,))
+        p["bv"] = Spec((cfg.n_kv_heads * hd,), "zeros", axes=(kh,))
     if cfg.qk_norm:
-        p["q_norm"] = Spec((hd,), "ones")
-        p["k_norm"] = Spec((hd,), "ones")
+        p["q_norm"] = Spec((hd,), "ones", axes=(None,))
+        p["k_norm"] = Spec((hd,), "ones", axes=(None,))
     return p
 
 
 def _mlp_spec(cfg):
     d, f = cfg.d_model, cfg.d_ff
-    p = {"w1": Spec((d, f)), "w2": Spec((f, d))}
+    p = {"w1": Spec((d, f), axes=("embed", "ffn")), "w2": Spec((f, d), axes=("ffn", "embed"))}
     if cfg.gated_mlp:
-        p["w3"] = Spec((d, f))
+        p["w3"] = Spec((d, f), axes=("embed", "ffn"))
     return p
 
 
 def _moe_spec(cfg):
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-    p = {"router": Spec((d, e)), "w1": Spec((e, d, f)), "w2": Spec((e, f, d))}
+    p = {"router": Spec((d, e), axes=("embed", None)),
+         "w1": Spec((e, d, f), axes=("experts", "embed", "ffn")),
+         "w2": Spec((e, f, d), axes=("experts", "ffn", "embed"))}
     if cfg.gated_mlp:
-        p["w3"] = Spec((e, d, f))
+        p["w3"] = Spec((e, d, f), axes=("experts", "embed", "ffn"))
     if cfg.shared_expert:
-        p["shared_w1"] = Spec((d, f))
-        p["shared_w3"] = Spec((d, f))
-        p["shared_w2"] = Spec((f, d))
+        p["shared_w1"] = Spec((d, f), axes=("embed", "ffn"))
+        p["shared_w3"] = Spec((d, f), axes=("embed", "ffn"))
+        p["shared_w2"] = Spec((f, d), axes=("ffn", "embed"))
     return p
 
 
@@ -133,47 +138,49 @@ def _mamba_spec(cfg):
     d, di, ds, k = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.d_conv
     dtr = max(1, d // 16)
     return {
-        "in_proj": Spec((d, 2 * di)),
-        "conv_w": Spec((di, k), scale=0.5),
-        "conv_b": Spec((di,), "zeros"),
-        "x_proj": Spec((di, dtr + 2 * ds)),
-        "dt_proj": Spec((dtr, di)),
-        "dt_bias": Spec((di,), "zeros"),
-        "a_log": Spec((di, ds), "decay"),
-        "d_skip": Spec((di,), "ones"),
-        "out_proj": Spec((di, d)),
+        "in_proj": Spec((d, 2 * di), axes=("embed", "ffn")),
+        "conv_w": Spec((di, k), scale=0.5, axes=("ffn", None)),
+        "conv_b": Spec((di,), "zeros", axes=("ffn",)),
+        "x_proj": Spec((di, dtr + 2 * ds), axes=("ffn", None)),
+        "dt_proj": Spec((dtr, di), axes=(None, "ffn")),
+        "dt_bias": Spec((di,), "zeros", axes=("ffn",)),
+        "a_log": Spec((di, ds), "decay", axes=("ffn", None)),
+        "d_skip": Spec((di,), "ones", axes=("ffn",)),
+        "out_proj": Spec((di, d), axes=("ffn", "embed")),
     }
 
 
 def _rwkv_tm_spec(cfg):
     d = cfg.d_model
+    rh = f"heads:{d // cfg.rwkv_head_dim}"
     return {
-        "mu_base": Spec((d,), "zeros"),
-        "mix_a": Spec((d, rwkv6.N_MIX * rwkv6.LORA_MIX)),
-        "mix_b": Spec((rwkv6.N_MIX, rwkv6.LORA_MIX, d)),
-        "mu_five": Spec((rwkv6.N_MIX, d), "zeros"),
-        "w_r": Spec((d, d)),
-        "w_k": Spec((d, d)),
-        "w_v": Spec((d, d)),
-        "w_g": Spec((d, d)),
-        "w_o": Spec((d, d)),
-        "w_base": Spec((d,), "decay"),
-        "decay_a": Spec((d, rwkv6.LORA_DECAY)),
-        "decay_b": Spec((rwkv6.LORA_DECAY, d)),
-        "u": Spec((d,), "zeros"),
-        "ln_x_g": Spec((d,), "ones"),
-        "ln_x_b": Spec((d,), "zeros"),
+        "mu_base": Spec((d,), "zeros", axes=("embed",)),
+        "mix_a": Spec((d, rwkv6.N_MIX * rwkv6.LORA_MIX), axes=("embed", None)),
+        "mix_b": Spec((rwkv6.N_MIX, rwkv6.LORA_MIX, d), axes=(None, None, "embed")),
+        "mu_five": Spec((rwkv6.N_MIX, d), "zeros", axes=(None, "embed")),
+        "w_r": Spec((d, d), axes=("embed", rh)),
+        "w_k": Spec((d, d), axes=("embed", rh)),
+        "w_v": Spec((d, d), axes=("embed", rh)),
+        "w_g": Spec((d, d), axes=("embed", rh)),
+        "w_o": Spec((d, d), axes=(rh, "embed")),
+        "w_base": Spec((d,), "decay", axes=(rh,)),
+        "decay_a": Spec((d, rwkv6.LORA_DECAY), axes=("embed", None)),
+        "decay_b": Spec((rwkv6.LORA_DECAY, d), axes=(None, rh)),
+        "u": Spec((d,), "zeros", axes=(rh,)),
+        "ln_x_g": Spec((d,), "ones", axes=(rh,)),
+        "ln_x_b": Spec((d,), "zeros", axes=(rh,)),
     }
 
 
 def _rwkv_cm_spec(cfg):
     d, f = cfg.d_model, cfg.d_ff
+    rh = f"heads:{d // cfg.rwkv_head_dim}"
     return {
-        "mu_k": Spec((d,), "zeros"),
-        "mu_r": Spec((d,), "zeros"),
-        "w_k": Spec((d, f)),
-        "w_v": Spec((f, d)),
-        "w_r": Spec((d, d)),
+        "mu_k": Spec((d,), "zeros", axes=("embed",)),
+        "mu_r": Spec((d,), "zeros", axes=("embed",)),
+        "w_k": Spec((d, f), axes=("embed", "ffn")),
+        "w_v": Spec((f, d), axes=("ffn", "embed")),
+        "w_r": Spec((d, d), axes=("embed", rh)),
     }
 
 
@@ -189,14 +196,14 @@ def _layer_spec(cfg, pos: int):
     for key, spec in (_MIXER_SPECS[kind["mixer"]], _FFN_SPECS[kind["ffn"]]):
         p[key] = spec(cfg)
     if kind["mixer"] == "cross":  # tanh gates of the attention and the MLP
-        p["gate_attn"] = Spec((1,), "zeros")
-        p["gate_ffn"] = Spec((1,), "zeros")
+        p["gate_attn"] = Spec((1,), "zeros", axes=(None,))
+        p["gate_ffn"] = Spec((1,), "zeros", axes=(None,))
     return p
 
 
 def _stack(spec, g):
     return base.tree_map(
-        lambda s: Spec((g,) + s.shape, s.init, s.scale), spec,
+        lambda s: Spec((g,) + s.shape, s.init, s.scale, ("layers",) + s.axes), spec,
         is_leaf=lambda x: isinstance(x, Spec),
     )
 
@@ -206,15 +213,27 @@ def init_specs(cfg: ModelConfig):
     and its head (K, D, V), one table per codebook."""
     check_family(cfg)
     books = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    book_ax = (None,) if cfg.n_codebooks else ()
     tree = {
-        "embed": Spec(books + (cfg.vocab, cfg.d_model)),
+        "embed": Spec(books + (cfg.vocab, cfg.d_model), axes=book_ax + ("vocab", "embed")),
         "blocks": {f"p{j}": _stack(_layer_spec(cfg, j), cfg.n_groups)
                    for j in range(cfg.period)},
         "final_norm": _norm_spec(cfg),
     }
     if not cfg.tie_embeddings:
-        tree["lm_head"] = Spec(books + (cfg.d_model, cfg.vocab))
+        tree["lm_head"] = Spec(books + (cfg.d_model, cfg.vocab), axes=book_ax + ("embed", "vocab"))
     return tree
+
+
+def param_struct(cfg: ModelConfig):
+    """The parameter tree as meta tensors in ``cfg.param_dtype`` (shapes and
+    dtypes, no storage)."""
+    return base.struct(init_specs(cfg), cfg.param_dtype)
+
+
+def logical_axes(cfg: ModelConfig):
+    """The tree of each parameter's logical axes."""
+    return base.axes_tree(init_specs(cfg))
 
 
 def param_count(cfg: ModelConfig) -> tuple[int, int]:

@@ -69,11 +69,14 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(grads, state, params, cfg: AdamWConfig):
-    """Returns (new_params, new_state, metrics {"lr", "grad_norm"})."""
+def update(grads, state, params, cfg: AdamWConfig, grad_norm=None):
+    """Returns (new_params, new_state, metrics {"lr", "grad_norm"}).
+    ``grad_norm`` is the gradients' global norm where ``grads``, ``state``
+    and ``params`` hold one rank's shards (the update is elementwise but
+    for the clip); None computes it from ``grads``."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
 
     b1, b2 = cfg.b1, cfg.b2

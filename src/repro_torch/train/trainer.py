@@ -12,11 +12,27 @@
     arena and scrubbed at the controller's per-domain rails, a read path
     that leaves training bitwise unchanged.
 
+  * elastic rescale — ``rescale(new_mesh)`` re-places params and moments
+    onto another mesh of the process group, mid-run.
+
 Because batches are a pure function of (seed, step), recovery replays the
 exact stream: the loss trajectory after a restore matches an uninterrupted
-run. The trainer runs on ``device`` (None: the card) and never moves to
-another device on its own. A device mesh (``mesh``, ``param_shardings``,
-the elastic ``rescale``) is not ported yet.
+run. The trainer runs on ``device`` (None: the mesh's device, else the
+card) and never moves to another device on its own.
+
+On a mesh (``mesh``, a ``launch.mesh.HostMesh`` over a process group) every
+rank runs the trainer on the same pipeline: a step is
+``train_step.make_mesh_train_step``'s data-parallel step (each rank its
+rows of the batch, leaves gathered whole before the forward, gradients
+averaged over the batch axes, each rank updating its own shards), a save
+is collective over the mesh's ranks with rank 0 writing, and ``restore``
+loads with the trainer's ``param_shardings``. A trainer without a mesh
+saves alone, in a process group or not. As in the reference, the
+constructor only stores the mesh and shardings; ``rescale`` places the
+state, and a recovery with no checkpoint re-initialises and places it
+again. The ``RailPolicy`` scrub
+runs on rank 0 alone, over the gathered params, so its rail events are the
+unsharded trainer's; the other ranks record none.
 """
 
 from __future__ import annotations
@@ -32,10 +48,10 @@ import torch
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.kernels.backend import resolve_device, to_device
-from repro_torch.models import lm
+from repro_torch.models import base, lm
 from repro_torch.models.base import ModelConfig
 from repro_torch.optim import adamw
-from repro_torch.train.train_step import TrainConfig, make_train_step
+from repro_torch.train.train_step import TrainConfig, make_mesh_train_step, make_train_step
 
 
 class FaultInjected(RuntimeError):
@@ -111,9 +127,6 @@ class Trainer:
         rails: RailPolicy | None = None,
         device=None,
     ):
-        if mesh is not None or param_shardings is not None:
-            raise ValueError("a device mesh (mesh=, param_shardings=) is not ported yet "
-                             "(ROADMAP.md queue A item 10); pass mesh=None")
         self.cfg = cfg
         self.tcfg = tcfg
         self.pipeline = pipeline
@@ -125,14 +138,27 @@ class Trainer:
         self.straggler_hook = straggler_hook
         self.recoveries = 0
         self.history: list[dict] = []
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.param_shardings = param_shardings
+        self.device = resolve_device(mesh.device if device is None and mesh is not None
+                                     else device)
 
         self.rails = rails
         self.rail_controller = None  # built on the first scrub (needs domains)
         self.params = lm.init_params(cfg, seed, self.device)
         self.opt_state = adamw.init(self.params, tcfg.optimizer)
         self.step = 0
-        self._step_fn = make_train_step(cfg, tcfg)
+        self._step_fn = self._make_step()
+
+    def _make_step(self):
+        if self.mesh is None:
+            return make_train_step(self.cfg, self.tcfg)
+        return make_mesh_train_step(self.cfg, self.tcfg, self.mesh)
+
+    def _rank0(self) -> bool:
+        import torch.distributed as dist
+
+        return self.mesh is None or dist.get_rank() == 0
 
     # -- multi-rail weight-memory scrub ---------------------------------------
     def _rail_scrub(self):
@@ -144,11 +170,15 @@ class Trainer:
         from repro_torch.core.controller import MultiRailController
         from repro_torch.core.planestore import PlaneStore
         from repro_torch.kernels import ops as kops
-        from repro_torch.models import base
         from repro_torch.serving.engine import protect_params_inline
 
+        from repro_torch.distributed import sharding as shd
+
         pol = self.rails
-        protected, _ = protect_params_inline(self.params, self.cfg, include_embed=True)
+        params = shd.gather(self.params)  # every rank takes part; rank 0 scrubs
+        if not self._rank0():
+            return
+        protected, _ = protect_params_inline(params, self.cfg, include_embed=True)
         leaves, keys = [], []
         for key, leaf in base.flatten(protected):
             if isinstance(leaf, kops.EccWeight):
@@ -187,7 +217,8 @@ class Trainer:
 
     def save(self):
         ckpt.save(
-            self.ckpt_dir, self.step, self._state(), ecc_protect=self.ecc_checkpoints
+            self.ckpt_dir, self.step, self._state(), ecc_protect=self.ecc_checkpoints,
+            group=None if self.mesh is None else self.mesh.group,
         )
 
     def restore(self, step: int | None = None) -> bool:
@@ -195,9 +226,16 @@ class Trainer:
         if not steps:
             return False
         target = step if step is not None else steps[-1]
+        shardings = None
+        if self.param_shardings is not None:
+            from repro_torch.distributed.sharding import replicated
+
+            ps = self.param_shardings
+            shardings = {"params": ps, "opt": {"m": ps, "v": ps,
+                                               "step": replicated(self.mesh)}}
         while True:
             try:
-                state = ckpt.load(self.ckpt_dir, target, self._state())
+                state = ckpt.load(self.ckpt_dir, target, self._state(), shardings=shardings)
                 break
             except ckpt.CheckpointCorruption:
                 idx = steps.index(target)
@@ -232,6 +270,8 @@ class Trainer:
                     self.params = lm.init_params(self.cfg, 0, self.device)
                     self.opt_state = adamw.init(self.params, self.tcfg.optimizer)
                     self.step = 0
+                    if self.param_shardings is not None:  # placed as before the fault
+                        self.rescale(self.mesh, self.param_shardings)
                 self.history.append(
                     {"step": self.step, "event": "recovery", "cause": repr(e)}
                 )
@@ -250,6 +290,22 @@ class Trainer:
 
     # -- elastic -------------------------------------------------------------
     def rescale(self, new_mesh, new_param_shardings=None):
-        """Re-placing the state onto another device mesh: not ported yet."""
-        raise ValueError("elastic rescale re-places the state onto a device mesh, which the "
-                         "port does not have yet (ROADMAP.md queue A item 10)")
+        """Re-place the training state onto ``new_mesh`` (elastic scaling): params
+        and moments by ``new_param_shardings``, or whole on every rank (plain
+        tensors) without them. The mesh is over the same process group."""
+        from repro_torch.distributed import sharding as shd
+
+        self.mesh = new_mesh
+        self.param_shardings = new_param_shardings
+        self.device = new_mesh.device
+        opt = self.opt_state
+
+        def put(tree):
+            if new_param_shardings is not None:
+                return shd.place(tree, new_param_shardings)
+            return base.tree_map(lambda t: t.to(self.device), shd.gather(tree))
+
+        self.params = put(self.params)
+        self.opt_state = {"m": put(opt["m"]), "v": put(opt["v"]),
+                          "step": shd.gather_leaf(opt["step"]).to(self.device)}
+        self._step_fn = self._make_step()

@@ -173,7 +173,35 @@ def test_keep_prunes_old_checkpoints(tmp_path):
     assert tckpt.all_steps(str(tmp_path / "missing")) == []
 
 
-def test_resharding_on_load_is_refused(tmp_path):
-    tckpt.save(str(tmp_path), 1, {"w": torch.zeros(4)})
-    with pytest.raises(ValueError, match="item 10"):
-        tckpt.load(str(tmp_path), 1, {"w": torch.zeros(4)}, shardings={"w": None})
+def test_checkpoint_reshard_on_load_on_one_rank(tmp_path):
+    """The reference's test_checkpoint_reshard_on_load on a one-rank process
+    group: the loaded leaf is a DTensor placed by the sharding, its values
+    the reference's load of the same files; a corrected bit is corrected
+    before the placement."""
+    import torch.distributed as dist
+
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.launch.mesh import compat_make_mesh
+    from repro_torch.distributed import sharding as tshd
+    from repro_torch.launch.mesh import make_host_mesh
+
+    d = str(tmp_path / "ck")
+    tree = {"w": np.arange(64, dtype=np.float32).reshape(8, 8)}
+    tckpt.save(d, 1, {"w": torch.from_numpy(tree["w"])}, ecc_protect=True)
+    jmesh = compat_make_mesh((1,), ("data",))
+    want = np.asarray(jckpt.load(d, 1, tree, shardings={"w": NamedSharding(jmesh, P("data"))})["w"])
+    raw = bytearray(open(os.path.join(d, "step_000001", "leaf_00000.npy"), "rb").read())
+    raw[-20] ^= 0x08
+    open(os.path.join(d, "step_000001", "leaf_00000.npy"), "wb").write(bytes(raw))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg", world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh(device="cpu")
+        shard = {"w": tshd.NamedSharding(mesh, tshd.P("data"))}
+        out = tckpt.load(d, 1, tree, shardings=shard)
+        assert isinstance(out["w"], torch.distributed.tensor.DTensor)
+        assert out["w"].placements == tuple(tshd.placements(mesh, shard["w"].spec))
+        assert np.array_equal(tshd.gather_leaf(out["w"]).numpy(), want)
+        assert np.array_equal(out["w"].to_local().numpy(), tree["w"])
+    finally:
+        dist.destroy_process_group()

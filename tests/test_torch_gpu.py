@@ -1375,3 +1375,88 @@ def test_mesh_store_with_a_shard_off_the_planes_device_equals_the_cpu(cuda, othe
     on_card = 1 if other.startswith("cuda") else 0
     assert counts["fault_field"] == 2 + on_card, counts
     assert counts["inject_scrub_domains"] == 2 + 2 * on_card, counts
+
+
+@pytest.fixture
+def one_rank_group(tmp_path):
+    """A one-rank ``gloo`` group (the card's tensors cross it through the
+    host), destroyed after the test."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg", world_size=1, rank=0)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_dp_step_on_one_rank_on_the_card(cuda, one_rank_group):
+    """At one rank on the card: the int8 quantisation equals the CPU's bit
+    for bit, the compressed mean is q * scale with the residual in the error
+    feedback, and the compressed step agrees with the plain one (the
+    reference's test) and the plain one with ``make_train_step``."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import base, lm
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    g = torch.randn(1000, 37, generator=torch.Generator().manual_seed(3))
+    e = torch.randn(1000, 37, generator=torch.Generator().manual_seed(4)) * 0.01
+    q_cpu, s_cpu = coll.quantize_int8(g + e)
+    q, s = coll.quantize_int8(g.to(cuda) + e.to(cuda))
+    assert torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)
+    avg, ef = coll.compressed_psum(g.to(cuda), e.to(cuda))
+    assert torch.equal(avg, q.to(torch.float32) * s)
+    assert torch.equal(ef, g.to(cuda) + e.to(cuda) - avg)
+
+    mesh = make_host_mesh()
+    assert mesh.device.type == "cuda" and mesh.shape == {"data": 1, "model": 1}
+    cfg = base.ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
+                           n_kv_heads=2, d_ff=128, vocab=64, head_dim=16)
+    tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=100), remat=None)
+    params = lm.init_params(cfg, 0, cuda)
+    opt, ef0 = adamw.init(params, tc.optimizer), coll.init_error_feedback(params)
+    batch = {k: torch.as_tensor(v).to(cuda) for k, v in
+             TokenPipeline(DataConfig(vocab=64, global_batch=8, seq_len=32)).batch_at(0).items()}
+    ops.reset_launch_count()
+    pc, _, efc, lc = coll.make_dp_compressed_train_step(cfg, tc, mesh)(params, opt, ef0, batch)
+    pu, _, _, lu = coll.make_dp_compressed_train_step(cfg, tc, mesh, compress=False)(
+        params, opt, ef0, batch)
+    pt, _, mt = make_train_step(cfg, tc)(params, opt, batch)
+    assert sum(ops.launch_counts().values()) == 0
+    assert float(lc) == pytest.approx(float(lu), rel=1e-5)
+    assert float(lu) == pytest.approx(float(mt["loss"]), rel=1e-6)
+    for (_, a), (_, b), (_, c) in zip(base.flatten(pc), base.flatten(pu), base.flatten(pt)):
+        assert a.is_cuda and float((a - b).abs().max()) < 5e-3
+        torch.testing.assert_close(b, c, rtol=0, atol=1e-4 * float(c.abs().max()))
+    assert any(float(x.abs().max()) > 0 for _, x in base.flatten(efc))
+
+
+@pytest.mark.gpu
+def test_sharded_load_on_one_rank_on_the_card(cuda, one_rank_group, tmp_path):
+    """``checkpoint.load(shardings=)`` onto a one-rank mesh on the card: one
+    B5 launch a leaf on the card, each leaf a DTensor whose local shard is
+    the saved leaf bit for bit, a flipped bit corrected before placing."""
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import base
+
+    state = base.tree_map(lambda t: t.to(cuda), _train_state("cpu"))
+    mesh = make_host_mesh()
+    ckpt.save(str(tmp_path / "ck"), 1, state, ecc_protect=True)
+    shardings = base.tree_map(lambda t: shd.NamedSharding(
+        mesh, shd.P("data") if t.dim() else shd.P()), state)
+    leaf = tmp_path / "ck" / "step_000001" / "leaf_00000.npy"
+    raw = bytearray(leaf.read_bytes())
+    raw[-12] ^= 0x02
+    leaf.write_bytes(bytes(raw))
+    ops.reset_launch_count()
+    back = ckpt.load(str(tmp_path / "ck"), 1, state, shardings=shardings)
+    assert ops.launch_counts()["decode"] == len(base.flatten(state))
+    for (_, a), (_, b) in zip(base.flatten(back), base.flatten(state)):
+        assert isinstance(a, torch.distributed.tensor.DTensor) and a.to_local().is_cuda
+        assert torch.equal(a.to_local().reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))

@@ -40,7 +40,8 @@ def test_port_modules_are_listed():
               "repro_torch.optim.adamw", "repro_torch.train.train_step",
               "repro_torch.train.trainer", "repro_torch.checkpoint.manager",
               "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
-              "repro_torch.distributed.collectives", "repro_torch.distributed.meshrel"):
+              "repro_torch.distributed.collectives", "repro_torch.distributed.meshrel",
+              "repro_torch.launch.ecc_struct", "repro_torch.launch.dryrun"):
         assert m in mods
 
 

@@ -1,7 +1,7 @@
 """Port parity for the fault-tolerant trainer: the reference's trainer
 tests on the port, a 12-step trajectory and the multi-rail RailPolicy's
-rail events against the reference's on the same weights, and the mesh
-refused until the port has one."""
+rail events against the reference's on the same weights, and a mesh
+trainer on a one-rank process group against the unsharded trainer."""
 
 import tempfile
 
@@ -182,14 +182,47 @@ def test_rail_policy_with_device_masks_is_read_only(tmp_path):
     assert len(events) == 4 and events[-1]["voltages"]["mlp"] < 0.60
 
 
-def test_a_mesh_is_refused_until_the_port_has_one(tmp_path):
-    with pytest.raises(ValueError, match="item 10"):
-        Trainer(TCFG, TC, TokenPipeline(DC), str(tmp_path), mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="item 10"):
-        Trainer(TCFG, TC, TokenPipeline(DC), str(tmp_path), param_shardings={}, device="cpu")
-    tr = Trainer(TCFG, TC, TokenPipeline(DC), str(tmp_path), device="cpu")
-    with pytest.raises(ValueError, match="item 10"):
-        tr.rescale(object())
+def test_a_mesh_trainer_on_one_rank_is_the_unsharded_trainer(ref_runs, tmp_path):
+    """On a one-rank process group, a trainer rescaled onto FSDP shardings
+    trains as the unsharded trainer does, bit for bit, its RailPolicy scrub
+    (rank 0, gathered params) gives the reference's rail events, a restore
+    loads onto its shardings and a rescale back to whole tensors keeps the
+    state."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as tshd
+    from repro_torch.launch.mesh import make_host_mesh
+
+    every, steps = RAIL_RUNS[0]
+    pol = RailPolicy(scrub_every=every, start_v=0.60)
+    plain = _port_trainer(str(tmp_path / "plain"), ckpt_every=100, rails=pol)
+    h0 = plain.run(steps)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg", world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh(device="cpu")
+        ps = tshd.param_shardings(TCFG, mesh, fsdp=True)
+        tr = _port_trainer(str(tmp_path / "mesh"), ckpt_every=2, ecc_checkpoints=True,
+                           rails=pol)
+        tr.rescale(mesh, ps)
+        assert tr.mesh is mesh and tr.param_shardings is ps
+        assert isinstance(tr.params["embed"], torch.distributed.tensor.DTensor)
+        h1 = tr.run(steps)
+        assert _losses(h0) == _losses(h1)
+        assert [r for r in h0 if r.get("event")] == [r for r in h1 if r.get("event")]
+        ref = [r for r in ref_runs[every] if r.get("event") == "rails"]
+        events = [r for r in h1 if r.get("event") == "rails"]
+        assert [e["voltages"] for e in events] == [r["voltages"] for r in ref]
+        for (_, a), (_, b) in zip(tbase.flatten(plain._state()), tbase.flatten(tr._state())):
+            assert torch.equal(a, tshd.gather_leaf(b))
+        back = Trainer(TCFG, TC, TokenPipeline(DC), str(tmp_path / "mesh"), mesh=mesh,
+                       param_shardings=ps)
+        assert back.device == torch.device("cpu") and back.restore() and back.step == steps
+        assert isinstance(back.params["embed"], torch.distributed.tensor.DTensor)
+        tr.rescale(mesh)
+        for (_, a), (_, b) in zip(tbase.flatten(plain._state()), tbase.flatten(tr._state())):
+            assert type(b) is torch.Tensor and torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_the_trainer_runs_on_the_card_by_default(tmp_path):
