@@ -168,9 +168,9 @@ them. Phases, each printed on its own line with its wall time:
      canary, without ECC (the DED counters are blind: the walk must reach
      the floor with no DED) and without ECC with the canary (it must back
      off on divergence alone, above the blind lock). CA: ``run_campaign``
-     at qwen3-0.6b's width (parity65, secded72, ileave88 at 1.0, 0.57 and
-     0.55 V; host masks): nominal rows clean, faulty words growing down the
-     rail. SW: the sweep CLI over the paper grid at 512 Ki words (every
+     at qwen3-0.6b's width (parity65, secded72, ileave88 at ``CA_VOLTAGES``,
+     1.0 and 0.57 V; host masks): nominal rows clean, faulty words growing
+     down the rail. SW: the sweep CLI over the paper grid at 512 Ki words (every
      point equal to the per-point device field + inject+scrub loop), rail
      schedules on the multi-rail store's geometry (equal to the store's own
      device-path telemetry) and the codec schemes at V_crash (the stronger
@@ -194,19 +194,20 @@ them. Phases, each printed on its own line with its wall time:
      as they are), B4's commit and
      B6's interval scrub at its 819,200-word pages, and ``serve`` refusing
      a ``sliding_window`` and a ``kv_quant`` config before any page. W:
-     qwen3-0.6b with a 4,096-token sliding window (mixtral-8x22b's): a
+     qwen3-0.6b with a 4,096-token sliding window (mixtral-8x22b's), depth
+     cut to ``W_LAYERS`` = 4 layers: a
      4,608-token prompt and 16 decode steps through the 4,096-slot ring
      against a position-indexed cache with the window as a mask: prefill
      and every step's logits and the ring's slots (slot j = position p,
      p % 4,096 = j) bit for bit, the decode loop from the ring's prefill
      state = the ring's tokens;
-  16. the MoE family at full width, 8 layers each (``MOE_LAYERS``; device
+  16. the MoE family at full width, 4 layers each (``MOE_LAYERS``; device
      masks; an MoE layer's experts, router and shared expert stay plain, so
      B3 runs on the four attention matrices of a layer). MX: mixtral-8x22b
      (d 6144, 48/8 heads, d_ff 16384, 8 experts top-2, window 4096, vocab
      32768, bf16; 2,415,919,104 expert weights a layer): the fused matmul at
      its (K, N) at M = batch, 20 and batch x prompt against the plain version,
-     a traced prefill (32 tiled events) and decode step (32 decode-kernel
+     a traced prefill (16 tiled events) and decode step (16 decode-kernel
      events, each the wrapper's count) and the decode step's device time
      split into B3, the cuBLAS GEMMs and the rest; the card's top-k and sort
      dispatch over every layer's router logits of a prefill and a decode
@@ -299,7 +300,8 @@ them. Phases, each printed on its own line with its wall time:
      ECC save (one B4 a leaf) and load (one B5 a leaf) of the 40-leaf
      state, read back bit for bit, their seconds and GB; c. a trainer
      restored from the step-4 checkpoint and run to step 8, whether it is
-     bitwise in this process (printed), and the same check required bit
+     bitwise in this process (printed), and the same check, depth cut to a
+     step-2 checkpoint of a 4-step run (``T_CHILD_STEPS``), required bit
      for bit in a child process under ``torch.use_deterministic_algorithms``
      and ``CUBLAS_WORKSPACE_CONFIG=:4096:8``; d. the tiny config trained on
      the card and on the CPU from the same params (12 steps, ECC
@@ -359,7 +361,18 @@ them. Phases, each printed on its own line with its wall time:
      of the last checkpoint on each rank and on a one-rank mesh in this
      process: each local shard its slice of the saved leaf bit for bit, one
      B5 a leaf on each rank's card; d. a rescale back to whole tensors keeps
-     params, m and v bit for bit;
+     params, m and v bit for bit; e. sub-path MTP, the same ranks on a
+     (1, W) mesh whose "model" axis computes (tensor-parallel attention and
+     MLP, vocab-parallel embedding and loss; ``collectives.ModelAxis``):
+     MT_STEPS steps of ``Trainer(mesh=)`` on the rules' shardings from phase
+     19's start, losses within 1e-3 relative of phase 19's, the first step
+     its one-process emulation (``train_step.emulate_model_step``, each rank
+     in turn) bit for bit, nothing gathered over "model", every
+     model-sharded local shard 1 / W of its leaf, no kernel launched by a
+     step; the later steps' rank-order sums and barrier waits, each rank's
+     peak memory and the step walls; an ECC save at (1, W) (B4 a leaf on
+     rank 0) loaded onto (W, 1)'s shardings (B5 a leaf a rank), each rank's
+     shards its slices of the saved state bit for bit;
   4-21 each zero the kernel launch counts at the start of a path and read
      them at its end, and fail unless every voltage step launched its scrub
      kernel once (B1 single-rail, B2 and the embedding's B5 multi-rail,
@@ -431,14 +444,17 @@ FIELD_STATS_WORDS = 1 << 22
 # phase 10's multi-rail rails for the per-word-rate check: two domains below
 # V_min, the embedding above it (rate 0, a run of words that draw nothing)
 MIXED_RAILS = {"attention": 0.56, "mlp": 0.55, "embedding": 1.0}
+# phase 14: the campaign's rail grid (nominal and one point below V_min)
+CA_VOLTAGES = (1.0, 0.57)
 # phase 15: the published full-width arenas (32 x (2 x 4096^2 + 2 x 4096 x
 # 1024 + 2 x 4096 x 16384) / 8 and 40 x (4 x 2560^2 + 3 x 2560 x 6912) / 8
 # words), and the ring at mixtral-8x22b's window
 MN_WORDS, QP_WORDS = 704_643_072, 396_492_800
-W_WINDOW, W_DECODE = 4096, 16
+# the ring's config: qwen3-0.6b at its width, depth cut to W_LAYERS layers
+W_WINDOW, W_DECODE, W_LAYERS = 4096, 16, 4
 # phase 16: the MoE models' depth cut, and mixtral-8x22b's expert weights a
 # layer (8 experts x 3 x 6144 x 16384)
-MOE_LAYERS, MX_EXPERT_WEIGHTS = 8, 2_415_919_104
+MOE_LAYERS, MX_EXPERT_WEIGHTS = 4, 2_415_919_104
 # phase 17: rwkv6-3b's parameters and raw bf16 words (four to a 64-bit word),
 # the depth cut of the 0.56 V domain read and its words, the embedding's
 # protected int8 words; the tolerances of the recurrent checks (each of max
@@ -506,6 +522,7 @@ def require(cond: bool, msg: str) -> None:
 # steps, fault step and card-against-CPU tolerance (the CPU tests' 12-step
 # trajectory tolerance); the example's arguments
 T_STEPS, T_BATCH, T_SEQ, T_RESUME_AT = 8, 4, 512, 4
+T_CHILD_STEPS, T_CHILD_RESUME_AT = 4, 2  # the deterministic child's run, depth cut
 T_TINY_STEPS, T_TINY_FAULT, T_TINY_RTOL = 12, 7, 1e-3
 T_EXAMPLE_ARGS = ["--steps", "40", "--fail-at", "25"]
 T_CHILD_FLAG = "--train-resume-child"
@@ -542,21 +559,22 @@ def _bits_equal(a, b) -> bool:
         for (ka, x), (kb, y) in zip(fa, fb))
 
 
-def _resume_run(cfg, dev, ckpt_dir) -> dict:
-    """An uninterrupted T_STEPS run that checkpoints at T_RESUME_AT, and a
-    second trainer restored from that checkpoint and run to T_STEPS: the
-    resumed steps' losses and the final states compared bit for bit."""
+def _resume_run(cfg, dev, ckpt_dir, steps: int, at: int) -> dict:
+    """An uninterrupted run of ``steps`` steps that checkpoints at ``at``,
+    and a second trainer restored from that checkpoint and run to
+    ``steps``: the resumed steps' losses and the final states compared bit
+    for bit."""
     from repro_torch.train.trainer import Trainer
 
     tc, pipe = _train_setup(cfg)
-    full = Trainer(cfg, tc, pipe, ckpt_dir, ckpt_every=T_RESUME_AT, device=dev)
-    full.run(T_RESUME_AT)
+    full = Trainer(cfg, tc, pipe, ckpt_dir, ckpt_every=at, device=dev)
+    full.run(at)
     full.ckpt_every = 10**9
-    full.run(T_STEPS - T_RESUME_AT)
+    full.run(steps - at)
     res = Trainer(cfg, tc, pipe, ckpt_dir, ckpt_every=10**9, device=dev)
-    require(res.restore(T_RESUME_AT) and res.step == T_RESUME_AT, "T resume: restore")
-    res.run(T_STEPS - T_RESUME_AT)
-    a, b = _losses(full.history)[T_RESUME_AT:], _losses(res.history)
+    require(res.restore(at) and res.step == at, "T resume: restore")
+    res.run(steps - at)
+    a, b = _losses(full.history)[at:], _losses(res.history)
     return {"losses_uninterrupted": a, "losses_resumed": b,
             "bitwise": a == b and _bits_equal(full._state(), res._state())}
 
@@ -576,7 +594,8 @@ def train_resume_child(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     with tempfile.TemporaryDirectory(prefix="child_", dir=argv[0]) as d:
         try:
-            out = _resume_run(get_config("qwen3-0.6b"), torch.device("cuda"), d)
+            out = _resume_run(get_config("qwen3-0.6b"), torch.device("cuda"), d,
+                              T_CHILD_STEPS, T_CHILD_RESUME_AT)
         except RuntimeError as e:  # an operation without a deterministic form
             out = {"bitwise": False, "error": str(e).splitlines()[0]}
     print(json.dumps(out), flush=True)
@@ -1397,7 +1416,7 @@ def mesh_phase(dev, cfg, params, stream) -> tuple:
 
 
 # ---------------------------------------------------------------- path MT
-# phase 21: the training mesh (path MT): W ranks of a process group (gloo
+# phase 21: the training mesh (paths MT and MTP): W ranks of a process group (gloo
 # with every rank on the one card, NCCL with a card per rank), phase 19's
 # trainer configuration; the sharded trainer's steps; the tolerances: the
 # compressed step's loss against the plain step's and its params (the
@@ -1640,11 +1659,144 @@ def train_mesh_child(argv) -> int:
             _bits_equal(base.unflatten(tr._state(), list(before.values())), tr._state())
         require(kept, f"MT d. rank {rank}: the rescale changed the state")
         out["parts"]["d"] = {"bitwise": kept, **_counts_since(ops)}
+        del tr, before
+        out["parts"]["e"] = _mtp_part(cfg, tc, pipe, mesh, ps, work, device, card, sync)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(work, f"mt_r{rank}.json"), "w") as f:
         json.dump(out, f)
     return 0
+
+
+def _mtp_part(cfg, tc, pipe, mesh21, ps21, work, device, card, sync) -> dict:
+    """Part e of path MT, sub-path MTP: the same ranks on a (1, W) mesh,
+    whose "model" axis computes (``make_mesh_train_step``'s model-axis
+    step on the rules' shardings). MT_STEPS steps of ``Trainer(mesh=)`` from
+    phase 19's start, the first against its one-process emulation
+    (``train_step.emulate_model_step``, run by each rank in turn) bit for
+    bit, nothing gathered over "model", every model-sharded leaf a 1 / W
+    shard; the later steps' rank-order sums counted (bytes, barrier
+    waits); an ECC save at (1, W) loaded onto (W, 1)'s shardings bit for
+    bit."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import base, lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = make_host_mesh(model=world, device=device)
+    dev = mesh.device
+    ps = shd.param_shardings(cfg, mesh, fsdp=True)
+    out = {"mesh": [mesh.n_batch, mesh.n_model]}
+    _counts_since(ops)
+    _peak_gb(card)
+
+    # the trainer's first step, then its emulation by each rank in turn
+    d_e = os.path.join(work, "e")
+    tr = Trainer(cfg, tc, pipe, d_e, mesh=mesh, ckpt_every=10 ** 6, ecc_checkpoints=True)
+    tr.rescale(mesh, ps)
+    require(shd.placed_by_rules(tr.params, cfg, mesh), f"MTP rank {rank}: not placed by the rules")
+    shd.reset_gathered_bytes()
+    tr.run(1)
+    sync()
+    first = {"p": shd.to_local(tr.params), "m": shd.to_local(tr.opt_state["m"]),
+             "v": shd.to_local(tr.opt_state["v"])}
+    loss1 = tr.history[-1]["loss"]
+    emulated = None
+    for turn in range(world):
+        dist.barrier()
+        if turn == rank:
+            full = lm.init_params(cfg, 0, dev)
+            opt_full = adamw.init(full, tc.optimizer)
+            batch = {k: torch.as_tensor(v).to(dev) for k, v in pipe.batch_at(0).items()}
+            _peak_gb(card)
+            t0_ = time.perf_counter()
+            loss_e, ranks_e = ts.emulate_model_step(cfg, tc, world, full, opt_full, batch)
+            sync()
+            out["emulation_s"] = time.perf_counter() - t0_
+            pe, oe = ranks_e[rank]
+            emulated = (float(loss_e) == loss1 and _bits_equal(pe, first["p"])
+                        and _bits_equal(oe["m"], first["m"]) and _bits_equal(oe["v"], first["v"]))
+            del loss_e, ranks_e, pe, oe, full, opt_full, batch
+            out["emulation_peak_gb"] = _peak_gb(card)["peak_gb"]
+    dist.barrier()
+    require(emulated, f"MTP rank {rank}: the {world}-rank step differs from its one-process "
+            "emulation")
+    del first
+
+    # the later steps, their rank-order sums counted
+    sums, waits = [], []
+    real_gather, real_barrier = coll.all_gather, dist.barrier
+
+    def counted_gather(t, group=None):
+        sums.append(t.numel() * t.element_size())
+        return real_gather(t, group)
+
+    def timed_barrier(*args, **kw):
+        t0_ = time.perf_counter()
+        real_barrier(*args, **kw)
+        waits.append(time.perf_counter() - t0_)
+
+    coll.all_gather, dist.barrier = counted_gather, timed_barrier
+    try:
+        tr.run(MT_STEPS - 1)
+    finally:
+        coll.all_gather, dist.barrier = real_gather, real_barrier
+    sync()
+    out["gathered"] = shd.gathered_bytes()
+    hist = tr.history
+    step_s = [r["seconds"] for r in hist if "loss" in r]
+    halves = []
+    for (_, leaf), (_, sp) in zip(base.flatten(tr.params), base.flatten(lm.param_struct(cfg))):
+        d = shd.model_dim(leaf)
+        if d is not None:
+            halves.append(leaf.to_local().shape[d] * world == sp.shape[d])
+    out.update(loss=loss1, emulation_bitwise=emulated, losses=_losses(hist), step_s=step_s,
+               median_step_s=float(np.median(step_s[1:])),
+               sums_a_step=len(sums) / (MT_STEPS - 1), sum_bytes_a_step=sum(sums) / (MT_STEPS - 1),
+               barrier_ms_a_step=1e3 * sum(waits) / (MT_STEPS - 1),
+               model_sharded_leaves=len(halves), shards_are_halves=all(halves),
+               train_peak_gb=_peak_gb(card)["peak_gb"], trainer_launches=_counts_since(ops))
+    require(out["gathered"].get("model", 0) == 0 and all(halves) and len(halves) > 0,
+            f"MTP rank {rank}: gathered {out['gathered']}, {len(halves)} sharded leaves, "
+            f"halves {all(halves)}")
+
+    # an ECC save at (1, W) and its load onto (W, 1)'s shardings
+    sync()
+    t0_ = time.perf_counter()
+    tr.save()
+    sync()
+    save = {"save_s": time.perf_counter() - t0_, **_counts_since(ops)}
+    saved = {k: shd.gather_leaf(v) for k, v in base.flatten(tr._state())}
+    n_leaves = len(saved)
+    sh21 = {"params": ps21, "opt": {"m": ps21, "v": ps21, "step": shd.replicated(mesh21)}}
+    t0_ = time.perf_counter()
+    back = ckpt.load(d_e, tr.step, tr._state(), shardings=sh21)
+    sync()
+    load = {"load_s": time.perf_counter() - t0_, **_counts_since(ops)}
+    reshard = all(
+        v.placements == tuple(shd.placements(mesh21, s.spec)) and torch.equal(
+            v.to_local().reshape(-1).view(torch.uint8),
+            shd.local_slice(saved[k], v.device_mesh, v.placements).contiguous()
+            .reshape(-1).view(torch.uint8))
+        for (k, v), (_, s) in zip(base.flatten(back), base.flatten(
+            sh21, is_leaf=lambda x: isinstance(x, shd.NamedSharding))))
+    require(reshard and load["launches"]["decode"] == (n_leaves if card else 0)
+            and save["launches"]["encode"] == (n_leaves if card and rank == 0 else 0),
+            f"MTP rank {rank}: resharded load bitwise {reshard}, save launches "
+            f"{save['launches']}, load launches {load['launches']}")
+    out.update(save=save, load=load, reshard_bitwise=reshard, leaves=n_leaves)
+    del tr, saved, back
+    return out
 
 
 def train_mesh_phase(dev, cfg_spec: dict, t_losses: list) -> tuple:
@@ -1654,9 +1806,11 @@ def train_mesh_phase(dev, cfg_spec: dict, t_losses: list) -> tuple:
     ``Trainer(mesh=)`` with a device-mask RailPolicy and ECC saves every
     step, whose losses must be within MT_TRAJ_RTOL of ``t_losses`` (phase
     19's one-card trainer), c. ``checkpoint.load(shardings=)`` of its last
-    checkpoint onto the ranks, d. a rescale back to whole tensors; then this
-    process loads the checkpoint onto a one-rank mesh. Returns (results,
-    the path's record for the kernels line)."""
+    checkpoint onto the ranks, d. a rescale back to whole tensors, e. path
+    MTP (``_mtp_part``) on a (1, MT_WORLD) mesh, whose losses must be
+    within MT_TRAJ_RTOL of ``t_losses`` too; then this process loads the
+    checkpoint of b onto a one-rank mesh. Returns (results, path MT's
+    record for the kernels line, path MTP's)."""
     import shutil
     import tempfile
 
@@ -1768,12 +1922,33 @@ def train_mesh_phase(dev, cfg_spec: dict, t_losses: list) -> tuple:
                 "MT a./d. a train step or a rescale launched a kernel")
         require(all(total[k] > 0 for k in ("inject_scrub_domains", "encode", "decode")),
                 f"MT: a kernel of the path never launched: {total}")
+    # e. MTP: the model axis computes; losses against phase 19's, launches
+    e0 = res[0]["e"]
+    rel_e = max(abs(a - b) / abs(b) for a, b in zip(e0["losses"], t_losses))
+    require(all(res[r]["e"]["losses"] == e0["losses"] for r in res)
+            and len(e0["losses"]) == MT_STEPS and rel_e <= MT_TRAJ_RTOL,
+            f"MTP losses {[res[r]['e']['losses'] for r in res]} against phase 19's "
+            f"{t_losses[:MT_STEPS]} (max rel {rel_e:.2e})")
+    total_p = dict.fromkeys(ops.launch_counts(), 0)
+    by_codec_p = {k: {} for k in ops.launch_counts_by_codec()}
+    for r in res:
+        for part in [res[r]["e"][p] for p in ("trainer_launches", "save", "load")]:
+            for k, n in part["launches"].items():
+                total_p[k] += n
+            for k, per in part["by_codec"].items():
+                for c, n in per.items():
+                    by_codec_p[k][c] = by_codec_p[k].get(c, 0) + n
+    if card:
+        require(all(sum(res[r]["e"]["trainer_launches"]["launches"].values()) == 0
+                    for r in res), "MTP: a model-axis train step launched a kernel")
+        require(total_p["encode"] > 0 and total_p["decode"] > 0,
+                f"MTP: a kernel of the path never launched: {total_p}")
     a0 = res[0]["a"]
     w = a0["step_wall_s"]
     out = {"world": MT_WORLD, "backend": outs[0]["backend"], "ranks": res,
            "load_one_rank_s": load1_s, "spawn_s": spawn_s, "launches": total,
-           "at_spawn": at_spawn,
-           "max_rel_vs_phase_19": rel, "wall_s": time.perf_counter() - t_phase}
+           "launches_mtp": total_p, "at_spawn": at_spawn, "max_rel_vs_phase_19": rel,
+           "mtp_max_rel_vs_phase_19": rel_e, "wall_s": time.perf_counter() - t_phase}
     print(f"  MT {cfg.name} on {MT_WORLD} ranks ({outs[0]['backend']}, "
           f"{'one card' if card and torch.cuda.device_count() < MT_WORLD else dev.type}), "
           f"batch {T_BATCH} x {T_SEQ} ({T_BATCH // MT_WORLD} rows a rank) | "
@@ -1801,11 +1976,36 @@ def train_mesh_phase(dev, cfg_spec: dict, t_losses: list) -> tuple:
           f"{[round(res[r]['c']['load_s'], 2) for r in res]} s); one rank "
           f"{counts_w1['launches']['decode']} B5, {load1_s:.2f} s")
     print(f"  MT d. rescale to whole tensors: params, m, v bit for bit on every rank; "
-          f"MT launches {json.dumps(total)}; MT in {out['wall_s']:.1f} s")
+          f"MT launches {json.dumps(total)}")
+    ranks_e = [res[r]["e"] for r in res]
+    print(f"  MTP {cfg.name} on a {tuple(e0['mesh'])} mesh of the same ranks (the model axis "
+          f"computes; {gpu_line() if card else 'cpu'}): Trainer(mesh=) from phase 19's start, "
+          f"its first step = its one-process emulation bit for bit on every rank (emulation "
+          f"{[round(x['emulation_s'], 2) for x in ranks_e]} s); losses {e0['losses']} vs "
+          f"phase 19's {t_losses[:MT_STEPS]} (max rel {rel_e:.2e} <= {MT_TRAJ_RTOL}); step "
+          f"walls {[round(1e3 * x, 1) for x in e0['step_s']]} ms, median of the later "
+          f"{1e3 * e0['median_step_s']:.1f} ms = {T_BATCH * T_SEQ / e0['median_step_s']:.0f} "
+          f"tokens/s; a later step and rank {e0['sums_a_step']:.0f} rank-order sums of "
+          f"{e0['sum_bytes_a_step'] / 1e6:.1f} MB, "
+          f"{[round(x['barrier_ms_a_step'], 1) for x in ranks_e]} ms in barriers; gathered "
+          f"over \"model\" {e0['gathered'].get('model', 0)} B (over \"data\" "
+          f"{e0['gathered'].get('data', 0)} B); {e0['model_sharded_leaves']} model-sharded "
+          f"leaves, every local shard half the leaf; peak GB a rank: trainer "
+          f"{[x['train_peak_gb'] for x in ranks_e]}, emulation "
+          f"{[x['emulation_peak_gb'] for x in ranks_e]}")
+    print(f"  MTP ECC save at {tuple(e0['mesh'])} ({e0['save']['save_s']:.2f} s, rank 0 B4 "
+          f"{e0['save']['launches']['encode']}) loaded onto ({MT_WORLD}, 1)'s shardings: each "
+          f"rank's shards its slices of the saved state bit for bit (B5 "
+          f"{[x['load']['launches']['decode'] for x in ranks_e]}, "
+          f"{[round(x['load']['load_s'], 2) for x in ranks_e]} s); MTP launches "
+          f"{json.dumps(total_p)}; MT in {out['wall_s']:.1f} s")
     record = {"launches": total, "launches_by_codec": by_codec, "kv_codec": "secded72",
               "matmuls_per_forward": 0, "packs": b0["packs"], "commits": 0,
               "forwards": {"prefill": 0, "decode": 0, "decode_kernel": 0}}
-    return out, record
+    record_mtp = {"launches": total_p, "launches_by_codec": by_codec_p, "kv_codec": "secded72",
+                  "matmuls_per_forward": 0, "packs": 0, "commits": 0,
+                  "forwards": {"prefill": 0, "decode": 0, "decode_kernel": 0}}
+    return out, record, record_mtp
 
 
 def main() -> int:
@@ -3363,7 +3563,7 @@ def main() -> int:
         # b. the campaign at qwen3-0.6b's full width (host masks)
         spec = campaign.CampaignSpec(model="qwen3-0.6b", codecs=("parity65", "secded72",
                                                                 "ileave88"),
-                                     voltages=(1.0, 0.57, 0.55), n_prompts=4, prompt_len=8,
+                                     voltages=CA_VOLTAGES, n_prompts=4, prompt_len=8,
                                      n_tokens=24, proxy_words=1 << 16)
         ops.reset_launch_count()
         sweep.reset_dispatch_count()
@@ -3377,7 +3577,8 @@ def main() -> int:
         contract = ("model", "arch", "platform", "codec", "voltage", "nominal", "divergence",
                     "match_len", "kl", "ppl_delta", "scorer_version", "detected", "faulty_words",
                     "bram_saving_vs_nominal", "seed", "proxy_words", "proxy_faulty_words")
-        require(len(rows) == 9 and all(all(c in r for c in contract) for r in rows),
+        require(len(rows) == len(spec.codecs) * len(CA_VOLTAGES)
+                and all(all(c in r for c in contract) for r in rows),
                 "campaign rows or their columns")
         for codec in spec.codecs:
             by_v = [r for r in rows if r["codec"] == codec]
@@ -3386,7 +3587,8 @@ def main() -> int:
                     and nom["ppl_delta"] == 0.0 and nom["faulty_words"] == 0,
                     f"campaign {codec}: the nominal row is not clean {nom}")
             fw = [r["faulty_words"] for r in by_v]
-            require(fw[0] < fw[1] < fw[2], f"campaign {codec}: faulty words {fw}")
+            require(all(a < b for a, b in zip(fw, fw[1:])), f"campaign {codec}: faulty words "
+                    f"{fw}")
         for r in rows:
             print(f"  CA {r['codec']} {r['voltage']:.2f} V: divergence {r['divergence']:.4f}, "
                   f"match {r['match_len']:.2f}/{r['n_tokens']}, kl {r['kl']:.4e}, ppl "
@@ -6440,7 +6642,7 @@ def main() -> int:
         # The window is a power of two, so the key sums' tree levels above
         # it fold position p onto slot p % window by adding exact zeros: the
         # two give the same floats.
-        wcfg = dataclasses.replace(cfg, sliding_window=W_WINDOW)
+        wcfg = dataclasses.replace(cfg, sliding_window=W_WINDOW, n_layers=W_LAYERS)
         w_len, max_len = W_WINDOW + W_WINDOW // 8, W_WINDOW + W_WINDOW // 8 + W_DECODE
         t0 = time.perf_counter()
         eng, _ = engine(wcfg, max_len)
@@ -6489,7 +6691,8 @@ def main() -> int:
         out["W"] = {"window": W_WINDOW, "prompt": w_len, "decode_steps": W_DECODE,
                     "ring_prefill_s": ring_prefill_s, "decode_pair_s": decode_s,
                     "wall_s": time.perf_counter() - t0}
-        print(f"  W (qwen3-0.6b, sliding_window {W_WINDOW}): prompt {w_len} tokens, ring of "
+        print(f"  W (qwen3-0.6b, sliding_window {W_WINDOW}, depth cut to {W_LAYERS} of "
+              f"{cfg.n_layers} layers): prompt {w_len} tokens, ring of "
               f"{W_WINDOW} slots against a {max_len}-slot position-indexed cache with the window "
               f"mask: prefill and {W_DECODE} decode steps' logits and every layer's slots (slot "
               f"j = position p, p % {W_WINDOW} = j) bit for bit, the decode loop from the ring's "
@@ -6870,7 +7073,7 @@ def main() -> int:
               f"tokens = the unprotected engine's; launches {json.dumps(counts)}; peak "
               f"{mx['domain']['peak_gb']:.1f} GB")
 
-        # LS: llama4-scout, 8 of its 48 layers, through serve
+        # LS: llama4-scout, MOE_LAYERS of its 48 layers, through serve
         full_ls = get_config("llama4-scout-17b-a16e")
         lcfg = dataclasses.replace(full_ls, n_layers=MOE_LAYERS)
         require(lcfg.n_experts == 16 and lcfg.top_k == 1 and lcfg.shared_expert
@@ -7012,8 +7215,8 @@ def main() -> int:
     with Phase(f"20 reliability mesh (path MH): qwen3-0.6b on {MH_SHARDS} shards of one card"):
         mesh_run, paths_extra["MH"] = mesh_phase(dev, cfg, params, stream)
 
-    with Phase(f"21 training mesh (path MT): qwen3-0.6b on {MT_WORLD} ranks"):
-        train_mesh_run, paths_extra["MT"] = train_mesh_phase(
+    with Phase(f"21 training mesh (paths MT, MTP): qwen3-0.6b on {MT_WORLD} ranks"):
+        train_mesh_run, paths_extra["MT"], paths_extra["MTP"] = train_mesh_phase(
             dev, {"arch": "qwen3-0.6b"}, train_run["a"]["losses"])
 
     # ---------------------------------------------------------------- 22

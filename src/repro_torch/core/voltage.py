@@ -51,6 +51,10 @@ class PlatformProfile:
         v = max(v, self.v_crash)
         return self.rate_crash * math.exp(-self.k * (v - self.v_crash))
 
+    def faults_per_mbit(self, v: float) -> float:
+        """Expected faulty bits per Mbit (2^20 bits) at rail voltage ``v``."""
+        return self.fault_rate(v) * MBIT
+
 
 # Tested memory in the paper: 512 x (1024 x 64-bit) words (+8 parity).
 _TESTED_BITS = 512 * 1024 * 72.0

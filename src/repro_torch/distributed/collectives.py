@@ -20,6 +20,14 @@ rank and divided by the rank count: the same bits on every backend and
 every rank, and the reference's ``psum`` bit for bit at two ranks (a sum
 of two floats does not depend on its order).
 
+A tensor-parallel region of the training forward (``ModelAxis``) takes a
+replicated input in through ``copy_in`` (identity forward, its gradient
+summed over the "model" ranks backward) and sends its partial result out
+through ``reduce_out`` (summed forward, identity backward); the sums are
+``psum``'s, in rank order, so the result does not depend on timing and a
+one-process emulation that adds the ranks' parts in the same order gives
+the same bits.
+
 Collectives move raw bytes (``all_gather``), so any dtype crosses any
 backend. ``nccl`` takes one card per rank (it refuses two ranks on one
 card: "Duplicate GPU detected"); ranks that share a card use ``gloo``,
@@ -154,7 +162,8 @@ def _gather_on_one_card(raw: torch.Tensor, group):
 
 
 def psum(t: torch.Tensor, group=None) -> torch.Tensor:
-    """The sum of every rank's ``t``, in rank order."""
+    """The sum of every rank's ``t``, in rank order: the same bits on every
+    rank, whatever the timing."""
     parts = all_gather(t, group)
     total = parts[0]
     for p in parts[1:]:
@@ -162,11 +171,161 @@ def psum(t: torch.Tensor, group=None) -> torch.Tensor:
     return total
 
 
+def pmax(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise maximum of every rank's ``t``."""
+    parts = all_gather(t, group)
+    out = parts[0]
+    for p in parts[1:]:
+        out = torch.maximum(out, p)
+    return out
+
+
 def pmean(t: torch.Tensor, group=None) -> torch.Tensor:
     """The mean of every rank's ``t``: ``psum`` over the rank count."""
     import torch.distributed as dist
 
     return psum(t, group) / dist.get_world_size(group)
+
+
+# -- the tensor-parallel region ----------------------------------------------------
+class _CopyIn(torch.autograd.Function):
+    """Into a tensor-parallel region: identity forward; backward, the sum
+    over the group's ranks (in rank order) of their partial gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.group), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """Out of a tensor-parallel region: forward, the sum over the group's
+    ranks (in rank order) of their partial results; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return psum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _BatchMean(torch.autograd.Function):
+    """A per-token mean over the data-parallel ranks' rows: forward, the
+    mean of the ranks' means (equal row counts); backward, identity. Each
+    rank's loss then holds the global statistic whole, so its gradient is
+    the whole statistic's through this rank's rows, and the step's mean of
+    the ranks' gradients is the global gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return pmean(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def batch_mean(x: torch.Tensor, group) -> torch.Tensor:
+    """``_BatchMean`` of ``x`` over ``group`` (None: ``x``, the process
+    holds every row)."""
+    return x if group is None else _BatchMean.apply(x, group)
+
+
+class _Fanout(torch.autograd.Function):
+    """The emulation's copy into a region: one copy a rank; backward, the
+    copies' gradients summed in rank order, as ``_CopyIn`` sums them."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        return tuple(x.clone() for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = grads[0]
+        for g in grads[1:]:
+            total = total + g
+        return total, None
+
+
+def copy_in(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` entering a tensor-parallel region of ``group``'s ranks."""
+    return _CopyIn.apply(x, group)
+
+
+def reduce_out(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's partial ``x`` leaving a tensor-parallel
+    region of ``group``'s ranks."""
+    return _ReduceOut.apply(x, group)
+
+
+class ModelAxis:
+    """The "model" axis of a tensor-parallel forward (``lm.train_loss(...,
+    model=)``): its size ``n`` and the ranks along it whose shards this
+    process computes (``ranks``). A sharded region takes one branch a rank
+    of ``ranks``, each with that rank's local shards: ``enter`` gives each
+    branch its copy of a replicated input, ``leave`` sums the branches'
+    partial results over the axis, ``max`` takes their maximum.
+
+    On a mesh (``of_mesh``) a process computes its own rank's branch and
+    the branches meet in collectives over the mesh's model group
+    (``copy_in``, ``reduce_out``, ``pmax``). The one-process emulation
+    (``emulated``) computes every rank's branch in turn and adds their
+    results in rank order, the same operations the collectives run, so the
+    two give the same bits. Every rank runs the same collectives in the same
+    order, also in a remat recompute, which replays the forward's.
+
+    ``batch`` is the group of the data-parallel ranks whose rows make up
+    the global batch beside this one (None: the process holds every row):
+    the MoE's load-balancing statistics are means over it
+    (``batch_mean``), as the reference computes them over the global
+    batch."""
+
+    def __init__(self, n: int, ranks: tuple, group=None, batch=None):
+        self.n, self.ranks, self.group, self.batch = int(n), tuple(ranks), group, batch
+        if group is None and self.ranks != tuple(range(self.n)):
+            raise ValueError(f"an emulated axis computes all {n} ranks, not {ranks}")
+
+    @classmethod
+    def of_mesh(cls, mesh, split_batch: bool = False) -> "ModelAxis":
+        """This rank's branch on a ``launch.mesh.HostMesh``; with
+        ``split_batch`` its rows are its share of a batch split over the
+        batch axes."""
+        return cls(mesh.n_model, (mesh.model_index,), mesh.model_group,
+                   mesh.batch_group if split_batch else None)
+
+    @classmethod
+    def emulated(cls, n: int) -> "ModelAxis":
+        """Every one of ``n`` ranks' branches, in one process."""
+        return cls(n, tuple(range(n)))
+
+    def enter(self, x: torch.Tensor) -> list:
+        if self.group is None:
+            return list(_Fanout.apply(x, self.n))
+        return [copy_in(x, self.group)]
+
+    def leave(self, parts: list) -> torch.Tensor:
+        if self.group is None:
+            total = parts[0]
+            for p in parts[1:]:
+                total = total + p
+            return total
+        return reduce_out(parts[0], self.group)
+
+    def max(self, parts: list) -> torch.Tensor:
+        """The maximum over the axis (no gradient)."""
+        parts = [p.detach() for p in parts]
+        if self.group is None:
+            out = parts[0]
+            for p in parts[1:]:
+                out = torch.maximum(out, p)
+            return out
+        return pmax(parts[0], self.group)
 
 
 def local_rows(batch: dict, index: int, n: int) -> dict:

@@ -24,7 +24,12 @@ into ``torch.distributed.tensor.DTensor``s on a ``HostMesh``: an entry
 naming axes becomes ``Shard(dim)`` on those mesh dims, in mesh order, and
 ``Replicate()`` elsewhere; each rank keeps its slice of the full tensor, so
 placing moves nothing between ranks. ``gather`` turns DTensors back into
-full tensors with one all-gather a sharded leaf.
+full tensors with one all-gather a sharded leaf, or over the batch axes
+only (``gather(tree, axes)``): the training mesh's step gathers an
+FSDP-sharded leaf over "data" and keeps its "model" shard local, where the
+forward computes on it tensor- and expert-parallel (``placed_by_rules``;
+``model_bounds`` gives a rank's head, vocab or expert range).
+``gathered_bytes`` counts the bytes gathered over each mesh axis.
 
 One reliability shard is one chip with its own voltage rails and fault
 population. Tensor parallelism lives inside a replica, whose memories share
@@ -268,20 +273,85 @@ def place(tree, shardings):
     return base.unflatten(tree, [one(leaf, s) for (_, leaf), s in zip(flat, shards)])
 
 
-def gather_leaf(leaf):
+def model_bounds(local: int, index: int) -> tuple:
+    """[start, stop) of the ``index``-th model rank's slice along a dim that
+    the rules shard over "model" alone and that holds ``local`` elements a
+    rank: one block a rank, in rank order (``local_slice``). The
+    tensor-parallel forward reads its local head, vocab and expert ranges
+    here."""
+    return index * local, (index + 1) * local
+
+
+def model_dim(leaf) -> int | None:
+    """The tensor dim of a DTensor leaf sharded over "model" (None: a plain
+    tensor, or replicated over "model")."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(leaf, DTensor) or "model" not in leaf.device_mesh.mesh_dim_names:
+        return None
+    p = leaf.placements[leaf.device_mesh.mesh_dim_names.index("model")]
+    return p.dim if p.is_shard() and leaf.device_mesh.size(
+        leaf.device_mesh.mesh_dim_names.index("model")) > 1 else None
+
+
+# bytes gathered over each mesh axis since the last reset (``gathered_bytes``)
+_GATHERED: dict = {}
+
+
+def gathered_bytes() -> dict:
+    """{mesh axis: bytes}: each gather adds the bytes of the tensor it
+    returns to the count of every axis of size above 1 that it gathers a
+    sharded leaf over. A count of 0 on "model" says no leaf was gathered
+    over "model"."""
+    return dict(_GATHERED)
+
+
+def reset_gathered_bytes() -> None:
+    _GATHERED.clear()
+
+
+def _count(axes, t: torch.Tensor) -> None:
+    for a in axes:
+        _GATHERED[a] = _GATHERED.get(a, 0) + t.numel() * t.element_size()
+
+
+def gather_leaf(leaf, axes=None):
     """A DTensor's full tensor on its rank's device (one all-gather of the
     local shards over the mesh's ranks, unless it is replicated); any other
-    leaf as it is."""
+    leaf as it is.
+
+    With ``axes`` (mesh axis names) only the shards over those axes are
+    gathered, over the group of the ranks along them: the result is this
+    rank's slice on the other axes (its local shard over "model" where
+    ``axes`` are the batch axes). One axis at a time; a dim sharded over a
+    gathered axis and a later one kept local is refused (its blocks would
+    not be contiguous)."""
     from torch.distributed.tensor import DTensor
 
     if not isinstance(leaf, DTensor):
         return leaf
     local = leaf.to_local()
-    if all(p.is_replicate() for p in leaf.placements):
+    dm = leaf.device_mesh
+    names = tuple(dm.mesh_dim_names)
+    want = names if axes is None else tuple(axes)
+    todo = [i for i, p in enumerate(leaf.placements)
+            if p.is_shard() and names[i] in want and dm.size(i) > 1]
+    if not todo:
         return local
     from repro_torch.distributed import collectives
 
-    dm = leaf.device_mesh
+    if len(todo) < sum(p.is_shard() and dm.size(i) > 1 for i, p in enumerate(leaf.placements)):
+        out = local
+        for i in reversed(todo):  # inner axes first: each gather leaves whole blocks
+            d = leaf.placements[i].dim
+            if any(p.is_shard() and p.dim == d and j > i and j not in todo
+                   for j, p in enumerate(leaf.placements)):
+                raise ValueError(f"dim {d} is sharded over {names[i]!r} and an inner axis "
+                                 "kept local: its blocks are not contiguous")
+            out = torch.cat(collectives.all_gather(out.contiguous(), dm.get_group(names[i])),
+                            dim=d)
+        _count([names[i] for i in todo], out)
+        return out
     if dm.size() != torch.distributed.get_world_size():
         raise ValueError(f"a mesh of {dm.size()} ranks in a world of "
                          f"{torch.distributed.get_world_size()}: gather takes a mesh over "
@@ -290,12 +360,31 @@ def gather_leaf(leaf):
     full = torch.empty(leaf.shape, dtype=local.dtype, device=local.device)
     for coord in itertools.product(*map(range, dm.mesh.shape)):
         local_slice(full, dm, leaf.placements, coord).copy_(parts[int(dm.mesh[coord])])
+    _count([names[i] for i in todo], full)
     return full
 
 
-def gather(tree):
-    """Every DTensor leaf of ``tree`` as its full tensor (``gather_leaf``)."""
-    return base.tree_map(gather_leaf, tree)
+def gather(tree, axes=None):
+    """Every DTensor leaf of ``tree`` gathered (``gather_leaf``): whole, or
+    over ``axes`` only."""
+    return base.tree_map(lambda t: gather_leaf(t, axes), tree)
+
+
+def placed_by_rules(tree, cfg, mesh) -> bool:
+    """Whether every leaf of ``tree`` is placed on "model" as the rules
+    (``param_shardings``) place it: sharded on the rule's dim, or replicated
+    where the rule replicates it. The tensor-parallel step takes such a
+    tree; any other placement is gathered whole."""
+    rules = [s for _, s in base.flatten(param_shardings(cfg, mesh, fsdp=False),
+                                        is_leaf=lambda x: isinstance(x, NamedSharding))]
+    flat = base.flatten(tree)
+    if len(rules) != len(flat):
+        return False
+    for (_, leaf), rule in zip(flat, rules):
+        want = next((d for d, e in enumerate(rule.spec) if e == "model"), None)
+        if model_dim(leaf) != want:
+            return False
+    return True
 
 
 def to_local(tree):
@@ -321,15 +410,20 @@ def like(local_tree, ref_tree):
     return base.unflatten(ref_tree, [one(t, r) for t, r in zip(flat, refs)])
 
 
-def shard_like(full_tree, ref_tree):
+def shard_like(full_tree, ref_tree, axes=None):
     """Each full tensor of ``full_tree`` cut to the local slice of the
-    matching DTensor of ``ref_tree`` (whole where that leaf is plain)."""
-    from torch.distributed.tensor import DTensor
+    matching DTensor of ``ref_tree`` (whole where that leaf is plain); with
+    ``axes``, cut over those mesh axes only (a tensor gathered over them,
+    ``gather(tree, axes)``, back to its shard)."""
+    from torch.distributed.tensor import DTensor, Replicate
 
     def one(t, ref):
         if not isinstance(ref, DTensor):
             return t
-        return local_slice(t, ref.device_mesh, ref.placements)
+        names = ref.device_mesh.mesh_dim_names
+        place = [p if axes is None or names[i] in axes else Replicate()
+                 for i, p in enumerate(ref.placements)]
+        return local_slice(t, ref.device_mesh, place)
 
     flat = [t for _, t in base.flatten(full_tree)]
     refs = [r for _, r in base.flatten(ref_tree)]

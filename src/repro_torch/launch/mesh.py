@@ -17,7 +17,9 @@ sharding rules and the dry run's analytic model read. ``make_host_mesh``
 is the mesh that runs: a ``HostMesh`` of ("data", "model") over the ranks
 of the default process group, which the caller starts (``torchrun``, or
 ``torch.distributed.init_process_group`` with its address, world size and
-rank). It never starts a group and never falls back to one rank.
+rank). It never starts a group and never falls back to one rank. Its
+"model" axis is where the training step computes tensor- and
+expert-parallel (``train_step.make_mesh_train_step``).
 """
 
 from __future__ import annotations
@@ -112,9 +114,12 @@ class HostMesh:
     """A ("data", "model") mesh over the ranks of the default process group:
     axis names, their sizes (``shape``), the ``DeviceMesh`` that DTensors
     are placed on, this rank's device and coordinate, the group of all its
-    ranks (``group``) and the group of the ranks along "data" through this
+    ranks (``group``), the group of the ranks along "data" through this
     rank (``batch_group``: the data-parallel replicas of its shard, in batch
-    order)."""
+    order, this rank the ``batch_index``-th of ``n_batch``) and the group of
+    the ranks along "model" through it (``model_group``: the ranks whose
+    shards of one replica's tensor-parallel leaves make up the whole, this
+    rank the ``model_index``-th of ``n_model``)."""
 
     def __init__(self, device_mesh, device: torch.device):
         import torch.distributed as dist
@@ -129,6 +134,8 @@ class HostMesh:
         self.coordinate = tuple(int(c) for c in device_mesh.get_coordinate())
         self.batch_group = device_mesh.get_group("data")
         self.batch_index, self.n_batch = self.coordinate[0], self.sizes[0]
+        self.model_group = device_mesh.get_group("model")
+        self.model_index, self.n_model = self.coordinate[1], self.sizes[1]
 
     @property
     def shape(self) -> dict:

@@ -1,7 +1,9 @@
 """Transformer layers: norms, RoPE, GQA attention, projections, MLPs.
 
 Attention stays plain PyTorch, as the reference computes it outside its
-kernels. Protected weights (``EccWeight``) go through the fused ECC read
+kernels. On a training mesh's "model" axis the projections are column- and
+row-parallel on a rank's local shards (``qkv_proj(heads=)``,
+``out_proj``, ``mlp_sharded``). Protected weights (``EccWeight``) go through the fused ECC read
 path ``ops.ecc_matmul``.
 
 Every sum over a feature or cache axis (the norms, the attention products,
@@ -322,23 +324,28 @@ def banded_attention(q, k, v, window: int, q_chunk: int = 1024):
     return torch.cat(outs, dim=1).reshape(b, sq, h, dh)
 
 
-def qkv_proj(x, p, cfg, rope=None):
+def qkv_proj(x, p, cfg, rope=None, heads=None):
     """x: (B, S, D) -> q (B,S,H,Dh), k/v (B,S,Hkv,Dh); q and k rotated by
     ``rope`` = (cos, sin) where given. With ``cfg.qkv_bias`` the three
     biases are added before the reshape, the norm and the rotation. q and k
     are normed and rotated as one tensor of H + Hkv heads (the same floats,
-    half the operations)."""
+    half the operations).
+
+    Column-parallel on a model rank: ``heads`` = (H, Hkv) of the local
+    ``wq`` / ``wk`` / ``wv`` (and ``bq`` / ``bk`` / ``bv``) columns, whose
+    heads are whole (the "heads:<n>" rule), so the norm and the rotation
+    apply per local head as they would whole."""
     b, s, _ = x.shape
-    h = cfg.n_heads
+    h, hkv = (cfg.n_heads, cfg.n_kv_heads) if heads is None else heads
     q, k, v = (_linear(x, p[w]) for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, h, cfg.hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    k = k.reshape(b, s, hkv, cfg.hd)
+    v = v.reshape(b, s, hkv, cfg.hd)
     qk = torch.cat([q, k], dim=2)
     if cfg.qk_norm:
-        gamma = torch.cat([p["q_norm"].expand(h, -1), p["k_norm"].expand(cfg.n_kv_heads, -1)])
+        gamma = torch.cat([p["q_norm"].expand(h, -1), p["k_norm"].expand(hkv, -1)])
         qk = rms_norm(qk, gamma)
     if rope is not None:
         qk = rotate(qk, *rope)
@@ -346,6 +353,9 @@ def qkv_proj(x, p, cfg, rope=None):
 
 
 def out_proj(attn_out, p):
+    """(B, S, H, Dh) -> (B, S, D); row-parallel on a model rank: its local
+    heads against its rows of ``wo``, a partial sum that leaves the region
+    summed over the ranks."""
     b, s = attn_out.shape[:2]
     return _linear(attn_out.reshape(b, s, -1), p["wo"])
 
@@ -366,3 +376,14 @@ def mlp(x, p, cfg):
         up = _linear(x, p["w3"])
         return _linear(gate * up, p["w2"])
     return _linear(_ACTS[cfg.mlp_act](_linear(x, p["w1"])), p["w2"])
+
+
+def mlp_sharded(x, ps, cfg, model):
+    """``mlp`` tensor-parallel on the "model" axis ``model``
+    (``collectives.ModelAxis``): each branch's ``w1`` / ``w3`` columns and
+    ``w2`` rows of "ffn" (``ps``, one local tree a branch), their partial
+    outputs summed over the axis. Where the rule leaves "ffn" whole, the MLP
+    is computed whole."""
+    if ps[0]["w1"].shape[-1] == cfg.d_ff:
+        return mlp(x, ps[0], cfg)
+    return model.leave([mlp(xr, p, cfg) for xr, p in zip(model.enter(x), ps)])

@@ -41,8 +41,11 @@ cache, autograd through plain products, the reference's train-mode
 attention forms (``layers.full_attention``, ``flash_attention``,
 ``banded_attention``) in place of the batch-invariant cache path, the
 MoE's aux loss, remat per layer group, and the cross-entropy in sequence
-chunks against the float32 unembedding. The serving entry points above
-stay ``no_grad`` and do not change.
+chunks against the float32 unembedding. On a mesh's "model" axis
+(``model=``, a ``collectives.ModelAxis``) the dense and MoE families'
+train forward runs on the local shards: tensor-parallel attention and MLP,
+expert-parallel MoE, vocab-parallel embedding and loss. The serving entry
+points above stay ``no_grad`` and do not change.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
+from repro_torch.distributed.sharding import model_bounds, spec_for
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import base, layers, mamba, moe, rwkv6
@@ -776,9 +780,16 @@ def _train_attention(q, k, v, cfg):
     return layers.full_attention(q, k, v, causal=True, window=w)
 
 
-def _train_ffn(x, p, cfg):
+def _train_ffn(x, p, cfg, model=None):
     """x + the feed-forward of the ln2-normed x, and the MoE's aux loss
-    (0.0 for a dense MLP)."""
+    (0.0 for a dense MLP). With ``model``, ``p`` is one local tree a branch
+    (``_branches``)."""
+    if model is not None:
+        h2 = layers.apply_norm(x, p[0]["ln2"], cfg.norm_type)
+        if "moe" in p[0]:
+            y, aux = moe.moe_ffn(h2, [q["moe"] for q in p], cfg, with_aux=True, model=model)
+            return x + y, aux
+        return x + layers.mlp_sharded(h2, [q["mlp"] for q in p], cfg, model), 0.0
     h2 = layers.apply_norm(x, p["ln2"], cfg.norm_type)
     if "moe" in p:
         y, aux = moe.moe_ffn(h2, p["moe"], cfg, with_aux=True)
@@ -786,8 +797,42 @@ def _train_ffn(x, p, cfg):
     return x + layers.mlp(h2, p["mlp"], cfg), 0.0
 
 
-def _train_layer(x, p, cfg, mixer, rope, img):
-    """One layer of the train forward -> (x, aux)."""
+def _attention_sharded(h, ps, cfg, rope, model):
+    """The attention of the normed ``h`` on the "model" axis: each branch's
+    q heads (``qkv_proj`` column-parallel on its ``wq`` columns) against
+    their K / V heads, its rows of ``wo`` (row-parallel), the partial
+    outputs summed over the axis. GQA's grouping stays inside a rank: with
+    the KV heads sharded too, a rank's q heads read exactly its KV heads;
+    where the rule leaves the KV heads whole (their count does not divide
+    the axis), each local q head reads its KV head from the whole K / V.
+    Where the rule leaves the q heads whole, the attention is computed
+    whole."""
+    a0 = ps[0]["attn"]
+    hd = cfg.hd
+    h_loc, kv_loc = a0["wq"].shape[-1] // hd, a0["wk"].shape[-1] // hd
+    if h_loc == cfg.n_heads:
+        q, k, v = layers.qkv_proj(h, a0, cfg, rope)
+        return layers.out_proj(_train_attention(q, k, v, cfg), a0)
+    group = cfg.n_heads // cfg.n_kv_heads
+    parts = []
+    for r, hr, p in zip(model.ranks, model.enter(h), ps):
+        q, k, v = layers.qkv_proj(hr, p["attn"], cfg, rope, heads=(h_loc, kv_loc))
+        if kv_loc == cfg.n_kv_heads:  # whole K / V: the KV head of each local q head
+            q0, _ = model_bounds(h_loc, r)
+            idx = torch.div(torch.arange(q0, q0 + h_loc, device=h.device), group,
+                            rounding_mode="floor")
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+        parts.append(layers.out_proj(_train_attention(q, k, v, cfg), p["attn"]))
+    return model.leave(parts)
+
+
+def _train_layer(x, p, cfg, mixer, rope, img, model=None):
+    """One layer of the train forward -> (x, aux). With ``model``, ``p`` is
+    one local tree a branch and the attention and the feed-forward run on
+    the "model" axis (the dense and MoE families' layers)."""
+    if model is not None:
+        h = layers.apply_norm(x, p[0]["ln1"], cfg.norm_type)
+        return _train_ffn(x + _attention_sharded(h, p, cfg, rope, model), p, cfg, model)
     h = layers.apply_norm(x, p["ln1"], cfg.norm_type)
     if mixer == "attn":
         q, k, v = layers.qkv_proj(h, p["attn"], cfg, rope)
@@ -815,9 +860,26 @@ def _train_layer(x, p, cfg, mixer, rope, img):
     return x + y2, 0.0
 
 
-def _train_embed(params, tokens, cfg):
+def _train_embed(params, tokens, cfg, model=None):
     """``_embed`` through ``F.embedding``: the same gather, whose gradient
-    on the card is a sorted segment sum rather than an atomic scatter."""
+    on the card is a sorted segment sum rather than an atomic scatter.
+
+    Vocab-parallel with ``model`` (``params`` one local tree a branch):
+    each branch looks up the ids of its rows of the table, the ids outside
+    them give zero rows, and the branches' rows are summed over the axis.
+    Where the rule leaves the vocab whole, the lookup is whole."""
+    if model is not None:
+        e0 = params[0]["embed"]
+        if e0.shape[0] == cfg.vocab:
+            return F.embedding(tokens, e0).to(cfg.compute_dtype)
+        parts = []
+        for r, p in zip(model.ranks, params):
+            e = p["embed"]
+            v0, v1 = model_bounds(e.shape[0], r)
+            inside = (tokens >= v0) & (tokens < v1)
+            rows = F.embedding(torch.where(inside, tokens - v0, 0), e)
+            parts.append(torch.where(inside[..., None], rows, rows.new_zeros(())))
+        return model.leave(parts).to(cfg.compute_dtype)
     e = params["embed"]
     if not cfg.n_codebooks:
         return F.embedding(tokens, e).to(cfg.compute_dtype)
@@ -836,29 +898,84 @@ def _unstack(tree, n: int) -> list:
     return [base.unflatten(tree, [u[g] for u in per]) for g in range(n)]
 
 
-def train_forward(params, tokens, cfg: ModelConfig, img=None, remat=None):
+def supports_tensor_parallel(cfg: ModelConfig) -> bool:
+    """Whether the train forward computes ``cfg`` on a mesh's "model" axis
+    (``model=``): the dense and MoE families. rwkv6, mamba, the vlm cross
+    layers and audio codebooks are gathered whole on a mesh."""
+    return cfg.family in ("dense", "moe") and not cfg.n_codebooks
+
+
+def model_partial_keys(cfg: ModelConfig, n_model: int) -> tuple:
+    """The replicated leaves that the forward on a "model" axis of
+    ``n_model`` ranks reads inside a sharded region, by key: each rank's
+    gradient of them is its heads' part, summed over "model" by the step.
+    They are ``q_norm`` / ``k_norm`` of an attention whose q heads the rules
+    shard, and ``wk`` / ``wv`` (``bk`` / ``bv``) where they leave the KV
+    heads whole. (The MoE router is not among them: the routing weights
+    enter the region, so its gradient is whole on every rank.)"""
+    from repro_torch.launch.mesh import abstract_mesh
+
+    if n_model <= 1 or not supports_tensor_parallel(cfg):
+        return ()
+    mesh = abstract_mesh((1, n_model), ("data", "model"))
+    a = _attn_spec(cfg)
+
+    def split(name):
+        return "model" in spec_for(a[name].axes, a[name].shape, mesh, False)
+
+    if not split("wq"):
+        return ()
+    names = ["q_norm", "k_norm"] if cfg.qk_norm else []
+    if not split("wk"):
+        names += ["wk", "wv"] + (["bk", "bv"] if cfg.qkv_bias else [])
+    return tuple(sorted(f"['blocks']['p{j}']['attn'][{n!r}]" for j in range(cfg.period)
+                        if cfg.layer_kind(j)["mixer"] == "attn" for n in names))
+
+
+def _branches(params, model) -> list:
+    """The local trees of ``model``'s branches, in rank order, from
+    ``params`` keyed by model rank ({rank: tree})."""
+    if set(params) != set(model.ranks):
+        raise ValueError(f"a model-axis forward takes one local tree a rank, keyed "
+                         f"{model.ranks}, not {sorted(params, key=str)}")
+    return [params[r] for r in model.ranks]
+
+
+def train_forward(params, tokens, cfg: ModelConfig, img=None, remat=None, model=None):
     """The reference's ``forward(mode="train")``: no cache, gradients kept.
     (B, S) tokens, an audio config's (B, K, S), at positions 0 .. S - 1 ->
     (final-norm hidden (B, S, D), float32 aux loss: the MoE layers'
     load-balancing losses summed). A vlm attends ``img`` (B, T, D) without
-    a causal mask. Groups run in order, each under ``remat``."""
+    a causal mask. Groups run in order, each under ``remat``.
+
+    ``model`` (a ``collectives.ModelAxis``) runs the dense and MoE families
+    on a mesh's "model" axis: ``params`` holds the local shards, one tree a
+    branch keyed by its model rank (``_branches``), the sharded leaves as
+    the rules place them,
+    and the layers compute tensor- and expert-parallel; the hidden state
+    between the regions is whole on every rank."""
     check_family(cfg)
     kinds = [cfg.layer_kind(j)["mixer"] for j in range(cfg.period)]
     if "cross" in kinds and img is None:
         raise ValueError(f"{cfg.name}: a vlm train forward needs the image embeddings (img=)")
+    if model is not None and not supports_tensor_parallel(cfg):
+        raise ValueError(f"{cfg.name}: the {cfg.family} family is not computed on a model axis")
+    ps = [params] if model is None else _branches(params, model)
     tokens = tokens.long()
     s = tokens.shape[-1]
-    x = _train_embed(params, tokens, cfg)
+    x = _train_embed(ps[0] if model is None else ps, tokens, cfg, model)
     rope = None
     if "attn" in kinds:
         rope = layers.rope_tables(torch.arange(s, device=x.device)[None, :], cfg.hd,
                                   cfg.rope_theta)
-    groups = {j: _unstack(params["blocks"][f"p{j}"], cfg.n_groups) for j in range(cfg.period)}
+    groups = [{j: _unstack(p["blocks"][f"p{j}"], cfg.n_groups) for j in range(cfg.period)}
+              for p in ps]
 
     def group(h, g):
         aux_g = 0.0
         for j, mixer in enumerate(kinds):
-            h, a = _train_layer(h, groups[j][g], cfg, mixer, rope, img)
+            p = groups[0][j][g] if model is None else [gs[j][g] for gs in groups]
+            h, a = _train_layer(h, p, cfg, mixer, rope, img, model)
             aux_g = aux_g + a
         return h, torch.as_tensor(aux_g, dtype=torch.float32, device=h.device)
 
@@ -867,41 +984,77 @@ def train_forward(params, tokens, cfg: ModelConfig, img=None, remat=None):
     for g in range(cfg.n_groups):
         x, a = step(x, g)
         aux = aux + a
-    return layers.apply_norm(x, params["final_norm"], cfg.norm_type), aux
+    return layers.apply_norm(x, ps[0]["final_norm"], cfg.norm_type), aux
 
 
-def chunked_xent(hidden, unembed, labels, chunk: int = 512):
+def _lse_gold_sharded(h, uns, lab, model):
+    """Vocab-parallel logsumexp and gold logit of float32 rows ``h`` (B, C,
+    D) against each branch's unembedding columns ``uns``: the maximum over
+    the axis, each branch's sum of exp below it summed over the axis, and
+    the gold logit from the branch whose columns hold the label (zero on
+    every other)."""
+    logits = [torch.einsum("bcd,dv->bcv", hr, un) for hr, un in zip(model.enter(h), uns)]
+    m = model.max([lg.amax(dim=-1) for lg in logits])
+    se = model.leave([torch.sum(torch.exp(lg - m[..., None]), dim=-1) for lg in logits])
+    golds = []
+    for r, lg in zip(model.ranks, logits):
+        v0, v1 = model_bounds(lg.shape[-1], r)
+        inside = (lab >= v0) & (lab < v1)
+        gold = torch.gather(lg, -1, torch.where(inside, lab - v0, 0)[..., None])[..., 0]
+        golds.append(torch.where(inside, gold, gold.new_zeros(())))
+    return m + torch.log(se), model.leave(golds)
+
+
+def chunked_xent(hidden, unembed, labels, chunk: int = 512, model=None):
     """Mean cross-entropy without the (B, S, V) logits: hidden (B, S, D),
     unembed (D, V), labels (B, S) (-1 = masked). The sequence is cut into
     chunks (``chunk``, halved until it divides S) whose (B, chunk, V)
-    logits are float32 products."""
+    logits are float32 products.
+
+    Vocab-parallel with ``model``: ``unembed`` is a list of each branch's
+    (D, V / n) columns (``_lse_gold_sharded``)."""
     b, s, d = hidden.shape
     chunk = min(chunk, s)
     while s % chunk:
         chunk //= 2
     labels = labels.long()
-    un = unembed.to(torch.float32)
+    if model is None:
+        un = unembed.to(torch.float32)
+    else:
+        uns = [u.to(torch.float32) for u in unembed]
     loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
     n = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, s, chunk):
         h, lab = hidden[:, c0:c0 + chunk].to(torch.float32), labels[:, c0:c0 + chunk]
-        logits = torch.einsum("bcd,dv->bcv", h, un)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, torch.clamp(lab, min=0)[..., None])[..., 0]
+        if model is None:
+            logits = torch.einsum("bcd,dv->bcv", h, un)
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, torch.clamp(lab, min=0)[..., None])[..., 0]
+        else:
+            lse, gold = _lse_gold_sharded(h, uns, lab, model)
         mask = (lab >= 0).to(torch.float32)
         loss_sum = loss_sum + torch.sum((lse - gold) * mask)
         n = n + mask.sum()
     return loss_sum / torch.clamp(n, min=1.0)
 
 
-def train_loss(params, batch, cfg: ModelConfig, remat="full"):
+def train_loss(params, batch, cfg: ModelConfig, remat="full", model=None):
     """batch: {"tokens", "labels"[, "img"]} tensors. Returns (loss = ce +
     0.01 x aux, {"ce", "aux"}); an audio config's ce is the mean of one
-    loss per codebook."""
-    hidden, aux = train_forward(params, batch["tokens"], cfg, img=batch.get("img"), remat=remat)
+    loss per codebook. ``model``: ``train_forward``'s, the loss
+    vocab-parallel (a tied embedding's one local shard serves both)."""
+    hidden, aux = train_forward(params, batch["tokens"], cfg, img=batch.get("img"), remat=remat,
+                                model=model)
+    labels = batch["labels"]
+    if model is not None:
+        ps = _branches(params, model)
+        uns = [p["embed"].transpose(-1, -2) if cfg.tie_embeddings else p["lm_head"] for p in ps]
+        whole = uns[0].shape[-1] == cfg.vocab  # the rule leaves the vocab whole
+        ce = chunked_xent(hidden, uns[0] if whole else uns, labels,
+                          model=None if whole else model)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     un = w.transpose(-1, -2) if cfg.tie_embeddings else w
-    labels = batch["labels"]
     if cfg.n_codebooks:
         ce = sum(chunked_xent(hidden, un[k], labels[:, k]) for k in range(cfg.n_codebooks))
         ce = ce / cfg.n_codebooks

@@ -30,6 +30,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import model_bounds
+
 MOE_ROWS = 16  # rows of every router, expert and shared-expert product
 
 
@@ -115,58 +117,110 @@ def _expert_ffn(xe: torch.Tensor, p, cfg) -> torch.Tensor:
     return torch.stack(outs).reshape(e, g, c, d).transpose(0, 1)
 
 
-def moe_ffn(x: torch.Tensor, p, cfg, with_aux: bool = False):
+def _shared(x2: torch.Tensor, p) -> torch.Tensor:
+    """The shared expert's SwiGLU of (n, D) rows (a partial sum on a model
+    rank that holds its "ffn" columns and rows)."""
+    h = F.silu(_rows(x2, p["shared_w1"])) * _rows(x2, p["shared_w3"])
+    return _rows(h, p["shared_w2"])
+
+
+def moe_ffn(x: torch.Tensor, p, cfg, with_aux: bool = False, model=None):
     """x: (B, S, D) -> (B, S, D). p: router (D, E), w1 / w3 (E, D, F), w2
     (E, F, D), and with ``cfg.shared_expert`` shared_w1 / shared_w3 (D, F),
     shared_w2 (F, D). ``with_aux`` returns (out, load_balance_loss of the
-    router logits and the top-1 experts) instead."""
+    router logits and the top-1 experts) instead.
+
+    With ``model`` (a ``collectives.ModelAxis``) ``p`` is one local tree a
+    branch and the experts run on the "model" axis as the rules place them:
+    expert-parallel where the experts divide it (each rank its own experts'
+    slots, zeros elsewhere), else tensor-parallel on "ffn" inside every
+    expert (the rules' fallback), else whole. Routing stays global: every
+    rank routes every token with the replicated router, and the routing
+    weights enter the region, so the router's gradient is whole on every
+    rank. The partial outputs, and the shared expert's column/row-parallel
+    partial, leave the region summed over the axis."""
     b, s, d = x.shape
+    ps = [p] if model is None else p
+    p0 = ps[0]
     e, k = cfg.n_experts, cfg.top_k
     xg = x.reshape(1, b, d) if s == 1 else x  # decode: one group; else one per row
     g, t = xg.shape[:2]
     cap = capacity(t, k, e, cfg.capacity_factor)
 
-    expert_idx, probs, logits = route_topk(xg, p["router"], e, k)
+    expert_idx, probs, logits = route_topk(xg, p0["router"], e, k)
     slot_src, slot_valid, _ = sort_dispatch(expert_idx, e, cap)
 
     tok_of_slot = torch.clamp(slot_src // k, max=t - 1)  # (G, E*C)
-    xe = torch.gather(xg, 1, tok_of_slot[..., None].expand(-1, -1, d))
-    xe = xe * slot_valid[..., None].to(xe.dtype)
-    ye = _expert_ffn(xe.reshape(g, e, cap, d), p, cfg).reshape(g, e * cap, d)
-
     prob_flat = probs.reshape(g, t * k)
     safe_src = torch.clamp(slot_src, max=t * k - 1)
     w_slot = torch.where(slot_valid, torch.gather(prob_flat, 1, safe_src),
                          prob_flat.new_zeros(()))
-    y_flat = ye * w_slot[..., None].to(ye.dtype)
-
     # Combine: each assignment's slot (the extra zero row where it was
     # dropped), a token's k outputs added in slot (= expert) order.
     slot_of = torch.full((g, t * k + 1), e * cap, dtype=torch.int64, device=x.device)
     slot_of.scatter_(1, slot_src, torch.arange(e * cap, device=x.device).expand(g, -1))
-    y_pad = torch.cat([y_flat, y_flat.new_zeros((g, 1, d))], dim=1)
-    picked = torch.gather(y_pad, 1, slot_of[:, : t * k, None].expand(-1, -1, d))
-    picked = picked.reshape(g, t, k, d)
     order = torch.argsort(expert_idx, dim=-1)  # (G, T, k), distinct experts
-    out = xg.new_zeros((g, t, d), dtype=y_flat.dtype)
-    for j in range(k):
-        out = out + torch.gather(picked, 2, order[..., j, None, None].expand(-1, -1, 1, d))[:, :, 0]
 
-    if cfg.shared_expert:
-        x2 = xg.reshape(g * t, d)
-        h = F.silu(_rows(x2, p["shared_w1"])) * _rows(x2, p["shared_w3"])
-        out = out + _rows(h, p["shared_w2"]).reshape(g, t, d)
+    def experts(xg_, w_slot_, p_, lo: int, hi: int):
+        """The weighted outputs of experts [lo, hi) combined per token (the
+        other experts' slots zero)."""
+        sl = slice(lo * cap, hi * cap)
+        xe = torch.gather(xg_, 1, tok_of_slot[:, sl, None].expand(-1, -1, d))
+        xe = xe * slot_valid[:, sl, None].to(xe.dtype)
+        ye = _expert_ffn(xe.reshape(g, hi - lo, cap, d), p_, cfg).reshape(g, (hi - lo) * cap, d)
+        y_flat = ye * w_slot_[:, sl, None].to(ye.dtype)
+        if hi - lo < e:
+            y_flat = torch.cat([y_flat.new_zeros((g, lo * cap, d)), y_flat,
+                                y_flat.new_zeros((g, (e - hi) * cap, d))], dim=1)
+        y_pad = torch.cat([y_flat, y_flat.new_zeros((g, 1, d))], dim=1)
+        picked = torch.gather(y_pad, 1, slot_of[:, : t * k, None].expand(-1, -1, d))
+        picked = picked.reshape(g, t, k, d)
+        out = xg_.new_zeros((g, t, d), dtype=y_flat.dtype)
+        for j in range(k):
+            out = out + torch.gather(picked, 2, order[..., j, None, None].expand(-1, -1, 1, d))[
+                :, :, 0]
+        return out
+
+    e_loc, f_loc = p0["w1"].shape[0], p0["w1"].shape[-1]
+    split = model is not None and (e_loc < e or f_loc < cfg.d_ff)
+    shared_split = (model is not None and cfg.shared_expert
+                    and p0["shared_w1"].shape[-1] < cfg.d_ff)
+    out = None if split else experts(xg, w_slot, p0, 0, e)
+    if split or shared_split:
+        xs = model.enter(xg)
+        ws = model.enter(w_slot) if split else [None] * len(xs)
+        parts = []
+        for r, xr, wr, pr in zip(model.ranks, xs, ws, ps):
+            part = None
+            if split:
+                lo, hi = model_bounds(e_loc, r) if e_loc < e else (0, e)
+                part = experts(xr, wr, pr, lo, hi)
+            if shared_split:
+                sh = _shared(xr.reshape(g * t, d), pr).reshape(g, t, d)
+                part = sh if part is None else part + sh
+            parts.append(part)
+        y = model.leave(parts)
+        out = y if out is None else out + y
+    if cfg.shared_expert and not shared_split:
+        out = out + _shared(xg.reshape(g * t, d), p0).reshape(g, t, d)
     if not with_aux:
         return out.reshape(b, s, d)
-    aux = load_balance_loss(logits.reshape(b * s, e), expert_idx.reshape(b * s, k), e)
+    aux = load_balance_loss(logits.reshape(b * s, e), expert_idx.reshape(b * s, k), e,
+                            batch=None if model is None else model.batch)
     return out.reshape(b, s, d), aux
 
 
-def load_balance_loss(router_logits, expert_idx, n_experts: int) -> torch.Tensor:
+def load_balance_loss(router_logits, expert_idx, n_experts: int, batch=None) -> torch.Tensor:
     """Switch-style auxiliary loss: E x sum over experts of (mean router
-    probability) x (share of tokens whose first choice it is)."""
+    probability) x (share of tokens whose first choice it is). ``batch``:
+    the group of the data-parallel ranks whose rows make up the batch, over
+    which both means are taken (``collectives.batch_mean``)."""
     probs = torch.softmax(router_logits, dim=-1)  # (T, E)
     me = probs.mean(0)
     first = expert_idx.reshape(-1, expert_idx.shape[-1])[:, 0]
     ce = F.one_hot(first, n_experts).to(probs.dtype).mean(0)
+    if batch is not None:
+        from repro_torch.distributed import collectives
+
+        me, ce = collectives.batch_mean(me, batch), collectives.batch_mean(ce, batch)
     return n_experts * torch.sum(me * ce)

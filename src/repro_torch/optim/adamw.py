@@ -62,10 +62,33 @@ def init(params, cfg: AdamWConfig):
     }
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
+def global_norm(tree, sharded=None, psum=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares.
+
+    Over one rank's shards: ``sharded`` marks (in flatten order) the
+    leaves of which the rank holds a shard on the "model" axis; their
+    squares are summed (``square_sums``) and the sum added over the axis by
+    ``psum``, and every other leaf, replicated, is counted once."""
+    if sharded is None:
+        leaves = [leaf for _, leaf in base.flatten(tree)]
+        return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32))) for l in leaves))
+    part, rest = square_sums(tree, sharded)
+    return torch.sqrt(psum(part) + rest)
+
+
+def square_sums(tree, sharded) -> tuple:
+    """(the float32 sum of squares of the leaves marked in ``sharded``, that
+    of the others), each summed over leaves in flatten order from 0."""
     leaves = [leaf for _, leaf in base.flatten(tree)]
-    return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32))) for l in leaves))
+    zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    part, rest = zero, zero
+    for leaf, mark in zip(leaves, sharded, strict=True):
+        sq = torch.sum(torch.square(leaf.to(torch.float32)))
+        if mark:
+            part = part + sq
+        else:
+            rest = rest + sq
+    return part, rest
 
 
 @torch.no_grad()

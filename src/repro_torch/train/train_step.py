@@ -9,14 +9,23 @@ so live activation memory is 1/n of the batch's. Metrics stay tensors on
 the parameters' device.
 
 ``make_mesh_train_step(cfg, tcfg, mesh)`` is the same function on a
-process group's mesh, computed data-parallel: every leaf sharded by its
-placement is gathered whole before the forward (the reference's GSPMD
-shards the products over "model" instead; here the model axis holds
-shards of the state and does no work), each rank takes its contiguous rows
-of the global batch, the loss and gradients are averaged over the batch
-axes in rank order (``collectives.dp_loss_and_grads``, which also states
-the rule for a batch that does not split), and each rank updates its own
-shard of the params and moments with the global gradient norm.
+process group's mesh. Each rank takes its contiguous rows of the global
+batch over the batch axes, the loss and gradients are averaged over them in
+rank order (``collectives.dp_loss_and_grads``, which also states the rule
+for a batch that does not split), and each rank updates its own shards of
+the params and moments with the global gradient norm. On the "model" axis
+the step computes as the rules place the leaves (the dense and MoE
+families): a leaf sharded over "model" is never gathered whole; the leaves
+are gathered over the batch axes only, the forward runs tensor- and
+expert-parallel on the local shards (``lm.train_loss(model=)``), whose
+partial results meet in explicit collectives, the sharded leaves'
+gradients stay local, the replicated leaves read inside a sharded region
+(``lm.model_partial_keys``) have their gradients summed over "model", and
+the norm sums the sharded leaves' squares over "model" once. A model axis
+of one rank, another family, or leaves placed otherwise on "model" take
+the data-parallel step with every leaf gathered whole.
+``emulate_model_step`` computes the model-axis step of a (1, n) mesh in one
+process, each rank's branch in turn, for checks against the ranks.
 """
 
 from __future__ import annotations
@@ -88,28 +97,147 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     return train_step
 
 
+def _sum_over_model(grads, keys, total):
+    """``grads`` with the leaves at ``keys`` replaced by ``total`` of them,
+    in one call a dtype on their flattened concatenation."""
+    flat = base.flatten(grads)
+    leaves = [g for _, g in flat]
+    picked = [i for i, (k, _) in enumerate(flat) if k in keys]
+    for dt in {leaves[i].dtype for i in picked}:
+        idx = [i for i in picked if leaves[i].dtype == dt]
+        summed = total(torch.cat([leaves[i].reshape(-1) for i in idx]))
+        for i, part in zip(idx, torch.split(summed, [leaves[i].numel() for i in idx])):
+            leaves[i] = part.reshape(leaves[i].shape)
+    return base.unflatten(grads, leaves)
+
+
 def make_mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
-    """``make_train_step`` on ``mesh`` (a ``launch.mesh.HostMesh``), data
-    parallel over its batch axes (see the module docstring). Params and
-    moments are DTensors placed by a sharding, or plain tensors (replicated);
-    every rank passes the same global batch."""
+    """``make_train_step`` on ``mesh`` (a ``launch.mesh.HostMesh``),
+    data-parallel over its batch axes and tensor- and expert-parallel over
+    "model" (see the module docstring). Params and moments are DTensors
+    placed by a sharding, or plain tensors (replicated); every rank passes
+    the same global batch."""
     from repro_torch.distributed import collectives
     from repro_torch.distributed import sharding as shd
 
     loss_fn = make_loss_fn(cfg, tcfg)
+    on_model = mesh.n_model > 1 and lm.supports_tensor_parallel(cfg)
+    partial = set(lm.model_partial_keys(cfg, mesh.n_model))
+    batch_axes = shd.batch_axes(mesh)
+    # the batch split over the batch axes or not (dp_loss_and_grads' rule)
+    axes = {split: collectives.ModelAxis.of_mesh(mesh, split) for split in (False, True)}
 
-    def train_step(params, opt_state, batch):
+    def whole_step(params, opt_state, batch):
         loss, metrics, grads, _ = collectives.dp_loss_and_grads(
             loss_fn, tcfg, shd.gather(params), batch, mesh.batch_group, mesh.batch_index,
             mesh.n_batch)
         new_params, new_opt, opt_metrics = adamw.update(
             shd.shard_like(grads, params), shd.to_local(opt_state), shd.to_local(params),
             tcfg.optimizer, grad_norm=adamw.global_norm(grads))
+        return new_params, new_opt, loss, metrics, opt_metrics
+
+    def model_step(params, opt_state, batch):
+        rows = next(iter(batch.values())).shape[0]
+        axis = axes[mesh.n_batch > 1 and rows % mesh.n_batch == 0]
+        loss, metrics, grads, _ = collectives.dp_loss_and_grads(
+            lambda p, b: lm.train_loss({mesh.model_index: p}, b, cfg, remat=tcfg.remat,
+                                       model=axis), tcfg,
+            shd.gather(params, batch_axes), batch, mesh.batch_group, mesh.batch_index,
+            mesh.n_batch)
+        grads = _sum_over_model(grads, partial,
+                                lambda t: collectives.psum(t, mesh.model_group))
+        sharded = [shd.model_dim(leaf) is not None for _, leaf in base.flatten(params)]
+        gnorm = adamw.global_norm(grads, sharded,
+                                  lambda t: collectives.psum(t, mesh.model_group))
+        new_params, new_opt, opt_metrics = adamw.update(
+            shd.shard_like(grads, params, batch_axes), shd.to_local(opt_state),
+            shd.to_local(params), tcfg.optimizer, grad_norm=gnorm)
+        return new_params, new_opt, loss, metrics, opt_metrics
+
+    def train_step(params, opt_state, batch):
+        step = (model_step if on_model and shd.placed_by_rules(params, cfg, mesh)
+                else whole_step)
+        new_params, new_opt, loss, metrics, opt_metrics = step(params, opt_state, batch)
         out: dict[str, Any] = {"loss": loss, **opt_metrics}
         out.update(metrics or {})
         return shd.like(new_params, params), shd.like(new_opt, opt_state), out
 
     return train_step
+
+
+def emulate_model_step(cfg: ModelConfig, tcfg: TrainConfig, n_model: int, params, opt_state,
+                       batch):
+    """``make_mesh_train_step``'s model-axis step on a (1, ``n_model``) mesh
+    placed by the rules, computed in one process: whole ``params`` and
+    ``opt_state`` are cut into each rank's local shards, the forward runs
+    every rank's branch in turn (``collectives.ModelAxis.emulated``), and
+    every sum over the ranks adds their parts in rank order, as the
+    ranks' collectives do, so each rank's result is the same bits.
+    Returns (loss, [(new local params, new local opt state) of each model
+    rank])."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import abstract_mesh
+
+    if tcfg.microbatches > 1:
+        raise ValueError("the emulation takes one microbatch")
+    n = int(n_model)
+    rules = base.flatten(shd.param_shardings(cfg, abstract_mesh((1, n), ("data", "model")),
+                                             fsdp=False),
+                         is_leaf=lambda x: isinstance(x, shd.NamedSharding))
+    dims = [next((d for d, e in enumerate(r.spec) if e == "model"), None) for _, r in rules]
+    partial = set(lm.model_partial_keys(cfg, n))
+
+    def cut(t, d, r):
+        if d is None:
+            return t
+        size = t.shape[d] // n
+        return t.narrow(d, r * size, size).contiguous()
+
+    flat = base.flatten(params)
+    per_rank = []  # each leaf's tensor in each rank's tree
+    for (key, t), d in zip(flat, dims, strict=True):
+        if d is not None or key in partial:  # a leaf of its own a rank
+            per_rank.append([cut(t, d, r).detach().requires_grad_(True) for r in range(n)])
+        else:  # one leaf, read once outside the regions
+            one = t.detach().requires_grad_(True)
+            per_rank.append([one] * n)
+    trees = {r: base.unflatten(params, [leaves[r] for leaves in per_rank]) for r in range(n)}
+    unique = list({id(t): t for leaves in per_rank for t in leaves}.values())
+    with torch.enable_grad():
+        loss, _ = lm.train_loss(trees, batch, cfg, remat=tcfg.remat,
+                                model=collectives.ModelAxis.emulated(n))
+        gs = torch.autograd.grad(loss, unique, allow_unused=True)
+    grad_of = {id(t): torch.zeros_like(t) if g is None else g for t, g in zip(unique, gs)}
+
+    def rank_sum(parts):
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        return total
+
+    grads = []
+    for r in range(n):
+        leaves = []
+        for (key, _), d, ts in zip(flat, dims, per_rank):
+            if key in partial:
+                leaves.append(rank_sum([grad_of[id(t)] for t in ts]))
+            else:
+                leaves.append(grad_of[id(ts[r])])
+        grads.append(base.unflatten(params, leaves))
+    sharded = [d is not None for d in dims]
+    sums = [adamw.square_sums(g, sharded) for g in grads]
+    gnorm = torch.sqrt(rank_sum([part for part, _ in sums]) + sums[0][1])
+    out = []
+    for r in range(n):
+        local = lambda tree: base.unflatten(tree, [cut(t, d, r) for (_, t), d in zip(
+            base.flatten(tree), dims)])
+        opt_r = {"m": local(opt_state["m"]), "v": local(opt_state["v"]),
+                 "step": opt_state["step"]}
+        new_p, new_opt, _ = adamw.update(grads[r], opt_r, local(params), tcfg.optimizer,
+                                         grad_norm=gnorm)
+        out.append((new_p, new_opt))
+    return loss.detach(), out
 
 
 def make_eval_step(cfg: ModelConfig, tcfg: TrainConfig):

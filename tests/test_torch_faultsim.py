@@ -36,6 +36,19 @@ def test_platforms_and_power_model_identical():
     }
 
 
+@pytest.mark.parametrize("name", ["vc707", "kc705a", "kc705b"])
+def test_faults_per_mbit_equals_the_reference(name):
+    """``PlatformProfile.faults_per_mbit`` (Fig. 1's unit) equals the
+    reference's floats over a grid through the guardband, the exponential
+    region and the clamp below V_crash."""
+    assert set(jv.PLATFORMS) == {"vc707", "kc705a", "kc705b"}
+    j, t = jv.PLATFORMS[name], tv.PLATFORMS[name]
+    grid = np.linspace(0.50, 1.0, 51)
+    got = [t.faults_per_mbit(float(v)) for v in grid]
+    assert got == [j.faults_per_mbit(float(v)) for v in grid]
+    assert got[0] == got[1] > 0 and got[-1] == 0.0  # clamped below V_crash, zero at nominal
+
+
 def _assert_masks_equal(j, t):
     np.testing.assert_array_equal(j.lo, t.lo)
     np.testing.assert_array_equal(j.hi, t.hi)

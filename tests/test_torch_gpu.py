@@ -1460,3 +1460,76 @@ def test_sharded_load_on_one_rank_on_the_card(cuda, one_rank_group, tmp_path):
         assert isinstance(a, torch.distributed.tensor.DTensor) and a.to_local().is_cuda
         assert torch.equal(a.to_local().reshape(-1).view(torch.uint8),
                            b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_region_on_the_card_equals_a_whole_product(cuda, one_rank_group):
+    """The region's autograd Functions on a one-rank group of the card: a
+    product copied in and reduced out is the whole product bit for bit,
+    forward and backward; the MLP split column/row-parallel over two
+    emulated model ranks equals the whole MLP within float32 sum order, its
+    gradients too."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.models import base, layers
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(4, 33, 64, device=cuda, generator=g)
+    w = torch.randn(64, 96, device=cuda, generator=g) * 0.1
+    grads = []
+    for region in (False, True):
+        xi, wi = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        xin = coll.copy_in(xi, dist.group.WORLD) if region else xi
+        y = xin @ wi
+        y = coll.reduce_out(y, dist.group.WORLD) if region else y
+        (y * torch.cos(y)).sum().backward()
+        grads.append((y.detach(), xi.grad, wi.grad))
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+    cfg = base.ModelConfig(name="tiny", family="dense", n_layers=1, d_model=64, n_heads=4,
+                           n_kv_heads=2, d_ff=128, vocab=64, head_dim=16)
+    p = {k: (torch.randn(*s, device=cuda, generator=g) * 0.1).requires_grad_(True)
+         for k, s in (("w1", (64, 128)), ("w3", (64, 128)), ("w2", (128, 64)))}
+    xw = x.clone().requires_grad_(True)
+    whole = layers.mlp(xw, p, cfg)
+    gw = torch.autograd.grad(whole.square().sum(), [xw, *p.values()])
+    shards = [{k: (v.detach()[:, r * 64:(r + 1) * 64] if k != "w2" else
+                   v.detach()[r * 64:(r + 1) * 64]).clone().requires_grad_(True)
+               for k, v in p.items()} for r in range(2)]
+    xs = x.clone().requires_grad_(True)
+    split = layers.mlp_sharded(xs, shards, cfg, coll.ModelAxis.emulated(2))
+    gs = torch.autograd.grad(split.square().sum(), [xs] + [s[k] for k in p for s in shards])
+    torch.testing.assert_close(split, whole, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(gs[0], gw[0], rtol=1e-4, atol=1e-4)
+    for i, k in enumerate(p):
+        cat = torch.cat(gs[1 + 2 * i:3 + 2 * i], dim=0 if k == "w2" else 1)
+        torch.testing.assert_close(cat, gw[1 + i], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_vocab_parallel_xent_on_the_card_equals_the_whole_loss(cuda):
+    """``chunked_xent`` vocab-parallel over two emulated model ranks (the
+    maximum over them, their sums of exp, the gold logit from the rank that
+    holds it) against the whole loss on the card: the loss within 1e-6
+    relative, the gradients of the hidden rows and of both halves of the
+    unembedding within 1e-5 of the whole's."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.models import lm
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    hidden = torch.randn(2, 64, 32, device=cuda, generator=g).requires_grad_(True)
+    un = (torch.randn(32, 1000, device=cuda, generator=g) * 0.3).requires_grad_(True)
+    labels = torch.randint(0, 1000, (2, 64), device=cuda, generator=g)
+    labels[0, :5] = -1  # masked
+    labels[1, :3] = torch.tensor([0, 499, 500], device=cuda)  # both sides of the split
+    whole = lm.chunked_xent(hidden, un, labels, chunk=16)
+    gh_w, gu_w = torch.autograd.grad(whole, [hidden, un])
+    h2 = hidden.detach().clone().requires_grad_(True)
+    halves = [un.detach()[:, :500].clone().requires_grad_(True),
+              un.detach()[:, 500:].clone().requires_grad_(True)]
+    split = lm.chunked_xent(h2, halves, labels, chunk=16, model=coll.ModelAxis.emulated(2))
+    gh, g0, g1 = torch.autograd.grad(split, [h2, *halves])
+    assert float(split.detach()) == pytest.approx(float(whole.detach()), rel=1e-6)
+    torch.testing.assert_close(gh, gh_w, rtol=0, atol=1e-5)
+    torch.testing.assert_close(torch.cat([g0, g1], dim=1), gu_w, rtol=0, atol=1e-5)
