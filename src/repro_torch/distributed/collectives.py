@@ -23,7 +23,9 @@ of two floats does not depend on its order).
 A tensor-parallel region of the training forward (``ModelAxis``) takes a
 replicated input in through ``copy_in`` (identity forward, its gradient
 summed over the "model" ranks backward) and sends its partial result out
-through ``reduce_out`` (summed forward, identity backward); the sums are
+through ``reduce_out`` (summed forward, identity backward), or its slices of
+an activation out whole through ``ModelAxis.gather`` (an all-gather
+forward, this rank's slice of the gradient backward); the sums are
 ``psum``'s, in rank order, so the result does not depend on timing and a
 one-process emulation that adds the ranks' parts in the same order gives
 the same bits.
@@ -253,6 +255,42 @@ class _Fanout(torch.autograd.Function):
         return total, None
 
 
+class _GatherOut(torch.autograd.Function):
+    """Activation slices out of a tensor-parallel region, whole: forward,
+    every rank's slice concatenated along ``dim`` in rank order; backward,
+    this rank's slice of the gradient (the gathered tensor is read whole,
+    outside a region, so its gradient is the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        import torch.distributed as dist
+
+        ctx.dim, ctx.size, ctx.rank = dim, x.shape[dim], dist.get_rank(group)
+        out = torch.cat(all_gather(x, group), dim=dim)
+        _ACTIVATION_BYTES[0] += out.numel() * out.element_size()
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None
+
+
+# bytes of activations gathered over "model" since the last reset
+# (``activation_gathered_bytes``), apart from the weights that
+# ``sharding.gathered_bytes`` counts
+_ACTIVATION_BYTES = [0]
+
+
+def activation_gathered_bytes() -> int:
+    """The bytes of the tensors that ``ModelAxis.gather`` has returned on
+    a mesh since the last reset (a remat recompute gathers again)."""
+    return _ACTIVATION_BYTES[0]
+
+
+def reset_activation_gathered_bytes() -> None:
+    _ACTIVATION_BYTES[0] = 0
+
+
 def copy_in(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` entering a tensor-parallel region of ``group``'s ranks."""
     return _CopyIn.apply(x, group)
@@ -270,11 +308,12 @@ class ModelAxis:
     process computes (``ranks``). A sharded region takes one branch a rank
     of ``ranks``, each with that rank's local shards: ``enter`` gives each
     branch its copy of a replicated input, ``leave`` sums the branches'
-    partial results over the axis, ``max`` takes their maximum.
+    partial results over the axis, ``max`` takes their maximum, ``gather``
+    concatenates their slices of an activation.
 
     On a mesh (``of_mesh``) a process computes its own rank's branch and
     the branches meet in collectives over the mesh's model group
-    (``copy_in``, ``reduce_out``, ``pmax``). The one-process emulation
+    (``copy_in``, ``reduce_out``, ``pmax``, an all-gather). The one-process emulation
     (``emulated``) computes every rank's branch in turn and adds their
     results in rank order, the same operations the collectives run, so the
     two give the same bits. Every rank runs the same collectives in the same
@@ -316,6 +355,17 @@ class ModelAxis:
                 total = total + p
             return total
         return reduce_out(parts[0], self.group)
+
+    def gather(self, parts: list, dim: int) -> torch.Tensor:
+        """The branches' activation slices concatenated along ``dim`` in
+        rank order, whole on every rank (an all-gather over the axis; the
+        emulation's ``torch.cat``). Backward, each branch takes its own
+        slice of the gradient: the result must be read outside a region,
+        where every rank computes the same (enter it again to read it
+        inside one). It moves activations, never weights."""
+        if self.group is None:
+            return torch.cat(parts, dim=dim)
+        return _GatherOut.apply(parts[0], self.group, dim % parts[0].dim())
 
     def max(self, parts: list) -> torch.Tensor:
         """The maximum over the axis (no gradient)."""

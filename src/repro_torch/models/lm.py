@@ -42,9 +42,10 @@ attention forms (``layers.full_attention``, ``flash_attention``,
 ``banded_attention``) in place of the batch-invariant cache path, the
 MoE's aux loss, remat per layer group, and the cross-entropy in sequence
 chunks against the float32 unembedding. On a mesh's "model" axis
-(``model=``, a ``collectives.ModelAxis``) the dense and MoE families'
-train forward runs on the local shards: tensor-parallel attention and MLP,
-expert-parallel MoE, vocab-parallel embedding and loss. The serving entry
+(``model=``, a ``collectives.ModelAxis``) every family's train forward
+runs on the local shards: tensor-parallel attention, cross-attention, MLP,
+RWKV time-mix and channel-mix and mamba, expert-parallel MoE,
+vocab-parallel embedding and loss (one codebook at a time). The serving entry
 points above stay ``no_grad`` and do not change.
 """
 
@@ -432,7 +433,7 @@ def _cross_q(h, a, cfg):
     q = layers._linear(h, a["wq"])
     if cfg.qkv_bias:
         q = q + a["bq"]
-    q = q.reshape(b, s, cfg.n_heads, cfg.hd)
+    q = q.reshape(b, s, -1, cfg.hd)  # all heads, or a model rank's
     if cfg.qk_norm:
         q = layers.rms_norm(q, a["q_norm"])
     return q
@@ -440,7 +441,7 @@ def _cross_q(h, a, cfg):
 
 def _cross_kv(hi, a, cfg):
     """The image's K/V (B, T, Hkv, Dh) of a cross-attention layer."""
-    kv_shape = hi.shape[:2] + (cfg.n_kv_heads, cfg.hd)
+    kv_shape = hi.shape[:2] + (-1, cfg.hd)  # all KV heads, or a model rank's
     k = layers._linear(hi, a["wk"]).reshape(kv_shape)
     v = layers._linear(hi, a["wv"]).reshape(kv_shape)
     if cfg.qk_norm:
@@ -813,51 +814,93 @@ def _attention_sharded(h, ps, cfg, rope, model):
     if h_loc == cfg.n_heads:
         q, k, v = layers.qkv_proj(h, a0, cfg, rope)
         return layers.out_proj(_train_attention(q, k, v, cfg), a0)
-    group = cfg.n_heads // cfg.n_kv_heads
     parts = []
     for r, hr, p in zip(model.ranks, model.enter(h), ps):
         q, k, v = layers.qkv_proj(hr, p["attn"], cfg, rope, heads=(h_loc, kv_loc))
-        if kv_loc == cfg.n_kv_heads:  # whole K / V: the KV head of each local q head
-            q0, _ = model_bounds(h_loc, r)
-            idx = torch.div(torch.arange(q0, q0 + h_loc, device=h.device), group,
-                            rounding_mode="floor")
-            k, v = k.index_select(2, idx), v.index_select(2, idx)
+        k, v = _local_kv(k, v, h_loc, r, cfg)
         parts.append(layers.out_proj(_train_attention(q, k, v, cfg), p["attn"]))
     return model.leave(parts)
 
 
+def _local_kv(k, v, h_loc: int, r: int, cfg):
+    """A model rank's K / V heads for its ``h_loc`` q heads: as they are
+    where the rule shards the KV heads with the q heads, else (whole K / V)
+    the KV head of each local q head."""
+    if k.shape[2] < cfg.n_kv_heads:
+        return k, v
+    q0, _ = model_bounds(h_loc, r)
+    idx = torch.div(torch.arange(q0, q0 + h_loc, device=k.device), cfg.n_heads // cfg.n_kv_heads,
+                    rounding_mode="floor")
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _train_cross_attention(q, k, v, cfg):
+    """Every query sees every image token: the flash form from 2,048 text
+    tokens on, else the direct product."""
+    if q.shape[1] >= 2048:
+        return layers.flash_attention(q, k, v, causal=False, q_chunk=cfg.flash_chunk,
+                                      kv_chunk=k.shape[1])
+    return layers.full_attention(q, k, v, causal=False)
+
+
+def _cross_layer(x, p, cfg, img, model=None):
+    """A gated cross-attention layer of the train forward -> (x, 0.0).
+    With ``model`` (``p`` one local tree a branch) ``_cross_q`` is
+    column-parallel on the q heads and ``_cross_kv`` on the KV heads of the
+    image, which enters the region (whole K / V where the rule leaves the
+    KV heads whole), ``wo`` row-parallel; the gates' tanh multiplies the
+    outputs after they leave summed, so the gates' gradients are whole, and
+    the MLP is ``layers.mlp_sharded``. Where the rule leaves the q heads
+    whole, the attention is computed whole."""
+    ps = [p] if model is None else p
+    a0 = ps[0]["attn"]
+    h = layers.apply_norm(x, ps[0]["ln1"], cfg.norm_type)
+    hi = img.to(x.dtype)
+    h_loc = a0["wq"].shape[-1] // cfg.hd
+    if h_loc == cfg.n_heads:
+        q, (k, v) = _cross_q(h, a0, cfg), _cross_kv(hi, a0, cfg)
+        out = layers.out_proj(_train_cross_attention(q, k, v, cfg), a0)
+    else:
+        parts = []
+        for r, hr, ir, pr in zip(model.ranks, model.enter(h), model.enter(hi), ps):
+            k, v = _local_kv(*_cross_kv(ir, pr["attn"], cfg), h_loc, r, cfg)
+            q = _cross_q(hr, pr["attn"], cfg)
+            parts.append(layers.out_proj(_train_cross_attention(q, k, v, cfg), pr["attn"]))
+        out = model.leave(parts)
+    x = x + out * torch.tanh(ps[0]["gate_attn"])
+    h2 = layers.apply_norm(x, ps[0]["ln2"], cfg.norm_type)
+    y = (layers.mlp(h2, ps[0]["mlp"], cfg) if model is None
+         else layers.mlp_sharded(h2, [q["mlp"] for q in ps], cfg, model))
+    return x + y * torch.tanh(ps[0]["gate_ffn"]), 0.0
+
+
 def _train_layer(x, p, cfg, mixer, rope, img, model=None):
-    """One layer of the train forward -> (x, aux). With ``model``, ``p`` is
-    one local tree a branch and the attention and the feed-forward run on
-    the "model" axis (the dense and MoE families' layers)."""
-    if model is not None:
-        h = layers.apply_norm(x, p[0]["ln1"], cfg.norm_type)
-        return _train_ffn(x + _attention_sharded(h, p, cfg, rope, model), p, cfg, model)
-    h = layers.apply_norm(x, p["ln1"], cfg.norm_type)
-    if mixer == "attn":
-        q, k, v = layers.qkv_proj(h, p["attn"], cfg, rope)
-        return _train_ffn(x + layers.out_proj(_train_attention(q, k, v, cfg), p["attn"]), p,
-                          cfg)
-    if mixer == "cross":  # every query sees every image token
-        a = p["attn"]
-        q = _cross_q(h, a, cfg)
-        k, v = _cross_kv(img.to(x.dtype), a, cfg)
-        if q.shape[1] >= 2048:
-            out = layers.flash_attention(q, k, v, causal=False, q_chunk=cfg.flash_chunk,
-                                         kv_chunk=k.shape[1])
-        else:
-            out = layers.full_attention(q, k, v, causal=False)
-        x = x + layers.out_proj(out, a) * torch.tanh(p["gate_attn"])
-        h2 = layers.apply_norm(x, p["ln2"], cfg.norm_type)
-        return x + layers.mlp(h2, p["mlp"], cfg) * torch.tanh(p["gate_ffn"]), 0.0
+    """One layer of the train forward -> (x, aux), by its mixer: attention,
+    cross-attention, mamba or RWKV. With ``model``, ``p`` is one local tree
+    a branch and the layer runs on the "model" axis as the rules place its
+    leaves; the norms and the residual stream are whole on every rank."""
+    if mixer == "cross":
+        return _cross_layer(x, p, cfg, img, model)
+    ps = [p] if model is None else p
+    sub = lambda key: [q[key] for q in ps]  # one local tree a branch
+    h = layers.apply_norm(x, ps[0]["ln1"], cfg.norm_type)
+    if mixer == "rwkv":
+        if model is None:
+            x = x + rwkv6.time_mix(h, p["tm"], cfg, None)[0]
+            h2 = layers.apply_norm(x, p["ln2"], cfg.norm_type)
+            return x + rwkv6.channel_mix(h2, p["cm"], cfg, None)[0], 0.0
+        x = x + rwkv6.time_mix_sharded(h, sub("tm"), cfg, model)
+        h2 = layers.apply_norm(x, ps[0]["ln2"], cfg.norm_type)
+        return x + rwkv6.channel_mix_sharded(h2, sub("cm"), cfg, model), 0.0
     if mixer == "mamba":
-        y, _ = mamba.mamba_layer(h, p["mamba"], cfg, None)
-        return _train_ffn(x + y, p, cfg)
-    y, _ = rwkv6.time_mix(h, p["tm"], cfg, None)
-    x = x + y
-    h2 = layers.apply_norm(x, p["ln2"], cfg.norm_type)
-    y2, _ = rwkv6.channel_mix(h2, p["cm"], cfg, None)
-    return x + y2, 0.0
+        y = (mamba.mamba_layer(h, p["mamba"], cfg, None)[0] if model is None
+             else mamba.mamba_layer_sharded(h, sub("mamba"), cfg, model))
+    elif model is None:
+        q, k, v = layers.qkv_proj(h, p["attn"], cfg, rope)
+        y = layers.out_proj(_train_attention(q, k, v, cfg), p["attn"])
+    else:
+        y = _attention_sharded(h, p, cfg, rope, model)
+    return _train_ffn(x + y, p, cfg, model)
 
 
 def _train_embed(params, tokens, cfg, model=None):
@@ -866,26 +909,31 @@ def _train_embed(params, tokens, cfg, model=None):
 
     Vocab-parallel with ``model`` (``params`` one local tree a branch):
     each branch looks up the ids of its rows of the table, the ids outside
-    them give zero rows, and the branches' rows are summed over the axis.
-    Where the rule leaves the vocab whole, the lookup is whole."""
-    if model is not None:
-        e0 = params[0]["embed"]
-        if e0.shape[0] == cfg.vocab:
-            return F.embedding(tokens, e0).to(cfg.compute_dtype)
+    them give zero rows, and the branches' rows are summed over the axis
+    (one sum a codebook, each row then exactly the whole lookup's). Where
+    the rule leaves the vocab whole, the lookup is whole."""
+    ps = [params] if model is None else params
+    tables = [p["embed"] for p in ps]
+    whole = tables[0].shape[-2] == cfg.vocab
+
+    def lookup(tok, k=None):
+        pick = (lambda e: e) if k is None else (lambda e: e[k])
+        if whole:
+            return F.embedding(tok, pick(tables[0]))
         parts = []
-        for r, p in zip(model.ranks, params):
-            e = p["embed"]
+        for r, e in zip(model.ranks, tables):
+            e = pick(e)
             v0, v1 = model_bounds(e.shape[0], r)
-            inside = (tokens >= v0) & (tokens < v1)
-            rows = F.embedding(torch.where(inside, tokens - v0, 0), e)
+            inside = (tok >= v0) & (tok < v1)
+            rows = F.embedding(torch.where(inside, tok - v0, 0), e)
             parts.append(torch.where(inside[..., None], rows, rows.new_zeros(())))
-        return model.leave(parts).to(cfg.compute_dtype)
-    e = params["embed"]
+        return model.leave(parts)
+
     if not cfg.n_codebooks:
-        return F.embedding(tokens, e).to(cfg.compute_dtype)
-    x = F.embedding(tokens[:, 0], e[0])
+        return lookup(tokens).to(cfg.compute_dtype)
+    x = lookup(tokens[:, 0], 0)
     for k in range(1, cfg.n_codebooks):
-        x = x + F.embedding(tokens[:, k], e[k])
+        x = x + lookup(tokens[:, k], k)
     x = x + _sinusoid(tokens.shape[-1], cfg.d_model, x.dtype, x.device)
     return x.to(cfg.compute_dtype)
 
@@ -898,24 +946,21 @@ def _unstack(tree, n: int) -> list:
     return [base.unflatten(tree, [u[g] for u in per]) for g in range(n)]
 
 
-def supports_tensor_parallel(cfg: ModelConfig) -> bool:
-    """Whether the train forward computes ``cfg`` on a mesh's "model" axis
-    (``model=``): the dense and MoE families. rwkv6, mamba, the vlm cross
-    layers and audio codebooks are gathered whole on a mesh."""
-    return cfg.family in ("dense", "moe") and not cfg.n_codebooks
-
-
 def model_partial_keys(cfg: ModelConfig, n_model: int) -> tuple:
     """The replicated leaves that the forward on a "model" axis of
     ``n_model`` ranks reads inside a sharded region, by key: each rank's
     gradient of them is its heads' part, summed over "model" by the step.
-    They are ``q_norm`` / ``k_norm`` of an attention whose q heads the rules
-    shard, and ``wk`` / ``wv`` (``bk`` / ``bv``) where they leave the KV
-    heads whole. (The MoE router is not among them: the routing weights
-    enter the region, so its gradient is whole on every rank.)"""
+    They are ``q_norm`` / ``k_norm`` of an attention or cross-attention
+    whose q heads the rules shard, and ``wk`` / ``wv`` (a self-attention's
+    ``bk`` / ``bv`` too) where they leave the KV heads whole. No other
+    replicated leaf is read inside a region: the MoE router's routing
+    weights, RWKV's mixes and decay LoRA hidden, the image and the mamba
+    products gathered whole enter it as activations, whose gradients
+    ``copy_in`` sums, and the cross gates multiply outside it."""
     from repro_torch.launch.mesh import abstract_mesh
 
-    if n_model <= 1 or not supports_tensor_parallel(cfg):
+    check_family(cfg)
+    if n_model <= 1:
         return ()
     mesh = abstract_mesh((1, n_model), ("data", "model"))
     a = _attn_spec(cfg)
@@ -925,11 +970,13 @@ def model_partial_keys(cfg: ModelConfig, n_model: int) -> tuple:
 
     if not split("wq"):
         return ()
-    names = ["q_norm", "k_norm"] if cfg.qk_norm else []
-    if not split("wk"):
-        names += ["wk", "wv"] + (["bk", "bv"] if cfg.qkv_bias else [])
+    names = {"attn": ["q_norm", "k_norm"] if cfg.qk_norm else []}
+    names["cross"] = list(names["attn"])
+    if not split("wk"):  # the cross-attention's K / V take no bias
+        names["attn"] += ["wk", "wv"] + (["bk", "bv"] if cfg.qkv_bias else [])
+        names["cross"] += ["wk", "wv"]
     return tuple(sorted(f"['blocks']['p{j}']['attn'][{n!r}]" for j in range(cfg.period)
-                        if cfg.layer_kind(j)["mixer"] == "attn" for n in names))
+                        for n in names.get(cfg.layer_kind(j)["mixer"], ())))
 
 
 def _branches(params, model) -> list:
@@ -948,18 +995,16 @@ def train_forward(params, tokens, cfg: ModelConfig, img=None, remat=None, model=
     load-balancing losses summed). A vlm attends ``img`` (B, T, D) without
     a causal mask. Groups run in order, each under ``remat``.
 
-    ``model`` (a ``collectives.ModelAxis``) runs the dense and MoE families
-    on a mesh's "model" axis: ``params`` holds the local shards, one tree a
-    branch keyed by its model rank (``_branches``), the sharded leaves as
-    the rules place them,
-    and the layers compute tensor- and expert-parallel; the hidden state
-    between the regions is whole on every rank."""
+    ``model`` (a ``collectives.ModelAxis``) runs any family on a mesh's
+    "model" axis: ``params`` holds the local shards, one tree a branch keyed
+    by its model rank (``_branches``), the sharded leaves as the rules
+    place them, and the layers compute tensor- and expert-parallel
+    (``_train_layer``); the hidden state between the regions is whole on
+    every rank."""
     check_family(cfg)
     kinds = [cfg.layer_kind(j)["mixer"] for j in range(cfg.period)]
     if "cross" in kinds and img is None:
         raise ValueError(f"{cfg.name}: a vlm train forward needs the image embeddings (img=)")
-    if model is not None and not supports_tensor_parallel(cfg):
-        raise ValueError(f"{cfg.name}: the {cfg.family} family is not computed on a model axis")
     ps = [params] if model is None else _branches(params, model)
     tokens = tokens.long()
     s = tokens.shape[-1]
@@ -1046,18 +1091,18 @@ def train_loss(params, batch, cfg: ModelConfig, remat="full", model=None):
     hidden, aux = train_forward(params, batch["tokens"], cfg, img=batch.get("img"), remat=remat,
                                 model=model)
     labels = batch["labels"]
-    if model is not None:
-        ps = _branches(params, model)
-        uns = [p["embed"].transpose(-1, -2) if cfg.tie_embeddings else p["lm_head"] for p in ps]
-        whole = uns[0].shape[-1] == cfg.vocab  # the rule leaves the vocab whole
-        ce = chunked_xent(hidden, uns[0] if whole else uns, labels,
-                          model=None if whole else model)
-        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
-    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    un = w.transpose(-1, -2) if cfg.tie_embeddings else w
+    ps = [params] if model is None else _branches(params, model)
+    uns = [p["embed"].transpose(-1, -2) if cfg.tie_embeddings else p["lm_head"] for p in ps]
+    whole = uns[0].shape[-1] == cfg.vocab  # unsharded, or the rule leaves the vocab whole
+
+    def xent(lab, k=None):
+        pick = (lambda u: u) if k is None else (lambda u: u[k])
+        if whole:
+            return chunked_xent(hidden, pick(uns[0]), lab)
+        return chunked_xent(hidden, [pick(u) for u in uns], lab, model=model)
+
     if cfg.n_codebooks:
-        ce = sum(chunked_xent(hidden, un[k], labels[:, k]) for k in range(cfg.n_codebooks))
-        ce = ce / cfg.n_codebooks
+        ce = sum(xent(labels[:, k], k) for k in range(cfg.n_codebooks)) / cfg.n_codebooks
     else:
-        ce = chunked_xent(hidden, un, labels)
+        ce = xent(labels)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import model_bounds
 from repro_torch.models.layers import _linear
 from repro_torch.models.rwkv6 import chunks_of
 
@@ -68,7 +69,7 @@ def mamba_layer(x, p, cfg, state=None):
     state); a fresh sequence shorter than d_conv - 1 left-pads its conv
     state with zeros."""
     b, s, _ = x.shape
-    di, ds, kc = cfg.d_inner, cfg.d_state, cfg.d_conv
+    di, kc = cfg.d_inner, cfg.d_conv
     xs, z = torch.split(_linear(x, p["in_proj"]), di, dim=-1)  # (B, S, di) each
 
     if state is not None:
@@ -80,17 +81,30 @@ def mamba_layer(x, p, cfg, state=None):
         new_conv = F.pad(xs, (0, 0, pad, 0))[:, -(kc - 1):, :]
         xs_c = _conv_causal(xs, p["conv_w"], p["conv_b"])
     xs_c = F.silu(xs_c)
+    out, h_fin = _ssm(xs_c, z, _linear(xs_c, p["x_proj"]), p, cfg,
+                      None if state is None else state["ssm"])
+    return out, {"conv": new_conv, "ssm": h_fin}
 
-    dbc = _linear(xs_c, p["x_proj"])
+
+def _ssm(xs_c, z, dbc, p, cfg, h0=None):
+    """The selective scan of the conv output ``xs_c`` (B, S, di) on the
+    channels of ``p``'s ``dt_bias`` (all of them, or a model rank's), from
+    ``dbc``, ``x_proj``'s whole product: delta, B and C, the scan from the
+    state ``h0`` (None: zeros), the skip, the ``z`` gate and the output
+    projection (a partial sum over the channels on a model rank). Returns
+    (out, final state)."""
+    b, s, di = xs_c.shape
+    ds = cfg.d_state
     dt_rank = p["dt_proj"].shape[0]
     delta, bmat, cmat = torch.split(dbc, [dt_rank, ds, ds], dim=-1)
     delta = F.softplus(_linear(delta, p["dt_proj"]) + p["dt_bias"])
-    a = -torch.exp(p["a_log"].to(torch.float32)).to(x.dtype)  # (di, ds)
+    a = -torch.exp(p["a_log"].to(torch.float32)).to(xs_c.dtype)  # (di, ds)
 
     decay = torch.exp(delta[..., None] * a)  # (B, S, di, ds)
     inp = (delta * xs_c)[..., None] * bmat[:, :, None, :]
 
-    h0 = state["ssm"] if state is not None else x.new_zeros((b, di, ds))
+    if h0 is None:
+        h0 = xs_c.new_zeros((b, di, ds))
     if s == 1:  # a decode step: the recurrence itself
         h_fin = decay[:, 0] * h0 + inp[:, 0]
         y = torch.einsum("bdk,bk->bd", h_fin, cmat[:, 0])[:, None, :]
@@ -98,5 +112,34 @@ def mamba_layer(x, p, cfg, state=None):
         y, h_fin = _ssm_scan_chunked(decay, inp, cmat, h0)
 
     y = y + xs_c * p["d_skip"]
-    out = _linear(y * F.silu(z), p["out_proj"])
-    return out, {"conv": new_conv, "ssm": h_fin}
+    return _linear(y * F.silu(z), p["out_proj"]), h_fin
+
+
+def mamba_layer_sharded(x, ps, cfg, model):
+    """``mamba_layer`` of a fresh sequence on the "model" axis ``model``
+    (``collectives.ModelAxis``), ``ps`` one local tree a branch. The rules
+    cut ``in_proj``'s 2 d_inner columns into contiguous blocks, so a rank's
+    block is not its d_inner channels' xs and z (at two ranks rank 0 holds
+    all of xs): the branches' products are gathered whole (activations,
+    never the weight) and enter the region again, where each branch takes
+    its channels' xs and z. ``conv_*``, ``dt_proj``'s columns, ``dt_bias``,
+    ``a_log`` and ``d_skip`` are its channels; ``x_proj`` is row-parallel,
+    so its partial products leave summed, before delta, B and C are split,
+    and enter again; ``out_proj`` is row-parallel. Where the rule leaves
+    ``in_proj`` or the channels whole, that part is computed whole."""
+    di, p0 = cfg.d_inner, ps[0]
+    if p0["in_proj"].shape[-1] == 2 * di:
+        return mamba_layer(x, p0, cfg)[0]
+    xz = model.gather([_linear(t, p["in_proj"]) for t, p in zip(model.enter(x), ps)], -1)
+    conv = lambda t, p: F.silu(_conv_causal(t, p["conv_w"], p["conv_b"]))
+    di_loc = p0["conv_b"].shape[-1]
+    if di_loc == di:
+        xs_c = conv(xz[..., :di], p0)
+        return _ssm(xs_c, xz[..., di:], _linear(xs_c, p0["x_proj"]), p0, cfg)[0]
+    branch = []
+    for r, t, p in zip(model.ranks, model.enter(xz), ps):
+        c0, c1 = model_bounds(di_loc, r)
+        branch.append((conv(t[..., c0:c1], p), t[..., di + c0:di + c1]))
+    dbc = model.leave([_linear(xs_c, p["x_proj"]) for (xs_c, _), p in zip(branch, ps)])
+    return model.leave([_ssm(xs_c, z, d, p, cfg)[0]
+                        for (xs_c, z), d, p in zip(branch, model.enter(dbc), ps)])

@@ -106,21 +106,33 @@ def time_mix(x, p, cfg, state=None):
     """RWKV-6's attention substitute. x: (B, S, D); state None (a fresh
     sequence) or {"shift": (B, D), "wkv": (B, H, N, N)}. Returns (out,
     new state)."""
-    b, s, d = x.shape
-    n = cfg.rwkv_head_dim
-    h = d // n
+    b, _, d = x.shape
     shift_in = state["shift"] if state is not None else x.new_zeros((b, d))
     xr, xk, xv, xg, xw = _ddlerp(x, _token_shift(x, shift_in), p)
+    hw = torch.tanh(_linear(xw, p["decay_a"]))
+    out, s_fin = _heads(xr, xk, xv, xg, hw, p, cfg, None if state is None else state["wkv"])
+    return out, {"shift": x[:, -1, :], "wkv": s_fin}
 
+
+def _heads(xr, xk, xv, xg, hw, p, cfg, s0=None):
+    """Time-mix from its five inputs on the heads of ``p``'s ``w_base``
+    (all of them, or a model rank's): the projections, the decay from the
+    LoRA hidden ``hw``, the WKV recurrence from the state ``s0`` (None:
+    zeros), the per-head norm, the gate and the output projection (a partial
+    sum over the heads on a model rank). Returns (out, final state)."""
+    b, s, _ = xr.shape
+    n = cfg.rwkv_head_dim
+    h = p["w_base"].shape[-1] // n
     r = _linear(xr, p["w_r"]).reshape(b, s, h, n)
     k = _linear(xk, p["w_k"]).reshape(b, s, h, n)
     v = _linear(xv, p["w_v"]).reshape(b, s, h, n)
     g = _linear(xg, p["w_g"])
-    wlog = p["w_base"] + _linear(torch.tanh(_linear(xw, p["decay_a"])), p["decay_b"])
-    w = torch.exp(-torch.exp(wlog.to(torch.float32))).to(x.dtype).reshape(b, s, h, n)
+    wlog = p["w_base"] + _linear(hw, p["decay_b"])
+    w = torch.exp(-torch.exp(wlog.to(torch.float32))).to(xr.dtype).reshape(b, s, h, n)
     u = p["u"].reshape(h, n)
 
-    s0 = state["wkv"] if state is not None else x.new_zeros((b, h, n, n))
+    if s0 is None:
+        s0 = xr.new_zeros((b, h, n, n))
     if s == 1:  # a decode step: the recurrence itself
         kv = k[:, 0, :, :, None] * v[:, 0, :, None, :]
         y = torch.einsum("bhi,bhij->bhj", r[:, 0], s0 + u[:, :, None] * kv)[:, None]
@@ -129,8 +141,31 @@ def time_mix(x, p, cfg, state=None):
         y, s_fin = _wkv_chunked(r, k, v, w, u, s0)
 
     y = _group_norm(y, p["ln_x_g"], p["ln_x_b"])
-    out = _linear(y * F.silu(g), p["w_o"])
-    return out, {"shift": x[:, -1, :], "wkv": s_fin}
+    return _linear(y * F.silu(g), p["w_o"]), s_fin
+
+
+def time_mix_sharded(x, ps, cfg, model):
+    """``time_mix`` of a fresh sequence on the "model" axis ``model``
+    (``collectives.ModelAxis``), ``ps`` one local tree a branch: the token
+    shift, the five mixes and the decay LoRA's hidden read only replicated
+    leaves, so they are computed whole and enter the region; each branch
+    runs its heads (``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` and ``decay_b``
+    column-parallel, its slices of ``w_base``, ``u`` and the per-head norm,
+    its rows of ``w_o``) and the partial outputs leave summed. Where the
+    rule leaves the heads whole, time-mix is computed whole."""
+    p0 = ps[0]
+    if p0["w_r"].shape[-1] == x.shape[-1]:
+        return time_mix(x, p0, cfg)[0]
+    xr, xk, xv, xg, xw = _ddlerp(x, _token_shift(x, x.new_zeros((x.shape[0], x.shape[-1]))), p0)
+    ins = [model.enter(t) for t in (xr, xk, xv, xg, torch.tanh(_linear(xw, p0["decay_a"])))]
+    return model.leave([_heads(*[t[i] for t in ins], p, cfg)[0] for i, p in enumerate(ps)])
+
+
+def _cm_mixes(x, p, shift_in):
+    """Channel-mix's token-shifted inputs (xk, xr) of x (B, S, D), the
+    token before x ``shift_in`` (B, D)."""
+    xx = _token_shift(x, shift_in) - x
+    return x + xx * p["mu_k"], x + xx * p["mu_r"]
 
 
 def channel_mix(x, p, cfg, state=None):
@@ -138,9 +173,28 @@ def channel_mix(x, p, cfg, state=None):
     {"shift": (B, D)}."""
     b, s, d = x.shape
     shift_in = state["shift"] if state is not None else x.new_zeros((b, d))
-    xx = _token_shift(x, shift_in) - x
-    xk = x + xx * p["mu_k"]
-    xr = x + xx * p["mu_r"]
+    xk, xr = _cm_mixes(x, p, shift_in)
     kv = _linear(torch.square(F.relu(_linear(xk, p["w_k"]))), p["w_v"])
     out = torch.sigmoid(_linear(xr, p["w_r"])) * kv
     return out, {"shift": x[:, -1, :]}
+
+
+def channel_mix_sharded(x, ps, cfg, model):
+    """``channel_mix`` of a fresh sequence on the "model" axis: the mixes
+    whole (replicated leaves), ``w_k`` column- and ``w_v`` row-parallel on
+    "ffn" (``kv`` whole once the partials leave summed), and the
+    receptance gate on each branch's ``w_r`` columns, a slice of the model
+    dim D that is gathered whole before it multiplies ``kv`` (so ``kv``'s
+    gradient is whole on every rank). Each part sharded or whole as the
+    rules place its leaves."""
+    p0 = ps[0]
+    xk, xr = _cm_mixes(x, p0, x.new_zeros((x.shape[0], x.shape[-1])))
+    kv_of = lambda t, p: _linear(torch.square(F.relu(_linear(t, p["w_k"]))), p["w_v"])
+    if p0["w_k"].shape[-1] == cfg.d_ff:
+        kv = kv_of(xk, p0)
+    else:
+        kv = model.leave([kv_of(t, p) for t, p in zip(model.enter(xk), ps)])
+    if p0["w_r"].shape[-1] == x.shape[-1]:
+        return torch.sigmoid(_linear(xr, p0["w_r"])) * kv
+    gates = [torch.sigmoid(_linear(t, p["w_r"])) for t, p in zip(model.enter(xr), ps)]
+    return model.gather(gates, -1) * kv

@@ -14,16 +14,16 @@ batch over the batch axes, the loss and gradients are averaged over them in
 rank order (``collectives.dp_loss_and_grads``, which also states the rule
 for a batch that does not split), and each rank updates its own shards of
 the params and moments with the global gradient norm. On the "model" axis
-the step computes as the rules place the leaves (the dense and MoE
-families): a leaf sharded over "model" is never gathered whole; the leaves
-are gathered over the batch axes only, the forward runs tensor- and
-expert-parallel on the local shards (``lm.train_loss(model=)``), whose
-partial results meet in explicit collectives, the sharded leaves'
+the step computes as the rules place the leaves, for every family: a leaf
+sharded over "model" is never gathered whole; the leaves are gathered over
+the batch axes only, the forward runs tensor- and expert-parallel on the
+local shards (``lm.train_loss(model=)``), whose partial results and
+activation slices meet in explicit collectives, the sharded leaves'
 gradients stay local, the replicated leaves read inside a sharded region
 (``lm.model_partial_keys``) have their gradients summed over "model", and
 the norm sums the sharded leaves' squares over "model" once. A model axis
-of one rank, another family, or leaves placed otherwise on "model" take
-the data-parallel step with every leaf gathered whole.
+of one rank, or leaves placed otherwise on "model", take the data-parallel
+step with every leaf gathered whole.
 ``emulate_model_step`` computes the model-axis step of a (1, n) mesh in one
 process, each rank's branch in turn, for checks against the ranks.
 """
@@ -121,7 +121,7 @@ def make_mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
     from repro_torch.distributed import sharding as shd
 
     loss_fn = make_loss_fn(cfg, tcfg)
-    on_model = mesh.n_model > 1 and lm.supports_tensor_parallel(cfg)
+    on_model = mesh.n_model > 1
     partial = set(lm.model_partial_keys(cfg, mesh.n_model))
     batch_axes = shd.batch_axes(mesh)
     # the batch split over the batch axes or not (dp_loss_and_grads' rule)

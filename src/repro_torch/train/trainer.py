@@ -23,10 +23,9 @@ card) and never moves to another device on its own.
 On a mesh (``mesh``, a ``launch.mesh.HostMesh`` over a process group) every
 rank runs the trainer on the same pipeline: a step is
 ``train_step.make_mesh_train_step``'s step (each rank its rows of the
-batch over the batch axes, the dense and MoE families tensor- and
-expert-parallel on "model" with the leaves gathered over the batch axes
-only, other families gathered whole; gradients averaged over the batch
-axes, each rank updating its own shards), a save
+batch over the batch axes, every family tensor- and expert-parallel on
+"model" with the leaves gathered over the batch axes only; gradients
+averaged over the batch axes, each rank updating its own shards), a save
 is collective over the mesh's ranks with rank 0 writing, and ``restore``
 loads with the trainer's ``param_shardings``. A trainer without a mesh
 saves alone, in a process group or not. As in the reference, the

@@ -1533,3 +1533,115 @@ def test_vocab_parallel_xent_on_the_card_equals_the_whole_loss(cuda):
     assert float(split.detach()) == pytest.approx(float(whole.detach()), rel=1e-6)
     torch.testing.assert_close(gh, gh_w, rtol=0, atol=1e-5)
     torch.testing.assert_close(torch.cat([g0, g1], dim=1), gu_w, rtol=0, atol=1e-5)
+
+
+_GATHER_RANK = """
+import sys
+import torch
+import torch.distributed as dist
+from repro_torch.distributed import collectives as coll
+
+rank, work = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"file://{work}/pg", world_size=2, rank=rank)
+try:
+    g = torch.Generator(device="cuda").manual_seed(3)
+    parts = [torch.randn(2, 7, 5, device="cuda", generator=g) for _ in range(2)]
+    gy = torch.randn(2, 7, 10, device="cuda", generator=g)
+    x = parts[rank].clone().requires_grad_(True)
+    y = coll.ModelAxis(2, (rank,), dist.group.WORLD).gather([x * 1.5], -1)
+    (gx,) = torch.autograd.grad(y, [x], gy)
+    torch.save({"y": y.detach().cpu(), "gx": gx.cpu(),
+                "bytes": coll.activation_gathered_bytes()}, f"{work}/r{rank}.pt")
+finally:
+    dist.destroy_process_group()
+"""
+
+
+@pytest.mark.gpu
+def test_model_axis_gather_on_the_card_equals_its_emulation(cuda, tmp_path):
+    """``ModelAxis.gather`` on two ranks sharing the card (``gloo``, the
+    payloads copied card to card through the ranks' mailboxes): each rank's
+    gathered activation and its slice of the gradient equal the one-process
+    emulation's ``torch.cat`` and its backward bit for bit, and each rank
+    counts the gathered bytes."""
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.distributed import collectives as coll
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", _GATHER_RANK, str(r), str(tmp_path)],
+                              env=env, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    errs = [p.communicate(timeout=300)[1] for p in procs]
+    assert all(p.returncode == 0 for p in procs), errs
+    g = torch.Generator(device=cuda).manual_seed(3)
+    parts = [torch.randn(2, 7, 5, device=cuda, generator=g).requires_grad_(True)
+             for _ in range(2)]
+    gy = torch.randn(2, 7, 10, device=cuda, generator=g)
+    y = coll.ModelAxis.emulated(2).gather([x * 1.5 for x in parts], -1)
+    gxs = torch.autograd.grad(y, parts, gy)
+    for r in range(2):
+        got = torch.load(tmp_path / f"r{r}.pt")
+        assert torch.equal(got["y"], y.detach().cpu()) and torch.equal(got["gx"], gxs[r].cpu())
+        assert got["bytes"] == y.numel() * y.element_size()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mamba", "cross"])
+def test_model_axis_region_at_published_width_on_the_card(cuda, kind):
+    """One mamba layer at jamba-1.5-large's width and one cross-attention
+    layer at llama-3.2-vision-11b's (over its 6,404 image tokens), float32,
+    on two emulated model ranks as the rules cut their leaves, against the
+    whole layer on the card: output and input gradient within 1e-4 x
+    max|whole|, every parameter gradient (the shards concatenated) within
+    1e-4 x its max|whole|."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models import base, lm, mamba
+
+    cfg = get_config("jamba-1.5-large-398b" if kind == "mamba" else "llama-3.2-vision-11b")
+    spec = lm._mamba_spec(cfg) if kind == "mamba" else lm._layer_spec(cfg, cfg.period - 1)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    whole = base.materialize(spec, g, torch.float32, cuda)
+    whole = base.tree_map(lambda t: t + 0.3 * torch.rand(t.shape, generator=g, device=cuda)
+                          if t.ndim == 1 else t, whole)  # norms, biases, the gates
+    x = torch.randn(1, 256, cfg.d_model, device=cuda, generator=g)
+    img = torch.randn(1, cfg.n_img_tokens, cfg.d_model, device=cuda, generator=g)
+    gy = torch.randn(1, 256, cfg.d_model, device=cuda, generator=g)
+    mesh = abstract_mesh((1, 2), ("data", "model"))
+    dims = [next((d for d, e in enumerate(shd.spec_for(s.axes, s.shape, mesh, False))
+                  if e == "model"), None)
+            for _, s in base.flatten(spec, is_leaf=lambda s: isinstance(s, base.Spec))]
+    assert sum(d is not None for d in dims) >= (9 if kind == "mamba" else 7)
+
+    def layer(p, xi, model):
+        if kind == "mamba":
+            return (mamba.mamba_layer(xi, p, cfg)[0] if model is None
+                    else mamba.mamba_layer_sharded(xi, p, cfg, model))
+        return lm._cross_layer(xi, p, cfg, img, model)[0]
+
+    leaves = [t.clone().requires_grad_(True) for _, t in base.flatten(whole)]
+    xw = x.clone().requires_grad_(True)
+    yw = layer(base.unflatten(whole, leaves), xw, None)
+    gw = torch.autograd.grad(yw, [xw] + leaves, gy)
+    per = [[t.detach().requires_grad_(True)] * 2 if d is None else
+           [t.detach().narrow(d, r * (t.shape[d] // 2), t.shape[d] // 2).clone()
+            .requires_grad_(True) for r in range(2)] for t, d in zip(leaves, dims)]
+    xs = x.clone().requires_grad_(True)
+    ys = layer([base.unflatten(whole, [ts[r] for ts in per]) for r in range(2)], xs,
+               coll.ModelAxis.emulated(2))
+    flat = [t for ts, d in zip(per, dims) for t in (ts[:1] if d is None else ts)]
+    gs = torch.autograd.grad(ys, [xs] + flat, gy)
+    ys, yw = ys.detach(), yw.detach()
+    tol = lambda ref: 1e-4 * float(ref.abs().max())
+    assert float((ys - yw).abs().max()) <= tol(yw)
+    assert float((gs[0] - gw[0]).abs().max()) <= tol(gw[0])
+    it = iter(gs[1:])
+    for d, ref in zip(dims, gw[1:]):
+        got = next(it) if d is None else torch.cat([next(it), next(it)], dim=d)
+        assert float((got - ref).abs().max()) <= tol(ref) + 1e-30
